@@ -102,3 +102,72 @@ def test_resize_nhwc(size, method, align_corners):
     out = resize_nhwc(torch.from_numpy(x), size, method, align_corners)
     assert out.shape == (2, *size, 3)
     _match(out, j_resize_nhwc(x, size, method, align_corners), atol=1e-5, rtol=0)
+
+
+# -- mixed types: f32 prompts through bf16 weights (the SAM decoder on the
+# card) follow the JAX package's promotion --
+
+BF16_ATOL, BF16_RTOL = 2e-2, 2e-2  # one bf16 rounding of outputs of magnitude ~1
+
+
+def _typed(a, name):
+    import jax.numpy as jnp
+
+    jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16}[name]
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[name]
+    return torch.from_numpy(a).to(tdt), jnp.asarray(a, jdt)
+
+
+def _match_typed(port_out, jax_out):
+    import jax.numpy as jnp
+
+    want = {jnp.dtype(jnp.float32): torch.float32, jnp.dtype(jnp.bfloat16): torch.bfloat16}[jax_out.dtype]
+    assert port_out.dtype == want
+    np.testing.assert_allclose(
+        port_out.float().numpy(), np.asarray(jax_out.astype(jnp.float32)), atol=BF16_ATOL, rtol=BF16_RTOL
+    )
+
+
+@pytest.mark.parametrize("x_t,w_t", [("f32", "bf16"), ("bf16", "bf16"), ("bf16", "f32"), ("f32", "f32")])
+def test_linear_mixed_types(x_t, w_t):
+    """f32 x with bf16 weights gives f32 (the product in the promoted type,
+    cast to x's type, the bias added with promotion), as in the JAX package."""
+    rng = np.random.default_rng(8)
+    w, b, x = _randn(rng, 24, 16, scale=0.25), _randn(rng, 24), _randn(rng, 2, 5, 16)
+    tw, jw = _typed(w, w_t)
+    tb, jb = _typed(b, w_t)
+    tx, jx = _typed(x, x_t)
+    _match_typed(nn.linear(Params({"weight": tw, "bias": tb}), tx), jnn.linear(JParams({"weight": jw, "bias": jb}), jx))
+
+
+@pytest.mark.parametrize("q_t,kv_t", [("bf16", "f32"), ("f32", "bf16"), ("bf16", "bf16")])
+@pytest.mark.parametrize("route", ["naive", "fused_logits"])
+def test_attention_core_mixed_types(q_t, kv_t, route):
+    """The SAM decoder's image-to-token attention takes bf16 q and f32 k/v:
+    logits in f32 (naive) or the promoted type (fused_logits), p in q's type,
+    PV in the promoted type, the output in q's type."""
+    rng = np.random.default_rng(9)
+    q, k, v = _randn(rng, 1, 2, 40, 16), _randn(rng, 1, 2, 7, 16), _randn(rng, 1, 2, 7, 16)
+    mask = _randn(rng, 40, 7) if route == "fused_logits" else None
+    flash = route == "fused_logits"
+    assert nn.attention_route(40, mask is not None, flash) == route
+    tq, jq = _typed(q, q_t)
+    tk, jk = _typed(k, kv_t)
+    tv, jv = _typed(v, kv_t)
+    tm = None if mask is None else torch.from_numpy(mask)
+    out = nn.attention_core(tq, tk, tv, tm, None, flash)
+    _match_typed(out, jnn.attention_core(jq, jk, jv, mask, None, flash))
+
+
+def test_attention_core_mixed_types_every_route():
+    """The routes JAX cannot take mixed (its xla_fused form raises) and the
+    "cuda" route on CPU tensors still accept them, output in q's type."""
+    rng = np.random.default_rng(10)
+    q = torch.from_numpy(_randn(rng, 1, 2, 1030, 16)).to(torch.bfloat16)
+    k, v = torch.from_numpy(_randn(rng, 1, 2, 9, 16)), torch.from_numpy(_randn(rng, 1, 2, 9, 16))
+    ref = nn.attention_core(q, k, v)  # naive
+    for t_q in (1030, 100):  # cuda, xla_fused
+        route = nn.attention_route(t_q, False, True, cuda_ok=True)
+        out = nn.attention_core(q[:, :, :t_q], k, v, None, None, True)
+        assert route in ("cuda", "xla_fused") and out.dtype == torch.bfloat16
+        np.testing.assert_allclose(out.float().numpy(), ref[:, :, :t_q].float().numpy(), atol=BF16_ATOL, rtol=BF16_RTOL)

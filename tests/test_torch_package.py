@@ -22,9 +22,11 @@ SLICE_MODULES = [
     "vision_tpu_torch.ops.cuda",
     "vision_tpu_torch.ops.cuda.build",
     "vision_tpu_torch.ops.cuda.flash_attention",
+    "vision_tpu_torch.ops.cuda.window_attention",
     "vision_tpu_torch.models",
     "vision_tpu_torch.models.dino",
     "vision_tpu_torch.models.depth_anything",
+    "vision_tpu_torch.models.mobile_sam",
     "vision_tpu_torch.models.random_weights",
     "vision_tpu_torch.serve",
 ]

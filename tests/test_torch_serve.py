@@ -44,7 +44,10 @@ def test_image_server_matches_jax(gguf_path):
     model = depthany_load_model(gguf_path, backend_init("cpu"))
     rng = np.random.default_rng(11)
     imgs = [_u8_img(rng, 126, 140), _u8_img(rng, 126, 140), _u8_img(rng, 98, 98)]
-    with ImageServer(model, batch_size=2, max_delay_ms=1000) as srv:
+    # generous batch window: request prep runs on a 2-thread pool after
+    # submit, so the window must cover it for the two 126x140 requests to
+    # share a batch even on a machine loaded by parallel test workers
+    with ImageServer(model, batch_size=2, max_delay_ms=10_000) as srv:
         futures = [srv.submit(img) for img in imgs]
         results = [f.result(timeout=600) for f in futures]
     assert srv.stats.requests == 3 and srv.stats.batches == 2  # the 98x98 one buckets apart

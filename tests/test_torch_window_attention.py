@@ -1,0 +1,143 @@
+"""The port's windowed attention (vision_tpu_torch/ops/cuda/window_attention.py)
+against the TPU kernel it replaces, the Pallas ``_kernel`` of
+scripts/exp_winattn2.py, run in interpret mode on the CPU; and the port's
+``attention_windows`` against the JAX package's.
+
+The script's module body runs its TPU benchmark, so it is not imported: its
+text up to the benchmark (``key = jax.random.PRNGKey(0)``) is executed with
+``__file__`` set. On the CPU the wrapper runs its plain PyTorch version,
+which these tests hold against the Pallas kernel; the CUDA kernel itself is
+checked against the same plain version on the card by chip_smoke.py."""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from vision_tpu.core.params import Params as JParams
+from vision_tpu.ops import nn as jnn
+from vision_tpu_torch.core.params import Params
+from vision_tpu_torch.core.weights import params_from_numpy
+from vision_tpu_torch.ops import nn
+from vision_tpu_torch.ops.cuda import window_attention as wa
+
+PROBE = Path(__file__).resolve().parents[1] / "scripts" / "exp_winattn2.py"
+ATOL, RTOL = 1e-5, 1e-4
+
+
+@pytest.fixture(scope="module")
+def pallas_window_attention():
+    text = PROBE.read_text().split("\nkey = jax.random.PRNGKey(0)")[0]
+    ns = {"__file__": str(PROBE), "__name__": "exp_winattn2_kernel"}
+    exec(compile(text, str(PROBE), "exec"), ns)
+    return ns["window_attention"]
+
+
+def _inputs(seed, nw, t, h, hd):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((nw, t, h * hd)).astype(np.float32) for _ in range(3))
+    bias = rng.standard_normal((h, t, t)).astype(np.float32)
+    return q, k, v, bias
+
+
+def _pallas(fn, q, k, v, bias, h, scale):
+    # the Pallas wrapper always takes a bias; "no bias" is a zero one
+    b = bias if bias is not None else np.zeros((h, q.shape[1], q.shape[1]), np.float32)
+    return np.asarray(fn(q, k, v, b, h, float(scale), interpret=True))
+
+
+@pytest.mark.parametrize(
+    "nw,t,h,hd,with_bias",
+    [
+        (3, 49, 2, 8, True),  # T ragged against the probe's 8-row tile
+        (11, 20, 5, 8, True),  # NW not a multiple of the probe's g = 8
+        (5, 20, 2, 16, False),
+        (8, 49, 5, 8, False),
+        (1, 16, 2, 32, True),  # a single window, T on the tile
+    ],
+)
+def test_plain_matches_pallas_kernel(pallas_window_attention, nw, t, h, hd, with_bias):
+    q, k, v, bias = _inputs(nw * 100 + t, nw, t, h, hd)
+    bias = bias if with_bias else None
+    scale = hd**-0.5
+    expected = _pallas(pallas_window_attention, q, k, v, bias, h, scale)
+    out = wa.window_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)), None if bias is None else torch.from_numpy(bias), h, scale
+    )
+    assert out.shape == q.shape and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), expected, atol=ATOL, rtol=RTOL)
+
+
+def test_plain_matches_pallas_kernel_bf16(pallas_window_attention):
+    """The Pallas body's roundings at bf16: q * scale rounded to bf16, p
+    rounded to v's type, output in q's type (one bf16 ulp apart at most)."""
+    import jax.numpy as jnp
+
+    q, k, v, bias = _inputs(7, 4, 49, 2, 16)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    expected = np.asarray(
+        pallas_window_attention(*jb, jnp.asarray(bias, jnp.bfloat16), 2, 0.25, interpret=True).astype(jnp.float32)
+    )
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    out = wa.window_attention(*tb, torch.from_numpy(bias).to(torch.bfloat16), 2, 0.25)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), expected, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("split_dim", [1, 2])
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_attention_windows_matches_jax(split_dim, with_mask):
+    rng = np.random.default_rng(split_dim)
+    b, t, c, h = 6, 49, 20, 4
+    store = {
+        "qkv.weight": (rng.standard_normal((3 * c, c)) * 0.3).astype(np.float32),
+        "qkv.bias": rng.standard_normal(3 * c).astype(np.float32),
+        "proj.weight": (rng.standard_normal((c, c)) * 0.3).astype(np.float32),
+        "proj.bias": rng.standard_normal(c).astype(np.float32),
+    }
+    x = rng.standard_normal((b, t, c)).astype(np.float32)
+    mask = rng.standard_normal((1, h, t, t)).astype(np.float32) if with_mask else None
+    p = Params(params_from_numpy(store, "cpu", torch.float32))
+    out = nn.attention_windows(p, torch.from_numpy(x), h, split_dim, None if mask is None else torch.from_numpy(mask), 0.3)
+    expected = jnn.attention_windows(JParams(store), x, h, split_dim, mask, 0.3)
+    np.testing.assert_allclose(out.numpy(), np.asarray(expected), atol=1e-4, rtol=1e-3)
+
+
+def test_split_qkv_rejects_unknown_layout():
+    p = Params({"qkv.weight": torch.zeros(24, 8), "qkv.bias": torch.zeros(24)})
+    with pytest.raises(ValueError, match="split_dim"):
+        nn.attention_windows(p, torch.zeros(1, 4, 8), 2, 3, None, 1.0)
+
+
+def test_plain_takes_any_broadcastable_mask_on_cpu():
+    q, k, v, _ = _inputs(3, 4, 9, 2, 4)
+    per_window = np.random.default_rng(4).standard_normal((4, 2, 9, 9)).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out = wa.window_attention(tq, tk, tv, torch.from_numpy(per_window), 2, 0.5)
+    for w in range(4):
+        one = wa.window_attention(tq[w : w + 1], tk[w : w + 1], tv[w : w + 1], torch.from_numpy(per_window[w]), 2, 0.5)
+        np.testing.assert_allclose(out[w : w + 1].numpy(), one.numpy(), atol=1e-6)
+
+
+def test_cpu_call_counts_no_launch():
+    q, k, v, bias = (torch.from_numpy(a) for a in _inputs(5, 2, 9, 2, 4))
+    before = wa.launches
+    wa.window_attention(q, k, v, bias, 2, 0.5)
+    assert wa.launches == before
+
+
+def test_non_cpu_tensors_never_fall_back():
+    """Only CPU tensors take the plain version; anything else reaches the
+    kernel's checks, which raise on what the kernel does not take."""
+    q = torch.zeros(2, 49, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        wa.window_attention(q, q, q, None, 2, 0.5)
+    with pytest.raises(ValueError, match="CUDA device"):
+        wa.window_attention(torch.zeros(2, 49, 64), q, q, torch.zeros(1, 2, 49, 49, device="meta"), 2, 0.5)
+
+
+def test_per_window_mask_off_the_cpu_names_the_slice():
+    q = torch.zeros(2, 49, 64, device="meta")
+    with pytest.raises(ValueError, match="BiRefNet/SAM3 slice"):
+        wa.window_attention(q, q, q, torch.zeros(2, 2, 49, 49, device="meta"), 2, 0.5)

@@ -6,8 +6,9 @@ public functions; plain tensor code in PyTorch, and each Pallas kernel of
 the JAX package as a kernel written by hand for Hopper (``csrc/``).
 
 It imports ``torch`` and numpy, never ``jax`` or ``vision_tpu``. The port
-goes slice by slice; the first is Depth-Anything V2 served through
-:class:`~vision_tpu_torch.serve.ImageServer`.
+goes slice by slice: Depth-Anything V2 served through
+:class:`~vision_tpu_torch.serve.ImageServer`, then MobileSAM served through
+:class:`~vision_tpu_torch.serve.SamServer`.
 """
 
 __version__ = "0.1.0"

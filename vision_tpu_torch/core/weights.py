@@ -64,14 +64,16 @@ def params_from_numpy(
     """Turn a numpy parameter store (the JAX package's parameters, torch-
     canonical shapes under the same names) into the port's: floats become
     ``dtype`` on ``device`` (a bf16 array goes through f32), integers keep
-    their type. Always copies, so the result never aliases a read-only mmap."""
+    their type. Always copies into C order, so the result never aliases a
+    read-only mmap and is contiguous whatever the source's strides (a kernel
+    takes only contiguous tensors)."""
     out = {}
     for k, v in store.items():
         a = np.asarray(v)
         if _is_float(a):
-            out[k] = torch.from_numpy(np.array(a, np.float32)).to(device=device, dtype=dtype)
+            out[k] = torch.from_numpy(np.array(a, np.float32, order="C")).to(device=device, dtype=dtype)
         else:
-            out[k] = torch.from_numpy(np.array(a)).to(device=device)
+            out[k] = torch.from_numpy(np.array(a, order="C")).to(device=device)
     return out
 
 

@@ -5,6 +5,7 @@ filters and tiling wait for their slices)."""
 from .image import (
     Image,
     ImageFormat,
+    image_load_array,
     image_normalize,
     image_scale,
     image_u8_to_f32,
@@ -14,6 +15,7 @@ from .image import (
 __all__ = [
     "Image",
     "ImageFormat",
+    "image_load_array",
     "image_normalize",
     "image_scale",
     "image_u8_to_f32",

@@ -22,6 +22,7 @@ __all__ = [
     "is_float",
     "channel_map",
     "alpha_channel",
+    "image_load_array",
     "image_u8_to_f32",
     "image_scale",
     "preprocess_scale_method",
@@ -175,6 +176,24 @@ class Image:
 
     def copy(self) -> "Image":
         return Image(self.data.copy(), self.format)
+
+
+def _format_from_channels(c: int, float_: bool = False) -> ImageFormat:
+    if float_:
+        return {1: ImageFormat.alpha_f32, 3: ImageFormat.rgb_f32, 4: ImageFormat.rgba_f32}[c]
+    return {1: ImageFormat.alpha_u8, 3: ImageFormat.rgb_u8, 4: ImageFormat.rgba_u8}[c]
+
+
+def image_load_array(array: np.ndarray, fmt: ImageFormat | None = None) -> Image:
+    """Wrap an (H, W) or (H, W, C) array as an Image; the format follows the
+    channel count and dtype unless given."""
+    a = np.asarray(array)
+    if a.ndim == 2:
+        a = a[:, :, None]
+    if fmt is None:
+        fmt = _format_from_channels(a.shape[2], float_=np.issubdtype(a.dtype, np.floating))
+    dtype = np.float32 if is_float(fmt) else np.uint8
+    return Image(np.ascontiguousarray(a.astype(dtype)), fmt)
 
 
 def image_u8_to_f32(

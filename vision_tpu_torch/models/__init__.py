@@ -1,3 +1,3 @@
-from . import depth_anything, dino
+from . import depth_anything, dino, mobile_sam
 
-__all__ = ["depth_anything", "dino"]
+__all__ = ["depth_anything", "dino", "mobile_sam"]

@@ -10,11 +10,12 @@ Shapes mirror the reference's converted GGUF layout (SURVEY.md M1/M5).
 
 from __future__ import annotations
 
+import itertools
 import math
 
 import numpy as np
 
-__all__ = ["random_depth_anything_params"]
+__all__ = ["random_mobile_sam_params", "random_depth_anything_params"]
 
 
 class _Builder:
@@ -60,6 +61,149 @@ class _Builder:
     def scale_shift(self, name, c):
         self.p[f"{name}.weight"] = (np.ones(c) + self.rng.standard_normal(c) * 0.02).astype(np.float32)
         self.p[f"{name}.bias"] = np.zeros(c, np.float32)
+
+
+def _attention_bias_indexed(rng, heads: int, window: int) -> np.ndarray:
+    points = list(itertools.product(range(window), range(window)))
+    offsets, idxs = {}, []
+    for p1 in points:
+        for p2 in points:
+            off = (abs(p1[0] - p2[0]), abs(p1[1] - p2[1]))
+            offsets.setdefault(off, len(offsets))
+            idxs.append(offsets[off])
+    table = rng.standard_normal((heads, len(offsets))).astype(np.float32) * 0.02
+    idx = np.asarray(idxs, np.int64).reshape(window * window, window * window)
+    return table[:, idx]
+
+
+def random_mobile_sam_params(seed: int = 0) -> dict[str, np.ndarray]:
+    """Full TinyViT-5M MobileSAM weight dict (GGUF names, torch shapes)."""
+    rng = np.random.default_rng(seed)
+    p: dict[str, np.ndarray] = {}
+
+    def w(name, *shape, scale=None):
+        if scale is None:
+            fan_in = shape[1] if len(shape) >= 2 else shape[0]
+            if len(shape) == 4:
+                fan_in = shape[1] * shape[2] * shape[3]
+            scale = 1.0 / math.sqrt(max(fan_in, 1))
+        p[name] = (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def b(name, n):
+        p[name] = np.zeros(n, np.float32)
+
+    def conv_bn(name, ci, co, k):
+        w(f"{name}.c.weight", co, ci, k, k)
+        b(f"{name}.c.bias", co)
+
+    def dw_bn(name, c, k=3):
+        w(f"{name}.c.weight", c, 1, k, k)
+        b(f"{name}.c.bias", c)
+
+    def ln(name, c):
+        p[f"{name}.weight"] = np.ones(c, np.float32)
+        p[f"{name}.bias"] = np.zeros(c, np.float32)
+
+    def lin(name, ci, co):
+        w(f"{name}.weight", co, ci)
+        b(f"{name}.bias", co)
+
+    # --- encoder (TinyViT-5M) ---
+    dims = [64, 128, 160, 320]
+    depths = [2, 2, 6, 2]
+    heads = [2, 4, 5, 10]
+    windows = [7, 7, 14, 7]
+
+    conv_bn("enc.patch_embed.seq.0", 3, dims[0] // 2, 3)
+    conv_bn("enc.patch_embed.seq.2", dims[0] // 2, dims[0], 3)
+
+    # stage 0: MBConv
+    for i in range(depths[0]):
+        base = f"enc.layers.0.blocks.{i}"
+        hid = dims[0] * 4
+        conv_bn(f"{base}.conv1", dims[0], hid, 1)
+        dw_bn(f"{base}.conv2", hid)
+        conv_bn(f"{base}.conv3", hid, dims[0], 1)
+    conv_bn("enc.layers.0.downsample.conv1", dims[0], dims[1], 1)
+    dw_bn("enc.layers.0.downsample.conv2", dims[1])
+    conv_bn("enc.layers.0.downsample.conv3", dims[1], dims[1], 1)
+
+    for stage in (1, 2, 3):
+        d = dims[stage]
+        for i in range(depths[stage]):
+            base = f"enc.layers.{stage}.blocks.{i}"
+            ln(f"{base}.attn.norm", d)
+            lin(f"{base}.attn.qkv", d, 3 * d)
+            lin(f"{base}.attn.proj", d, d)
+            p[f"{base}.attn.attention_biases_indexed"] = _attention_bias_indexed(
+                rng, heads[stage], windows[stage]
+            )
+            dw_bn(f"{base}.local_conv", d)
+            ln(f"{base}.mlp.norm", d)
+            lin(f"{base}.mlp.fc1", d, d * 4)
+            lin(f"{base}.mlp.fc2", d * 4, d)
+        if stage < 3:
+            nd = dims[stage + 1]
+            conv_bn(f"enc.layers.{stage}.downsample.conv1", d, nd, 1)
+            dw_bn(f"enc.layers.{stage}.downsample.conv2", nd)
+            conv_bn(f"enc.layers.{stage}.downsample.conv3", nd, nd, 1)
+
+    w("enc.neck.0.weight", 256, dims[3], 1, 1)
+    ln("enc.neck.1", 256)
+    w("enc.neck.2.weight", 256, 256, 3, 3)
+    ln("enc.neck.3", 256)
+
+    # --- prompt encoder ---
+    w("prompt_encoder.pe_layer.positional_encoding_gaussian_matrix", 2, 128, scale=1.0)
+    for i in range(4):
+        w(f"prompt_encoder.point_embeddings.{i}.weight", 1, 256)
+    w("prompt_encoder.not_a_point_embed.weight", 1, 256)
+    w("prompt_encoder.no_mask_embed.weight", 1, 256)
+
+    # --- mask decoder ---
+    w("dec.iou_token.weight", 1, 256)
+    w("dec.mask_tokens.weight", 4, 256)
+    for i in range(2):
+        base = f"dec.transformer.layers.{i}"
+        for attn, inner in (("self_attn", 256), ("cross_attn_t2i", 128), ("cross_attn_i2t", 128)):
+            lin(f"{base}.{attn}.q_proj", 256, inner)
+            lin(f"{base}.{attn}.k_proj", 256, inner)
+            lin(f"{base}.{attn}.v_proj", 256, inner)
+            lin(f"{base}.{attn}.out_proj", inner, 256)
+        for n in (1, 2, 3, 4):
+            ln(f"{base}.norm{n}", 256)
+        lin(f"{base}.mlp.lin1", 256, 2048)
+        lin(f"{base}.mlp.lin2", 2048, 256)
+    lin("dec.transformer.final_attn_t2i.q_proj", 256, 128)
+    lin("dec.transformer.final_attn_t2i.k_proj", 256, 128)
+    lin("dec.transformer.final_attn_t2i.v_proj", 256, 128)
+    lin("dec.transformer.final_attn_t2i.out_proj", 128, 256)
+    ln("dec.transformer.norm_final_attn", 256)
+    w("dec.output_upscaling.0.weight", 256, 64, 2, 2)
+    b("dec.output_upscaling.0.bias", 64)
+    ln("dec.output_upscaling.1", 64)
+    w("dec.output_upscaling.3.weight", 64, 32, 2, 2)
+    b("dec.output_upscaling.3.bias", 32)
+    for i in range(4):
+        lin(f"dec.output_hypernetworks_mlps.{i}.layers.0", 256, 256)
+        lin(f"dec.output_hypernetworks_mlps.{i}.layers.1", 256, 256)
+        lin(f"dec.output_hypernetworks_mlps.{i}.layers.2", 256, 32)
+    lin("dec.iou_prediction_head.layers.0", 256, 256)
+    lin("dec.iou_prediction_head.layers.1", 256, 256)
+    lin("dec.iou_prediction_head.layers.2", 256, 4)
+
+    # dense positional embedding baked from the gaussian matrix
+    # (reference convert.py:265-282)
+    g = p["prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"]
+    h = wdt = 64
+    ye = (np.arange(h, dtype=np.float32)[:, None] + 0.5) / h
+    xe = (np.arange(wdt, dtype=np.float32)[None, :] + 0.5) / wdt
+    coords = np.stack(np.broadcast_arrays(xe, ye), axis=-1)  # (64, 64, 2)
+    proj = (2 * coords - 1) @ g * (2 * np.pi)
+    p["dec.dense_positional_embedding"] = np.concatenate(
+        [np.sin(proj), np.cos(proj)], axis=-1
+    ).astype(np.float32)
+    return p
 
 
 def random_depth_anything_params(variant: str = "small", seed: int = 0) -> dict[str, np.ndarray]:
@@ -112,5 +256,3 @@ def random_depth_anything_params(variant: str = "small", seed: int = 0) -> dict[
     B.conv("head.conv2", fusion_ch // 2, 32, 3)
     B.conv("head.conv3", 32, 1, 1)
     return B.p
-
-

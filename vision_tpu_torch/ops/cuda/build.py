@@ -1,8 +1,9 @@
 """Build and load the hand-written kernel library.
 
 The CUDA sources in ``vision_tpu_torch/csrc/`` are compiled with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, at the first
-launch of any kernel, and loaded with ``ctypes`` (no PyTorch headers, so the
+``sm_90a``, one ``nvcc`` process per source, all started together, and linked
+into one shared library with a plain C interface, at the first launch of any
+kernel; the library is loaded with ``ctypes`` (no PyTorch headers, so the
 build takes seconds). The library lands in ``build/vision_tpu_torch/`` beside
 the package, under a name that carries a hash of the sources and flags, so an
 edit rebuilds; a file lock keeps two processes from building at once. A
@@ -29,7 +30,7 @@ BUILD_DIR = _PKG.parent / "build" / "vision_tpu_torch"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the CUDA toolkit's default home
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
@@ -61,23 +62,41 @@ def _nvcc() -> str:
     raise RuntimeError("vision_tpu_torch: nvcc not found; the CUDA kernels cannot be built")
 
 
-def _build(path: Path) -> None:
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(path) + ".tmp", *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise with the output of any that failed,
+    after every one has ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [(c, out) for c, p, out in zip(cmds, procs, outs) if p.returncode != 0]
+    if failed:
         raise RuntimeError(
-            f"vision_tpu_torch: kernel build failed ({' '.join(cmd)}):\n{res.stdout}\n{res.stderr}"
+            "vision_tpu_torch: kernel build failed:\n"
+            + "\n".join(f"{' '.join(c)}\n{out}" for c, out in failed)
         )
+    return "".join(outs)
+
+
+def _build(path: Path) -> None:
+    nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [Path(f"{path}.{src.stem}.o") for src in sources]
+    t0 = time.perf_counter()
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)] for s, o in zip(sources, objs)])
+    log += _run_all([[nvcc, "-shared", "-o", str(path) + ".tmp", *map(str, objs)]])
+    for o in objs:
+        o.unlink()
     os.replace(str(path) + ".tmp", path)
     build_info["seconds"] = time.perf_counter() - t0
-    build_info["log"] = res.stdout + res.stderr
+    build_info["log"] = log
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.vtt_flash_attention_fwd
     fn.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+    fn.restype = i
+    fn = lib.vtt_window_attention_fwd
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
     fn.restype = i
 
 

@@ -13,8 +13,12 @@ Design contract, as in the JAX package:
   * ops take a ``Params`` view positioned at the module, so call sites mirror
     the C++ (``linear(p["qkv"], x)``).
 
-LoRA adapters, depthwise/batch-norm/pooling ops and windowed attention wait
-for the slices that use them.
+Mixed types follow the JAX package's promotion, not PyTorch's habit of
+raising: a product runs in the promoted type of its operands and its result
+takes the activation's (or q's) type, so f32 prompts through bf16 weights
+stay f32, as they do in the JAX package's SAM decoder.
+
+LoRA adapters and pooling ops wait for the slices that use them.
 """
 
 from __future__ import annotations
@@ -22,17 +26,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.errors import raise_error
 from ..core.params import Params
 
 __all__ = [
     "linear",
     "layer_norm",
     "layer_norm_direct",
+    "batch_norm_2d",
     "conv_2d",
+    "conv_2d_depthwise",
     "conv_transpose_2d",
     "patch_embed",
+    "split_qkv",
     "attention_route",
     "attention_core",
+    "attention_windows",
     "attention",
     "gelu",
     "relu",
@@ -48,9 +57,22 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 relu = torch.relu
 
 
+def _promoted(*ts: torch.Tensor) -> torch.dtype:
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return dt
+
+
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ W^T + b (reference nn.cpp:6-12). W is (O, I)."""
-    y = F.linear(x, p.weight("weight"))
+    """y = x @ W^T + b (reference nn.cpp:6-12). W is (O, I).
+
+    As in the JAX package: the product runs in the promoted type of x and W
+    (f32 accumulation), its result is cast to x's type, and the bias is
+    added with promotion."""
+    w = p.weight("weight")
+    dt = _promoted(x, w)
+    y = F.linear(x.to(dt), w.to(dt)).to(x.dtype)
     b = p.find("bias")
     if b is not None:
         y = y + b
@@ -74,6 +96,13 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return layer_norm_direct(x, p.weight("weight"), p.weight("bias"), eps)
 
 
+def batch_norm_2d(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """BN must be fused to mul+add at conversion (reference nn.cpp:150-164)."""
+    if p.find("running_mean") is not None or p.find("running_var") is not None:
+        raise_error("batch norm was not fused at conversion (running stats present)")
+    return x * p.weight("weight") + p.weight("bias")
+
+
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
@@ -86,6 +115,16 @@ def conv_2d(p: Params, x: torch.Tensor, stride: int = 1, pad: int = 0) -> torch.
     """2D conv, torch-canonical (O,I,kH,kW) weight (reference nn.cpp:72-100)."""
     y = F.conv2d(_nchw(x), p.weight("weight"), None, stride, pad)
     y = _nhwc(y)
+    b = p.find("bias")
+    if b is not None:
+        y = y + b
+    return y
+
+
+def conv_2d_depthwise(p: Params, x: torch.Tensor, stride: int = 1, pad: int = 0) -> torch.Tensor:
+    """Depthwise conv, torch (C,1,kH,kW) weight (reference nn.cpp:102-115)."""
+    w = p.weight("weight")
+    y = _nhwc(F.conv2d(_nchw(x), w, None, stride, pad, groups=w.shape[0]))
     b = p.find("bias")
     if b is not None:
         y = y + b
@@ -113,6 +152,26 @@ def patch_embed(p: Params, x: torch.Tensor, patch_size: int) -> torch.Tensor:
     if p.has("norm.weight"):
         x = layer_norm(p["norm"], x)
     return x
+
+
+def split_qkv(p: Params, x: torch.Tensor, n_heads: int, split_dim: int):
+    """Fused qkv linear -> (q, k, v) each (B, heads, T, head_dim)
+    (reference nn.cpp:182-208). split_dim selects the fused layout:
+      1 -> per-head [q|k|v] interleaving (TinyViT style)
+      2 -> global [q..|k..|v..] ordering (torch nn.Linear(3*dim) style)
+    """
+    b, t = x.shape[0], x.shape[1]
+    qkv = linear(p, x)  # (B, T, 3C)
+    hd = qkv.shape[-1] // 3 // n_heads
+    if split_dim == 1:
+        qkv = qkv.reshape(b, t, n_heads, 3, hd)
+        q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]  # (B,T,H,hd)
+    elif split_dim == 2:
+        qkv = qkv.reshape(b, t, 3, n_heads, hd)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B,T,H,hd)
+    else:
+        raise ValueError("Unsupported split_dim")
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
 # -- attention routing policy: the JAX package's table (ops/nn.py:260-294),
@@ -152,34 +211,76 @@ def attention_route(t_q: int, has_mask: bool, flash: bool, cuda_ok: bool | None 
 def attention_core(q, k, v, mask=None, scale: float | None = None, flash: bool = False):
     """softmax(q k^T * scale + mask) v with f32 accumulation
     (reference nn.cpp:210-237). q,k,v: (B, H, T, hd); mask broadcastable to
-    (B, H, Tq, Tk). The ``flash`` flag routes per attention_route."""
+    (B, H, Tq, Tk). The ``flash`` flag routes per attention_route.
+
+    q, k and v may differ in type (the SAM decoder's image-to-token
+    attention takes bf16 q and f32 k/v): every product runs in the promoted
+    type with f32 accumulation, the probabilities are cast to q's type and
+    the output is in q's type, as in the JAX package (ops/nn.py:297-334)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     cuda_ok = q.device.type in ("cuda", "cpu")
     route = attention_route(int(q.shape[2]), mask is not None, flash, cuda_ok)
+    dt = _promoted(q, k, v)
     if route == "cuda":
         from .cuda.flash_attention import flash_attention
 
-        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale=float(scale))
+        # the kernel takes one type; mixed inputs run in the promoted one
+        out = flash_attention(
+            q.to(dt).contiguous(), k.to(dt).contiguous(), v.to(dt).contiguous(), scale=float(scale)
+        )
+        return out.to(q.dtype)
     if route == "fused_logits":
         # logits in the input dtype, f32 softmax (JAX ops/nn.py:309-313)
-        attn = torch.matmul(q, k.transpose(-1, -2)) * scale
+        attn = torch.matmul(q.to(dt), k.to(dt).transpose(-1, -2)) * scale
         attn = attn + mask.to(attn.dtype)
         attn = torch.softmax(attn.float(), dim=-1).to(q.dtype)
-        return torch.matmul(attn, v)
-    if route == "xla_fused":
-        # jax.nn.dot_product_attention's XLA form: f32 logits, probabilities
-        # cast to the input dtype, PV in the input dtype
-        attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-        if mask is not None:
-            attn = attn + mask.to(q.dtype).float()
-        attn = torch.softmax(attn, dim=-1).to(q.dtype)
-        return torch.matmul(attn, v)
+        return torch.matmul(attn.to(dt), v.to(dt)).to(q.dtype)
     attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:
-        attn = attn + mask.float()
+        # the xla_fused route (jax.nn.dot_product_attention's XLA form) rounds
+        # its bias to q's type first; the naive route adds it in f32
+        attn = attn + (mask.to(q.dtype) if route == "xla_fused" else mask).float()
     attn = torch.softmax(attn, dim=-1).to(q.dtype)
-    return torch.matmul(attn, v)
+    return torch.matmul(attn.to(dt), v.to(dt)).to(q.dtype)
+
+
+def attention_windows(p: Params, x: torch.Tensor, n_heads: int, split_dim: int, mask, scale: float):
+    """Windowed attention from the fused qkv weight, without head transposes
+    (a port of the JAX package's ops/nn.py:337).
+
+    The fused qkv weight is split into three (C, C) projections so q, k and
+    v come out as (B, T, C) with head h in channels [h*hd, (h+1)*hd); the
+    attention itself is :func:`~vision_tpu_torch.ops.cuda.window_attention.window_attention`
+    (the hand-written kernel on a CUDA tensor, its plain version on a CPU
+    one), then the ``proj`` linear. The route does not depend on the flash
+    flag.
+
+    p: params with ``qkv`` and ``proj`` children; x: (B, T, C); mask: None or
+    an additive bias shared by all windows, (1, heads, T, T) or (heads, T, T)
+    (the CPU's plain version takes any form broadcastable to
+    (B, heads, T, T)); returns (B, T, C)."""
+    from .cuda.window_attention import window_attention
+
+    c = x.shape[-1]
+    hd = c // n_heads
+    w = p["qkv"].weight("weight")
+    bb = p["qkv"].weight("bias")
+    if split_dim == 1:  # per-head [q|k|v] interleaving (TinyViT style)
+        w3 = w.reshape(n_heads, 3, hd, c)
+        b3 = bb.reshape(n_heads, 3, hd)
+        wi = lambda i: w3[:, i].reshape(c, c)
+        bi = lambda i: b3[:, i].reshape(c)
+    elif split_dim == 2:  # global [q..|k..|v..] ordering (torch style)
+        wi = lambda i: w.reshape(3, c, c)[i]
+        bi = lambda i: bb.reshape(3, c)[i]
+    else:
+        raise ValueError("Unsupported split_dim")
+    # the bias joins the f32 accumulation before the one rounding to x's
+    # type, as in the JAX package's split projections
+    q, k, v = (F.linear(x, wi(i).to(x.dtype), bi(i).to(x.dtype)) for i in range(3))
+    o = window_attention(q, k, v, mask, n_heads, scale)
+    return linear(p["proj"], o)
 
 
 def attention(p_out: Params, q, k, v, mask=None, scale: float | None = None, flash: bool = False):

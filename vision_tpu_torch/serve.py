@@ -14,8 +14,12 @@ Two layers:
   returns immediately; a batch worker thread drains the queue, groups items
   that share a shape bucket, and runs the supplied batch function.
 * :class:`ImageServer` — whole-image serving for
-  :class:`~vision_tpu_torch.models.depth_anything.DepthAnythingModel`. The
-  other families of the JAX package's servers arrive with their slices.
+  :class:`~vision_tpu_torch.models.depth_anything.DepthAnythingModel`.
+* :class:`SamServer` — promptable segmentation on a
+  :class:`~vision_tpu_torch.models.mobile_sam.SamModel`: each group is encoded
+  and decoded in one eager pass on the card.
+
+The other families of the JAX package's servers arrive with their slices.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import torch
 
 from .image import Image, ImageFormat, image_scale, preprocess_scale_method
 
-__all__ = ["BatchServer", "ServerStats", "ImageServer"]
+__all__ = ["BatchServer", "ServerStats", "ImageServer", "SamServer"]
 
 _LATENCY_WINDOW = 4096  # most recent request latencies kept for percentiles
 
@@ -399,6 +403,104 @@ class ImageServer:
 
     def compute(self, request):
         return self.submit(request).result()
+
+    @property
+    def stats(self) -> ServerStats:
+        return self._server.stats
+
+    def close(self):
+        self._server.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class SamServer:
+    """Concurrent promptable segmentation on a SamModel.
+
+    Each request is ``(image, prompt)`` where prompt is a 2-tuple point or a
+    ``((x0, y0), (x1, y1))`` box (the reference prompt forms,
+    ``vision.cpp:54-95``). Requests are grouped (points and boxes bucket
+    separately: they run different prompt encoders), and the whole group is
+    encoded and decoded in one pass: the JAX package's ``vmap`` over
+    (embedding, prompt) is the batch dimension written out, the best mask of
+    each request is chosen on the card, and one f32 mask per request crosses
+    to the host. Groups are padded to ``batch_size`` with their first item,
+    so the card sees one batch shape. Host-side preparation (the 1024² resize
+    and the coordinate transform) runs on the BatchServer's prep pool.
+    """
+
+    def __init__(
+        self,
+        model,
+        # 6: the JAX package's default, kept for API parity; this card's own
+        # operating point waits for the port's benchmark
+        batch_size: int = 6,
+        max_delay_ms: float = 2.0,
+        prep_workers: int = 4,
+    ):
+        if type(model).__name__ != "SamModel":
+            raise TypeError(f"SamServer serves a SamModel, got {type(model).__name__}")
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        self.model = model
+        self.batch_size = batch_size
+        self._server = BatchServer(
+            self._run_group,
+            batch_size=batch_size,
+            max_delay_ms=max_delay_ms,
+            bucket_key=lambda item: item[1],  # prompt kind
+            prepare=self._prepare,
+            prep_workers=prep_workers,
+        )
+
+    # raw request = (image, point, box); prepared = (x, kind, coords, extent)
+    def _prepare(self, request):
+        from .models.mobile_sam import sam_process_box, sam_process_input_u8, sam_process_point
+
+        image, point, box = request
+        x = sam_process_input_u8(image, self.model.p)
+        if point is not None:
+            kind, coords = "point", sam_process_point(point, image.extent, self.model.p)
+        else:
+            kind, coords = "box", sam_process_box(box[0], box[1], image.extent, self.model.p)
+        return (x, kind, coords, image.extent)
+
+    def _run_group(self, items: list):
+        from .models.mobile_sam import best_masks, sam_process_mask
+
+        kind = items[0][1]
+        n = len(items)
+        padded = items + [items[0]] * (self.batch_size - n)
+        x = torch.from_numpy(np.stack([it[0] for it in padded]))
+        coords = np.stack([it[2] for it in padded])
+        embeds = self.model.encode_u8(x)
+        masks = best_masks(self.model.decode(embeds, coords, kind))[:n].cpu().numpy()  # (n, 256, 256)
+        return [sam_process_mask(masks[i][None], 0, it[3], self.model.p) for i, it in enumerate(items)]
+
+    def warmup(self, kinds=("point", "box")) -> None:
+        """Run one padded group of each prompt kind before taking traffic
+        (the first launch builds the kernel library)."""
+        img = _dummy_image((64, 64))
+        futs = []
+        for kind in kinds:
+            if kind == "point":
+                futs.append(self.submit(img, point=(32, 32)))
+            else:
+                futs.append(self.submit(img, box=((8, 8), (56, 56))))
+        _warmup_wait(futs, f"sam {'+'.join(kinds)}")
+        self.stats.reset()
+
+    def submit(self, image, point=None, box=None) -> Future:
+        if (point is None) == (box is None):
+            raise ValueError("exactly one of point/box must be given")
+        return self._server.submit((image, point, box))
+
+    def compute(self, image, point=None, box=None):
+        return self.submit(image, point=point, box=box).result()
 
     @property
     def stats(self) -> ServerStats:
