@@ -30,10 +30,29 @@ Phases, each raising on failure:
      (kernel route, TF32 off) against the CPU's f32;
   9. MobileSAM timings: the window kernel against its plain version, encode
      img/s over batch, single-mask latency, decode-only, the served numbers
-     and the host's pre/post work, each beside the card name and power limit.
+     and the host's pre/post work, each beside the card name and power limit;
+ 10. the conv3x3 kernel against its plain version: bf16 at the RRDB shapes
+     (the five RDB convs, the stem and the last conv at 256x256), f32 edge
+     cases (ragged H and W, batch, Cin 3 and 4, Cout 3, one pixel wide), and
+     one bf16 input of more than 2^31 elements, (4, 4096, 4096, 64 -> 64);
+ 11. the Real-ESRGAN path: an esrgan GGUF of random_esrgan_params(0) (the
+     full RealESRGAN-x4 RRDBNet: nf 64, gc 32, 23 blocks) is written, loaded
+     with esrgan_load_model on the card and on the CPU, 6 requests (4 at
+     256x256, 2 at 320x240) are served through EsrganServer (batch 4), and
+     one 640x480 image goes through EsrganModel.compute's tiles, the counts
+     zeroed just before and read just after each;
+ 12. Real-ESRGAN parity on a crop of one request: the card's bf16 float
+     output against the CPU's f32, stage by stage; the card's f32 forward
+     (kernel route, TF32 off) against the CPU's f32; the served u8 against
+     the card's float forward;
+ 13. Real-ESRGAN timings: the conv kernel against its plain version and
+     F.conv2d (cuDNN, a yardstick the port never calls) with the bound
+     beside each; forward_u8 at 1024x1024 and 512x512 x 4; the served and
+     tiled numbers; and the yardsticks of the attention kernels
+     (F.scaled_dot_product_attention, which the port never calls).
 
 The line before the last is a JSON object describing every kernel of the
-path; the last line is {"ok": true, "device": {...}}.
+paths; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -56,6 +75,14 @@ SAM_MASK_REL_RMS = 1e-1  # bf16 card mask logits vs f32 CPU (the decoder adds it
 SAM_F32_REL_RMS = 1e-4  # f32 card encoder (kernel route, TF32 off) vs f32 CPU: summation order only
 SAM_EXTENTS = ((1024, 1024), (640, 480), (1600, 1200))  # as is, upscaled, downscaled
 SAM_STAGES = ((361, 49, 4), (25, 196, 5), (100, 49, 10))  # per image: windows, T, heads (hd = 32)
+ESRGAN_RDB = ((64, 32), (96, 32), (128, 32), (160, 32), (192, 64))  # (Cin, Cout) of conv1..conv5
+ESRGAN_TAIL = ((64, 64), (64, 3))  # hr and last, at 4x the input's width and height
+ESRGAN_CONVS = 351  # 1 + 23 * 3 * 5 + 1 + 2 + 1 + 1 per forward at scale 4
+ESRGAN_FLOP_PER_PIXEL = 35.85e6  # per input pixel, all 351 convs at scale 4
+ESRGAN_F32_REL_RMS = 1e-4  # f32 card forward (kernel route, TF32 off) vs f32 CPU: summation order only
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor
+# cores and device memory
+PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
 
 def phase(name: str) -> None:
@@ -175,6 +202,214 @@ def window_cases(wa, torch, batch: int = 6) -> float:
     return worst
 
 
+def conv_cases(cc, torch) -> float:
+    """Phase 10: the conv3x3 kernel against conv3x3_plain. Returns the
+    largest absolute difference seen."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(f"RDB {ci}->{co}", 1, 256, 256, ci, co, bf16) for ci, co in ESRGAN_RDB]
+    cases += [
+        # (label, N, H, W, Cin, Cout, dtype)
+        ("stem 3->64", 1, 256, 256, 3, 64, bf16),
+        ("last 64->3", 1, 256, 256, 64, 3, bf16),
+        ("ragged bf16, Cin 20 -> 12", 2, 7, 13, 20, 12, bf16),
+        ("half a chunk bf16, Cin 24 -> 40", 3, 19, 23, 24, 40, bf16),
+        ("two output tiles bf16, Cout 96", 1, 33, 17, 32, 96, bf16),
+        ("W=13 H=7 f32", 1, 7, 13, 16, 8, f32),
+        ("batch 3 f32", 3, 20, 19, 32, 32, f32),
+        ("Cin 4 -> Cout 4 f32", 2, 9, 10, 4, 4, f32),
+        ("Cin 3 f32", 1, 17, 18, 3, 64, f32),
+        ("Cout 3 f32", 1, 15, 33, 64, 3, f32),
+        ("one pixel wide f32", 2, 21, 1, 8, 8, f32),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = 0.0
+    for label, n, h, w, ci, co, dtype in cases:
+        x = (torch.randn(n, h, w, ci, device="cuda", generator=gen) * 0.5).to(dtype)
+        wt = (torch.randn(co, ci, 3, 3, device="cuda", generator=gen) / (9 * ci) ** 0.5).to(dtype)
+        before = cc.launches
+        out = cc.conv3x3(x, wt)
+        torch.cuda.synchronize()
+        if cc.launches != before + 1:
+            raise AssertionError(f"{label}: launch count went {before} -> {cc.launches}")
+        if out.shape != (n, h, w, co) or out.dtype != dtype:
+            raise AssertionError(f"{label}: output {tuple(out.shape)} {out.dtype}")
+        ref = cc.conv3x3_plain(x.float(), wt.float())
+        err = check_close(f"conv3x3 {label} ({n}, {h}, {w}, {ci}) -> {co} {dtype}", out, ref, dtype, torch)
+        worst = max(worst, err)
+
+    # more than 2^31 elements: 64-bit offsets; the last image against the
+    # plain version run on that image alone
+    n, hw, c = 4, 4096, 64
+    x = torch.empty(n, hw, hw, c, device="cuda", dtype=bf16)
+    for i in range(n):  # one image at a time: each is below 2^31 elements
+        x[i] = torch.randn(hw, hw, c, device="cuda", dtype=bf16, generator=gen)
+    wt = (torch.randn(c, c, 3, 3, device="cuda", generator=gen) / (9 * c) ** 0.5).to(bf16)
+    out = cc.conv3x3(x, wt)
+    torch.cuda.synchronize()
+    ref = cc.conv3x3_plain(x[n - 1 :].float(), wt.float())
+    err = check_close(f"conv3x3 large ({n}, {hw}, {hw}, {c}) -> {c} bf16, {x.numel()} input elements, last image",
+                      out[n - 1 :], ref, bf16, torch)
+    del x, out, ref
+    torch.cuda.empty_cache()
+    return max(worst, err)
+
+
+def check_close(label: str, out, ref, dtype, torch) -> float:
+    """Kernel output against the plain version's f32 result: max abs <=
+    BF16_MAX_ABS in bf16, atol + rtol in f32. Returns the max abs error."""
+    diff = (out.float() - ref).abs()
+    err = float(diff.max())
+    if dtype == torch.float32:
+        ok = bool((diff <= F32_ATOL + F32_RTOL * ref.abs()).all())
+        rule = f"atol {F32_ATOL} rtol {F32_RTOL}"
+    else:
+        ok = err <= BF16_MAX_ABS
+        rule = f"max abs <= {BF16_MAX_ABS}"
+    print(f"kernel {label}: max_abs_err {err:.3e} [{rule}] {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: max abs err {err}")
+    return err
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bf16 tensor-core
+    time and the device-memory time, and which of the two it is."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def conv_bound(pixels: int, ci: int, co: int) -> tuple[float, str]:
+    """bf16 3x3 conv: each input and output element and the weight once."""
+    return bound_ms(18.0 * pixels * ci * co, 2.0 * (pixels * (ci + co) + 9 * ci * co))
+
+
+def conv_timings(cc, torch, card: str) -> list:
+    """Phase 13: kernel, plain and F.conv2d (channels-last cuDNN) at the RDB
+    shapes at 1024x1024 and the tail shapes at 4096x4096, in turns. Returns
+    (label, pixels, Cin, Cout, kernel ms, plain ms, library ms)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for hw, shapes, iters in ((1024, ESRGAN_RDB, 10), (4096, ESRGAN_TAIL, 3)):
+        for ci, co in shapes:
+            x = torch.randn(1, hw, hw, ci, device="cuda", dtype=torch.bfloat16, generator=gen)
+            wt = (torch.randn(co, ci, 3, 3, device="cuda", generator=gen) / (9 * ci) ** 0.5).to(torch.bfloat16)
+            xc = x.permute(0, 3, 1, 2)  # an NHWC tensor is a channels-last NCHW one
+            run_k = lambda: cc.conv3x3(x, wt)  # noqa: E731
+            run_p = lambda: cc.conv3x3_plain(x, wt)  # noqa: E731
+            run_l = lambda: F.conv2d(xc, wt, None, 1, 1)  # noqa: E731
+            k1, p1, l1, k2, p2, l2 = (median_ms(f, iters, warmup=2) for f in (run_k, run_p, run_l, run_k, run_p, run_l))
+            bound, by = conv_bound(hw * hw, ci, co)
+            rows.append((f"({hw}x{hw}, {ci}) -> {co}", hw * hw, ci, co, min(k1, k2), min(p1, p2), min(l1, l2)))
+            print(f"conv3x3 (1, {hw}, {hw}, {ci}) -> {co} bf16: kernel median {k1:.4f} / {k2:.4f} ms, plain "
+                  f"{p1:.4f} / {p2:.4f} ms, F.conv2d {l1:.4f} / {l2:.4f} ms, bound {bound:.4f} ms ({by}) "
+                  f"[{card}]", flush=True)
+            del x, wt, xc
+    torch.cuda.empty_cache()
+    return rows
+
+
+def attention_yardsticks(fa, wa, torch, card: str) -> tuple[float, float]:
+    """Phase 13: F.scaled_dot_product_attention beside each attention kernel
+    at its main path's shapes, a yardstick the port never calls. Returns the
+    library ms at the shapes the kernels' JSON entries are timed at."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    flash = {}
+    for t in (1370, 1888):
+        q, k, v = (torch.randn(4, 6, t, 64, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
+        run_k = lambda: fa.flash_attention(q, k, v)  # noqa: E731
+        run_l = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        k1, l1, k2, l2 = (median_ms(f, 20) for f in (run_k, run_l, run_k, run_l))
+        flash[t] = min(l1, l2)
+        b, by = bound_ms(4.0 * 24 * t * t * 64, 4 * 2.0 * 24 * t * 64)
+        print(f"flash_attention (24, {t}, 64) bf16: kernel median {k1:.4f} / {k2:.4f} ms, SDPA {l1:.4f} / {l2:.4f} ms, "
+              f"bound {b:.4f} ms ({by}) [{card}]", flush=True)
+    win = []
+    for i, (nw, t, h) in enumerate(SAM_STAGES):
+        q, k, v = (torch.randn(6 * nw, t, h * 32, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
+        bias = (torch.randn(h, t, t, device="cuda", generator=gen) * 0.5).to(torch.bfloat16)
+        # SDPA takes heads apart: (NW, H, T, hd), laid out before the timing
+        q4, k4, v4 = (z.view(6 * nw, t, h, 32).transpose(1, 2).contiguous() for z in (q, k, v))
+        run_k = lambda: wa.window_attention(q, k, v, bias, h, 32**-0.5)  # noqa: E731
+        run_l = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias)  # noqa: E731
+        k1, l1, k2, l2 = (median_ms(f, 20) for f in (run_k, run_l, run_k, run_l))
+        win.append(min(l1, l2))
+        b, by = bound_ms(4.0 * 6 * nw * h * t * t * 32, 4 * 2.0 * 6 * nw * t * h * 32 + 2.0 * h * t * t)
+        print(f"window_attention stage {i + 1} (NW={6 * nw}, T={t}, H={h}, hd=32) bf16: kernel median {k1:.4f} / "
+              f"{k2:.4f} ms, SDPA with the bias as attn_mask {l1:.4f} / {l2:.4f} ms, bound {b:.4f} ms ({by}) "
+              f"[{card}]", flush=True)
+    return flash[1370], win[0]
+
+
+def profile_forward(model, x, torch, card: str) -> None:
+    """Phase 13: where one forward's time goes, from a torch.profiler trace:
+    device busy time (the sum of kernel times), the host's wall time, the
+    idle share, the conv kernel's share and the heaviest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model.forward_u8(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.forward_u8(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    conv_ms = sum(e.self_device_time_total for e in kernels if "conv3x3" in e.key) / 1e3
+    print(f"profile of one forward_u8 {tuple(x.shape)}: wall {wall_ms:.3f} ms (profiler on), device busy "
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.2%}, conv3x3 {conv_ms:.3f} ms "
+          f"({conv_ms / busy_ms:.2%} of busy), {sum(e.count for e in kernels)} kernel launches [{card}]", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}", flush=True)
+
+
+def esrgan_stages(params, x_u8, p, dtype, device):
+    """RRDBNet stage by stage, as esrgan_generate runs it: a list of (name,
+    output) ending with the forward's float output."""
+    import torch
+
+    from vision_tpu_torch.core.params import Params
+    from vision_tpu_torch.models import esrgan
+    from vision_tpu_torch.ops import conv_3x3, leaky_relu, normalize_u8
+
+    out = []
+    with torch.inference_mode():
+        m = Params(params)["model"]
+        block = m[1]["sub"]
+        x = conv_3x3(m[0], normalize_u8(x_u8.to(device), dtype=dtype))
+        out.append(("stem", x))
+        sub = x
+        for i in range(p.n_blocks):
+            sub = esrgan.rrdb(block[i], sub)
+            if i in (0, p.n_blocks // 2, p.n_blocks - 1):
+                out.append((f"after RRDB {i}", sub))
+        x = x + conv_3x3(block[p.n_blocks], sub)
+        out.append(("trunk sum", x))
+        seq = 2
+        for _ in range(int(np.log2(p.scale))):
+            x = esrgan._upsample(m[seq + 1], x)
+            seq += 3
+        out.append(("output", conv_3x3(m[seq + 2], leaky_relu(conv_3x3(m[seq], x), 0.2))))
+    return out
+
+
+def write_esrgan_gguf(path: str) -> None:
+    from vision_tpu_torch.core.gguf import GGUFWriter
+    from vision_tpu_torch.models.random_weights import random_esrgan_params
+
+    w = GGUFWriter(path, "esrgan")
+    w.add("esrgan.scale", 4)
+    w.add("esrgan.block_count", 23)
+    for name, a in random_esrgan_params(0).items():
+        w.add_tensor(name, a)
+    w.write()
+
+
 def rel_rms(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.sqrt(np.mean((a - b) ** 2)) / (np.sqrt(np.mean(b**2)) + 1e-12))
@@ -274,10 +509,12 @@ def main() -> int:
         sam_process_mask,
         sam_process_point,
     )
+    from vision_tpu_torch.models.esrgan import esrgan_load_model
     from vision_tpu_torch.ops.cuda import build
+    from vision_tpu_torch.ops.cuda import conv3x3 as cc
     from vision_tpu_torch.ops.cuda import flash_attention as fa
     from vision_tpu_torch.ops.cuda import window_attention as wa
-    from vision_tpu_torch.serve import ImageServer, SamServer
+    from vision_tpu_torch.serve import EsrganServer, ImageServer, SamServer
 
     phase("2 build")
     t0 = time.perf_counter()
@@ -291,6 +528,7 @@ def main() -> int:
     phase("3 kernels against their plain versions")
     worst = kernel_cases(fa, torch)
     win_worst = window_cases(wa, torch)
+    build_s = build.build_info["seconds"]
 
     phase("4 Depth-Anything path: Depth-Anything-V2-Small through ImageServer")
     rng = np.random.default_rng(0)
@@ -307,12 +545,12 @@ def main() -> int:
     print(f"model on {model.device.torch_device} {model.dtype}, flash={model.flash}", flush=True)
     with ImageServer(model, batch_size=4, max_delay_ms=20) as srv:
         srv.warmup()
-        fa.launches = wa.launches = 0
+        fa.launches = wa.launches = cc.launches = 0
         t_start = time.perf_counter()
         futures = [srv.submit(img) for img in requests]
         results = [f.result(timeout=600) for f in futures]
         wall_s = time.perf_counter() - t_start
-        main_launches, depth_win_launches = fa.launches, wa.launches
+        main_launches, depth_win_launches, depth_conv_launches = fa.launches, wa.launches, cc.launches
         stats = srv.stats
         n_req, n_batches = stats.requests, stats.batches
         p50_ms = stats.p50_latency_ms
@@ -329,11 +567,13 @@ def main() -> int:
             raise AssertionError(f"result for {img.extent}: range [{d.min()}, {d.max()}]")
     if n_req != 8:
         raise AssertionError(f"stats.requests {n_req}")
-    if main_launches == 0 or main_launches != 12 * n_batches or depth_win_launches != 0:
+    if (main_launches == 0 or main_launches != 12 * n_batches or depth_win_launches != 0
+            or depth_conv_launches != 0):
         raise AssertionError(f"flash_attention launches {main_launches} for {n_batches} batches of 12 layers, "
-                             f"window_attention launches {depth_win_launches}")
+                             f"window_attention launches {depth_win_launches}, conv3x3 launches "
+                             f"{depth_conv_launches}")
     print(f"served {n_req} requests in {n_batches} batches; flash_attention launches {main_launches}, "
-          f"window_attention launches {depth_win_launches}", flush=True)
+          f"window_attention launches {depth_win_launches}, conv3x3 launches {depth_conv_launches}", flush=True)
 
     phase("5 Depth-Anything parity: card bf16 (kernel route) vs CPU f32 (plain route)")
     x = torch.from_numpy(requests[0].to_rgb_u8()[None])
@@ -376,12 +616,12 @@ def main() -> int:
     print(f"model on {smodel.device.torch_device} {smodel.dtype}, flash={smodel.flash}", flush=True)
     with SamServer(smodel, batch_size=6, max_delay_ms=5_000) as ssrv:
         ssrv.warmup()
-        fa.launches = wa.launches = 0
+        fa.launches = wa.launches = cc.launches = 0
         t_start = time.perf_counter()
         futures = [ssrv.submit(img, point=pt, box=bx) for img, pt, bx in sam_reqs]
         masks = [f.result(timeout=600) for f in futures]
         sam_wall_s = time.perf_counter() - t_start
-        sam_win_launches, sam_flash_launches = wa.launches, fa.launches
+        sam_win_launches, sam_flash_launches, sam_conv_launches = wa.launches, fa.launches, cc.launches
         sstats = ssrv.stats
         s_req, s_batches, s_p50 = sstats.requests, sstats.batches, sstats.p50_latency_ms
     for (img, _, _), m in zip(sam_reqs, masks):
@@ -389,11 +629,13 @@ def main() -> int:
             raise AssertionError(f"mask {m.extent} {m.format} for request {img.extent}")
     if s_req != 12:
         raise AssertionError(f"stats.requests {s_req}")
-    if sam_win_launches == 0 or sam_win_launches != 10 * s_batches or sam_flash_launches != 0:
+    if (sam_win_launches == 0 or sam_win_launches != 10 * s_batches or sam_flash_launches != 0
+            or sam_conv_launches != 0):
         raise AssertionError(f"window_attention launches {sam_win_launches} for {s_batches} encoder batches "
-                             f"of 10 windowed blocks, flash_attention launches {sam_flash_launches}")
+                             f"of 10 windowed blocks, flash_attention launches {sam_flash_launches}, conv3x3 "
+                             f"launches {sam_conv_launches}")
     print(f"served {s_req} requests in {s_batches} batches; window_attention launches {sam_win_launches}, "
-          f"flash_attention launches {sam_flash_launches}; mask foreground shares "
+          f"flash_attention launches {sam_flash_launches}, conv3x3 launches {sam_conv_launches}; mask foreground shares "
           f"{[round(float((m.data > 0).mean()), 4) for m in masks]}", flush=True)
 
     phase("8 MobileSAM parity: card bf16 (kernel route) vs CPU f32 (plain route)")
@@ -471,8 +713,123 @@ def main() -> int:
         print(f"host per request at {r[0].extent[0]}x{r[0].extent[1]}: prep (sam_process_input_u8) "
               f"{(t1 - t0) * 1e3:.3f} ms, post (sam_process_mask) {(t2 - t1) * 1e3:.3f} ms [{card}]", flush=True)
 
+    del smodel, embed1
+
+    phase("10 conv3x3 kernel against its plain version")
+    conv_worst = conv_cases(cc, torch)
+
+    phase("11 Real-ESRGAN path: RealESRGAN-x4 RRDBNet through EsrganServer and the tiled compute")
+    erng = np.random.default_rng(6)
+    esr_reqs = [u8_img(256, 256) for _ in range(4)] + [u8_img(240, 320) for _ in range(2)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "realesrgan-x4-random.gguf")
+        write_esrgan_gguf(path)
+        emodel = esrgan_load_model(path, backend_init("gpu"))
+        cpu_emodel = esrgan_load_model(path, backend_init("cpu"))
+    print(f"model on {emodel.device.torch_device} {emodel.dtype}, {emodel.p}", flush=True)
+    with EsrganServer(emodel, batch_size=4, max_delay_ms=50) as esrv:
+        esrv.warmup((256, 256))
+        fa.launches = wa.launches = cc.launches = 0
+        t_start = time.perf_counter()
+        futures = [esrv.submit(img) for img in esr_reqs]
+        upscaled = [f.result(timeout=600) for f in futures]
+        esr_wall_s = time.perf_counter() - t_start
+        esr_conv_launches, esr_flash_launches, esr_win_launches = cc.launches, fa.launches, wa.launches
+        estats = esrv.stats
+        e_req, e_batches, e_p50 = estats.requests, estats.batches, estats.p50_latency_ms
+    for img, res in zip(esr_reqs, upscaled):
+        want = (4 * img.extent[0], 4 * img.extent[1])
+        if res.extent != want or res.format != ImageFormat.rgba_u8 or not (res.data[..., 3] == 255).all():
+            raise AssertionError(f"result {res.extent} {res.format} for request {img.extent}")
+    if e_req != 6 or e_batches != 2:
+        raise AssertionError(f"stats: {e_req} requests in {e_batches} batches, expected 6 in 2")
+    if esr_conv_launches != ESRGAN_CONVS * e_batches or esr_flash_launches != 0 or esr_win_launches != 0:
+        raise AssertionError(f"conv3x3 launches {esr_conv_launches} for {e_batches} batches of {ESRGAN_CONVS} "
+                             f"convs, flash_attention {esr_flash_launches}, window_attention {esr_win_launches}")
+    print(f"served {e_req} requests in {e_batches} batches; conv3x3 launches {esr_conv_launches}, "
+          f"flash_attention launches {esr_flash_launches}, window_attention launches {esr_win_launches}", flush=True)
+    big = Image(erng.integers(0, 256, (480, 640, 4), np.uint8), ImageFormat.rgba_u8)
+    cc.launches = 0
+    t0 = time.perf_counter()
+    tiled = emodel.compute(big)
+    torch.cuda.synchronize()
+    tiled_ms = (time.perf_counter() - t0) * 1e3
+    tiled_launches = cc.launches
+    if tiled.extent != (2560, 1920) or tiled.format != ImageFormat.rgba_u8 or tiled_launches != 3 * ESRGAN_CONVS:
+        raise AssertionError(f"tiled compute: {tiled.extent} {tiled.format}, {tiled_launches} conv3x3 launches "
+                             f"(9 tiles of 224x176 in 3 chunks of 4: {3 * ESRGAN_CONVS})")
+    print(f"tiled compute 640x480 -> {tiled.extent}: {tiled_launches} conv3x3 launches (3 chunks of 4 tiles)",
+          flush=True)
+
+    phase("12 Real-ESRGAN parity: card bf16 (kernel route) vs CPU f32 (plain route)")
+    crop = torch.from_numpy(np.ascontiguousarray(esr_reqs[0].to_rgb_u8()[:64, :64])[None])
+    t0 = time.perf_counter()
+    cpu_stages = esrgan_stages(cpu_emodel.params, crop, cpu_emodel.p, torch.float32, "cpu")
+    cpu_s = time.perf_counter() - t0
+    gpu_stages = esrgan_stages(emodel.params, crop, emodel.p, emodel.dtype, "cuda")
+    for (name, g), (_, c) in zip(gpu_stages, cpu_stages):
+        print(f"stage {name}: relative RMS card bf16 vs CPU f32 {rel_rms(g.float().cpu(), c):.4e}", flush=True)
+    g_out, c_out = gpu_stages[-1][1].float().cpu().numpy(), cpu_stages[-1][1].numpy()
+    if g_out.shape != (1, 256, 256, 3) or not np.isfinite(g_out).all():
+        raise AssertionError(f"output {g_out.shape}")
+    esr_rms = rel_rms(g_out, c_out)
+    print(f"output relative RMS card bf16 vs CPU f32 {esr_rms:.4e} (bound {E2E_REL_RMS}); CPU f32 forward at "
+          f"64x64 took {cpu_s:.3f} s; output range card [{g_out.min():.4e}, {g_out.max():.4e}], CPU "
+          f"[{c_out.min():.4e}, {c_out.max():.4e}], RMS {float(np.sqrt(np.mean(c_out**2))):.4e}", flush=True)
+    if not esr_rms <= E2E_REL_RMS:
+        raise AssertionError(f"Real-ESRGAN bf16 parity: relative RMS {esr_rms}")
+    f32_params = {k: v.to("cuda") for k, v in cpu_emodel.params.items()}
+    cc.launches = 0
+    f32_out = esrgan_stages(f32_params, crop, cpu_emodel.p, torch.float32, "cuda")[-1][1]
+    f32_launches = cc.launches
+    esr_f32_rms = rel_rms(f32_out.cpu(), c_out)
+    print(f"forward f32 on the card (kernel route, {f32_launches} conv3x3 launches, TF32 off) vs CPU f32: "
+          f"relative RMS {esr_f32_rms:.4e} (bound {ESRGAN_F32_REL_RMS})", flush=True)
+    if f32_launches != ESRGAN_CONVS or not esr_f32_rms <= ESRGAN_F32_REL_RMS:
+        raise AssertionError(f"f32 forward on the card: relative RMS {esr_f32_rms}, {f32_launches} launches")
+    del cpu_emodel, f32_params, cpu_stages, gpu_stages
+    # the served u8 against the same image's float forward on the card: a
+    # consistency check only (with these weights the u8 image is mostly 0)
+    x0 = torch.from_numpy(esr_reqs[0].to_rgb_u8()[None])
+    y0 = emodel.forward_u8(x0, to_u8=False).float()
+    want_u8 = (torch.clamp(y0, 0.0, 1.0) * 255.0).to(torch.uint8)[0].cpu().numpy().astype(np.int16)
+    served = upscaled[0].data[..., :3].astype(np.int16)
+    u8_diff = int(np.abs(served - want_u8).max())
+    print(f"served u8 vs clip(float forward) * 255 on the card: max difference {u8_diff} level(s); float output "
+          f"range [{float(y0.min()):.4e}, {float(y0.max()):.4e}], u8 range [{served.min()}, {served.max()}], "
+          f"{float((served > 0).mean()):.4%} of u8 values above 0", flush=True)
+    if u8_diff > 1:
+        raise AssertionError(f"served u8 differs from the float forward by {u8_diff} levels")
+
+    phase(f"13 Real-ESRGAN timings on {card}")
+    conv_rows = conv_timings(cc, torch, card)
+    for b, hw in ((1, 1024), (4, 512)):
+        xb = torch.from_numpy(erng.integers(0, 256, (b, hw, hw, 3), np.uint8)).to("cuda")
+        f1 = median_ms(lambda: emodel.forward_u8(xb), 3, warmup=1)
+        f2 = median_ms(lambda: emodel.forward_u8(xb), 3, warmup=0)
+        f_ms = min(f1, f2)
+        tflops = ESRGAN_FLOP_PER_PIXEL * b * hw * hw / (f_ms * 1e-3) / 1e12
+        print(f"forward_u8 batch {b} at {hw}x{hw} bf16: median {f1:.3f} / {f2:.3f} ms, {b / f_ms * 1e3:.3f} img/s, "
+              f"{tflops:.3f} TFLOP/s achieved [{card}]", flush=True)
+        if b == 4:
+            profile_forward(emodel, xb, torch, card)
+        del xb
+    print(f"EsrganServer 6 requests (4 at 256x256, 2 at 320x240; batch 4): p50 latency {e_p50:.3f} ms, "
+          f"{6 / esr_wall_s:.3f} img/s, {e_batches} batches [{card}]", flush=True)
+    print(f"tiled compute 640x480 (9 tiles of 224x176, 3 chunks of 4): {tiled_ms:.3f} ms [{card}]", flush=True)
+    print(f"kernel build (nvcc, every source in parallel): {build_s:.2f} s [{card}]", flush=True)
+    flash_lib, win_lib = attention_yardsticks(fa, wa, torch, card)
+
+    # one RDB's five convs at 1024x1024, summed
+    rdb = conv_rows[: len(ESRGAN_RDB)]
+    rdb_bounds = [conv_bound(px, ci, co) for _, px, ci, co, *_ in rdb]
+    rdb_bound = sum(ms for ms, _ in rdb_bounds)
+    rdb_by = max(("bytes", "operations"), key=[by for _, by in rdb_bounds].count)  # what bounds most of the five
     _, k_ms, p_ms = timings[0]
     w_shape, w_ms, w_plain_ms = win_times[0]
+    nw, t, h = SAM_STAGES[0]
+    flash_bound, flash_by = bound_ms(4.0 * 24 * 1370**2 * 64, 4 * 2.0 * 24 * 1370 * 64)
+    win_bound, win_by = bound_ms(4.0 * 6 * nw * h * t * t * 32, 4 * 2.0 * 6 * nw * t * h * 32 + 2.0 * h * t * t)
     print(card)
     print(json.dumps({"kernels": [
         {
@@ -484,6 +841,9 @@ def main() -> int:
             "max_abs_err": worst,
             "ms": k_ms,
             "plain_ms": p_ms,
+            "bound_ms": flash_bound,
+            "bound_by": flash_by,
+            "library_ms": flash_lib,
             "timed_shape": "(24, 1370, 64) bf16",
         },
         {
@@ -495,7 +855,25 @@ def main() -> int:
             "max_abs_err": win_worst,
             "ms": w_ms,
             "plain_ms": w_plain_ms,
+            "bound_ms": win_bound,
+            "bound_by": win_by,
+            "library_ms": win_lib,
             "timed_shape": w_shape,
+        },
+        {
+            "name": "conv3x3",
+            "route": "cuda",
+            "source": "vision_tpu_torch/csrc/conv3x3.cu",
+            "replaces": "scripts/exp_pallas_conv.py:36",
+            "launches": esr_conv_launches,
+            "max_abs_err": conv_worst,
+            "ms": sum(r[4] for r in rdb),
+            "plain_ms": sum(r[5] for r in rdb),
+            "bound_ms": rdb_bound,
+            "bound_by": rdb_by,
+            "library_ms": sum(r[6] for r in rdb),
+            "timed_shape": "one RDB's five convs at (1, 1024, 1024) bf16, summed: "
+                           + ", ".join(f"{ci}->{co}" for ci, co in ESRGAN_RDB),
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ SLICE_MODULES = [
     "vision_tpu_torch.core.weights",
     "vision_tpu_torch.image",
     "vision_tpu_torch.image.image",
+    "vision_tpu_torch.image.tiling",
     "vision_tpu_torch.ops",
     "vision_tpu_torch.ops.nn",
     "vision_tpu_torch.ops.preprocess",
@@ -23,9 +24,11 @@ SLICE_MODULES = [
     "vision_tpu_torch.ops.cuda.build",
     "vision_tpu_torch.ops.cuda.flash_attention",
     "vision_tpu_torch.ops.cuda.window_attention",
+    "vision_tpu_torch.ops.cuda.conv3x3",
     "vision_tpu_torch.models",
     "vision_tpu_torch.models.dino",
     "vision_tpu_torch.models.depth_anything",
+    "vision_tpu_torch.models.esrgan",
     "vision_tpu_torch.models.mobile_sam",
     "vision_tpu_torch.models.random_weights",
     "vision_tpu_torch.serve",
@@ -66,3 +69,20 @@ def test_backend_init_cpu_policy(monkeypatch):
     assert backend_init("cpu").flags & BuildFlag.flash_attention
     with pytest.raises(VispError, match="unknown backend"):
         backend_init("tpu")
+
+
+def test_backend_init_without_a_card_raises(monkeypatch):
+    """With no argument the port takes the CUDA device or raises: it never
+    falls back to the CPU unasked (the JAX package's policy differs)."""
+    import pytest
+    import torch
+
+    from vision_tpu_torch.core.device import BackendType, backend_init
+    from vision_tpu_torch.core.errors import VispError
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(VispError, match=r'backend_init\("cpu"\)'):
+        backend_init()
+    with pytest.raises(VispError):
+        backend_init("gpu")
+    assert backend_init("cpu").type == BackendType.cpu

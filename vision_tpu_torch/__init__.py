@@ -8,7 +8,8 @@ the JAX package as a kernel written by hand for Hopper (``csrc/``).
 It imports ``torch`` and numpy, never ``jax`` or ``vision_tpu``. The port
 goes slice by slice: Depth-Anything V2 served through
 :class:`~vision_tpu_torch.serve.ImageServer`, then MobileSAM served through
-:class:`~vision_tpu_torch.serve.SamServer`.
+:class:`~vision_tpu_torch.serve.SamServer`, then Real-ESRGAN served through
+:class:`~vision_tpu_torch.serve.EsrganServer`.
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,8 @@ backends, picks the "best", and exposes per-backend policy: preferred float
 type, max allocation size, and build flags that alter graph construction.
 
 Here:
-  * devices are ``torch.device``s; "best" = CUDA > CPU.
+  * devices are ``torch.device``s; the default is the CUDA device, and
+    the CPU is taken only when asked for by name (see backend_init).
   * preferred float type is **bfloat16** on CUDA (tensor-core native), float32
     on CPU.
   * ``max_alloc`` is a quarter of the card's memory as
@@ -110,10 +111,14 @@ _NAMES = {"cpu": BackendType.cpu, "gpu": BackendType.gpu, "cuda": BackendType.gp
 
 
 def backend_init(btype: BackendType | str | None = None) -> Device:
-    """Pick the best available device (reference backend_init, ml.cpp:59-95).
+    """The device of ``btype`` (reference backend_init, ml.cpp:59-95): a
+    :class:`BackendType` or one of ``"gpu"``, ``"cuda"``, ``"cpu"``.
 
-    Order of preference: CUDA > CPU, or the device of ``btype`` when given
-    (a :class:`BackendType` or one of ``"gpu"``, ``"cuda"``, ``"cpu"``).
+    Without ``btype`` it returns the CUDA device, and raises a
+    :class:`VispError` when there is none. This differs on purpose from the
+    JAX package's "best available" policy, which falls back to the CPU: a
+    program written for the card must not run on the CPU unnoticed, so the
+    CPU is only ever chosen by name, ``backend_init("cpu")``.
     """
     if isinstance(btype, str):
         if btype.lower() not in _NAMES:
@@ -124,7 +129,12 @@ def backend_init(btype: BackendType | str | None = None) -> Device:
             )
         btype = _NAMES[btype.lower()]
     if btype is None:
-        btype = BackendType.gpu if torch.cuda.is_available() else BackendType.cpu
+        if not torch.cuda.is_available():
+            raise_error(
+                "backend_init: no CUDA device is available; pass backend_init(\"cpu\") "
+                "to run on the CPU"
+            )
+        btype = BackendType.gpu
     if btype == BackendType.gpu:
         if not torch.cuda.is_available():
             raise_error("no backend device available for type {}", btype)

@@ -3,7 +3,8 @@
 A copy of the parts of vision_tpu/image/image.py that the ported slices use,
 with the same semantics contract with the reference implementation
 (src/visp/image.cpp, src/visp/image-impl.h). File IO, the box blur, erosion
-and the foreground estimate wait for the slices that call them.
+and the foreground estimate wait for the slices that call them; the tiling
+engine is in tiling.py.
 """
 
 from __future__ import annotations
@@ -22,8 +23,10 @@ __all__ = [
     "is_float",
     "channel_map",
     "alpha_channel",
+    "image_alloc",
     "image_load_array",
     "image_u8_to_f32",
+    "image_f32_to_u8",
     "image_scale",
     "preprocess_scale_method",
     "image_normalize",
@@ -178,6 +181,19 @@ class Image:
         return Image(self.data.copy(), self.format)
 
 
+def _store_u8(f32x4: np.ndarray, fmt: ImageFormat) -> np.ndarray:
+    """Reference image_store semantics: clamp [0,1], *255, truncate."""
+    v = np.clip(f32x4, 0.0, 1.0) * 255.0
+    v = v.astype(np.uint8)  # C-style truncation
+    return v[:, :, : n_channels(fmt)]
+
+
+def image_alloc(extent: tuple[int, int], fmt: ImageFormat) -> Image:
+    """A zeroed image of ``extent`` = (width, height)."""
+    dtype = np.float32 if is_float(fmt) else np.uint8
+    return Image(np.zeros((extent[1], extent[0], n_channels(fmt)), dtype), fmt)
+
+
 def _format_from_channels(c: int, float_: bool = False) -> ImageFormat:
     if float_:
         return {1: ImageFormat.alpha_f32, 3: ImageFormat.rgb_f32, 4: ImageFormat.rgba_f32}[c]
@@ -240,6 +256,20 @@ def image_u8_to_f32(
         dst.data[:] = out
         return dst
     return Image(np.ascontiguousarray(out), dst_format_)
+
+
+def image_f32_to_u8(
+    src: Image, dst_format: ImageFormat, scale: float = 1.0, offset: float = 0.0
+) -> Image:
+    """src * scale + offset, clamp, truncate (reference image.cpp:257-288)."""
+    if not is_float(src.format) or is_float(dst_format):
+        raise_error("image_f32_to_u8 requires f32 source and u8 destination")
+    if dst_format in (ImageFormat.bgra_u8, ImageFormat.argb_u8):
+        # the store is unmapped RGBA lane order; the reference's image_data
+        # target likewise asserts bgra/argb are not supported for writing
+        raise_error("image_f32_to_u8 does not support writing {}", dst_format)
+    out4 = src.load_f32x4() * np.float32(scale) + np.float32(offset)
+    return Image(np.ascontiguousarray(_store_u8(out4, dst_format)), dst_format)
 
 
 def _bilinear_resize_f32(a: np.ndarray, target: tuple[int, int]) -> np.ndarray:

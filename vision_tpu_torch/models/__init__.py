@@ -1,3 +1,3 @@
-from . import depth_anything, dino, mobile_sam
+from . import depth_anything, dino, esrgan, mobile_sam
 
-__all__ = ["depth_anything", "dino", "mobile_sam"]
+__all__ = ["depth_anything", "dino", "esrgan", "mobile_sam"]

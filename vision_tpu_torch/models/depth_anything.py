@@ -217,8 +217,8 @@ def depthany_process_output(depth: np.ndarray, target_extent: tuple[int, int]) -
 
 
 def depthany_load_model(filepath: str, device: Device | None = None) -> DepthAnythingModel:
-    """Load a Depth-Anything V2 GGUF onto ``device`` (default: the best
-    available, see backend_init)."""
+    """Load a Depth-Anything V2 GGUF onto ``device`` (default: the CUDA
+    device; without one, backend_init raises)."""
     device = device or backend_init()
     file = model_load(filepath)
     p = depthany_detect_params(file)

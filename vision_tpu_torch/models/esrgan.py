@@ -1,0 +1,221 @@
+"""Real-ESRGAN super-resolution (RRDBNet) — a port of vision_tpu/models/esrgan.py.
+
+Reference: src/visp/arch/esrgan.{cpp,h}, tiled pipeline in
+src/visp/vision.cpp:205-253. ``esrgan_generate`` mirrors esrgan.cpp:55-83: a
+conv stem, n_blocks x RRDB (3 residual dense blocks of 5 convs with dense
+channel concats and 0.2 residual scaling, esrgan.cpp:27-51), a trunk conv
+and skip, log2(scale) x (nearest 2x upsample + conv + leaky relu,
+esrgan.cpp:13-19) and two final convs. Weight names are the GGUF/torch
+"old-arch" names (``model.0``, ``model.1.sub.N.RDBk.convj.0``, ...).
+
+Every conv is a 3x3 stride-1 pad-1 conv through ops/nn.py ``conv_3x3``, so
+on the card each one is a launch of the hand-written kernel
+(csrc/conv3x3.cu): 351 per forward at scale 4 with 23 blocks.
+
+The port runs this plain form. The JAX package serves the same math
+regrouped by source (``esrgan_generate_packed``), which fills the TPU's
+128-lane products; the two agree to 2e-5 at f32. PyTorch runs eagerly, so
+there is no per-extent program cache; meshes wait for their queue item.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..core.device import Device, backend_init
+from ..core.errors import raise_error
+from ..core.gguf import GGUFFile, model_load
+from ..core.params import Params
+from ..core.weights import cast_float_params, load_weights
+from ..image import (
+    Image,
+    ImageFormat,
+    TileLayout,
+    image_alloc,
+    image_f32_to_u8,
+    tile_merge,
+    tile_scale,
+)
+from ..ops import conv_3x3, leaky_relu, normalize_u8, resize_nhwc
+
+__all__ = [
+    "EsrganParams",
+    "esrgan_detect_params",
+    "residual_dense_block",
+    "rrdb",
+    "esrgan_generate",
+    "EsrganModel",
+    "esrgan_load_model",
+    "esrgan_compute",
+]
+
+ESRGAN_DEFAULT_TILE_SIZE = 224
+ESRGAN_TILE_OVERLAP = 16
+
+
+@dataclass(frozen=True)
+class EsrganParams:
+    scale: int = 4
+    n_blocks: int = 23
+
+
+def esrgan_detect_params(file: GGUFFile) -> EsrganParams:
+    """Reference esrgan_detect_params (esrgan.cpp:85-96)."""
+    if file.arch != "esrgan":
+        raise_error("Architecture expected to be 'esrgan', but was '{}' ({})", file.arch, file.path)
+    scale = file.get_int("esrgan.scale")
+    n_blocks = file.get_int("esrgan.block_count")
+    if not (1 <= scale <= 8):
+        raise_error("ESRGAN: unsupported scale: {}", scale)
+    if not (1 <= n_blocks <= 23):
+        raise_error("ESRGAN: invalid number of blocks: {}", n_blocks)
+    return EsrganParams(scale, n_blocks)
+
+
+def _conv_block(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """conv 3x3 + leaky relu 0.2 (reference esrgan.cpp:21-25)."""
+    return leaky_relu(conv_3x3(p[0], x), 0.2)
+
+
+def residual_dense_block(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """5-conv dense block, 0.2 residual (reference esrgan.cpp:27-41)."""
+    x1 = _conv_block(p["conv1"], x)
+    c1 = torch.cat([x, x1], dim=-1)
+    x2 = _conv_block(p["conv2"], c1)
+    c2 = torch.cat([c1, x2], dim=-1)
+    x3 = _conv_block(p["conv3"], c2)
+    c3 = torch.cat([c2, x3], dim=-1)
+    x4 = _conv_block(p["conv4"], c3)
+    c4 = torch.cat([c3, x4], dim=-1)
+    x5 = conv_3x3(p["conv5"][0], c4)
+    return x + 0.2 * x5
+
+
+def rrdb(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Residual-in-residual dense block (reference esrgan.cpp:43-51)."""
+    y = residual_dense_block(p["RDB1"], x)
+    y = residual_dense_block(p["RDB2"], y)
+    y = residual_dense_block(p["RDB3"], y)
+    return x + 0.2 * y
+
+
+def _upsample(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """nearest 2x + conv + lrelu (reference esrgan.cpp:13-19)."""
+    _, h, w, _ = x.shape
+    x = resize_nhwc(x, (h * 2, w * 2), "nearest")
+    return leaky_relu(conv_3x3(p, x), 0.2)
+
+
+def esrgan_generate(params: Params, x: torch.Tensor, p: EsrganParams) -> torch.Tensor:
+    """RRDBNet forward, NHWC (reference esrgan_generate, esrgan.cpp:55-83).
+    x: (N, H, W, 3) in [0,1] -> (N, H*scale, W*scale, 3)."""
+    m = params["model"]
+    x = conv_3x3(m[0], x)
+    sub = x
+    block = m[1]["sub"]
+    for i in range(p.n_blocks):
+        sub = rrdb(block[i], sub)
+    sub = conv_3x3(block[p.n_blocks], sub)
+    x = x + sub
+    seq = 2
+    for _ in range(int(np.log2(p.scale))):
+        x = _upsample(m[seq + 1], x)
+        seq += 3
+    x = conv_3x3(m[seq], x)
+    x = leaky_relu(x, 0.2)
+    return conv_3x3(m[seq + 2], x)
+
+
+class EsrganModel:
+    """High-level handle (reference esrgan_model, vision.h, and the
+    esrgan_load_model/esrgan_compute pair in vision.cpp:209-253).
+
+    ``params``: torch tensors under the GGUF names; floats are cast to the
+    device's float policy here (they are moved nowhere: pass them on the
+    device, as :func:`esrgan_load_model` does)."""
+
+    def __init__(self, params: dict[str, torch.Tensor], p: EsrganParams, device: Device):
+        self.p = p
+        self.device = device
+        self.dtype = device.preferred_float_type
+        self.params = cast_float_params(params, self.dtype)
+
+    def forward_u8(self, x_u8: torch.Tensor, to_u8: bool = True) -> torch.Tensor:
+        """(N, H, W, 3) uint8 -> (N, H*scale, W*scale, 3) on the model's
+        device: uint8 (clamped to [0, 1], times 255, truncated) with
+        ``to_u8``, else the forward's float output in the model's type. As
+        the JAX package's ``_esrgan_run_fn``. Runs under
+        ``torch.inference_mode``, entered here because the mode is
+        thread-local and servers call this from their own worker thread."""
+        with torch.inference_mode():
+            x = normalize_u8(x_u8.to(self.device.torch_device, non_blocking=True), dtype=self.dtype)
+            y = esrgan_generate(Params(self.params), x, self.p)
+            if to_u8:
+                y = (torch.clamp(y.float(), 0.0, 1.0) * 255.0).to(torch.uint8)
+            return y
+
+    def _compute_whole(self, image: Image) -> Image:
+        """One forward: u8 in, u8 out, no host-side pixel math."""
+        y = self.forward_u8(torch.from_numpy(image.to_rgb_u8()[None]))[0].cpu().numpy()
+        rgba = np.concatenate([y, np.full((*y.shape[:2], 1), 255, np.uint8)], axis=2)
+        return Image(np.ascontiguousarray(rgba), ImageFormat.rgba_u8)
+
+    def compute(self, image: Image, tile_size: int | None = None, batch: int = 4) -> Image:
+        """Tiled super-resolution (reference esrgan_compute, vision.cpp:220-253).
+
+        The tile policy is the JAX package's off the TPU: 224-pixel tiles
+        by default. An image whose longer side fits in a tile runs whole;
+        a larger one is cut into overlapping tiles (replicate padding at
+        the border), run ``batch`` tiles at a time (the last chunk padded
+        with zero tiles) and blended on the host."""
+        if tile_size is None:
+            tile_size = ESRGAN_DEFAULT_TILE_SIZE
+        if max(image.extent) <= tile_size:
+            return self._compute_whole(image)
+        tiles = TileLayout(image.extent, tile_size, ESRGAN_TILE_OVERLAP)
+        tiles_out = tile_scale(tiles, self.p.scale)
+        tw, th = tiles.tile_size
+        n = tiles.total()
+
+        # gather tiles with replicate padding (reference image_u8_to_f32
+        # tiled reads, image.cpp:219-226), still u8; the /255 runs on the card
+        src = image.to_rgb_u8()
+        h, w = src.shape[:2]
+        stack = np.empty((n, th, tw, 3), np.uint8)
+        for t in range(n):
+            sx, sy = tiles.start(tiles.coord(t))
+            ys = np.minimum(np.arange(sy, sy + th), h - 1)
+            xs = np.minimum(np.arange(sx, sx + tw), w - 1)
+            stack[t] = src[np.ix_(ys, xs)]
+
+        out_tiles = np.empty((n, th * self.p.scale, tw * self.p.scale, 3), np.float32)
+        for i in range(0, n, batch):
+            chunk = stack[i : i + batch]
+            real = chunk.shape[0]
+            if real < batch:
+                chunk = np.concatenate([chunk, np.zeros((batch - real, th, tw, 3), np.uint8)], 0)
+            y = self.forward_u8(torch.from_numpy(chunk), to_u8=False)
+            out_tiles[i : i + real] = y[:real].float().cpu().numpy()
+
+        # overlap blend (reference tile_merge, image.cpp:655-693)
+        out = image_alloc(tiles_out.image_extent, ImageFormat.rgb_f32)
+        for t in range(n):
+            tile_merge(Image(out_tiles[t], ImageFormat.rgb_f32), out, tiles_out.coord(t), tiles_out)
+        return image_f32_to_u8(out, ImageFormat.rgba_u8)
+
+
+def esrgan_load_model(filepath: str, device: Device | None = None) -> EsrganModel:
+    """Load a Real-ESRGAN GGUF onto ``device`` (default: the CUDA device;
+    without one, backend_init raises). Block-quantized tensors expand at
+    load."""
+    device = device or backend_init()
+    file = model_load(filepath)
+    p = esrgan_detect_params(file)
+    return EsrganModel(load_weights(file, device), p, device)
+
+
+def esrgan_compute(model: EsrganModel, image: Image) -> Image:
+    return model.compute(image)

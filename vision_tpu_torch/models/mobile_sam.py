@@ -600,8 +600,8 @@ class SamModel:
 
 
 def sam_load_model(filepath: str, device: Device | None = None) -> SamModel:
-    """Load a MobileSAM GGUF onto ``device`` (default: the best available,
-    see backend_init). Block-quantized tensors expand at load; every float,
+    """Load a MobileSAM GGUF onto ``device`` (default: the CUDA device;
+    without one, backend_init raises). Block-quantized tensors expand at load; every float,
     the positional tables included, lands in the device's float type, which
     is where the JAX package's tables end up too (its loader keeps them f32
     and its SamModel then casts them)."""

@@ -15,7 +15,7 @@ import math
 
 import numpy as np
 
-__all__ = ["random_mobile_sam_params", "random_depth_anything_params"]
+__all__ = ["random_mobile_sam_params", "random_esrgan_params", "random_depth_anything_params"]
 
 
 class _Builder:
@@ -203,6 +203,31 @@ def random_mobile_sam_params(seed: int = 0) -> dict[str, np.ndarray]:
     p["dec.dense_positional_embedding"] = np.concatenate(
         [np.sin(proj), np.cos(proj)], axis=-1
     ).astype(np.float32)
+    return p
+
+
+def random_esrgan_params(seed: int = 0, nf: int = 64, nb: int = 23, gc: int = 32) -> dict[str, np.ndarray]:
+    """RealESRGAN-x4 RRDBNet weight dict (old-arch names)."""
+    rng = np.random.default_rng(seed)
+    p: dict[str, np.ndarray] = {}
+
+    def conv(name, ci, co, k=3):
+        scale = 0.2 / math.sqrt(ci * k * k)
+        p[f"{name}.weight"] = (rng.standard_normal((co, ci, k, k)) * scale).astype(np.float32)
+        p[f"{name}.bias"] = np.zeros(co, np.float32)
+
+    conv("model.0", 3, nf)
+    for i in range(nb):
+        for r in (1, 2, 3):
+            base = f"model.1.sub.{i}.RDB{r}"
+            for j in range(1, 5):
+                conv(f"{base}.conv{j}.0", nf + (j - 1) * gc, gc)
+            conv(f"{base}.conv5.0", nf + 4 * gc, nf)
+    conv(f"model.1.sub.{nb}", nf, nf)
+    conv("model.3", nf, nf)
+    conv("model.6", nf, nf)
+    conv("model.8", nf, nf)
+    conv("model.10", nf, 3)
     return p
 
 

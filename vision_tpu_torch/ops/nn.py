@@ -35,6 +35,7 @@ __all__ = [
     "layer_norm_direct",
     "batch_norm_2d",
     "conv_2d",
+    "conv_3x3",
     "conv_2d_depthwise",
     "conv_transpose_2d",
     "patch_embed",
@@ -44,6 +45,7 @@ __all__ = [
     "attention_windows",
     "attention",
     "gelu",
+    "leaky_relu",
     "relu",
 ]
 
@@ -55,6 +57,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 relu = torch.relu
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
+    """As the JAX package's: ``where(x >= 0, x, x * slope)`` in x's type."""
+    return torch.where(x >= 0, x, x * negative_slope)
 
 
 def _promoted(*ts: torch.Tensor) -> torch.dtype:
@@ -118,6 +125,28 @@ def conv_2d(p: Params, x: torch.Tensor, stride: int = 1, pad: int = 0) -> torch.
     b = p.find("bias")
     if b is not None:
         y = y + b
+    return y
+
+
+def conv_3x3(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """3x3, stride-1, pad-1 conv with a torch-canonical (O, I, 3, 3) weight,
+    through the hand-written kernel's wrapper
+    (:func:`~vision_tpu_torch.ops.cuda.conv3x3.conv3x3`: the kernel on a CUDA
+    tensor, its plain version on a CPU one). As the JAX package's
+    ``conv_2d(p, x, 1, 1)``: f32 accumulation, cast to x's type, then the
+    bias added in x's type. Real-ESRGAN's convs take this path; the other
+    families keep :func:`conv_2d`."""
+    from .cuda.conv3x3 import conv3x3
+
+    w = p.weight("weight")
+    if w.ndim != 4 or tuple(w.shape[2:]) != (3, 3):
+        raise ValueError(f"conv_3x3: the weight must be (O, I, 3, 3) (got {tuple(w.shape)})")
+    y = conv3x3(x.contiguous(), w.to(x.dtype).contiguous())
+    b = p.find("bias")
+    if b is not None:
+        # in place: y is the conv's own fresh output, and at 4096^2 a second
+        # copy of it is gigabytes
+        y.add_(b.to(x.dtype))
     return y
 
 

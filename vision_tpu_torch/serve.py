@@ -18,6 +18,9 @@ Two layers:
 * :class:`SamServer` — promptable segmentation on a
   :class:`~vision_tpu_torch.models.mobile_sam.SamModel`: each group is encoded
   and decoded in one eager pass on the card.
+* :class:`EsrganServer` — whole-image super-resolution on an
+  :class:`~vision_tpu_torch.models.esrgan.EsrganModel`: each same-extent
+  group is one batched RRDBNet forward.
 
 The other families of the JAX package's servers arrive with their slices.
 """
@@ -37,7 +40,7 @@ import torch
 
 from .image import Image, ImageFormat, image_scale, preprocess_scale_method
 
-__all__ = ["BatchServer", "ServerStats", "ImageServer", "SamServer"]
+__all__ = ["BatchServer", "ServerStats", "ImageServer", "SamServer", "EsrganServer"]
 
 _LATENCY_WINDOW = 4096  # most recent request latencies kept for percentiles
 
@@ -501,6 +504,93 @@ class SamServer:
 
     def compute(self, image, point=None, box=None):
         return self.submit(image, point=point, box=box).result()
+
+    @property
+    def stats(self) -> ServerStats:
+        return self._server.stats
+
+    def close(self):
+        self._server.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class EsrganServer:
+    """Concurrent whole-image super-resolution on an EsrganModel.
+
+    Requests are :class:`~vision_tpu_torch.image.Image` instances; same-extent
+    images batch into ONE forward on the card (the reference runs a
+    sequential per-tile loop, ``vision.cpp:240-251``; here N requests of one
+    extent are a single batched RRDBNet call, and mixed extents bucket
+    separately). A partial group is padded with copies of its first item
+    and the padding is sliced off on the card, before the copy to the host.
+    Results are ``rgba_u8`` at scale times the request's extent, alpha 255.
+    Serving-size inputs only: a request past ``max_pixels`` raises, and
+    large images go through ``EsrganModel.compute``'s tiled path instead.
+    """
+
+    def __init__(
+        self,
+        model,
+        # 4: whole-image RRDBNet batches grow memory linearly, and 4 keeps
+        # the 1024^2 bucket inside the card (the JAX package's default)
+        batch_size: int = 4,
+        max_delay_ms: float = 2.0,
+        prep_workers: int = 2,
+        max_pixels: int = 1024 * 1024,
+    ):
+        if type(model).__name__ != "EsrganModel":
+            raise TypeError(f"EsrganServer serves an EsrganModel, got {type(model).__name__}")
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        self.model = model
+        self.batch_size = batch_size
+        self.max_pixels = max_pixels
+        self._server = BatchServer(
+            self._run_group,
+            batch_size=batch_size,
+            max_delay_ms=max_delay_ms,
+            bucket_key=lambda item: item[1],  # image extent
+            prepare=self._prepare,
+            prep_workers=prep_workers,
+        )
+
+    # raw request = Image; prepared = (rgb_u8 array, extent)
+    def _prepare(self, image):
+        w, h = image.extent
+        if w * h > self.max_pixels:
+            raise ValueError(
+                f"image {image.extent} exceeds the whole-image serving limit "
+                f"({self.max_pixels} px); use EsrganModel.compute's tiled path"
+            )
+        return (image.to_rgb_u8(), image.extent)
+
+    def _run_group(self, items: list):
+        n = len(items)
+        padded = items + [items[0]] * (self.batch_size - n)
+        x = torch.from_numpy(np.stack([it[0] for it in padded]))
+        y = self.model.forward_u8(x)[:n].cpu().numpy()
+        alpha = np.full((*y.shape[1:3], 1), 255, np.uint8)
+        return [
+            Image(np.ascontiguousarray(np.concatenate([yi, alpha], axis=2)), ImageFormat.rgba_u8)
+            for yi in y
+        ]
+
+    def warmup(self, extent=(256, 256)) -> None:
+        """Run one padded batch at ``extent`` before taking traffic (the
+        first launch builds the kernel library), then reset the stats."""
+        _warmup_wait([self.submit(_dummy_image(extent))], f"esrgan {extent}")
+        self.stats.reset()
+
+    def submit(self, image) -> Future:
+        return self._server.submit(image)
+
+    def compute(self, image):
+        return self.submit(image).result()
 
     @property
     def stats(self) -> ServerStats:
