@@ -49,7 +49,29 @@ Phases, each raising on failure:
      F.conv2d (cuDNN, a yardstick the port never calls) with the bound
      beside each; forward_u8 at 1024x1024 and 512x512 x 4; the served and
      tiled numbers; and the yardsticks of the attention kernels
-     (F.scaled_dot_product_attention, which the port never calls).
+     (F.scaled_dot_product_attention, which the port never calls);
+ 14. the deform sampler against its plain version: bf16 at the 20 shapes of a
+     batch-4 1024x1024 BiRefNet forward (Cin 112; k 1, 1, 3, 7 at 256^2,
+     128^2, 64^2 and twice at 32^2; offsets within +-3), f32 edge cases
+     (Cin 5 and 12, stride 2, samples outside the image, bound 2 with
+     offsets of +-9, no mask, f16 offsets, one column of more than 2^31
+     elements); and the window kernel with SWIN's per-window masks at the
+     SWIN-L stage shapes (T 144, heads 6/12/24/48) and SWIN-T's T 49;
+ 15. the BiRefNet path: a birefnet GGUF of random_birefnet_params("large",
+     0) (SWIN-L, 1024x1024) is written, loaded with birefnet_load_model on
+     the card and on the CPU, and 8 requests (4 at 1024x1024, 2 at
+     1280x720, 2 at 800x600, one extent bucket) are served through
+     ImageServer (batch 4), the counts zeroed just before and read just
+     after: 48 window launches (24 masked) and 20 deform launches a batch;
+ 16. BiRefNet parity at 384x384: the card's bf16 against the CPU's f32,
+     stage by stage; the card's f32 forward (kernel routes, TF32 off)
+     against the CPU's f32; the served u8 mask against the card's float
+     mask;
+ 17. BiRefNet timings: the deform sampler per shape and per forward against
+     its bound, its plain version and F.grid_sample over all taps (a
+     yardstick the port never calls); the masked window kernel against SDPA
+     given the combined mask; forward_u8 at 1024x1024 batch 1 and 4; the
+     served numbers; and a torch.profiler trace of a batch-4 forward.
 
 The line before the last is a JSON object describing every kernel of the
 paths; the last line is {"ok": true, "device": {...}}.
@@ -80,9 +102,22 @@ ESRGAN_TAIL = ((64, 64), (64, 3))  # hr and last, at 4x the input's width and he
 ESRGAN_CONVS = 351  # 1 + 23 * 3 * 5 + 1 + 2 + 1 + 1 per forward at scale 4
 ESRGAN_FLOP_PER_PIXEL = 35.85e6  # per input pixel, all 351 convs at scale 4
 ESRGAN_F32_REL_RMS = 1e-4  # f32 card forward (kernel route, TF32 off) vs f32 CPU: summation order only
+# BiRefNet at 1024x1024: the decoder blocks' extents (squeeze and block4 at
+# 32^2, block3 64^2, block2 128^2, block1 256^2) and each block's four
+# deformable convs (aspp1 and the 1/3/7 branches), Cin 112
+BIREF_BLOCK_HW = (32, 32, 64, 128, 256)
+BIREF_DEFORM_KS = (1, 1, 3, 7)
+BIREF_CIN = 112
+BIREF_DEFORMS = 20  # 5 decoder blocks x 4 deformable convs per forward
+BIREF_WINDOWS, BIREF_MASKED = 48, 24  # SWIN-L blocks per forward (both scales), the shifted half
+BIREF_EXTENTS = ((1024, 1024),) * 4 + ((1280, 720),) * 2 + ((800, 600),) * 2  # (w, h); one 1024^2 bucket
+BIREF_PARITY_HW = 384
+BIREF_F32_REL_RMS = 1e-4  # f32 card forward (kernel routes, TF32 off) vs f32 CPU: summation order only
+# SWIN-L's windowed attention at 1024x1024: (token grid side, heads); window 12, T 144
+SWIN_L_STAGES = ((256, 6), (128, 12), (64, 24), (32, 48))
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor
-# cores and device memory
-PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# cores, f32 outside the tensor cores, device memory
+PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 
 def phase(name: str) -> None:
@@ -344,10 +379,11 @@ def attention_yardsticks(fa, wa, torch, card: str) -> tuple[float, float]:
     return flash[1370], win[0]
 
 
-def profile_forward(model, x, torch, card: str) -> None:
-    """Phase 13: where one forward's time goes, from a torch.profiler trace:
-    device busy time (the sum of kernel times), the host's wall time, the
-    idle share, the conv kernel's share and the heaviest kernels."""
+def profile_forward(model, x, torch, card: str, names=("conv3x3",)) -> None:
+    """Phases 13 and 17: where one forward's time goes, from a torch.profiler
+    trace: device busy time (the sum of kernel times), the host's wall time,
+    the idle share, the share of each named hand-written kernel and the
+    heaviest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -360,11 +396,14 @@ def profile_forward(model, x, torch, card: str) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    conv_ms = sum(e.self_device_time_total for e in kernels if "conv3x3" in e.key) / 1e3
+    shares = []
+    for name in names:
+        ms = sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
+        shares.append(f"{name} {ms:.3f} ms ({ms / busy_ms:.2%} of busy)")
     print(f"profile of one forward_u8 {tuple(x.shape)}: wall {wall_ms:.3f} ms (profiler on), device busy "
-          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.2%}, conv3x3 {conv_ms:.3f} ms "
-          f"({conv_ms / busy_ms:.2%} of busy), {sum(e.count for e in kernels)} kernel launches [{card}]", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.2%}, {', '.join(shares)}, "
+          f"{sum(e.count for e in kernels)} kernel launches [{card}]", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}", flush=True)
 
 
@@ -483,6 +522,261 @@ def write_small_gguf(path: str) -> None:
         w.add_tensor(name, a)
     w.write()
 
+def deform_inputs(gen, torch, b, hw, cin, k, dtype, off_range=3.0, stride=1, pad=None, with_mask=True,
+                  off_dtype=None):
+    """x (b, hw, hw, cin), offsets within +-off_range and a mask in [0, 2] at
+    the output extent of a k x k conv (pad k // 2 unless given)."""
+    pad = k // 2 if pad is None else pad
+    ho = (hw + 2 * pad - k) // stride + 1
+    x = (torch.randn(b, hw, hw, cin, device="cuda", generator=gen) * 0.5).to(dtype)
+    off = ((torch.rand(b, ho, ho, 2 * k * k, device="cuda", generator=gen) * 2 - 1) * off_range).to(
+        off_dtype or dtype)
+    mask = (torch.rand(b, ho, ho, k * k, device="cuda", generator=gen) * 2).to(dtype) if with_mask else None
+    return x, off, mask, pad
+
+
+def check_columns(label: str, out, ref, dtype, torch) -> float:
+    """Sampler columns against the plain version's f32 columns: f32 within
+    atol + rtol; bf16 within one bf16 ulp of the reference (the kernel
+    rounds each column once, from an f32 blend whose FMAs may round its last
+    f32 bit otherwise). Returns the max abs error."""
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    if dtype == torch.float32:
+        ok = bool((diff <= F32_ATOL + F32_RTOL * ref.abs()).all())
+        rule = f"atol {F32_ATOL} rtol {F32_RTOL}"
+    else:
+        ok = bool((diff <= 2.0**-7 * ref.float().abs() + 1e-6).all())
+        rule = "within one bf16 ulp"
+    print(f"kernel deform_sample {label}: max_abs_err {err:.3e} [{rule}] {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"deform_sample {label}: max abs err {err}")
+    return err
+
+
+def deform_cases(dsm, torch) -> float:
+    """Phase 14: the sampler against deform_sample_plain. The 256^2 shapes
+    compare the batch's last image (the plain version's f32 temporaries of
+    the whole batch are tens of gigabytes). Returns the largest absolute
+    difference seen."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    bf16, f32 = torch.bfloat16, torch.float32
+    worst = 0.0
+    for hw in BIREF_BLOCK_HW:
+        for k in BIREF_DEFORM_KS:
+            x, off, mask, pad = deform_inputs(gen, torch, 4, hw, BIREF_CIN, k, bf16)
+            before = dsm.launches
+            out = dsm.deform_sample(x, off, mask, k, k, 1, pad)
+            torch.cuda.synchronize()
+            if dsm.launches != before + 1 or out.shape != (4, hw, hw, k * k, BIREF_CIN) or out.dtype != bf16:
+                raise AssertionError(f"deform_sample ({hw}, k={k}): {tuple(out.shape)} {out.dtype}, "
+                                     f"{dsm.launches - before} launches")
+            s = slice(3, 4) if hw == 256 else slice(0, 4)
+            ref = dsm.deform_sample_plain(x[s].float(), off[s], mask[s], k, k, 1, pad)
+            err = check_columns(f"BiRefNet (4, {hw}, {hw}, {BIREF_CIN}) k={k} bf16", out[s], ref, bf16, torch)
+            worst = max(worst, err)
+            del x, off, mask, out, ref
+    cases = [
+        # (label, b, hw, cin, k, stride, pad, dtype, off_range, bound, mask, off_dtype)
+        ("Cin 5 f32", 2, 9, 5, 3, 1, 1, f32, 3.0, None, True, None),
+        ("Cin 12 f32 (16-byte path)", 2, 11, 12, 3, 1, 1, f32, 3.0, None, True, None),
+        ("Cin 12 bf16 (one element a thread)", 2, 11, 12, 3, 1, 1, bf16, 3.0, None, True, None),
+        ("stride 2 f32", 2, 17, 16, 3, 2, 1, f32, 3.0, None, True, None),
+        ("samples outside the image f32", 1, 10, 8, 3, 1, 1, f32, 12.0, None, True, None),
+        ("bound 2, offsets +-9 f32", 2, 12, 8, 7, 1, 3, f32, 9.0, 2, True, None),
+        ("no mask f32", 2, 12, 16, 7, 1, 3, f32, 3.0, None, False, None),
+        ("f16 offsets read as f32, f32 x", 1, 12, 16, 3, 1, 1, f32, 3.0, None, True, torch.float16),
+    ]
+    for label, b, hw, cin, k, stride, pad, dtype, rng, bound, with_mask, off_dtype in cases:
+        x, off, mask, pad = deform_inputs(gen, torch, b, hw, cin, k, dtype, rng, stride, pad, with_mask, off_dtype)
+        out = dsm.deform_sample(x, off, mask, k, k, stride, pad, bound)
+        torch.cuda.synchronize()
+        ref = dsm.deform_sample_plain(x.float(), off, mask, k, k, stride, pad, bound)
+        worst = max(worst, check_columns(f"{label} ({b}, {hw}, {hw}, {cin}) k={k}", out, ref, dtype, torch))
+
+    # more than 2^31 column elements: 64-bit offsets; the last image against
+    # the plain version run on that image alone
+    x, off, mask, pad = deform_inputs(gen, torch, 6, 256, BIREF_CIN, 7, f32)
+    out = dsm.deform_sample(x, off, mask, 7, 7, 1, pad)
+    torch.cuda.synchronize()
+    ref = dsm.deform_sample_plain(x[5:], off[5:], mask[5:], 7, 7, 1, pad)
+    err = check_columns(f"large (6, 256, 256, {BIREF_CIN}) k=7 f32, {out.numel()} column elements, last image",
+                        out[5:], ref, f32, torch)
+    del x, off, mask, out, ref
+    torch.cuda.empty_cache()
+    return max(worst, err)
+
+
+def swin_windows(torch, gen, side: int, window: int, heads: int, batch: int, dtype):
+    """q, k, v of one SWIN stage's windows (the token grid padded to the
+    window), a bias (heads, T, T) in ``dtype`` and the stage's shift mask
+    (nW, T, T) f32 on the card."""
+    from vision_tpu_torch.models.swin import compute_attention_mask
+
+    mask = torch.tensor(compute_attention_mask(side, side, window), device="cuda")
+    nw, t = mask.shape[0] * batch, window * window
+    q, k, v = (torch.randn(nw, t, heads * 32, device="cuda", generator=gen).to(dtype) for _ in range(3))
+    bias = (torch.randn(heads, t, t, device="cuda", generator=gen) * 0.5).to(dtype)
+    return q, k, v, bias, mask
+
+
+def masked_window_cases(wa, torch) -> float:
+    """Phase 14: the window kernel with per-window masks against
+    window_attention_plain: SWIN-L's four stages at 1024x1024, batch 4, in
+    bf16; SWIN-T's T 49 (window 7) and an f32 case. Returns the largest
+    absolute difference seen."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cases = [(f"SWIN-L stage {i + 1}", side, 12, h, 4, torch.bfloat16) for i, (side, h) in enumerate(SWIN_L_STAGES)]
+    cases += [("SWIN-T stage 1 at 224^2", 56, 7, 3, 2, torch.bfloat16),
+              ("SWIN-L stage 4 f32", 32, 12, 48, 2, torch.float32),
+              ("SWIN-T T=49 f32", 20, 7, 6, 3, torch.float32)]
+    worst = 0.0
+    for label, side, window, h, batch, dtype in cases:
+        q, k, v, bias, mask = swin_windows(torch, gen, side, window, h, batch, dtype)
+        before, before_masked = wa.launches, wa.masked_launches
+        out = wa.window_attention(q, k, v, bias, h, 32**-0.5, mask)
+        torch.cuda.synchronize()
+        if wa.launches != before + 1 or wa.masked_launches != before_masked + 1:
+            raise AssertionError(f"{label}: launch counts went {before} -> {wa.launches}")
+        ref = wa.window_attention_plain(q, k, v, bias, h, 32**-0.5, mask).float()
+        err = check_close(f"window_attention masked {label} (NW={q.shape[0]}, T={q.shape[1]}, H={h}, "
+                          f"{mask.shape[0]} masks) {dtype}", out, ref, dtype, torch)
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{label}: non-finite output")
+        worst = max(worst, err)
+    return worst
+
+
+def write_birefnet_gguf(path: str) -> None:
+    from vision_tpu_torch.core.gguf import GGUFWriter
+    from vision_tpu_torch.models.random_weights import random_birefnet_params
+
+    w = GGUFWriter(path, "birefnet")
+    w.add("birefnet.image_size", 1024)
+    w.add("birefnet.image_multiple", 32)
+    w.add("swin.embed_dim", 192)
+    for name, a in random_birefnet_params("large", 0).items():
+        w.add_tensor(name, a)
+    w.write()
+
+
+def birefnet_stages(model, x_u8, params=None, dtype=None):
+    """birefnet_predict stage by stage on the model's device: the four
+    encoder levels, the squeeze block, the four decoder blocks and the mask,
+    as a list of (name, output). The stages are read by wrapping the
+    module's encode and basic_decoder_block for one call."""
+    import torch
+
+    from vision_tpu_torch.core.params import Params
+    from vision_tpu_torch.models import birefnet as bn
+    from vision_tpu_torch.ops import IMAGENET_MEAN, IMAGENET_STD, normalize_u8
+
+    out = []
+    encode, block = bn.encode, bn.basic_decoder_block
+
+    def encode_rec(*a):
+        xs = encode(*a)
+        out.extend((f"encoder level {i}", f) for i, f in enumerate(xs))
+        return xs
+
+    def block_rec(*a):
+        y = block(*a)
+        out.append((("squeeze", "block4", "block3", "block2", "block1")[len(out) - 4], y))
+        return y
+
+    bn.encode, bn.basic_decoder_block = encode_rec, block_rec
+    try:
+        with torch.inference_mode():
+            dt = dtype or model.dtype
+            x = normalize_u8(x_u8.to(model.device.torch_device), IMAGENET_MEAN, IMAGENET_STD, dt)
+            mask = bn.birefnet_predict(Params(params or model.params), x, model.p, model.deform_bound)
+    finally:
+        bn.encode, bn.basic_decoder_block = encode, block
+    return out + [("mask", mask)]
+
+
+def deform_bound_ms(b: int, hw: int, cin: int, k: int, nbytes_el: int = 2) -> tuple[float, str]:
+    """The sampler's least time: columns written, x, offsets and mask read
+    once (bytes), or its f32 blend on the CUDA cores: 4 corners x 2 FLOPs
+    and the mask product per column element (operations)."""
+    cols = b * hw * hw * k * k * cin
+    nbytes = nbytes_el * (cols + b * hw * hw * cin + b * hw * hw * 3 * k * k)
+    t_ops, t_bytes = 9.0 * cols / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def grid_sample_yardstick(x, off, k: int, pad: int, torch):
+    """F.grid_sample over all taps: the same bilinear samples (zeros outside,
+    no modulation) of the NCHW view of x at the deformed positions, laid
+    out (B, Cin, Ho, Wo * K^2). Returns the call and its grid (made here,
+    outside the timing)."""
+    import torch.nn.functional as F
+
+    b, h, w, _ = x.shape
+    ho, wo = off.shape[1], off.shape[2]
+    kk = k * k
+    o = off.float().reshape(b, ho, wo, kk, 2)
+    ky = torch.arange(k, device="cuda").repeat_interleave(k)
+    kx = torch.arange(k, device="cuda").repeat(k)
+    py = (torch.arange(ho, device="cuda") - pad)[:, None, None] + ky + o[..., 0]
+    px = (torch.arange(wo, device="cuda") - pad)[None, :, None] + kx + o[..., 1]
+    # align_corners=False: pixel i's centre is at (2i + 1) / n - 1
+    grid = torch.stack([(2 * px + 1) / w - 1, (2 * py + 1) / h - 1], dim=-1).reshape(b, ho, wo * kk, 2).to(x.dtype)
+    xc = x.permute(0, 3, 1, 2)  # an NHWC tensor is a channels-last NCHW one
+    return lambda: F.grid_sample(xc, grid, "bilinear", "zeros", align_corners=False)
+
+
+def deform_timings(dsm, torch, card: str) -> list:
+    """Phase 17: kernel, plain and F.grid_sample at each distinct (extent, k)
+    of a batch-4 1024x1024 BiRefNet forward, in turns. Returns (hw, k,
+    kernel ms, plain ms, library ms, bound ms, bound_by)."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rows = []
+    for hw in sorted(set(BIREF_BLOCK_HW)):
+        for k in sorted(set(BIREF_DEFORM_KS)):
+            x, off, mask, pad = deform_inputs(gen, torch, 4, hw, BIREF_CIN, k, torch.bfloat16)
+            run_k = lambda: dsm.deform_sample(x, off, mask, k, k, 1, pad)  # noqa: E731
+            run_p = lambda: dsm.deform_sample_plain(x, off, mask, k, k, 1, pad)  # noqa: E731
+            run_l = grid_sample_yardstick(x, off, k, pad, torch)
+            iters = 5 if hw * hw * k * k > 2**20 else 20
+            k1, p1, l1, k2, p2, l2 = (median_ms(f, iters, warmup=2) for f in (run_k, run_p, run_l, run_k, run_p, run_l))
+            bound, by = deform_bound_ms(4, hw, BIREF_CIN, k)
+            rows.append((hw, k, min(k1, k2), min(p1, p2), min(l1, l2), bound, by))
+            print(f"deform_sample (4, {hw}, {hw}, {BIREF_CIN}) k={k} bf16: kernel median {k1:.4f} / {k2:.4f} ms, "
+                  f"plain {p1:.4f} / {p2:.4f} ms, F.grid_sample {l1:.4f} / {l2:.4f} ms, bound {bound:.4f} ms ({by}) "
+                  f"[{card}]", flush=True)
+            del x, off, mask, run_l
+            torch.cuda.empty_cache()
+    return rows
+
+
+def masked_window_yardsticks(wa, torch, card: str) -> list:
+    """Phase 17: the masked window kernel against its plain version and SDPA
+    given the combined mask (bias + the stage's shift mask, per window),
+    at SWIN-L's four stages, batch 4. Returns (label, kernel, plain,
+    library, bound, bound_by)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for i, (side, h) in enumerate(SWIN_L_STAGES):
+        q, k, v, bias, mask = swin_windows(torch, gen, side, 12, h, 4, torch.bfloat16)
+        nw, t, c = q.shape
+        q4, k4, v4 = (z.view(nw, t, h, 32).transpose(1, 2).contiguous() for z in (q, k, v))
+        combined = (bias.float()[None] + mask.repeat(nw // mask.shape[0], 1, 1)[:, None]).to(torch.bfloat16)
+        run_k = lambda: wa.window_attention(q, k, v, bias, h, 32**-0.5, mask)  # noqa: E731
+        run_p = lambda: wa.window_attention_plain(q, k, v, bias, h, 32**-0.5, mask)  # noqa: E731
+        run_l = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=combined)  # noqa: E731
+        k1, p1, l1, k2, p2, l2 = (median_ms(f, 10) for f in (run_k, run_p, run_l, run_k, run_p, run_l))
+        b, by = bound_ms(4.0 * nw * h * t * t * 32, 4 * 2.0 * nw * t * c + 2.0 * h * t * t + 4.0 * mask.numel())
+        label = f"SWIN-L stage {i + 1} (NW={nw}, T={t}, H={h}, hd=32) bf16, {mask.shape[0]} masks"
+        rows.append((label, min(k1, k2), min(p1, p2), min(l1, l2), b, by))
+        print(f"window_attention masked {label}: kernel median {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} "
+              f"ms, SDPA with the combined mask {l1:.4f} / {l2:.4f} ms, bound {b:.4f} ms ({by}) [{card}]", flush=True)
+        del q, k, v, q4, k4, v4, combined
+        torch.cuda.empty_cache()
+    return rows
+
 
 def main() -> int:
     import torch
@@ -509,9 +803,11 @@ def main() -> int:
         sam_process_mask,
         sam_process_point,
     )
+    from vision_tpu_torch.models.birefnet import birefnet_load_model
     from vision_tpu_torch.models.esrgan import esrgan_load_model
     from vision_tpu_torch.ops.cuda import build
     from vision_tpu_torch.ops.cuda import conv3x3 as cc
+    from vision_tpu_torch.ops.cuda import deform_sample as dsm
     from vision_tpu_torch.ops.cuda import flash_attention as fa
     from vision_tpu_torch.ops.cuda import window_attention as wa
     from vision_tpu_torch.serve import EsrganServer, ImageServer, SamServer
@@ -545,12 +841,13 @@ def main() -> int:
     print(f"model on {model.device.torch_device} {model.dtype}, flash={model.flash}", flush=True)
     with ImageServer(model, batch_size=4, max_delay_ms=20) as srv:
         srv.warmup()
-        fa.launches = wa.launches = cc.launches = 0
+        fa.launches = wa.launches = cc.launches = dsm.launches = 0
         t_start = time.perf_counter()
         futures = [srv.submit(img) for img in requests]
         results = [f.result(timeout=600) for f in futures]
         wall_s = time.perf_counter() - t_start
         main_launches, depth_win_launches, depth_conv_launches = fa.launches, wa.launches, cc.launches
+        other_deform = {"Depth-Anything": dsm.launches}
         stats = srv.stats
         n_req, n_batches = stats.requests, stats.batches
         p50_ms = stats.p50_latency_ms
@@ -616,12 +913,13 @@ def main() -> int:
     print(f"model on {smodel.device.torch_device} {smodel.dtype}, flash={smodel.flash}", flush=True)
     with SamServer(smodel, batch_size=6, max_delay_ms=5_000) as ssrv:
         ssrv.warmup()
-        fa.launches = wa.launches = cc.launches = 0
+        fa.launches = wa.launches = cc.launches = dsm.launches = 0
         t_start = time.perf_counter()
         futures = [ssrv.submit(img, point=pt, box=bx) for img, pt, bx in sam_reqs]
         masks = [f.result(timeout=600) for f in futures]
         sam_wall_s = time.perf_counter() - t_start
         sam_win_launches, sam_flash_launches, sam_conv_launches = wa.launches, fa.launches, cc.launches
+        other_deform["MobileSAM"] = dsm.launches
         sstats = ssrv.stats
         s_req, s_batches, s_p50 = sstats.requests, sstats.batches, sstats.p50_latency_ms
     for (img, _, _), m in zip(sam_reqs, masks):
@@ -729,12 +1027,13 @@ def main() -> int:
     print(f"model on {emodel.device.torch_device} {emodel.dtype}, {emodel.p}", flush=True)
     with EsrganServer(emodel, batch_size=4, max_delay_ms=50) as esrv:
         esrv.warmup((256, 256))
-        fa.launches = wa.launches = cc.launches = 0
+        fa.launches = wa.launches = cc.launches = dsm.launches = 0
         t_start = time.perf_counter()
         futures = [esrv.submit(img) for img in esr_reqs]
         upscaled = [f.result(timeout=600) for f in futures]
         esr_wall_s = time.perf_counter() - t_start
         esr_conv_launches, esr_flash_launches, esr_win_launches = cc.launches, fa.launches, wa.launches
+        other_deform["Real-ESRGAN"] = dsm.launches
         estats = esrv.stats
         e_req, e_batches, e_p50 = estats.requests, estats.batches, estats.p50_latency_ms
     for img, res in zip(esr_reqs, upscaled):
@@ -749,12 +1048,15 @@ def main() -> int:
     print(f"served {e_req} requests in {e_batches} batches; conv3x3 launches {esr_conv_launches}, "
           f"flash_attention launches {esr_flash_launches}, window_attention launches {esr_win_launches}", flush=True)
     big = Image(erng.integers(0, 256, (480, 640, 4), np.uint8), ImageFormat.rgba_u8)
-    cc.launches = 0
+    cc.launches = dsm.launches = 0
     t0 = time.perf_counter()
     tiled = emodel.compute(big)
     torch.cuda.synchronize()
     tiled_ms = (time.perf_counter() - t0) * 1e3
     tiled_launches = cc.launches
+    other_deform["Real-ESRGAN tiled"] = dsm.launches
+    if any(other_deform.values()):
+        raise AssertionError(f"deform_sample launches on the other paths: {other_deform}")
     if tiled.extent != (2560, 1920) or tiled.format != ImageFormat.rgba_u8 or tiled_launches != 3 * ESRGAN_CONVS:
         raise AssertionError(f"tiled compute: {tiled.extent} {tiled.format}, {tiled_launches} conv3x3 launches "
                              f"(9 tiles of 224x176 in 3 chunks of 4: {3 * ESRGAN_CONVS})")
@@ -819,6 +1121,127 @@ def main() -> int:
     print(f"tiled compute 640x480 (9 tiles of 224x176, 3 chunks of 4): {tiled_ms:.3f} ms [{card}]", flush=True)
     print(f"kernel build (nvcc, every source in parallel): {build_s:.2f} s [{card}]", flush=True)
     flash_lib, win_lib = attention_yardsticks(fa, wa, torch, card)
+    del emodel
+
+    phase("14 deform sampler and masked window kernel against their plain versions")
+    deform_worst = deform_cases(dsm, torch)
+    win_worst = max(win_worst, masked_window_cases(wa, torch))
+
+    phase("15 BiRefNet path: SWIN-L BiRefNet through ImageServer")
+    brng = np.random.default_rng(12)
+    bir_reqs = [Image(brng.integers(0, 256, (h, w, 4), np.uint8), ImageFormat.rgba_u8) for w, h in BIREF_EXTENTS]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "birefnet-swin-l-random.gguf")
+        t0 = time.perf_counter()
+        write_birefnet_gguf(path)
+        gguf_s = time.perf_counter() - t0
+        bmodel = birefnet_load_model(path, backend_init("gpu"))
+        cpu_bmodel = birefnet_load_model(path, backend_init("cpu"))
+    print(f"model on {bmodel.device.torch_device} {bmodel.dtype}, extent {bmodel.p.image_extent}, deform bound "
+          f"{bmodel.deform_bound}; GGUF written in {gguf_s:.1f} s", flush=True)
+    with ImageServer(bmodel, batch_size=4, max_delay_ms=5_000) as bsrv:
+        bsrv.warmup()
+        fa.launches = wa.launches = wa.masked_launches = cc.launches = dsm.launches = 0
+        t_start = time.perf_counter()
+        futures = [bsrv.submit(img) for img in bir_reqs]
+        mattes = [f.result(timeout=600) for f in futures]
+        bir_wall_s = time.perf_counter() - t_start
+        bir_launches = {"window": wa.launches, "window masked": wa.masked_launches, "deform": dsm.launches,
+                        "flash": fa.launches, "conv3x3": cc.launches}
+        bstats = bsrv.stats
+        b_req, b_batches, b_p50 = bstats.requests, bstats.batches, bstats.p50_latency_ms
+    for img, m in zip(bir_reqs, mattes):
+        if m.extent != img.extent or m.format != ImageFormat.alpha_u8:
+            raise AssertionError(f"matte {m.extent} {m.format} for request {img.extent}")
+    want = {"window": BIREF_WINDOWS * b_batches, "window masked": BIREF_MASKED * b_batches,
+            "deform": BIREF_DEFORMS * b_batches, "flash": 0, "conv3x3": 0}
+    if b_req != 8 or b_batches != 2 or bir_launches != want:
+        raise AssertionError(f"{b_req} requests in {b_batches} batches (8 in 2 expected); launches {bir_launches}, "
+                             f"expected {want}")
+    print(f"served {b_req} requests in {b_batches} batches; launches {bir_launches}; matte means "
+          f"{[round(float(m.data.mean()), 2) for m in mattes]}", flush=True)
+
+    phase(f"16 BiRefNet parity at {BIREF_PARITY_HW}x{BIREF_PARITY_HW}: card bf16 (kernel routes) vs CPU f32 "
+          "(plain routes)")
+    # birefnet_predict takes any extent that is a multiple of 32
+    xs = torch.from_numpy(brng.integers(0, 256, (1, BIREF_PARITY_HW, BIREF_PARITY_HW, 3), np.uint8))
+    t0 = time.perf_counter()
+    cpu_stages = birefnet_stages(cpu_bmodel, xs)
+    cpu_s = time.perf_counter() - t0
+    gpu_stages = birefnet_stages(bmodel, xs)
+    for (name, g), (_, c) in zip(gpu_stages, cpu_stages):
+        print(f"stage {name} {tuple(g.shape)}: relative RMS card bf16 vs CPU f32 {rel_rms(g.float().cpu(), c):.4e}",
+              flush=True)
+    g_mask, c_mask = gpu_stages[-1][1].float().cpu().numpy(), cpu_stages[-1][1].numpy()
+    if g_mask.shape != (1, BIREF_PARITY_HW, BIREF_PARITY_HW, 1) or not np.isfinite(g_mask).all():
+        raise AssertionError(f"mask {g_mask.shape}")
+    bir_rms = rel_rms(g_mask, c_mask)
+    print(f"mask relative RMS card bf16 vs CPU f32 {bir_rms:.4e} (bound {E2E_REL_RMS}); CPU f32 forward took "
+          f"{cpu_s:.3f} s; mask range card [{g_mask.min():.4e}, {g_mask.max():.4e}], CPU mean {c_mask.mean():.4e}",
+          flush=True)
+    if not bir_rms <= E2E_REL_RMS:
+        raise AssertionError(f"BiRefNet bf16 parity: relative RMS {bir_rms}")
+    f32_params = {k: v.to("cuda") for k, v in cpu_bmodel.params.items()}
+    wa.launches = dsm.launches = 0
+    f32_mask = birefnet_stages(bmodel, xs, f32_params, torch.float32)[-1][1]
+    f32_launches = (wa.launches, dsm.launches)
+    bir_f32_rms = rel_rms(f32_mask.cpu(), c_mask)
+    print(f"forward f32 on the card (kernel routes, {f32_launches[0]} window and {f32_launches[1]} deform launches, "
+          f"TF32 off) vs CPU f32: relative RMS {bir_f32_rms:.4e} (bound {BIREF_F32_REL_RMS})", flush=True)
+    if f32_launches != (BIREF_WINDOWS, BIREF_DEFORMS) or not bir_f32_rms <= BIREF_F32_REL_RMS:
+        raise AssertionError(f"f32 forward on the card: relative RMS {bir_f32_rms}, launches {f32_launches}")
+    del cpu_bmodel, f32_params, cpu_stages, gpu_stages
+    # the served u8 against the card's float mask of the same one-image
+    # forward: a server of batch 1 runs exactly that forward
+    x0 = torch.from_numpy(bir_reqs[0].to_rgb_u8()[None])
+    with ImageServer(bmodel, batch_size=1) as one:
+        served = one.compute(bir_reqs[0]).data.astype(np.int16)
+    y0 = bmodel.forward_u8(x0).float()[0].cpu().numpy()
+    want_u8 = (np.clip(y0, 0.0, 1.0) * 255.0).astype(np.int16)
+    u8_diff = int(np.abs(served - want_u8).max())
+    print(f"served u8 matte vs clip(float mask) * 255 on the card: max difference {u8_diff} level(s); float range "
+          f"[{y0.min():.4e}, {y0.max():.4e}]", flush=True)
+    if u8_diff > 1:
+        raise AssertionError(f"served u8 differs from the float mask by {u8_diff} levels")
+
+    phase(f"17 BiRefNet timings on {card}")
+    d_rows = deform_timings(dsm, torch, card)
+    per = {(hw, k): r for hw, k, *r in d_rows}
+    fwd_shapes = [(hw, k) for hw in BIREF_BLOCK_HW for k in BIREF_DEFORM_KS]  # a forward's 20 convs
+    d_ms, d_plain, d_lib, d_bound = (sum(per[s][i] for s in fwd_shapes) for i in range(4))
+    d_by = max(("bytes", "operations"), key=[per[s][4] for s in fwd_shapes].count)  # what bounds most of them
+    print(f"deform_sample over one batch-4 1024x1024 forward's {len(fwd_shapes)} convs: kernel {d_ms:.4f} ms, "
+          f"plain {d_plain:.4f} ms, F.grid_sample {d_lib:.4f} ms, bound {d_bound:.4f} ms ({d_by}) [{card}]",
+          flush=True)
+    mw_rows = masked_window_yardsticks(wa, torch, card)
+    for b in (1, 4):
+        xb = torch.from_numpy(brng.integers(0, 256, (b, 1024, 1024, 3), np.uint8)).to("cuda")
+        f1 = median_ms(lambda: bmodel.forward_u8(xb), 3, warmup=1)
+        f2 = median_ms(lambda: bmodel.forward_u8(xb), 3, warmup=0)
+        print(f"BiRefNet forward_u8 batch {b} at 1024x1024 bf16: median {f1:.3f} / {f2:.3f} ms, "
+              f"{b / min(f1, f2) * 1e3:.3f} img/s [{card}]", flush=True)
+        if b == 4:
+            profile_forward(bmodel, xb, torch, card, ("window_attention", "deform_sample"))
+        del xb
+    print(f"ImageServer 8 BiRefNet requests (4 at 1024x1024, 2 at 1280x720, 2 at 800x600; batch 4): p50 latency "
+          f"{b_p50:.3f} ms, {8 / bir_wall_s:.3f} img/s, {b_batches} batches [{card}]", flush=True)
+    from vision_tpu_torch.image import image_scale, preprocess_scale_method
+    from vision_tpu_torch.models.birefnet import birefnet_process_output
+
+    fake_mask = brng.random((1024, 1024, 1), dtype=np.float32)
+    for img in (bir_reqs[0], bir_reqs[4], bir_reqs[6]):  # one request of each extent
+        t0 = time.perf_counter()
+        if img.extent != (1024, 1024):
+            image_scale(img, (1024, 1024), preprocess_scale_method()).to_rgb_u8()
+        else:
+            img.to_rgb_u8()
+        t1 = time.perf_counter()
+        birefnet_process_output(fake_mask, img.extent)
+        t2 = time.perf_counter()
+        print(f"host per BiRefNet request at {img.extent[0]}x{img.extent[1]}: prep (resize to 1024x1024, rgb u8) "
+              f"{(t1 - t0) * 1e3:.3f} ms, post (birefnet_process_output) {(t2 - t1) * 1e3:.3f} ms [{card}]",
+              flush=True)
+    del bmodel
 
     # one RDB's five convs at 1024x1024, summed
     rdb = conv_rows[: len(ESRGAN_RDB)]
@@ -859,6 +1282,10 @@ def main() -> int:
             "bound_by": win_by,
             "library_ms": win_lib,
             "timed_shape": w_shape,
+            "launches_birefnet": bir_launches["window"],
+            "launches_birefnet_masked": bir_launches["window masked"],
+            "birefnet_masked_stage1": dict(zip(("label", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
+                                               mw_rows[0])),
         },
         {
             "name": "conv3x3",
@@ -874,6 +1301,21 @@ def main() -> int:
             "library_ms": sum(r[6] for r in rdb),
             "timed_shape": "one RDB's five convs at (1, 1024, 1024) bf16, summed: "
                            + ", ".join(f"{ci}->{co}" for ci, co in ESRGAN_RDB),
+        },
+        {
+            "name": "deform_sample",
+            "route": "cuda",
+            "source": "vision_tpu_torch/csrc/deform_sample.cu",
+            "replaces": "scripts/exp_deform_pallas.py:56",
+            "launches": bir_launches["deform"],
+            "max_abs_err": deform_worst,
+            "ms": d_ms,
+            "plain_ms": d_plain,
+            "bound_ms": d_bound,
+            "bound_by": d_by,
+            "library_ms": d_lib,
+            "timed_shape": f"one batch-4 1024x1024 BiRefNet forward's 20 deformable convs, summed: Cin "
+                           f"{BIREF_CIN} bf16, k 1, 1, 3, 7 at 256^2, 128^2, 64^2 and twice at 32^2",
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

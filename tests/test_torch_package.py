@@ -18,6 +18,7 @@ SLICE_MODULES = [
     "vision_tpu_torch.image.tiling",
     "vision_tpu_torch.ops",
     "vision_tpu_torch.ops.nn",
+    "vision_tpu_torch.ops.deform",
     "vision_tpu_torch.ops.preprocess",
     "vision_tpu_torch.ops.resize",
     "vision_tpu_torch.ops.cuda",
@@ -25,11 +26,14 @@ SLICE_MODULES = [
     "vision_tpu_torch.ops.cuda.flash_attention",
     "vision_tpu_torch.ops.cuda.window_attention",
     "vision_tpu_torch.ops.cuda.conv3x3",
+    "vision_tpu_torch.ops.cuda.deform_sample",
     "vision_tpu_torch.models",
     "vision_tpu_torch.models.dino",
     "vision_tpu_torch.models.depth_anything",
     "vision_tpu_torch.models.esrgan",
     "vision_tpu_torch.models.mobile_sam",
+    "vision_tpu_torch.models.swin",
+    "vision_tpu_torch.models.birefnet",
     "vision_tpu_torch.models.random_weights",
     "vision_tpu_torch.serve",
 ]

@@ -69,11 +69,11 @@ def test_image_server_rejects_oversized_upload(gguf_path):
 
 
 def test_image_server_names_the_slice_of_a_later_family():
-    class BirefnetModel:  # the JAX package's family name, not yet ported
+    class MiganModel:  # the JAX package's family name, not yet ported
         pass
 
-    with pytest.raises(TypeError, match="BiRefNet slice"):
-        ImageServer(BirefnetModel())
+    with pytest.raises(TypeError, match="MI-GAN slice"):
+        ImageServer(MiganModel())
     with pytest.raises(TypeError, match="does not support"):
         ImageServer(object())
 

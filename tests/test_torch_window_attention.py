@@ -138,6 +138,63 @@ def test_non_cpu_tensors_never_fall_back():
 
 
 def test_per_window_mask_off_the_cpu_names_the_slice():
-    q = torch.zeros(2, 49, 64, device="meta")
-    with pytest.raises(ValueError, match="BiRefNet/SAM3 slice"):
-        wa.window_attention(q, q, q, torch.zeros(2, 2, 49, 49, device="meta"), 2, 0.5)
+    """Off the CPU the kernel takes a per-window mask only as window_mask,
+    (nW, T, T) float32 with NW a multiple of nW: a per-window bias, or a
+    window_mask of any other shape or type, raises before any launch."""
+    q = torch.zeros(4, 49, 64, device="meta")
+    with pytest.raises(ValueError, match=r"window_mask, \(nW, T, T\)"):
+        wa.window_attention(q, q, q, torch.zeros(4, 2, 49, 49, device="meta"), 2, 0.5)
+    for bad in [(4, 2, 49, 49), (3, 49, 49), (8, 49, 49), (2, 49, 48), (49, 49)]:
+        with pytest.raises(ValueError, match=r"window_mask must be \(nW, T, T\)"):
+            wa.window_attention(q, q, q, None, 2, 0.5, torch.zeros(bad, device="meta"))
+    with pytest.raises(ValueError, match="window_mask dtype"):
+        wa.window_attention(q, q, q, None, 2, 0.5, torch.zeros(2, 49, 49, dtype=torch.bfloat16, device="meta"))
+    with pytest.raises(ValueError, match="CUDA device"):
+        wa.window_attention(q, q, q, None, 2, 0.5, torch.zeros(2, 49, 49, device="meta"))
+
+
+def _shift_like_mask(rng, n_masks, t):
+    """0 / -inf per window, never a whole row (each query keeps itself)."""
+    m = np.where(rng.random((n_masks, t, t)) < 0.3, -np.inf, 0.0).astype(np.float32)
+    m[:, np.arange(t), np.arange(t)] = 0.0
+    return m
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_plain_window_mask_equals_the_bias_it_adds(with_bias):
+    """window_mask[w % nW] is added to window w's logits with the bias: the
+    same as the per-window bias bias + mask tiled over the batch's images."""
+    rng = np.random.default_rng(9)
+    q, k, v, bias = _inputs(8, 6, 16, 2, 8)
+    mask = _shift_like_mask(rng, 3, 16)
+    b = bias if with_bias else np.zeros_like(bias)
+    combined = b[None] + np.tile(mask, (2, 1, 1))[:, None]  # (6, H, T, T)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out = wa.window_attention(tq, tk, tv, torch.from_numpy(bias) if with_bias else None, 2, 0.4,
+                              torch.from_numpy(mask))
+    expected = wa.window_attention(tq, tk, tv, torch.from_numpy(combined), 2, 0.4)
+    assert torch.isfinite(out).all()
+    np.testing.assert_allclose(out.numpy(), expected.numpy(), atol=1e-6)
+
+
+def test_attention_windows_with_window_mask_matches_jax():
+    """The port passes the bias and the per-window mask apart; the JAX
+    package takes their sum, tiled over the images (vision_tpu/models/swin.py
+    window_attention)."""
+    rng = np.random.default_rng(10)
+    b, t, c, h, n_masks = 8, 9, 16, 2, 4
+    store = {
+        "qkv.weight": (rng.standard_normal((3 * c, c)) * 0.3).astype(np.float32),
+        "qkv.bias": rng.standard_normal(3 * c).astype(np.float32),
+        "proj.weight": (rng.standard_normal((c, c)) * 0.3).astype(np.float32),
+        "proj.bias": rng.standard_normal(c).astype(np.float32),
+    }
+    x = rng.standard_normal((b, t, c)).astype(np.float32)
+    bias = rng.standard_normal((1, h, t, t)).astype(np.float32)
+    mask = _shift_like_mask(rng, n_masks, t)
+    p = Params(params_from_numpy(store, "cpu", torch.float32))
+    out = nn.attention_windows(p, torch.from_numpy(x), h, 2, torch.from_numpy(bias), 0.3,
+                               window_mask=torch.from_numpy(mask))
+    combined = np.tile(mask[:, None], (b // n_masks, 1, 1, 1)) + bias
+    expected = jnn.attention_windows(JParams(store), x, h, 2, combined, 0.3)
+    np.testing.assert_allclose(out.numpy(), np.asarray(expected), atol=1e-4, rtol=1e-3)

@@ -16,6 +16,11 @@ Here:
     the large mask-free attentions to the hand-written kernel
     (ops/cuda/flash_attention.py); ``VISP_FLASH_ATTENTION`` overrides it as in
     the reference (ml.cpp:167-175).
+  * ``BuildFlag.deform_shift`` (``VISP_DEFORM_SHIFT``) selects BiRefNet's
+    bounded-offset deformable conv. It is off by default everywhere: the JAX
+    package turns it on for the TPU only, to dodge slow row gathers, while the
+    card's sampler evaluates four bilinear corners either way, so the exact
+    form costs the same there (and the goldens were made with it).
 """
 
 from __future__ import annotations
@@ -46,9 +51,13 @@ class BuildFlag(Flag):
 
     none = 0
     flash_attention = auto()  # route big mask-free attentions to the flash kernel
+    deform_shift = auto()  # BiRefNet's deformable convs with offsets clamped to +-2
 
 
-_FLAG_ENVS = (("VISP_FLASH_ATTENTION", BuildFlag.flash_attention),)
+_FLAG_ENVS = (
+    ("VISP_FLASH_ATTENTION", BuildFlag.flash_attention),
+    ("VISP_DEFORM_SHIFT", BuildFlag.deform_shift),
+)
 
 _FALSY_ENV = ("", "0", "off", "false", "no")
 

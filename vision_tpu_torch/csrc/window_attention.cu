@@ -1,17 +1,22 @@
-// Windowed multi-head attention with a per-head additive bias, for Hopper
-// (sm_90a):
+// Windowed multi-head attention with a per-head additive bias and an optional
+// per-window mask, for Hopper (sm_90a):
 //
-//   out[w, :, h] = softmax(q[w, :, h] * scale . k[w, :, h]^T + bias[h]) . v[w, :, h]
+//   out[w, :, h] = softmax(q[w, :, h] * scale . k[w, :, h]^T + bias[h] + mask[w % nW]) . v[w, :, h]
 //
 // Replaces the Pallas kernel _kernel in scripts/exp_winattn2.py (launched
 // by that script's window_attention through pl.pallas_call), TinyViT's
-// window attention in every MobileSAM encoder block. Same contract: q, k, v
-// (NW, T, C) contiguous with C = H * hd and head h in channels
-// [h*hd, (h+1)*hd) (no head transposes); bias (H, T, T) shared by all
-// windows, or none; the bias is read in its own type (f32 or bf16) and added
-// in f32. Rounding follows the Pallas body: q * scale in f32, rounded to q's
-// type; logits and softmax in f32; the normalised probabilities rounded to
-// v's type; PV accumulated in f32; output in q's type.
+// window attention in every MobileSAM encoder block; it also serves every
+// SWIN block of BiRefNet's encoder. Same contract: q, k, v (NW, T, C)
+// contiguous with C = H * hd and head h in channels [h*hd, (h+1)*hd) (no
+// head transposes); bias (H, T, T) shared by all windows, or none; the bias
+// is read in its own type (f32 or bf16) and added in f32. The mask (nW, T,
+// T) is f32, window w reads mask w % nW (windows ordered image-major, as
+// SWIN's window_partition orders them), and it may hold -inf (SWIN's
+// shifted-window zones), never on a whole row: a query always shares its
+// zone with itself. Rounding follows the Pallas body: q * scale in f32,
+// rounded to q's type; logits, bias and mask adds and softmax in f32; the
+// normalised probabilities rounded to v's type; PV accumulated in f32;
+// output in q's type.
 //
 // What bounds it on this card: the work is tiny and plentiful. At the
 // slice's stage 1 (T = 49, H = 4, hd = 32) a batch of 6 images is 2,166
@@ -27,6 +32,9 @@
 // 196 -> 208); keys >= T are masked to -inf and their K and V rows loaded as
 // zeros (a zero logit would join the softmax, and garbage times a zero
 // probability can be NaN); rows >= T are computed on zeros and never stored.
+// SWIN-L's T = 144 is nine 16-key tiles exactly. The mask of one window is
+// read by that window's H blocks, which are launched next to each other, so
+// all but the first read come from L2.
 // The spatial padding of window_partition is not masked here: those tokens
 // are real (zero-padded, layer-normed) keys in the model.
 //
@@ -90,7 +98,8 @@ template <int NKT, int HD>
 __global__ void __launch_bounds__(THREADS)
 window_attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, const void* __restrict__ bias, int bias_dtype,
-                      __nv_bfloat16* __restrict__ o, int t, int n_heads, float scale) {
+                      const float* __restrict__ wmask, int n_wmask, __nv_bfloat16* __restrict__ o, int t,
+                      int n_heads, float scale) {
   static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
   constexpr int TP = 16 * NKT;
   constexpr int LDS = HD + 8;  // padded row of ks (fragment loads hit 32 banks)
@@ -127,6 +136,7 @@ window_attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   __syncthreads();
 
   const size_t bias_head = (size_t)head * t * t;
+  const float* mask_win = wmask == nullptr ? nullptr : wmask + (win % n_wmask) * (size_t)t * t;
   for (int rt = warp; rt < NKT; rt += THREADS / 32) {
     const int row0 = rt * 16 + g, row1 = row0 + 8;
     const bool live0 = row0 < t, live1 = row1 < t;
@@ -153,7 +163,8 @@ window_attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
       for (int kk = 0; kk < KD; ++kk) mma_bf16(s[n], qa[kk], ld_pair(kr + kk * 16), ld_pair(kr + kk * 16 + 8));
     }
 
-    // bias, key mask and row max; a row's keys live on the 4 lanes of one row group
+    // bias, window mask, key mask and row max; a row's keys live on the 4
+    // lanes of one row group
     float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
@@ -162,10 +173,12 @@ window_attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
         const int key = n * 8 + 2 * tq + (e & 1);
         const int row = (e < 2) ? row0 : row1;
         float x = s[n][e];
-        if (key >= t)
+        if (key >= t) {
           x = -CUDART_INF_F;
-        else if (bias_dtype != 0 && row < t)
-          x += load_bias(bias, bias_dtype, bias_head + (size_t)row * t + key);
+        } else if (row < t) {
+          if (bias_dtype != 0) x += load_bias(bias, bias_dtype, bias_head + (size_t)row * t + key);
+          if (mask_win != nullptr) x += mask_win[(size_t)row * t + key];
+        }
         s[n][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -174,7 +187,8 @@ window_attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));  // finite: key 0 is live
+      // finite: a live row keeps its own key, a padded row (>= T) key 0
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     }
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
@@ -221,8 +235,8 @@ window_attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
 window_attention_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                     const void* __restrict__ bias, int bias_dtype, float* __restrict__ o, int t, int n_heads,
-                     float scale) {
+                     const void* __restrict__ bias, int bias_dtype, const float* __restrict__ wmask,
+                     int n_wmask, float* __restrict__ o, int t, int n_heads, float scale) {
   extern __shared__ __align__(16) float smem_f32[];
   float* ks = smem_f32;      // [t][HD]
   float* vs = ks + t * HD;   // [t][HD]
@@ -240,6 +254,7 @@ window_attention_f32(const float* __restrict__ q, const float* __restrict__ k, c
   __syncthreads();
 
   const size_t bias_head = (size_t)head * t * t;
+  const float* mask_win = wmask == nullptr ? nullptr : wmask + (win % n_wmask) * (size_t)t * t;
   for (int row = threadIdx.x; row < t; row += THREADS) {
     float qr[HD], acc[HD];
 #pragma unroll
@@ -254,6 +269,8 @@ window_attention_f32(const float* __restrict__ q, const float* __restrict__ k, c
 #pragma unroll
       for (int d = 0; d < HD; ++d) sc = fmaf(qr[d], kj[d], sc);
       if (bias_dtype != 0) sc += load_bias(bias, bias_dtype, bias_head + (size_t)row * t + j);
+      if (mask_win != nullptr) sc += mask_win[(size_t)row * t + j];
+      if (sc == -CUDART_INF_F) continue;  // a masked key: p = 0 (and -inf - -inf would be NaN)
       const float m_new = fmaxf(m, sc);
       const float alpha = expf(m - m_new);  // 0 on the first key
       const float p = expf(sc - m_new);
@@ -279,6 +296,8 @@ struct Args {
   const void* v;
   const void* bias;
   int bias_dtype;
+  const float* wmask;
+  int n_wmask;
   void* o;
   int nw, t, n_heads;
   float scale;
@@ -293,8 +312,8 @@ cudaError_t launch_bf16(const Args& a) {
   if (err != cudaSuccess) return err;
   kernel<<<a.nw * a.n_heads, THREADS, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), a.bias, a.bias_dtype, static_cast<__nv_bfloat16*>(a.o), a.t,
-      a.n_heads, a.scale);
+      static_cast<const __nv_bfloat16*>(a.v), a.bias, a.bias_dtype, a.wmask, a.n_wmask,
+      static_cast<__nv_bfloat16*>(a.o), a.t, a.n_heads, a.scale);
   return cudaGetLastError();
 }
 
@@ -306,6 +325,7 @@ cudaError_t launch_bf16_t(const Args& a) {
   if (nkt <= 2) return launch_bf16<2, HD>(a);
   if (nkt <= 4) return launch_bf16<4, HD>(a);
   if (nkt <= 8) return launch_bf16<8, HD>(a);
+  if (nkt <= 9) return launch_bf16<9, HD>(a);  // SWIN-L: T = 144
   if (nkt <= 13) return launch_bf16<13, HD>(a);
   return launch_bf16<16, HD>(a);
 }
@@ -318,7 +338,7 @@ cudaError_t launch_f32(const Args& a) {
   if (err != cudaSuccess) return err;
   kernel<<<a.nw * a.n_heads, THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v), a.bias,
-      a.bias_dtype, static_cast<float*>(a.o), a.t, a.n_heads, a.scale);
+      a.bias_dtype, a.wmask, a.n_wmask, static_cast<float*>(a.o), a.t, a.n_heads, a.scale);
   return cudaGetLastError();
 }
 
@@ -326,14 +346,17 @@ cudaError_t launch_f32(const Args& a) {
 
 // dtype: 0 = float32, 1 = bfloat16; bias_dtype: 0 = no bias, 1 = float32,
 // 2 = bfloat16. q, k, v, o: (nw, t, n_heads * hd), 16-byte aligned; bias:
-// (n_heads, t, t). Returns the cudaError_t of the launch.
-extern "C" int vtt_window_attention_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
-                                        int nw, int t, int n_heads, int hd, int dtype, int bias_dtype, float scale,
-                                        void* stream) {
+// (n_heads, t, t); wmask: (n_wmask, t, t) float32 with nw % n_wmask == 0, or
+// null with n_wmask = 0. Returns the cudaError_t of the launch.
+extern "C" int vtt_window_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
+                                        const void* wmask, int n_wmask, void* o, int nw, int t, int n_heads, int hd,
+                                        int dtype, int bias_dtype, float scale, void* stream) {
   if (nw <= 0 || t <= 0 || t > 256 || n_heads <= 0 || (long long)nw * n_heads >= (1LL << 31) ||
-      (dtype != 0 && dtype != 1) || bias_dtype < 0 || bias_dtype > 2 || (bias_dtype != 0 && bias == nullptr))
+      (dtype != 0 && dtype != 1) || bias_dtype < 0 || bias_dtype > 2 || (bias_dtype != 0 && bias == nullptr) ||
+      n_wmask < 0 || (n_wmask == 0) != (wmask == nullptr) || (n_wmask > 0 && nw % n_wmask != 0))
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, bias, bias_dtype, o, nw, t, n_heads, scale, static_cast<cudaStream_t>(stream)};
+  const Args a{q, k, v, bias, bias_dtype, static_cast<const float*>(wmask), n_wmask, o, nw, t, n_heads, scale,
+               static_cast<cudaStream_t>(stream)};
   if (hd != 32) return (int)cudaErrorInvalidValue;  // every TinyViT stage: 32
   return (int)(dtype == 0 ? launch_f32<32>(a) : launch_bf16_t<32>(a));
 }

@@ -1,3 +1,3 @@
-from . import depth_anything, dino, esrgan, mobile_sam
+from . import birefnet, depth_anything, dino, esrgan, mobile_sam, swin
 
-__all__ = ["depth_anything", "dino", "esrgan", "mobile_sam"]
+__all__ = ["birefnet", "depth_anything", "dino", "esrgan", "mobile_sam", "swin"]

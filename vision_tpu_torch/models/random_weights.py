@@ -15,7 +15,12 @@ import math
 
 import numpy as np
 
-__all__ = ["random_mobile_sam_params", "random_esrgan_params", "random_depth_anything_params"]
+__all__ = [
+    "random_mobile_sam_params",
+    "random_esrgan_params",
+    "random_depth_anything_params",
+    "random_birefnet_params",
+]
 
 
 class _Builder:
@@ -280,4 +285,80 @@ def random_depth_anything_params(variant: str = "small", seed: int = 0) -> dict[
     B.conv("head.conv1", fusion_ch, fusion_ch // 2, 3)
     B.conv("head.conv2", fusion_ch // 2, 32, 3)
     B.conv("head.conv3", 32, 1, 1)
+    return B.p
+
+
+def random_birefnet_params(variant: str = "tiny", seed: int = 0) -> dict[str, np.ndarray]:
+    """BiRefNet weight dict (bb. SWIN backbone + decoder, converted naming)."""
+    B = _Builder(seed)
+    embed = 96 if variant == "tiny" else 192
+    window = 7 if variant == "tiny" else 12
+    depths = (2, 2, 6, 2) if variant == "tiny" else (2, 2, 18, 2)
+    heads = (3, 6, 12, 24) if variant == "tiny" else (6, 12, 24, 48)
+    dims = [embed * (2**i) for i in range(4)]
+
+    B.w("bb.patch_embed.proj.weight", embed, 3, 4, 4)
+    B.b("bb.patch_embed.proj.bias", embed)
+    B.ln("bb.patch_embed.norm", embed)
+    for s in range(4):
+        d = dims[s]
+        for i in range(depths[s]):
+            base = f"bb.layers.{s}.blocks.{i}"
+            B.ln(f"{base}.norm1", d)
+            B.ln(f"{base}.norm2", d)
+            B.lin(f"{base}.attn.qkv", d, 3 * d)
+            B.lin(f"{base}.attn.proj", d, d)
+            B.p[f"{base}.attn.relative_position_bias_table"] = (
+                B.rng.standard_normal(((2 * window - 1) ** 2, heads[s])) * 0.02
+            ).astype(np.float32)
+            B.lin(f"{base}.mlp.fc1", d, d * 4)
+            B.lin(f"{base}.mlp.fc2", d * 4, d)
+        if s < 3:
+            B.ln(f"bb.layers.{s}.downsample.norm", 4 * d)
+            B.lin(f"bb.layers.{s}.downsample.reduction", 4 * d, 2 * d, bias=False)
+    for i in range(4):
+        B.ln(f"bb.norm{i}", dims[i])
+
+    cat = [2 * d for d in dims]
+    cat3 = sum(cat)
+    ch, ipt = 112, 64
+
+    def deform(name, ci, co, k):
+        B.conv(f"{name}.offset", ci, 2 * k * k, k)
+        B.conv(f"{name}.modulator", ci, k * k, k)
+        B.w(f"{name}.conv.weight", co, ci, k, k)
+
+    def dec_blk(name, ci, co, inter=ch):
+        B.conv(f"{name}.conv_in", ci, inter, 3)
+        deform(f"{name}.dec_att.aspp1.conv", inter, inter // 4, 1)
+        B.scale_shift(f"{name}.dec_att.aspp1.bn", inter // 4)
+        for j, k in enumerate((1, 3, 7)):
+            deform(f"{name}.dec_att.aspp_deforms.{j}.conv", inter, inter // 4, k)
+            B.scale_shift(f"{name}.dec_att.aspp_deforms.{j}.bn", inter // 4)
+        B.conv(f"{name}.dec_att.global_avg_pool.1", inter, inter // 4, 1)
+        B.conv(f"{name}.dec_att.conv1", 5 * (inter // 4), inter, 1)
+        B.conv(f"{name}.conv_out", inter, co, 3)
+
+    def simple(name, ci, co, inter=64):
+        B.conv(f"{name}.conv1", ci, inter, 3)
+        B.conv(f"{name}.conv_out", inter, co, 3)
+
+    dec_blk("squeeze_module.0", cat3, ch)
+    d = "decoder"
+    simple(f"{d}.ipt_blk5", 3 * 32 * 32, ipt)
+    simple(f"{d}.ipt_blk4", 3 * 16 * 16, ipt)
+    simple(f"{d}.ipt_blk3", 3 * 8 * 8, ipt)
+    simple(f"{d}.ipt_blk2", 3 * 4 * 4, ipt)
+    simple(f"{d}.ipt_blk1", 3, ipt)
+    dec_blk(f"{d}.block4", ch + ipt, ch)
+    dec_blk(f"{d}.block3", ch + ipt, ch)
+    dec_blk(f"{d}.block2", ch + ipt, ch)
+    dec_blk(f"{d}.block1", ch + ipt, ch)
+    for i in (2, 3, 4):
+        B.conv(f"{d}.gdt_convs_{i}.0", ch, 16, 3)
+        B.conv(f"{d}.gdt_convs_attn_{i}.0", 16, 1, 1)
+    B.conv(f"{d}.lateral_block4.conv", cat[2], ch, 1)
+    B.conv(f"{d}.lateral_block3.conv", cat[1], ch, 1)
+    B.conv(f"{d}.lateral_block2.conv", cat[0], ch, 1)
+    B.conv(f"{d}.conv_out1.0", ch + ipt, 1, 1)
     return B.p

@@ -96,10 +96,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
     fn.restype = i
     fn = lib.vtt_window_attention_fwd
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+    fn.argtypes = [p, p, p, p, p, i, p, i, i, i, i, i, i, ctypes.c_float, p]
     fn.restype = i
     fn = lib.vtt_conv3x3_fwd  # each size is checked below 2^31 by the wrapper
     fn.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    fn.restype = i
+    fn = lib.vtt_deform_sample_fwd  # B * Ho * Wo * kh * kw is checked below 2^31 by the wrapper
+    fn.argtypes = [p, p, i, p, i, p, *([i] * 10), ctypes.c_float, i, p]
     fn.restype = i
 
 

@@ -47,6 +47,7 @@ __all__ = [
     "gelu",
     "leaky_relu",
     "relu",
+    "sigmoid",
 ]
 
 
@@ -57,6 +58,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 relu = torch.relu
+sigmoid = torch.sigmoid
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
@@ -274,7 +276,9 @@ def attention_core(q, k, v, mask=None, scale: float | None = None, flash: bool =
     return torch.matmul(attn.to(dt), v.to(dt)).to(q.dtype)
 
 
-def attention_windows(p: Params, x: torch.Tensor, n_heads: int, split_dim: int, mask, scale: float):
+def attention_windows(
+    p: Params, x: torch.Tensor, n_heads: int, split_dim: int, mask, scale: float, window_mask=None
+):
     """Windowed attention from the fused qkv weight, without head transposes
     (a port of the JAX package's ops/nn.py:337).
 
@@ -288,7 +292,11 @@ def attention_windows(p: Params, x: torch.Tensor, n_heads: int, split_dim: int, 
     p: params with ``qkv`` and ``proj`` children; x: (B, T, C); mask: None or
     an additive bias shared by all windows, (1, heads, T, T) or (heads, T, T)
     (the CPU's plain version takes any form broadcastable to
-    (B, heads, T, T)); returns (B, T, C)."""
+    (B, heads, T, T)); window_mask: None or an additive mask (nW, T, T) that
+    window b takes as ``window_mask[b % nW]`` (SWIN's shifted-window zones,
+    windows ordered image-major), added in f32 after ``mask``; returns
+    (B, T, C). The JAX package takes one combined mask instead; the sum is
+    the same."""
     from .cuda.window_attention import window_attention
 
     c = x.shape[-1]
@@ -308,7 +316,9 @@ def attention_windows(p: Params, x: torch.Tensor, n_heads: int, split_dim: int, 
     # the bias joins the f32 accumulation before the one rounding to x's
     # type, as in the JAX package's split projections
     q, k, v = (F.linear(x, wi(i).to(x.dtype), bi(i).to(x.dtype)) for i in range(3))
-    o = window_attention(q, k, v, mask, n_heads, scale)
+    if window_mask is not None:
+        window_mask = window_mask.float().contiguous()
+    o = window_attention(q, k, v, mask, n_heads, scale, window_mask)
     return linear(p["proj"], o)
 
 

@@ -14,7 +14,8 @@ Two layers:
   returns immediately; a batch worker thread drains the queue, groups items
   that share a shape bucket, and runs the supplied batch function.
 * :class:`ImageServer` — whole-image serving for
-  :class:`~vision_tpu_torch.models.depth_anything.DepthAnythingModel`.
+  :class:`~vision_tpu_torch.models.depth_anything.DepthAnythingModel` and
+  :class:`~vision_tpu_torch.models.birefnet.BirefnetModel`.
 * :class:`SamServer` — promptable segmentation on a
   :class:`~vision_tpu_torch.models.mobile_sam.SamModel`: each group is encoded
   and decoded in one eager pass on the card.
@@ -321,20 +322,23 @@ def _dummy_image(extent):
 
 
 # the JAX package's ImageServer families that wait for their slices
-_LATER_SLICES = {"BirefnetModel": "BiRefNet", "MiganModel": "MI-GAN"}
+_LATER_SLICES = {"MiganModel": "MI-GAN"}
+_IMAGE_FAMILIES = ("BirefnetModel", "DepthAnythingModel")
 
 
 class ImageServer:
     """Batched serving for the whole-image model families; in the port so
-    far, :class:`~vision_tpu_torch.models.depth_anything.DepthAnythingModel`.
+    far, :class:`~vision_tpu_torch.models.depth_anything.DepthAnythingModel`
+    and :class:`~vision_tpu_torch.models.birefnet.BirefnetModel`.
 
     N concurrent requests at one processed extent run as ONE batched
-    forward (the reference handles this family strictly one request at a
-    time, ``vision.cpp:137-168``). A request is an
-    :class:`~vision_tpu_torch.image.Image`; the result is the min-max
-    normalized depth at the request's own extent. Every group is padded to
-    ``batch_size`` with its first item, so each extent bucket runs one
-    batch shape.
+    forward (the reference handles these families strictly one request at a
+    time, ``vision.cpp:97-168``). A request is an
+    :class:`~vision_tpu_torch.image.Image`; the result, at the request's own
+    extent, is the min-max normalized depth (``alpha_f32``) for
+    Depth-Anything and the ``alpha_u8`` matte for BiRefNet. Every group is
+    padded to ``batch_size`` with its first item, so each extent bucket runs
+    one batch shape.
     """
 
     def __init__(
@@ -351,14 +355,17 @@ class ImageServer:
                 f"ImageServer does not serve {kind} yet: it arrives with the port's "
                 f"{_LATER_SLICES[kind]} slice"
             )
-        if kind != "DepthAnythingModel":
+        if kind not in _IMAGE_FAMILIES:
             raise TypeError(f"ImageServer does not support {kind}")
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.model = model
+        self.kind = kind
         self.batch_size = batch_size
         # depth-anything snaps its processed extent UP from the input, so an
-        # unguarded huge upload would run a one-off giant batch
+        # unguarded huge upload would run a one-off giant batch; birefnet
+        # resizes to its fixed extent but still pays host-side prep
+        # proportional to the upload
         self.max_pixels = max_pixels
         self._server = BatchServer(
             self._run_group,
@@ -371,34 +378,46 @@ class ImageServer:
 
     # prepared item = (u8 input array, processed extent, original request)
     def _prepare(self, image):
-        from .models.depth_anything import depthany_image_extent
-
         if image.width * image.height > self.max_pixels:
             raise ValueError(
                 f"input {image.width}x{image.height} exceeds the server's "
                 f"max_pixels ({self.max_pixels}); resize client-side or raise the cap"
             )
-        extent = depthany_image_extent(image.extent, self.model.p)
+        if self.kind == "BirefnetModel":
+            from .models.birefnet import birefnet_image_extent
+
+            extent = birefnet_image_extent(image.extent, self.model.p, self.model.device.max_alloc)
+        else:
+            from .models.depth_anything import depthany_image_extent
+
+            extent = depthany_image_extent(image.extent, self.model.p)
         img = image if image.extent == extent else image_scale(image, extent, preprocess_scale_method())
         return (img.to_rgb_u8(), extent, image)
 
     def _run_group(self, items: list):
-        from .models.depth_anything import depthany_process_output
+        if self.kind == "BirefnetModel":
+            from .models.birefnet import birefnet_process_output as post
+        else:
+            from .models.depth_anything import depthany_process_output as post
 
         n = len(items)
         padded = items + [items[0]] * (self.batch_size - n)
         x = torch.from_numpy(np.stack([it[0] for it in padded]))
         y = self.model.forward_u8(x)[:n].float().cpu().numpy()
-        return [depthany_process_output(yi, it[2].extent) for yi, it in zip(y, items)]
+        return [post(yi, it[2].extent) for yi, it in zip(y, items)]
 
     def warmup(self, extent=None) -> None:
         """Run one padded batch before taking traffic (the first launch
-        builds the kernel library). Default extent: the model's own snap
-        target, image_size squared."""
+        builds the kernel library). Default extent: the model's canonical
+        inference size (BiRefNet's ``p.image_extent``; Depth-Anything's own
+        snap target, image_size squared)."""
         if extent is None:
-            size = self.model.p.image_size
-            extent = (size, size)
-        _warmup_wait([self.submit(_dummy_image(extent))], f"{type(self.model).__name__} {extent}")
+            if self.kind == "BirefnetModel":
+                extent = self.model.p.image_extent
+            else:
+                size = self.model.p.image_size
+                extent = (size, size)
+        _warmup_wait([self.submit(_dummy_image(extent))], f"{self.kind} {extent}")
         self.stats.reset()
 
     def submit(self, request) -> Future:
