@@ -11,15 +11,25 @@ Phases, each raising on failure:
      vision_tpu_torch/csrc/ (one nvcc per source, in parallel) and prints the
      build seconds and ptxas's registers and spills for every instance;
   3. each kernel against its plain PyTorch version on the card, at the main
-     paths' shapes and at edge shapes;
+     paths' shapes and at edge shapes: flash attention at the token counts
+     the Depth-Anything requests reach (depth_tokens of DEPTH_EXTENTS), D 32
+     and 128, cross attention, Tq and Tk one past a key tile, and f32 cases;
+     the window kernel at TinyViT's three stages (bf16 and f32 biases), one
+     T > 200 case that reads its mask and bias from L2, and f32 cases; and
+     the window kernel's launch plan, the library's against window_plan's,
+     at every TinyViT and SWIN-L stage (two waves of the card at least);
   4. the Depth-Anything path: a Depth-Anything-V2-Small GGUF with random
      weights (seed 0) is written, loaded with depthany_load_model and served
      through ImageServer (batch 4): 8 requests in two extent buckets; the
      kernels' launch counts are zeroed just before and read just after;
   5. Depth-Anything parity: one request's raw depth on the card (bf16, kernel
      route) against the same port's f32 forward on the CPU (plain route);
-  6. Depth-Anything timings with CUDA events, each beside the card name and
-     power limit;
+  6. Depth-Anything timings, each beside the card name and power limit: the
+     flash kernel and its plain version by the card's own time (device_ms:
+     back-to-back calls queued behind a spin kernel) and the kernel by CUDA events
+     around single calls (median_ms, the host's launch work included); the
+     forward by CUDA events; and a torch.profiler trace of a batch-4
+     forward (the flash kernel's share);
   7. the MobileSAM path: a mobile-sam GGUF of random_mobile_sam_params(0)
      (full TinyViT-5M) is written, loaded with sam_load_model on the card and
      on the CPU, and 12 requests (6 points, 6 boxes over 1024x1024, 640x480
@@ -28,7 +38,8 @@ Phases, each raising on failure:
   8. MobileSAM parity: one request on the card in bf16 (kernel route) against
      the CPU's f32, stage by stage; and the encoder in f32 on the card
      (kernel route, TF32 off) against the CPU's f32;
-  9. MobileSAM timings: the window kernel against its plain version, encode
+  9. MobileSAM timings: the window kernel against its plain version (the
+     card's own time, and per call with the host's launch work), encode
      img/s over batch, single-mask latency, decode-only, the served numbers
      and the host's pre/post work, each beside the card name and power limit;
  10. the conv3x3 kernel against its plain version: bf16 at the RRDB shapes
@@ -49,7 +60,8 @@ Phases, each raising on failure:
      F.conv2d (cuDNN, a yardstick the port never calls) with the bound
      beside each; forward_u8 at 1024x1024 and 512x512 x 4; the served and
      tiled numbers; and the yardsticks of the attention kernels
-     (F.scaled_dot_product_attention, which the port never calls);
+     (F.scaled_dot_product_attention, which the port never calls), by the
+     card's own time and per call;
  14. the deform sampler against its plain version: bf16 at the 20 shapes of a
      batch-4 1024x1024 BiRefNet forward (Cin 112; k 1, 1, 3, 7 at 256^2,
      128^2, 64^2 and twice at 32^2; offsets within +-3), f32 edge cases
@@ -70,11 +82,18 @@ Phases, each raising on failure:
  17. BiRefNet timings: the deform sampler per shape and per forward against
      its bound, its plain version and F.grid_sample over all taps (a
      yardstick the port never calls); the masked window kernel against SDPA
-     given the combined mask; forward_u8 at 1024x1024 batch 1 and 4; the
+     given the combined mask (the card's own time, and per call);
+     forward_u8 at 1024x1024 batch 1 and 4; the
      served numbers; and a torch.profiler trace of a batch-4 forward.
 
 The line before the last is a JSON object describing every kernel of the
 paths; the last line is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --parent DIR
+
+runs phases 1 and 2 and then only compare_with_parent: the attention
+kernels of another checkout of the port at DIR (say the parent commit,
+unpacked with git archive) against this checkout's, in turns on one card.
 """
 
 from __future__ import annotations
@@ -115,9 +134,17 @@ BIREF_PARITY_HW = 384
 BIREF_F32_REL_RMS = 1e-4  # f32 card forward (kernel routes, TF32 off) vs f32 CPU: summation order only
 # SWIN-L's windowed attention at 1024x1024: (token grid side, heads); window 12, T 144
 SWIN_L_STAGES = ((256, 6), (128, 12), (64, 24), (32, 48))
+# the Depth-Anything requests' extents (w, h): 518x518 and 700x500, which
+# depthany_image_extent snaps to 728x518
+DEPTH_EXTENTS = ((518, 518), (700, 500))
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor
 # cores, f32 outside the tensor cores, device memory
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# device_ms: a spin kernel of ~20 ms at the card's 1.98 GHz boost clock runs
+# ahead of each timed run; and how the attention kernels' times in the
+# kernels line were taken
+SPIN_CYCLES = 40_000_000
+DEVICE_TIMING = "the card's own time per call: CUDA events around 20 calls enqueued behind a spin kernel, over 20"
 
 
 def phase(name: str) -> None:
@@ -148,17 +175,62 @@ def median_ms(fn, iters: int, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, calls: int = 20, warmup: int = 3, reps: int = 3) -> float:
+    """The card's own time for one call of ``fn``: CUDA events around
+    ``calls`` calls back to back, over the count, the median of ``reps``
+    runs. Before each run a 20 ms spin kernel keeps the card busy while the
+    host enqueues the calls, so the card runs them with no gap between.
+    CUDA events around a single call (median_ms) also take in the host's
+    time before the launch while the card idles: tens of microseconds of
+    Python and launch work, as much as an attention kernel itself takes."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def depth_tokens(extent: tuple[int, int]) -> int:
+    """DINOv2's token count for a Depth-Anything-V2 request of ``extent``
+    (w, h): the patches of the extent depthany_image_extent snaps it to,
+    and the class token."""
+    from vision_tpu_torch.models.depth_anything import DepthAnythingParams, depthany_image_extent
+
+    p = DepthAnythingParams()
+    w, h = depthany_image_extent(extent, p)
+    return (w // p.dino.patch_size) * (h // p.dino.patch_size) + 1
+
+
 def kernel_cases(fa, torch) -> float:
     """Phase 3: the flash kernel against flash_attention_plain. Returns the
     largest absolute difference seen."""
+    t_sq, t_wide = (depth_tokens(e) for e in DEPTH_EXTENTS)
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [
         # (label, B, H, Tq, Tk, D, dtype)
-        ("slice 518x518", 4, 6, 1370, 1370, 64, torch.bfloat16),
-        ("slice 518x714", 4, 6, 1888, 1888, 64, torch.bfloat16),
-        ("ragged f32", 2, 3, 300, 300, 32, torch.float32),
-        ("one past a tile f32", 1, 2, 1025, 1025, 64, torch.float32),
-        ("cross f32", 1, 2, 7, 150, 32, torch.float32),
-        ("D=128 bf16", 2, 4, 700, 700, 128, torch.bfloat16),
+        ("served 518x518", 4, 6, t_sq, t_sq, 64, bf16),
+        ("served 700x500 (518x728)", 4, 6, t_wide, t_wide, 64, bf16),
+        ("D=32 bf16", 2, 4, 700, 700, 32, bf16),
+        ("D=128 bf16", 2, 4, 700, 700, 128, bf16),
+        ("cross Tq 7, Tk 150 bf16", 1, 2, 7, 150, 64, bf16),
+        (f"cross Tq {t_sq}, Tk {t_wide} bf16", 1, 6, t_sq, t_wide, 64, bf16),
+        ("one past a 128 tile bf16", 2, 3, 129, 129, 64, bf16),
+        ("one past a 64-key tile D=128 bf16", 1, 2, 129, 65, 128, bf16),
+        ("one past a tile D=32 bf16", 1, 2, 257, 129, 32, bf16),
+        ("ragged f32", 2, 3, 300, 300, 32, f32),
+        ("one past a tile f32", 1, 2, 1025, 1025, 64, f32),
+        ("cross f32", 1, 2, 7, 150, 32, f32),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
@@ -195,22 +267,27 @@ def kernel_cases(fa, torch) -> float:
 def window_cases(wa, torch, batch: int = 6) -> float:
     """Phase 3: the window kernel against window_attention_plain, at the
     three TinyViT stage shapes of a batch of ``batch`` 1024x1024 images in
-    bf16 with a bf16 bias, and at f32 edge cases. Returns the largest
-    absolute difference seen."""
-    cases = [(f"stage {i + 1}", nw * batch, t, h, 32, torch.bfloat16, True)
-             for i, (nw, t, h) in enumerate(SAM_STAGES)]
+    bf16 with a bf16 bias (stage 1 also with an f32 one), and at ragged and
+    f32 edge cases. Returns the largest absolute difference seen."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(f"stage {i + 1}", nw * batch, t, h, 32, bf16, bf16) for i, (nw, t, h) in enumerate(SAM_STAGES)]
     cases += [
-        # (label, NW, T, H, hd, dtype, bias)
-        ("T=20 ragged f32", 7, 20, 2, 32, torch.float32, True),
-        ("no bias f32", 9, 49, 4, 32, torch.float32, False),
-        ("one window f32", 1, 49, 4, 32, torch.float32, True),
-        ("H=5 T=196 f32", 3, 196, 5, 32, torch.float32, True),
+        # (label, NW, T, H, hd, dtype, bias dtype or None)
+        ("stage 1, f32 bias", SAM_STAGES[0][0] * batch, 49, 4, 32, bf16, f32),
+        ("T=20 ragged bf16, no bias", 7, 20, 2, 32, bf16, None),
+        ("T=100 bf16", 5, 100, 3, 32, bf16, bf16),
+        ("T=256 bf16, f32 bias (read from L2)", 6, 256, 2, 32, bf16, f32),
+        ("T=20 ragged f32", 7, 20, 2, 32, f32, f32),
+        ("no bias f32", 9, 49, 4, 32, f32, None),
+        ("one window f32", 1, 49, 4, 32, f32, f32),
+        ("H=5 T=196 f32", 3, 196, 5, 32, f32, f32),
     ]
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = 0.0
-    for label, nw, t, h, hd, dtype, with_bias in cases:
+    for label, nw, t, h, hd, dtype, bias_dtype in cases:
         q, k, v = (torch.randn(nw, t, h * hd, device="cuda", generator=gen).to(dtype) for _ in range(3))
-        bias = (torch.randn(h, t, t, device="cuda", generator=gen) * 0.5).to(dtype) if with_bias else None
+        with_bias = bias_dtype is not None
+        bias = (torch.randn(h, t, t, device="cuda", generator=gen) * 0.5).to(bias_dtype) if with_bias else None
         scale = hd**-0.5
         before = wa.launches
         out = wa.window_attention(q, k, v, bias, h, scale)
@@ -230,11 +307,37 @@ def window_cases(wa, torch, batch: int = 6) -> float:
             ok = err <= BF16_MAX_ABS
             rule = f"max abs <= {BF16_MAX_ABS}"
         print(f"kernel window_attention {label} (NW={nw} T={t} H={h} hd={hd} {dtype}, "
-              f"bias {'yes' if with_bias else 'no'}): max_abs_err {err:.3e} [{rule}] {'ok' if ok else 'FAIL'}",
-              flush=True)
+              f"bias {bias_dtype}): max_abs_err {err:.3e} [{rule}] {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise AssertionError(f"window_attention {label}: max abs err {err}")
     return worst
+
+
+def window_plan_cases(wa, build, sam_batch: int = 6, swin_batch: int = 4) -> None:
+    """Phase 3: the window kernel's launch plan, as the kernel library makes
+    it (vtt_window_attention_plan), against window_plan, at TinyViT's three
+    stages and SWIN-L's four (bf16 biases; SWIN with its shift masks); each
+    must fill at least two waves of the card's SMs."""
+    import ctypes
+
+    from vision_tpu_torch.models.swin import compute_attention_mask
+
+    lib = build.load_library()
+    shapes = [(f"TinyViT stage {i + 1}", nw * sam_batch, t, h, 0) for i, (nw, t, h) in enumerate(SAM_STAGES)]
+    for i, (side, h) in enumerate(SWIN_L_STAGES):
+        n_masks = compute_attention_mask(side, side, 12).shape[0]
+        shapes.append((f"SWIN-L stage {i + 1}", n_masks * swin_batch, 144, h, n_masks))
+    for label, nw, t, h, n_masks in shapes:
+        out = (ctypes.c_longlong * 6)()
+        if lib.vtt_window_attention_plan(nw, t, h, n_masks, 2, out) != 0:
+            raise AssertionError(f"{label}: vtt_window_attention_plan refused (NW={nw}, T={t}, H={h})")
+        plan = wa.window_plan(nw, t, h, n_masks, 2)
+        mine = (plan.blocks, plan.threads, plan.smem, plan.heads, plan.run, int(plan.staged))
+        print(f"window_attention plan {label} (NW={nw}, T={t}, H={h}, {n_masks} masks): {plan.blocks} blocks of "
+              f"{plan.threads} threads, {plan.smem} B shared memory, {plan.heads} heads x {plan.run} windows a "
+              f"block, staged {plan.staged}, {plan.blocks_per_sm} blocks an SM, {plan.waves:.2f} waves", flush=True)
+        if tuple(out) != mine or plan.waves < 2:
+            raise AssertionError(f"{label}: library plan {tuple(out)}, window_plan {mine}, {plan.waves:.2f} waves")
 
 
 def conv_cases(cc, torch) -> float:
@@ -347,21 +450,26 @@ def conv_timings(cc, torch, card: str) -> list:
 
 def attention_yardsticks(fa, wa, torch, card: str) -> tuple[float, float]:
     """Phase 13: F.scaled_dot_product_attention beside each attention kernel
-    at its main path's shapes, a yardstick the port never calls. Returns the
-    library ms at the shapes the kernels' JSON entries are timed at."""
+    at its main path's shapes, a yardstick the port never calls: the card's
+    own time of each (device_ms, in turns) and CUDA events around single
+    calls (median_ms, the host's launch work included). Returns the library's
+    device ms at the flash shapes by token count, and at the window kernel's
+    TinyViT stage 1."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     flash = {}
-    for t in (1370, 1888):
+    for t in (depth_tokens(e) for e in DEPTH_EXTENTS):
         q, k, v = (torch.randn(4, 6, t, 64, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
         run_k = lambda: fa.flash_attention(q, k, v)  # noqa: E731
         run_l = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
-        k1, l1, k2, l2 = (median_ms(f, 20) for f in (run_k, run_l, run_k, run_l))
+        k1, l1, k2, l2 = (device_ms(f) for f in (run_k, run_l, run_k, run_l))
+        ek, el = (median_ms(f, 20) for f in (run_k, run_l))
         flash[t] = min(l1, l2)
         b, by = bound_ms(4.0 * 24 * t * t * 64, 4 * 2.0 * 24 * t * 64)
-        print(f"flash_attention (24, {t}, 64) bf16: kernel median {k1:.4f} / {k2:.4f} ms, SDPA {l1:.4f} / {l2:.4f} ms, "
-              f"bound {b:.4f} ms ({by}) [{card}]", flush=True)
+        print(f"flash_attention (24, {t}, 64) bf16 on the card: kernel {k1:.4f} / {k2:.4f} ms, SDPA {l1:.4f} / "
+              f"{l2:.4f} ms, bound {b:.4f} ms ({by}); per call with the host's launch work: kernel {ek:.4f} ms, SDPA "
+              f"{el:.4f} ms [{card}]", flush=True)
     win = []
     for i, (nw, t, h) in enumerate(SAM_STAGES):
         q, k, v = (torch.randn(6 * nw, t, h * 32, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
@@ -370,13 +478,15 @@ def attention_yardsticks(fa, wa, torch, card: str) -> tuple[float, float]:
         q4, k4, v4 = (z.view(6 * nw, t, h, 32).transpose(1, 2).contiguous() for z in (q, k, v))
         run_k = lambda: wa.window_attention(q, k, v, bias, h, 32**-0.5)  # noqa: E731
         run_l = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias)  # noqa: E731
-        k1, l1, k2, l2 = (median_ms(f, 20) for f in (run_k, run_l, run_k, run_l))
+        k1, l1, k2, l2 = (device_ms(f) for f in (run_k, run_l, run_k, run_l))
+        ek, el = (median_ms(f, 20) for f in (run_k, run_l))
         win.append(min(l1, l2))
         b, by = bound_ms(4.0 * 6 * nw * h * t * t * 32, 4 * 2.0 * 6 * nw * t * h * 32 + 2.0 * h * t * t)
-        print(f"window_attention stage {i + 1} (NW={6 * nw}, T={t}, H={h}, hd=32) bf16: kernel median {k1:.4f} / "
-              f"{k2:.4f} ms, SDPA with the bias as attn_mask {l1:.4f} / {l2:.4f} ms, bound {b:.4f} ms ({by}) "
-              f"[{card}]", flush=True)
-    return flash[1370], win[0]
+        print(f"window_attention stage {i + 1} (NW={6 * nw}, T={t}, H={h}, hd=32) bf16 on the card: kernel "
+              f"{k1:.4f} / {k2:.4f} ms, SDPA with the bias as attn_mask {l1:.4f} / {l2:.4f} ms, bound {b:.4f} ms "
+              f"({by}); per call with the host's launch work: kernel {ek:.4f} ms, SDPA {el:.4f} ms [{card}]",
+              flush=True)
+    return flash, win[0]
 
 
 def profile_forward(model, x, torch, card: str, names=("conv3x3",)) -> None:
@@ -607,32 +717,38 @@ def deform_cases(dsm, torch) -> float:
     return max(worst, err)
 
 
-def swin_windows(torch, gen, side: int, window: int, heads: int, batch: int, dtype):
+def swin_windows(torch, gen, side: int, window: int, heads: int, batch: int, dtype, bias_dtype=None):
     """q, k, v of one SWIN stage's windows (the token grid padded to the
-    window), a bias (heads, T, T) in ``dtype`` and the stage's shift mask
-    (nW, T, T) f32 on the card."""
+    window), a bias (heads, T, T) in ``bias_dtype`` (default ``dtype``) and
+    the stage's shift mask (nW, T, T) f32 on the card."""
     from vision_tpu_torch.models.swin import compute_attention_mask
 
     mask = torch.tensor(compute_attention_mask(side, side, window), device="cuda")
     nw, t = mask.shape[0] * batch, window * window
     q, k, v = (torch.randn(nw, t, heads * 32, device="cuda", generator=gen).to(dtype) for _ in range(3))
-    bias = (torch.randn(heads, t, t, device="cuda", generator=gen) * 0.5).to(dtype)
+    bias = (torch.randn(heads, t, t, device="cuda", generator=gen) * 0.5).to(bias_dtype or dtype)
     return q, k, v, bias, mask
 
 
 def masked_window_cases(wa, torch) -> float:
     """Phase 14: the window kernel with per-window masks against
     window_attention_plain: SWIN-L's four stages at 1024x1024, batch 4, in
-    bf16; SWIN-T's T 49 (window 7) and an f32 case. Returns the largest
-    absolute difference seen."""
+    bf16 with a bf16 bias (stage 1 also with an f32 one); SWIN-T's T 49
+    (window 7); windows of 15 and 16 (T 225 and 256: mask and bias read from
+    L2, in pairs where T is even) and f32 cases. Returns the largest absolute
+    difference seen."""
     gen = torch.Generator(device="cuda").manual_seed(9)
-    cases = [(f"SWIN-L stage {i + 1}", side, 12, h, 4, torch.bfloat16) for i, (side, h) in enumerate(SWIN_L_STAGES)]
-    cases += [("SWIN-T stage 1 at 224^2", 56, 7, 3, 2, torch.bfloat16),
-              ("SWIN-L stage 4 f32", 32, 12, 48, 2, torch.float32),
-              ("SWIN-T T=49 f32", 20, 7, 6, 3, torch.float32)]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(f"SWIN-L stage {i + 1}", side, 12, h, 4, bf16, bf16) for i, (side, h) in enumerate(SWIN_L_STAGES)]
+    cases += [("SWIN-L stage 1, f32 bias", 256, 12, 6, 4, bf16, f32),
+              ("SWIN-T stage 1 at 224^2", 56, 7, 3, 2, bf16, bf16),
+              ("window 15, T=225 (L2)", 30, 15, 2, 2, bf16, bf16),
+              ("window 16, T=256 (L2)", 32, 16, 3, 2, bf16, f32),
+              ("SWIN-L stage 4 f32", 32, 12, 48, 2, f32, f32),
+              ("SWIN-T T=49 f32", 20, 7, 6, 3, f32, f32)]
     worst = 0.0
-    for label, side, window, h, batch, dtype in cases:
-        q, k, v, bias, mask = swin_windows(torch, gen, side, window, h, batch, dtype)
+    for label, side, window, h, batch, dtype, bias_dtype in cases:
+        q, k, v, bias, mask = swin_windows(torch, gen, side, window, h, batch, dtype, bias_dtype)
         before, before_masked = wa.launches, wa.masked_launches
         out = wa.window_attention(q, k, v, bias, h, 32**-0.5, mask)
         torch.cuda.synchronize()
@@ -640,7 +756,7 @@ def masked_window_cases(wa, torch) -> float:
             raise AssertionError(f"{label}: launch counts went {before} -> {wa.launches}")
         ref = wa.window_attention_plain(q, k, v, bias, h, 32**-0.5, mask).float()
         err = check_close(f"window_attention masked {label} (NW={q.shape[0]}, T={q.shape[1]}, H={h}, "
-                          f"{mask.shape[0]} masks) {dtype}", out, ref, dtype, torch)
+                          f"{mask.shape[0]} masks) {dtype}, bias {bias.dtype}", out, ref, dtype, torch)
         if not torch.isfinite(out).all():
             raise AssertionError(f"{label}: non-finite output")
         worst = max(worst, err)
@@ -753,8 +869,10 @@ def deform_timings(dsm, torch, card: str) -> list:
 def masked_window_yardsticks(wa, torch, card: str) -> list:
     """Phase 17: the masked window kernel against its plain version and SDPA
     given the combined mask (bias + the stage's shift mask, per window),
-    at SWIN-L's four stages, batch 4. Returns (label, kernel, plain,
-    library, bound, bound_by)."""
+    at SWIN-L's four stages, batch 4: the card's own time of each
+    (device_ms, in turns) and CUDA events around single calls of the kernel
+    and SDPA. Returns (label, kernel, plain, library, bound, bound_by), the
+    times the card's own."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -767,19 +885,120 @@ def masked_window_yardsticks(wa, torch, card: str) -> list:
         run_k = lambda: wa.window_attention(q, k, v, bias, h, 32**-0.5, mask)  # noqa: E731
         run_p = lambda: wa.window_attention_plain(q, k, v, bias, h, 32**-0.5, mask)  # noqa: E731
         run_l = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=combined)  # noqa: E731
-        k1, p1, l1, k2, p2, l2 = (median_ms(f, 10) for f in (run_k, run_p, run_l, run_k, run_p, run_l))
+        k1, p1, l1, k2, p2, l2 = (device_ms(f) for f in (run_k, run_p, run_l, run_k, run_p, run_l))
+        ek, el = (median_ms(f, 10) for f in (run_k, run_l))
         b, by = bound_ms(4.0 * nw * h * t * t * 32, 4 * 2.0 * nw * t * c + 2.0 * h * t * t + 4.0 * mask.numel())
         label = f"SWIN-L stage {i + 1} (NW={nw}, T={t}, H={h}, hd=32) bf16, {mask.shape[0]} masks"
         rows.append((label, min(k1, k2), min(p1, p2), min(l1, l2), b, by))
-        print(f"window_attention masked {label}: kernel median {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} "
-              f"ms, SDPA with the combined mask {l1:.4f} / {l2:.4f} ms, bound {b:.4f} ms ({by}) [{card}]", flush=True)
+        print(f"window_attention masked {label} on the card: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+              f"{p2:.4f} ms, SDPA with the combined mask {l1:.4f} / {l2:.4f} ms, bound {b:.4f} ms ({by}); per call "
+              f"with the host's launch work: kernel {ek:.4f} ms, SDPA {el:.4f} ms [{card}]", flush=True)
         del q, k, v, q4, k4, v4, combined
         torch.cuda.empty_cache()
     return rows
 
 
-def main() -> int:
+def parent_library(parent: str, build):
+    """The kernel library of another checkout of the port at ``parent``,
+    built from its vision_tpu_torch/csrc/ with this build's flags into
+    build/parent_kernels/; its attention entry points have this one's
+    signatures."""
+    import ctypes
+    from pathlib import Path
+
+    out = build.BUILD_DIR.parent / "parent_kernels"
+    out.mkdir(parents=True, exist_ok=True)
+    sources = sorted((Path(parent) / "vision_tpu_torch" / "csrc").glob("*.cu"))
+    objs = [out / f"{s.stem}.o" for s in sources]
+    nvcc = build._nvcc()
+    build._run_all([[nvcc, *build.NVCC_FLAGS, "-c", str(s), "-o", str(o)] for s, o in zip(sources, objs)])
+    path = out / "libparent.so"
+    build._run_all([[nvcc, "-shared", "-o", str(path), *map(str, objs)]])
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.vtt_flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+    lib.vtt_window_attention_fwd.argtypes = [p, p, p, p, p, i, p, i, i, i, i, i, i, ctypes.c_float, p]
+    lib.vtt_flash_attention_fwd.restype = lib.vtt_window_attention_fwd.restype = i
+    return lib
+
+
+def compare_with_parent(parent: str, torch, card: str) -> None:
+    """``--parent DIR``: the attention kernels of the checkout at DIR against
+    this checkout's, both through this checkout's wrappers on the same
+    inputs, each held against the plain version, and timed in turns
+    (parent, this, this, parent) beside SDPA and the bound: the card's own
+    time (device_ms) and CUDA events around single calls (median_ms), at
+    the main paths' shapes: flash at the Depth-Anything token counts
+    (batch 4), the window kernel at TinyViT's three stages (batch 6) and
+    SWIN-L's four, masked (batch 4)."""
+    import torch.nn.functional as F
+
+    from vision_tpu_torch.models.swin import compute_attention_mask
+    from vision_tpu_torch.ops.cuda import build
+    from vision_tpu_torch.ops.cuda import flash_attention as fa
+    from vision_tpu_torch.ops.cuda import window_attention as wa
+
+    libs = {"this": build.load_library(), "parent": parent_library(parent, build)}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cases = []
+    for t in (depth_tokens(e) for e in DEPTH_EXTENTS):
+        q, k, v = (torch.randn(4, 6, t, 64, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
+        cases.append((f"flash_attention (24, {t}, 64) bf16",
+                      lambda q=q, k=k, v=v: fa.flash_attention(q, k, v),
+                      lambda q=q, k=k, v=v: fa.flash_attention_plain(q, k, v, 0.125),
+                      lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v),
+                      bound_ms(4.0 * 24 * t * t * 64, 4 * 2.0 * 24 * t * 64)))
+    stages = [(f"TinyViT stage {i + 1}", 6 * nw, t, h, None) for i, (nw, t, h) in enumerate(SAM_STAGES)]
+    stages += [(f"SWIN-L stage {i + 1} masked", None, side, h, 12) for i, (side, h) in enumerate(SWIN_L_STAGES)]
+    for label, nw, t, h, window in stages:
+        if window:
+            q, k, v, bias, mask = swin_windows(torch, gen, t, window, h, 4, torch.bfloat16)
+            nw, t = q.shape[:2]
+            combined = (bias.float()[None] + mask.repeat(nw // mask.shape[0], 1, 1)[:, None]).to(torch.bfloat16)
+            mask_bytes = 4.0 * mask.numel()
+        else:
+            q, k, v = (torch.randn(nw, t, h * 32, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
+            bias = combined = (torch.randn(h, t, t, device="cuda", generator=gen) * 0.5).to(torch.bfloat16)
+            mask, mask_bytes = None, 0.0
+        q4, k4, v4 = (z.view(nw, t, h, 32).transpose(1, 2).contiguous() for z in (q, k, v))
+        cases.append((f"window_attention {label} (NW={nw}, T={t}, H={h}, hd=32) bf16",
+                      lambda q=q, k=k, v=v, b=bias, h=h, m=mask: wa.window_attention(q, k, v, b, h, 32**-0.5, m),
+                      lambda q=q, k=k, v=v, b=bias, h=h, m=mask: wa.window_attention_plain(q, k, v, b, h, 32**-0.5, m),
+                      lambda q=q4, k=k4, v=v4, c=combined: F.scaled_dot_product_attention(q, k, v, attn_mask=c),
+                      bound_ms(4.0 * nw * h * t * t * 32, 4 * 2.0 * nw * t * h * 32 + 2.0 * h * t * t + mask_bytes)))
+    for label, run, plain, sdpa, (bound, by) in cases:
+        ref = plain().float()
+        errs = {}
+        for name, lib in libs.items():
+            build._lib = lib
+            errs[name] = float((run().float() - ref).abs().max())
+        times = {}
+        for timer in (device_ms, median_ms):
+            for name in ("parent", "this", "this", "parent"):
+                build._lib = libs[name]
+                times.setdefault((timer, name), []).append(timer(run, 20))
+            times[(timer, "SDPA")] = [timer(sdpa, 20) for _ in range(2)]
+        build._lib = libs["this"]
+        line = "; ".join(
+            f"{what} parent {'/'.join(f'{x:.4f}' for x in times[(timer, 'parent')])}, this "
+            f"{'/'.join(f'{x:.4f}' for x in times[(timer, 'this')])}, SDPA "
+            f"{'/'.join(f'{x:.4f}' for x in times[(timer, 'SDPA')])} ms"
+            for timer, what in ((device_ms, "device"), (median_ms, "per call (events)")))
+        print(f"A/B {label}: {line}; bound {bound:.4f} ms ({by}); max abs err parent {errs['parent']:.3e}, this "
+              f"{errs['this']:.3e} [{card}]", flush=True)
+        if max(errs.values()) > BF16_MAX_ABS:
+            raise AssertionError(f"{label}: max abs err {errs}")
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parent", metavar="DIR", help="only time the attention kernels of the port's checkout at "
+                        "DIR against this checkout's (compare_with_parent), after phases 1 and 2")
+    args = parser.parse_args(argv)
 
     phase("1 environment")
     if not torch.cuda.is_available():
@@ -820,10 +1039,15 @@ def main() -> int:
     for line in build.build_info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("ptxas:", line.strip())
+    if args.parent:
+        phase(f"A/B the attention kernels of {args.parent} against this checkout's")
+        compare_with_parent(args.parent, torch, card)
+        return 0
 
     phase("3 kernels against their plain versions")
     worst = kernel_cases(fa, torch)
     win_worst = window_cases(wa, torch)
+    window_plan_cases(wa, build)
     build_s = build.build_info["seconds"]
 
     phase("4 Depth-Anything path: Depth-Anything-V2-Small through ImageServer")
@@ -832,7 +1056,8 @@ def main() -> int:
     def u8_img(h, w):
         return Image(rng.integers(0, 256, (h, w, 4), np.uint8), ImageFormat.rgba_u8)
 
-    requests = [u8_img(518, 518) for _ in range(5)] + [u8_img(500, 700) for _ in range(3)]
+    (w_sq, h_sq), (w_wide, h_wide) = DEPTH_EXTENTS
+    requests = [u8_img(h_sq, w_sq) for _ in range(5)] + [u8_img(h_wide, w_wide) for _ in range(3)]
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "depth-anything-v2-small-random.gguf")
         write_small_gguf(path)
@@ -886,18 +1111,20 @@ def main() -> int:
     phase(f"6 Depth-Anything timings on {card}")
     gen = torch.Generator(device="cuda").manual_seed(1)
     timings = []
-    for t in (1370, 1888):
+    for t in (depth_tokens(e) for e in DEPTH_EXTENTS):
         q, k, v = (torch.randn(4, 6, t, 64, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
-        kernel_ms = median_ms(lambda: fa.flash_attention(q, k, v), 20)
-        plain_ms = median_ms(lambda: fa.flash_attention_plain(q, k, v, 64**-0.5), 20)
-        kernel_ms2 = median_ms(lambda: fa.flash_attention(q, k, v), 20)
-        plain_ms2 = median_ms(lambda: fa.flash_attention_plain(q, k, v, 64**-0.5), 20)
-        timings.append((t, min(kernel_ms, kernel_ms2), min(plain_ms, plain_ms2)))
-        print(f"flash_attention (24, {t}, 64) bf16: kernel median {kernel_ms:.4f} / {kernel_ms2:.4f} ms, "
-              f"plain median {plain_ms:.4f} / {plain_ms2:.4f} ms [{card}]", flush=True)
+        run_k = lambda: fa.flash_attention(q, k, v)  # noqa: E731
+        run_p = lambda: fa.flash_attention_plain(q, k, v, 64**-0.5)  # noqa: E731
+        k1, p1, k2, p2 = (device_ms(f) for f in (run_k, run_p, run_k, run_p))
+        timings.append((t, min(k1, k2), min(p1, p2)))
+        print(f"flash_attention (24, {t}, 64) bf16 on the card: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+              f"{p2:.4f} ms; per call with the host's launch work: kernel {median_ms(run_k, 20):.4f} ms [{card}]",
+              flush=True)
     xb = torch.from_numpy(np.stack([r.to_rgb_u8() for r in requests[:4]]))
     fwd_ms = median_ms(lambda: model.forward_u8(xb), 5, warmup=2)
     print(f"forward_u8 batch 4 at 518x518 bf16: median {fwd_ms:.3f} ms [{card}]", flush=True)
+    profile_forward(model, torch.from_numpy(np.stack([r.to_rgb_u8() for r in requests[:4]])), torch, card,
+                    ("flash_attention",))
     print(f"ImageServer 8 requests (5 at 518x518, 3 at 700x500): p50 latency {p50_ms:.3f} ms, "
           f"{8 / wall_s:.3f} img/s [{card}]", flush=True)
     del model, cpu_model
@@ -977,10 +1204,11 @@ def main() -> int:
         bias = (torch.randn(h, t, t, device="cuda", generator=gen) * 0.5).to(torch.bfloat16)
         run_k = lambda: wa.window_attention(q, k, v, bias, h, 32**-0.5)  # noqa: E731
         run_p = lambda: wa.window_attention_plain(q, k, v, bias, h, 32**-0.5)  # noqa: E731
-        k1, p1, k2, p2 = (median_ms(f, 20) for f in (run_k, run_p, run_k, run_p))
+        k1, p1, k2, p2 = (device_ms(f) for f in (run_k, run_p, run_k, run_p))
         win_times.append((f"({6 * nw}, {t}, {h * 32}) bf16, H={h}", min(k1, k2), min(p1, p2)))
-        print(f"window_attention stage {i + 1} (NW={6 * nw}, T={t}, H={h}, hd=32) bf16: kernel median "
-              f"{k1:.4f} / {k2:.4f} ms, plain median {p1:.4f} / {p2:.4f} ms [{card}]", flush=True)
+        print(f"window_attention stage {i + 1} (NW={6 * nw}, T={t}, H={h}, hd=32) bf16 on the card: kernel "
+              f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; per call with the host's launch work: kernel "
+              f"{median_ms(run_k, 20):.4f} ms [{card}]", flush=True)
     base = np.stack([sam_process_input_u8(r[0]) for r in sam_reqs[:8]])
     for b in (1, 2, 4, 6, 8):
         xb = torch.from_numpy(base[:b]).to("cuda")
@@ -1120,7 +1348,7 @@ def main() -> int:
           f"{6 / esr_wall_s:.3f} img/s, {e_batches} batches [{card}]", flush=True)
     print(f"tiled compute 640x480 (9 tiles of 224x176, 3 chunks of 4): {tiled_ms:.3f} ms [{card}]", flush=True)
     print(f"kernel build (nvcc, every source in parallel): {build_s:.2f} s [{card}]", flush=True)
-    flash_lib, win_lib = attention_yardsticks(fa, wa, torch, card)
+    flash_libs, win_lib = attention_yardsticks(fa, wa, torch, card)
     del emodel
 
     phase("14 deform sampler and masked window kernel against their plain versions")
@@ -1248,10 +1476,11 @@ def main() -> int:
     rdb_bounds = [conv_bound(px, ci, co) for _, px, ci, co, *_ in rdb]
     rdb_bound = sum(ms for ms, _ in rdb_bounds)
     rdb_by = max(("bytes", "operations"), key=[by for _, by in rdb_bounds].count)  # what bounds most of the five
-    _, k_ms, p_ms = timings[0]
+    (t_sq, k_ms, p_ms), (t_wide, k_wide, p_wide) = timings
     w_shape, w_ms, w_plain_ms = win_times[0]
     nw, t, h = SAM_STAGES[0]
-    flash_bound, flash_by = bound_ms(4.0 * 24 * 1370**2 * 64, 4 * 2.0 * 24 * 1370 * 64)
+    flash_bound, flash_by = bound_ms(4.0 * 24 * t_sq**2 * 64, 4 * 2.0 * 24 * t_sq * 64)
+    wide_bound, wide_by = bound_ms(4.0 * 24 * t_wide**2 * 64, 4 * 2.0 * 24 * t_wide * 64)
     win_bound, win_by = bound_ms(4.0 * 6 * nw * h * t * t * 32, 4 * 2.0 * 6 * nw * t * h * 32 + 2.0 * h * t * t)
     print(card)
     print(json.dumps({"kernels": [
@@ -1266,8 +1495,11 @@ def main() -> int:
             "plain_ms": p_ms,
             "bound_ms": flash_bound,
             "bound_by": flash_by,
-            "library_ms": flash_lib,
-            "timed_shape": "(24, 1370, 64) bf16",
+            "library_ms": flash_libs[t_sq],
+            "timed_shape": f"(24, {t_sq}, 64) bf16",
+            "timing": DEVICE_TIMING,
+            f"at_{t_wide}_tokens": {"ms": k_wide, "plain_ms": p_wide, "bound_ms": wide_bound, "bound_by": wide_by,
+                                    "library_ms": flash_libs[t_wide]},
         },
         {
             "name": "window_attention",
@@ -1282,6 +1514,7 @@ def main() -> int:
             "bound_by": win_by,
             "library_ms": win_lib,
             "timed_shape": w_shape,
+            "timing": DEVICE_TIMING,
             "launches_birefnet": bir_launches["window"],
             "launches_birefnet_masked": bir_launches["window masked"],
             "birefnet_masked_stage1": dict(zip(("label", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),

@@ -90,3 +90,57 @@ def test_backend_init_without_a_card_raises(monkeypatch):
     with pytest.raises(VispError):
         backend_init("gpu")
     assert backend_init("cpu").type == BackendType.cpu
+
+
+def _tiny_gguf(tmp_path):
+    import numpy as np
+
+    from vision_tpu_torch.core.gguf import GGUFWriter, model_load
+
+    w = GGUFWriter(tmp_path / "tiny.gguf", "esrgan")
+    w.add_tensor("c.weight", np.arange(24, dtype=np.float32).reshape(2, 3, 2, 2))
+    w.add_tensor("c.index", np.arange(4, dtype=np.int32))
+    w.write()
+    return model_load(tmp_path / "tiny.gguf")
+
+
+def test_load_weights_without_a_device_follows_backend_init(monkeypatch, tmp_path):
+    """``load_weights(file)`` takes backend_init()'s device, as the model
+    loaders do: with no card it raises the VispError that names
+    backend_init("cpu"), and never puts the weights on the CPU unasked."""
+    import pytest
+    import torch
+
+    from vision_tpu_torch.core.errors import VispError
+    from vision_tpu_torch.core.weights import load_weights
+
+    file = _tiny_gguf(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(VispError, match=r'backend_init\("cpu"\)'):
+        load_weights(file)
+
+
+def test_load_weights_on_the_named_cpu(tmp_path):
+    import numpy as np
+    import torch
+
+    from vision_tpu_torch.core.device import backend_init
+    from vision_tpu_torch.core.weights import load_weights
+
+    params = load_weights(_tiny_gguf(tmp_path), backend_init("cpu"))
+    assert params["c.weight"].device == torch.device("cpu") and params["c.weight"].dtype == torch.float32
+    assert params["c.index"].device == torch.device("cpu") and not params["c.index"].is_floating_point()
+    np.testing.assert_array_equal(params["c.weight"].numpy(), np.arange(24, dtype=np.float32).reshape(2, 3, 2, 2))
+
+
+def test_load_weights_as_numpy_needs_no_device(monkeypatch, tmp_path):
+    import numpy as np
+    import torch
+
+    from vision_tpu_torch.core.weights import load_weights
+
+    file = _tiny_gguf(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arrays = load_weights(file, as_numpy=True)
+    assert isinstance(arrays["c.weight"], np.ndarray) and arrays["c.weight"].dtype == np.float32
+    np.testing.assert_array_equal(arrays["c.index"], np.arange(4, dtype=np.int32))

@@ -198,3 +198,44 @@ def test_attention_windows_with_window_mask_matches_jax():
     combined = np.tile(mask[:, None], (b // n_masks, 1, 1, 1)) + bias
     expected = jnn.attention_windows(JParams(store), x, h, 2, combined, 0.3)
     np.testing.assert_allclose(out.numpy(), np.asarray(expected), atol=1e-4, rtol=1e-3)
+
+
+# TinyViT's stages in a SamServer batch of 6 1024x1024 images, and SWIN-L's
+# at 1024x1024 in a BiRefNet batch of 4: (label, NW, T, H, nW masks)
+def _served_stages():
+    from vision_tpu_torch.models.swin import compute_attention_mask
+
+    stages = [(f"TinyViT stage {i + 1}", 6 * nw, t, h, 0)
+              for i, (nw, t, h) in enumerate(((361, 49, 4), (25, 196, 5), (100, 49, 10)))]
+    for i, (side, h) in enumerate(((256, 6), (128, 12), (64, 24), (32, 48))):
+        n_masks = compute_attention_mask(side, side, 12).shape[0]
+        stages.append((f"SWIN-L stage {i + 1}", 4 * n_masks, 144, h, n_masks))
+    return stages
+
+
+@pytest.mark.parametrize("stage", range(7))
+def test_window_plan_covers_every_problem_once_in_two_waves(stage):
+    """The bf16 kernel's launch plan at every served stage: every (window,
+    head) problem in exactly one block, each block's windows of one mask
+    class, the staged mask and biases within a block's shared memory, and
+    at least two waves of the card's SMs."""
+    label, nw, t, h, n_masks = _served_stages()[stage]
+    plan = wa.window_plan(nw, t, h, n_masks, 2)
+    blocks = list(plan.problems(nw, h))
+    assert len(blocks) == plan.blocks
+    seen = [p for block in blocks for p in block]
+    assert sorted(seen) == [(w, hh) for w in range(nw) for hh in range(h)], label
+    if n_masks:
+        assert all(len({w % n_masks for w, _ in block}) == 1 for block in blocks), label
+    assert all(len(block) <= plan.heads * plan.run for block in blocks)
+    assert plan.staged and plan.smem <= wa.SMEM_MAX and plan.threads == 32 * -(-t // 16)
+    assert plan.waves >= 2, (label, plan)
+
+
+def test_window_plan_reads_from_l2_where_staging_does_not_fit():
+    """T 256 with an f32 mask and an f32 bias: 512 KB of staging does not fit
+    a block, so both come from L2 and shared memory holds only q, k and v."""
+    plan = wa.window_plan(8, 256, 2, 4, 4)
+    assert not plan.staged and plan.smem == 2 * 3 * 256 * 64
+    assert sorted(p for b in plan.problems(8, 2) for p in b) == [(w, h) for w in range(8) for h in range(2)]
+    assert wa.window_plan(8, 256, 2, 0, 0).staged  # nothing to stage

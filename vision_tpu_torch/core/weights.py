@@ -23,7 +23,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .device import Device
+from .device import Device, backend_init
 from .errors import raise_error
 from .gguf import GGUFFile
 
@@ -116,11 +116,16 @@ def load_weights(
 ) -> dict:
     """Read all tensors, normalize layout, cast floats, move to the device.
 
-    Mirrors reference model_transfer (ml.cpp:449-516) in one pass. With
-    ``as_numpy`` the host arrays (floats as f32) come back before the
-    transfer, for loaders that fix up layouts first."""
-    if float_dtype is None:
-        float_dtype = device.preferred_float_type if device is not None else torch.float32
+    Mirrors reference model_transfer (ml.cpp:449-516) in one pass. Without
+    ``device`` the tensors go to ``backend_init()``'s device, as the model
+    loaders do: the CUDA card, or a ``VispError`` naming
+    ``backend_init("cpu")`` when there is none. With ``as_numpy`` the host
+    arrays (floats as f32) come back before the transfer, for loaders that
+    fix up layouts first; that needs no device."""
+    if not as_numpy:
+        device = device or backend_init()
+        if float_dtype is None:
+            float_dtype = device.preferred_float_type
     layout = file.tensor_layout
     # {arch}.conv2d_weights is authoritative WHEN PRESENT (reference
     # ml.cpp:435-445): those tensor indices are the permuted convs
@@ -145,5 +150,4 @@ def load_weights(
         out[name] = a
     if as_numpy:
         return out
-    target = device.torch_device if device is not None else torch.device("cpu")
-    return params_from_numpy(out, target, float_dtype)
+    return params_from_numpy(out, device.torch_device, float_dtype)

@@ -98,6 +98,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.vtt_window_attention_fwd
     fn.argtypes = [p, p, p, p, p, i, p, i, i, i, i, i, i, ctypes.c_float, p]
     fn.restype = i
+    fn = lib.vtt_window_attention_plan
+    fn.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = i
     fn = lib.vtt_conv3x3_fwd  # each size is checked below 2^31 by the wrapper
     fn.argtypes = [p, p, p, i, i, i, i, i, i, p]
     fn.restype = i

@@ -1,20 +1,23 @@
 """Fused mask-free attention on Hopper, and its plain PyTorch version.
 
-``flash_attention`` replaces the Pallas kernel ``_attn_kernel`` of
-vision_tpu/ops/pallas/flash_attention.py (launched by ``_flash_attention``
+``flash_attention`` replaces the Pallas kernel ``_attn_kernel`` at
+vision_tpu/ops/pallas/flash_attention.py:26 (launched by ``_flash_attention``
 through ``pl.pallas_call``); its consumer on the port's path is DINOv2's
 global attention inside Depth-Anything V2 (models/dino.py).
 
 The kernel (csrc/flash_attention.cu) cannot hold a whole K/V row the way the
-Pallas kernel holds it in VMEM: at the slice's 1888 keys, D = 64, bf16, the
-row is 483 KB against 227 KB of shared memory per block. It tiles K/V by 64
-keys with an online softmax instead, one block per (64-row q tile, b*h).
-bf16 runs on the tensor cores through mma.sync (P stays in registers
-between the two products); at D = 64 it is bound by shared-memory fragment
-loads and the softmax between the products, with no overlap of the next
-tile's loads, not by device memory: each 64-row q tile reads its head's
-K/V once, mostly from L2. f32 (the CPU-parity type) runs as FMA loops.
-wgmma, TMA and warp specialisation are later work.
+Pallas kernel holds it in VMEM: a 518x728 request's 1925 keys at D = 64,
+bf16, make a 493 KB row against 227 KB of shared memory per block. It tiles
+K/V with an online softmax instead. In bf16 it is bound by operations (~700
+FLOP per byte at the Depth-Anything shapes; at D = 64 the softmax's ex2 and
+FP32 work weighs as much as the products), so it is built for Hopper's
+tensor cores: one block per (128-row q tile, b*h) of two consumer
+warpgroups and a producer warp; K/V tiles of 128 keys arrive by TMA into a
+4-stage mbarrier ring while earlier tiles are multiplied; S = Q K^T and
+O += P V run as wgmma, P from registers and V read as MN-major, so nothing
+is transposed; the two warpgroups take turns on the tensor cores, so one's
+softmax (one FFMA and one ex2 a logit) overlaps the other's products. f32
+(the CPU-parity type) runs as FMA loops.
 
 A CPU tensor goes to :func:`flash_attention_plain`; a CUDA tensor goes to
 the kernel or raises. ``launches`` counts kernel launches.

@@ -1,8 +1,8 @@
 """Windowed multi-head attention with a per-head additive bias and an
 optional per-window mask on Hopper, and its plain PyTorch version.
 
-``window_attention`` replaces the Pallas kernel ``_kernel`` of
-scripts/exp_winattn2.py (launched by that script's ``window_attention``
+``window_attention`` replaces the Pallas kernel ``_kernel`` at
+scripts/exp_winattn2.py:19 (launched by that script's ``window_attention``
 through ``pl.pallas_call``): for every window w and head h,
 
     out[w, :, h] = softmax(q[w, :, h] * scale . k[w, :, h]^T + bias[h] + mask[w % nW]) . v[w, :, h]
@@ -26,21 +26,34 @@ are rounded to v's type; PV accumulates in f32; the output is in q's type.
 (The JAX package's XLA ``attention_windows`` keeps its logits in the input
 type instead.)
 
-The kernel (csrc/window_attention.cu) holds one (window, head) whole in
-shared memory (T <= 256), so it needs no online softmax; it is bound by
-launch and occupancy (thousands of tiny blocks), not by bytes. A CPU tensor
-goes to :func:`window_attention_plain`; a CUDA tensor goes to the kernel or
-raises. ``launches`` counts kernel launches, ``masked_launches`` those of
-them that carried a ``window_mask``.
+The kernel (csrc/window_attention.cu) is bound by bytes on the card: a
+(window, head) problem at SWIN-L's T 144 moves 37 KB of q, k, v and o for
+2.7 MFLOP, and its logits need T x T bias and mask values, 124 KB if read per
+logit. So a block takes one mask class (window w takes mask w % nW: the same
+window position in every image) or a run of windows, times a group of heads;
+it stages the class's mask and its heads' biases in shared memory once, and
+reads them from there for every problem; one warp per 16-row tile; the next
+problem's q, k and v arrive by cp.async into a double buffer while this one
+computes, and the fragments come through ldmatrix (``.trans`` for V). The
+launch plan, :func:`window_plan`, mirrors the kernel library's own (which
+``vtt_window_attention_plan`` reports), so the CPU tests can hold it to
+covering every (window, head) once and filling two waves of the card. It
+replaces the one-block-per-(window, head) kernel that read the bias and mask
+per logit.
+
+A CPU tensor goes to :func:`window_attention_plain`; a CUDA tensor goes to
+the kernel or raises. ``launches`` counts kernel launches, ``masked_launches``
+those of them that carried a ``window_mask``.
 """
 
 from __future__ import annotations
 
 import threading
+from typing import NamedTuple
 
 import torch
 
-__all__ = ["window_attention", "window_attention_plain", "launches", "masked_launches"]
+__all__ = ["window_attention", "window_attention_plain", "window_plan", "WindowPlan", "launches", "masked_launches"]
 
 launches = 0
 masked_launches = 0  # the launches of those that carried a window_mask
@@ -50,6 +63,92 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BIAS_DTYPES = {torch.float32: 1, torch.bfloat16: 2}  # 0: no bias
 _HEAD_DIMS = (32,)  # every TinyViT stage and every SWIN-T/-L stage
 MAX_T = 256  # the kernel keeps a window's keys whole in shared memory
+
+# the card, as the bf16 kernel's launch plan sees it (csrc/window_attention.cu)
+SMS = 132  # SMs of an H100 SXM
+SMEM_MAX = 232_448  # dynamic shared memory a block may use
+SMEM_PER_SM = 233_472  # shared memory of an SM; each block also takes 1 KB
+MAX_REGS = 128  # registers a thread of the bf16 kernel may use
+_ROW = 64  # bytes of one head's q, k or v row (hd 32, bf16)
+
+
+class WindowPlan(NamedTuple):
+    """How the bf16 kernel covers (NW, H) problems: ``blocks`` blocks of
+    ``threads`` threads and ``smem`` bytes of shared memory, each taking
+    ``heads`` heads of up to ``run`` windows of one mask class; ``staged``:
+    the mask and the biases sit in shared memory (else they are read from
+    L2). ``classes`` is nW, or 1 without a mask; ``blocks_per_sm`` what
+    shared memory, threads and registers let one SM hold."""
+
+    blocks: int
+    threads: int
+    smem: int
+    heads: int
+    run: int
+    staged: bool
+    classes: int
+    blocks_per_sm: int
+
+    @property
+    def waves(self) -> float:
+        return self.blocks / (SMS * self.blocks_per_sm)
+
+    def problems(self, nw: int, n_heads: int):
+        """Each block's (window, head) problems, in block order, as the
+        kernel walks them."""
+        per_class = nw // self.classes
+        groups = n_heads // self.heads
+        runs = -(-per_class // self.run)
+        for b in range(self.blocks):
+            h0, i0, m = b % groups * self.heads, b // groups % runs * self.run, b // groups // runs
+            yield [(m + self.classes * i, h0 + hl) for i in range(i0, min(i0 + self.run, per_class))
+                   for hl in range(self.heads)]
+
+
+def _padded(t: int) -> int:
+    """The smallest row length >= t that is 8 mod 16 (conflict-free 8-byte
+    reads of the staged mask and bias)."""
+    return t + (24 - t % 16) % 16
+
+
+def window_plan(nw: int, t: int, n_heads: int, n_masks: int = 0, bias_bytes: int = 2) -> WindowPlan:
+    """The bf16 kernel's launch plan for q of (NW, T, H * 32), ``n_masks``
+    per-window masks (0: none) and a bias of ``bias_bytes`` per element (0:
+    none). The kernel library computes the same (plan() in
+    csrc/window_attention.cu; chip_smoke.py compares the two): the largest
+    head group whose biases fit beside the mask and the q/k/v double buffer,
+    then smaller head groups, then halved window runs, until the grid fills
+    two waves of the card's SMs."""
+    n = -(-t // 16)
+    tiles = n if n <= 4 else 7 if n <= 7 else 9 if n <= 9 else 13 if n <= 13 else 16
+    qkv = 2 * 3 * 16 * tiles * _ROW
+    mask = -(-t * _padded(t) * 4 // 16) * 16 if n_masks else 0
+    bias = -(-t * _padded(t) * bias_bytes // 16) * 16
+
+    def smem(heads: int, staged: bool) -> int:
+        return mask + heads * bias + qkv if staged else qkv
+
+    classes, threads = n_masks or 1, 32 * tiles
+    staged = smem(1, True) <= SMEM_MAX
+    heads = n_heads
+    while smem(heads, staged) > SMEM_MAX or n_heads % heads:
+        heads -= 1
+    per_class, run = nw // classes, nw // classes
+    while True:
+        size = smem(heads, staged)
+        blocks = classes * -(-per_class // run) * (n_heads // heads)
+        per_sm = min(SMEM_PER_SM // (size + 1024), 2048 // threads, 65536 // (threads * MAX_REGS))
+        if blocks >= 2 * SMS * per_sm:
+            break
+        if heads > 1:
+            heads -= 1
+            while n_heads % heads:
+                heads -= 1
+        elif run > 1:
+            run = (run + 1) // 2
+        else:
+            break
+    return WindowPlan(blocks, threads, size, heads, run, staged, classes, per_sm)
 
 
 def window_attention_plain(q, k, v, bias, n_heads: int, scale: float, window_mask=None) -> torch.Tensor:
