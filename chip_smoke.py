@@ -44,8 +44,15 @@ Phases, each raising on failure:
      and the host's pre/post work, each beside the card name and power limit;
  10. the conv3x3 kernel against its plain version: bf16 at the RRDB shapes
      (the five RDB convs, the stem and the last conv at 256x256), f32 edge
-     cases (ragged H and W, batch, Cin 3 and 4, Cout 3, one pixel wide), and
-     one bf16 input of more than 2^31 elements, (4, 4096, 4096, 64 -> 64);
+     cases (ragged H and W, batch, Cin 3 and 4, Cout 3, one pixel wide);
+     then each epilogue and view form the Real-ESRGAN path gives it (conv1-4
+     into a channel slice of a 192-channel buffer with leaky ReLU, conv5's
+     x + 0.2 * y into the next buffer, RDB3's double residual written over
+     its residual, the stem into a buffer, the trunk's skip, hr's leaky ReLU,
+     the last conv), in bf16 at 256x256 and in bf16 and f32 at a ragged
+     (2, 19, 23), every channel outside the written view checked unchanged;
+     and one bf16 input of more than 2^31 elements, (4, 4096, 4096, 64 ->
+     64);
  11. the Real-ESRGAN path: an esrgan GGUF of random_esrgan_params(0) (the
      full RealESRGAN-x4 RRDBNet: nf 64, gc 32, 23 blocks) is written, loaded
      with esrgan_load_model on the card and on the CPU, 6 requests (4 at
@@ -53,13 +60,19 @@ Phases, each raising on failure:
      one 640x480 image goes through EsrganModel.compute's tiles, the counts
      zeroed just before and read just after each;
  12. Real-ESRGAN parity on a crop of one request: the card's bf16 float
-     output against the CPU's f32, stage by stage; the card's f32 forward
-     (kernel route, TF32 off) against the CPU's f32; the served u8 against
-     the card's float forward;
- 13. Real-ESRGAN timings: the conv kernel against its plain version and
-     F.conv2d (cuDNN, a yardstick the port never calls) with the bound
-     beside each; forward_u8 at 1024x1024 and 512x512 x 4; the served and
-     tiled numbers; and the yardsticks of the attention kernels
+     output against the CPU's f32, stage by stage in esrgan_generate's
+     structure (each RRDB on its dense-block buffers, the biases, leaky
+     ReLUs and residuals in the conv's epilogue); the card's f32 forward
+     (kernel route, TF32 off, 351 launches) against the CPU's f32; the
+     served u8 against the card's float forward;
+ 13. Real-ESRGAN timings: the conv kernel at the RDB shapes at 1024x1024 and
+     the tail shapes at 4096x4096, with its path's epilogue and views and
+     bare, against its plain version and F.conv2d (cuDNN, a yardstick the
+     port never calls) with the bound beside each, by the card's own time
+     (device_ms) and per call; forward_u8 at 1024x1024 and 512x512 x 4, and
+     a profile of the latter that must hold fewer launches of other kernels
+     than RRDBs (no elementwise pass per RRDB); the served and tiled
+     numbers; and the yardsticks of the attention kernels
      (F.scaled_dot_product_attention, which the port never calls), by the
      card's own time and per call;
  14. the deform sampler against its plain version: bf16 at the 20 shapes of a
@@ -91,9 +104,11 @@ paths; the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --parent DIR
 
-runs phases 1 and 2 and then only compare_with_parent: the attention
-kernels of another checkout of the port at DIR (say the parent commit,
-unpacked with git archive) against this checkout's, in turns on one card.
+runs phases 1 and 2 and then only compare_with_parent: the attention and
+conv kernels of another checkout of the port at DIR (say the parent commit,
+unpacked with git archive) against this checkout's, in turns on one card,
+and Real-ESRGAN's forward_u8 at 512x512 x 4 in each checkout (its own
+process, its own package and kernel library), in turns.
 """
 
 from __future__ import annotations
@@ -341,8 +356,9 @@ def window_plan_cases(wa, build, sam_batch: int = 6, swin_batch: int = 4) -> Non
 
 
 def conv_cases(cc, torch) -> float:
-    """Phase 10: the conv3x3 kernel against conv3x3_plain. Returns the
-    largest absolute difference seen."""
+    """Phase 10: the conv3x3 kernel against conv3x3_plain, bare, then with
+    each epilogue and view form of the Real-ESRGAN path (epilogue_cases).
+    Returns the largest absolute difference seen."""
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [(f"RDB {ci}->{co}", 1, 256, 256, ci, co, bf16) for ci, co in ESRGAN_RDB]
     cases += [
@@ -374,6 +390,8 @@ def conv_cases(cc, torch) -> float:
         ref = cc.conv3x3_plain(x.float(), wt.float())
         err = check_close(f"conv3x3 {label} ({n}, {h}, {w}, {ci}) -> {co} {dtype}", out, ref, dtype, torch)
         worst = max(worst, err)
+    for dtype, (n, h, w) in ((bf16, (1, 256, 256)), (bf16, (2, 19, 23)), (f32, (2, 19, 23))):
+        worst = max(worst, epilogue_cases(cc, torch, gen, n, h, w, dtype))
 
     # more than 2^31 elements: 64-bit offsets; the last image against the
     # plain version run on that image alone
@@ -390,6 +408,59 @@ def conv_cases(cc, torch) -> float:
     del x, out, ref
     torch.cuda.empty_cache()
     return max(worst, err)
+
+
+def epilogue_cases(cc, torch, gen, n: int, h: int, w: int, dtype) -> float:
+    """Phase 10: each form the Real-ESRGAN path gives the kernel, on dense-
+    block buffers of (n, h, w, 192), against conv3x3_plain on the same
+    values: conv1-4 (a channel prefix in, 32 channels written after it,
+    bias and leaky ReLU), conv5 (all 192 in, x + 0.2 * (conv + b) into the
+    next buffer), RDB3's conv5 (the RRDB's residual too, written over it in
+    place), the stem (Cin 3 into a buffer), the trunk conv (+ skip), hr
+    (bias, leaky) and the last conv (Cout 3). Every channel a call must not
+    write is checked unchanged. Returns the largest absolute difference."""
+    nf, gc = 64, 32
+
+    def rnd(*shape, scale=0.5):
+        return (torch.randn(*shape, device="cuda", generator=gen) * scale).to(dtype)
+
+    def weight(co, ci):
+        return (torch.randn(co, ci, 3, 3, device="cuda", generator=gen) / (9 * ci) ** 0.5).to(dtype), rnd(co, scale=0.1)
+
+    buf, nxt, res = rnd(n, h, w, nf + 4 * gc), rnd(n, h, w, nf + 4 * gc), rnd(n, h, w, nf + 4 * gc)
+    x3, feat = rnd(n, h, w, 3), rnd(n, h, w, nf)
+    forms = []  # (label, input view, weight, bias, kwargs, output view, its buffer)
+    for k in range(4):
+        c = nf + k * gc
+        forms.append((f"conv{k + 1} {c}->{gc} into channels {c}:{c + gc}", buf[..., :c], *weight(gc, c),
+                      {"slope": 0.2}, buf[..., c : c + gc], buf))
+    forms.append(("conv5 192->64, x + 0.2 * y into the next buffer", buf, *weight(nf, 192),
+                  {"r1": buf[..., :nf], "s1": 0.2}, nxt[..., :nf], nxt))
+    forms.append(("RDB3 conv5, r2 + 0.2 * (x + 0.2 * y) over r2", buf, *weight(nf, 192),
+                  {"r1": buf[..., :nf], "s1": 0.2, "r2": res[..., :nf], "s2": 0.2}, res[..., :nf], res))
+    forms.append(("stem 3->64 into a buffer", x3, *weight(nf, 3), {}, nxt[..., :nf], nxt))
+    forms.append(("trunk 64->64 + skip", buf[..., :nf], *weight(nf, nf), {"r1": feat}, None, None))
+    forms.append(("hr 64->64, leaky", feat, *weight(nf, nf), {"slope": 0.2}, None, None))
+    forms.append(("last 64->3", feat, *weight(3, nf), {}, None, None))
+    worst = 0.0
+    for label, x, wt, b, kw, out, whole in forms:
+        ref = cc.conv3x3_plain(x.float(), wt.float(), b.float(),
+                               **{k: (v.float() if torch.is_tensor(v) else v) for k, v in kw.items()})
+        before_whole = None if whole is None else whole.clone()
+        count = cc.launches
+        got = cc.conv3x3(x, wt, b, out=out, **kw)
+        torch.cuda.synchronize()
+        if cc.launches != count + 1:
+            raise AssertionError(f"{label}: launch count went {count} -> {cc.launches}")
+        if out is not None:
+            if got.data_ptr() != out.data_ptr():
+                raise AssertionError(f"{label}: the result is not the given out view")
+            keep = torch.ones(whole.shape[-1], dtype=torch.bool, device="cuda")
+            keep[out.storage_offset() % whole.shape[-1] :][: out.shape[-1]] = False
+            if not torch.equal(whole[..., keep], before_whole[..., keep]):
+                raise AssertionError(f"{label}: channels outside the out view changed")
+        worst = max(worst, check_close(f"conv3x3 epilogue {label} ({n}, {h}, {w}) {dtype}", got, ref, dtype, torch))
+    return worst
 
 
 def check_close(label: str, out, ref, dtype, torch) -> float:
@@ -416,34 +487,65 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def conv_bound(pixels: int, ci: int, co: int) -> tuple[float, str]:
-    """bf16 3x3 conv: each input and output element and the weight once."""
-    return bound_ms(18.0 * pixels * ci * co, 2.0 * (pixels * (ci + co) + 9 * ci * co))
+def conv_bound(pixels: int, ci: int, co: int, residuals: int = 0) -> tuple[float, str]:
+    """bf16 3x3 conv: each input and output element, each residual read and
+    the weight once."""
+    return bound_ms(18.0 * pixels * ci * co, 2.0 * (pixels * (ci + co * (1 + residuals)) + 9 * ci * co))
+
+
+def conv_path_forms(torch, gen, hw: int, ci: int, co: int):
+    """The input, weight, bias and epilogue keywords of the Real-ESRGAN
+    path's call at this shape: a growth conv reads a channel prefix of a
+    192-channel buffer and writes its 32 channels after it with leaky ReLU,
+    conv5 writes x + 0.2 * y into the next buffer, hr (64 -> 64) fuses the
+    leaky ReLU, the last conv (-> 3) only the bias. Values of scale 0.5, as
+    phase 10's, keep the outputs below 4, where a bf16 ulp is within
+    BF16_MAX_ABS. Returns (x, w, b, kw, residuals read)."""
+    bf16 = torch.bfloat16
+    wt = (torch.randn(co, ci, 3, 3, device="cuda", generator=gen) / (9 * ci) ** 0.5).to(bf16)
+    b = (torch.randn(co, device="cuda", generator=gen) * 0.1).to(bf16)
+    if hw == 4096:
+        x = (torch.randn(1, hw, hw, ci, device="cuda", generator=gen) * 0.5).to(bf16)
+        return x, wt, b, ({"slope": 0.2} if co == 64 else {}), 0
+    buf = (torch.randn(1, hw, hw, 192, device="cuda", generator=gen) * 0.5).to(bf16)
+    if co == 32:
+        return buf[..., :ci], wt, b, {"slope": 0.2, "out": buf[..., ci : ci + co]}, 0
+    nxt = torch.empty(1, hw, hw, 192, device="cuda", dtype=bf16)
+    return buf, wt, b, {"r1": buf[..., :co], "s1": 0.2, "out": nxt[..., :co]}, 1
 
 
 def conv_timings(cc, torch, card: str) -> list:
-    """Phase 13: kernel, plain and F.conv2d (channels-last cuDNN) at the RDB
-    shapes at 1024x1024 and the tail shapes at 4096x4096, in turns. Returns
-    (label, pixels, Cin, Cout, kernel ms, plain ms, library ms)."""
+    """Phase 13: the kernel bare and with its path's epilogue and views, its
+    plain version and F.conv2d (channels-last cuDNN, bare), at the RDB
+    shapes at 1024x1024 and the tail shapes at 4096x4096: the card's own
+    time (device_ms, in turns) and, for the kernel, per call with the host's
+    launch work (median_ms). Returns (label, pixels, Cin, Cout, kernel ms
+    with the epilogue, bare kernel ms, plain ms, library ms, per-call ms,
+    residuals read)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
-    for hw, shapes, iters in ((1024, ESRGAN_RDB, 10), (4096, ESRGAN_TAIL, 3)):
+    for hw, shapes in ((1024, ESRGAN_RDB), (4096, ESRGAN_TAIL)):
         for ci, co in shapes:
-            x = torch.randn(1, hw, hw, ci, device="cuda", dtype=torch.bfloat16, generator=gen)
-            wt = (torch.randn(co, ci, 3, 3, device="cuda", generator=gen) / (9 * ci) ** 0.5).to(torch.bfloat16)
-            xc = x.permute(0, 3, 1, 2)  # an NHWC tensor is a channels-last NCHW one
-            run_k = lambda: cc.conv3x3(x, wt)  # noqa: E731
-            run_p = lambda: cc.conv3x3_plain(x, wt)  # noqa: E731
+            x, wt, b, kw, res = conv_path_forms(torch, gen, hw, ci, co)
+            xd = x.contiguous()
+            xc = xd.permute(0, 3, 1, 2)  # an NHWC tensor is a channels-last NCHW one
+            run_e = lambda: cc.conv3x3(x, wt, b, **kw)  # noqa: E731
+            run_k = lambda: cc.conv3x3(xd, wt)  # noqa: E731
             run_l = lambda: F.conv2d(xc, wt, None, 1, 1)  # noqa: E731
-            k1, p1, l1, k2, p2, l2 = (median_ms(f, iters, warmup=2) for f in (run_k, run_p, run_l, run_k, run_p, run_l))
-            bound, by = conv_bound(hw * hw, ci, co)
-            rows.append((f"({hw}x{hw}, {ci}) -> {co}", hw * hw, ci, co, min(k1, k2), min(p1, p2), min(l1, l2)))
-            print(f"conv3x3 (1, {hw}, {hw}, {ci}) -> {co} bf16: kernel median {k1:.4f} / {k2:.4f} ms, plain "
-                  f"{p1:.4f} / {p2:.4f} ms, F.conv2d {l1:.4f} / {l2:.4f} ms, bound {bound:.4f} ms ({by}) "
-                  f"[{card}]", flush=True)
-            del x, wt, xc
+            e1, k1, l1, e2, k2, l2 = (device_ms(f) for f in (run_e, run_k, run_l, run_e, run_k, run_l))
+            p_ms = device_ms(lambda: cc.conv3x3_plain(xd, wt), calls=2, warmup=1, reps=1)
+            call = median_ms(run_e, 10)
+            bound, by = conv_bound(hw * hw, ci, co, res)
+            rows.append((f"({hw}x{hw}, {ci}) -> {co}", hw * hw, ci, co, min(e1, e2), min(k1, k2), p_ms, min(l1, l2),
+                         call, res))
+            print(f"conv3x3 (1, {hw}, {hw}, {ci}) -> {co} bf16 on the card: kernel with the path's epilogue "
+                  f"({', '.join(sorted(kw)) or 'bias'}) {e1:.4f} / {e2:.4f} ms, bare {k1:.4f} / {k2:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, F.conv2d {l1:.4f} / {l2:.4f} ms, bound {bound:.4f} ms ({by}); per call with the "
+                  f"host's launch work {call:.4f} ms; {18.0 * hw * hw * ci * co / (min(e1, e2) * 1e-3) / 1e12:.1f} "
+                  f"TFLOP/s [{card}]", flush=True)
+            del x, xd, xc, kw
     torch.cuda.empty_cache()
     return rows
 
@@ -489,11 +591,12 @@ def attention_yardsticks(fa, wa, torch, card: str) -> tuple[float, float]:
     return flash, win[0]
 
 
-def profile_forward(model, x, torch, card: str, names=("conv3x3",)) -> None:
+def profile_forward(model, x, torch, card: str, names=("conv3x3",)) -> dict:
     """Phases 13 and 17: where one forward's time goes, from a torch.profiler
     trace: device busy time (the sum of kernel times), the host's wall time,
-    the idle share, the share of each named hand-written kernel and the
-    heaviest kernels."""
+    the idle share, the share of each named hand-written kernel, the
+    launches of every other kernel, and the heaviest kernels. Returns the
+    busy ms, wall ms and those other launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -510,40 +613,45 @@ def profile_forward(model, x, torch, card: str, names=("conv3x3",)) -> None:
     for name in names:
         ms = sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
         shares.append(f"{name} {ms:.3f} ms ({ms / busy_ms:.2%} of busy)")
+    others = sum(e.count for e in kernels if not any(name in e.key for name in names))
     print(f"profile of one forward_u8 {tuple(x.shape)}: wall {wall_ms:.3f} ms (profiler on), device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.2%}, {', '.join(shares)}, "
-          f"{sum(e.count for e in kernels)} kernel launches [{card}]", flush=True)
+          f"{sum(e.count for e in kernels)} kernel launches, {others} of them not of {'/'.join(names)} [{card}]",
+          flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}", flush=True)
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "other_launches": others}
 
 
 def esrgan_stages(params, x_u8, p, dtype, device):
-    """RRDBNet stage by stage, as esrgan_generate runs it: a list of (name,
-    output) ending with the forward's float output."""
+    """RRDBNet stage by stage, in esrgan_generate's structure (each RRDB on
+    its dense-block buffers, every bias, leaky ReLU and residual in the conv
+    kernel's epilogue): a list of (name, output) ending with the forward's
+    float output."""
     import torch
 
     from vision_tpu_torch.core.params import Params
     from vision_tpu_torch.models import esrgan
-    from vision_tpu_torch.ops import conv_3x3, leaky_relu, normalize_u8
+    from vision_tpu_torch.ops import conv_3x3_fused, normalize_u8
 
     out = []
     with torch.inference_mode():
         m = Params(params)["model"]
         block = m[1]["sub"]
-        x = conv_3x3(m[0], normalize_u8(x_u8.to(device), dtype=dtype))
-        out.append(("stem", x))
-        sub = x
+        feat = conv_3x3_fused(m[0], normalize_u8(x_u8.to(device), dtype=dtype))
+        out.append(("stem", feat))
+        sub = feat
         for i in range(p.n_blocks):
             sub = esrgan.rrdb(block[i], sub)
             if i in (0, p.n_blocks // 2, p.n_blocks - 1):
                 out.append((f"after RRDB {i}", sub))
-        x = x + conv_3x3(block[p.n_blocks], sub)
+        x = conv_3x3_fused(block[p.n_blocks], sub, r1=feat)
         out.append(("trunk sum", x))
         seq = 2
         for _ in range(int(np.log2(p.scale))):
             x = esrgan._upsample(m[seq + 1], x)
             seq += 3
-        out.append(("output", conv_3x3(m[seq + 2], leaky_relu(conv_3x3(m[seq], x), 0.2))))
+        out.append(("output", conv_3x3_fused(m[seq + 2], conv_3x3_fused(m[seq], x, slope=0.2))))
     return out
 
 
@@ -902,7 +1010,8 @@ def parent_library(parent: str, build):
     """The kernel library of another checkout of the port at ``parent``,
     built from its vision_tpu_torch/csrc/ with this build's flags into
     build/parent_kernels/; its attention entry points have this one's
-    signatures."""
+    signatures, its conv entry point the bare (x, w, out, sizes, dtype,
+    stream) one that this checkout's epilogue replaced."""
     import ctypes
     from pathlib import Path
 
@@ -918,8 +1027,92 @@ def parent_library(parent: str, build):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.vtt_flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
     lib.vtt_window_attention_fwd.argtypes = [p, p, p, p, p, i, p, i, i, i, i, i, i, ctypes.c_float, p]
-    lib.vtt_flash_attention_fwd.restype = lib.vtt_window_attention_fwd.restype = i
+    lib.vtt_conv3x3_fwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.vtt_flash_attention_fwd.restype = lib.vtt_window_attention_fwd.restype = lib.vtt_conv3x3_fwd.restype = i
     return lib
+
+
+# run in a checkout's root with ``python -c``, so that it imports that
+# checkout's package: Real-ESRGAN forward_u8 at 512x512 x 4 (random weights,
+# seed 0), CUDA events around single forwards and the profiler's busy time;
+# the last line is a JSON object
+FORWARD_AB = """
+import json, time
+import numpy as np, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from vision_tpu_torch.core.device import backend_init
+from vision_tpu_torch.core.weights import params_from_numpy
+from vision_tpu_torch.models import esrgan
+from vision_tpu_torch.models.random_weights import random_esrgan_params
+model = esrgan.EsrganModel(params_from_numpy(random_esrgan_params(0), "cuda", torch.float32),
+                           esrgan.EsrganParams(4, 23), backend_init("gpu"))
+x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (4, 512, 512, 3), np.uint8)).to("cuda")
+y = model.forward_u8(x, to_u8=False).float()
+times = []
+for _ in range(3):
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record(); model.forward_u8(x); e.record(); e.synchronize(); times.append(s.elapsed_time(e))
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    model.forward_u8(x); torch.cuda.synchronize()
+ks = [k for k in prof.key_averages() if k.device_type == DeviceType.CUDA]
+print(json.dumps({"ms": sorted(times)[1], "busy_ms": sum(k.self_device_time_total for k in ks) / 1e3,
+                  "launches": sum(k.count for k in ks), "out_rms": float(y.pow(2).mean().sqrt()),
+                  "out_sum": float(y.double().sum())}))
+"""
+
+
+def forward_in(checkout: str) -> dict:
+    """FORWARD_AB run in ``checkout`` (its package, its kernel library)."""
+    out = subprocess.run([sys.executable, "-c", FORWARD_AB], cwd=checkout, capture_output=True, text=True,
+                         timeout=900)
+    if out.returncode != 0:
+        raise RuntimeError(f"forward in {checkout} failed:\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def compare_conv_with_parent(lib, torch, card: str) -> None:
+    """``--parent DIR``: the conv kernel of the checkout at DIR (bare: its
+    entry point has no epilogue) against this checkout's, bare and with the
+    path's epilogue and views, in turns (parent, this, this, parent) by the
+    card's own time, beside F.conv2d and the bound, at phase 13's shapes;
+    each held against the plain version."""
+    import torch.nn.functional as F
+
+    from vision_tpu_torch.ops.cuda import conv3x3 as cc
+
+    def parent_conv(x, w):
+        out = torch.empty((*x.shape[:3], w.shape[0]), dtype=x.dtype, device=x.device)
+        err = lib.vtt_conv3x3_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(), *x.shape, w.shape[0], 1,
+                                  torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"parent conv3x3: cudaError {err}")
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for hw, shapes in ((1024, ESRGAN_RDB), (4096, ESRGAN_TAIL)):
+        for ci, co in shapes:
+            x, wt, b, kw, res = conv_path_forms(torch, gen, hw, ci, co)
+            xd = x.contiguous()
+            xc = xd.permute(0, 3, 1, 2)
+            ref = cc.conv3x3_plain(xd, wt)
+            errs = {"parent": float((parent_conv(xd, wt).float() - ref).abs().max()),
+                    "this": float((cc.conv3x3(xd, wt).float() - ref).abs().max())}
+            runs = {"parent": lambda: parent_conv(xd, wt), "this": lambda: cc.conv3x3(xd, wt)}
+            times = {}
+            for name in ("parent", "this", "this", "parent"):
+                times.setdefault(name, []).append(device_ms(runs[name]))
+            epi = device_ms(lambda: cc.conv3x3(x, wt, b, **kw))
+            lib_ms = device_ms(lambda: F.conv2d(xc, wt, None, 1, 1))
+            bound, by = conv_bound(hw * hw, ci, co)
+            print(f"A/B conv3x3 (1, {hw}, {hw}, {ci}) -> {co} bf16, bare: parent "
+                  f"{'/'.join(f'{t:.4f}' for t in times['parent'])}, this {'/'.join(f'{t:.4f}' for t in times['this'])}"
+                  f" ms; this with the path's epilogue {epi:.4f} ms; F.conv2d {lib_ms:.4f} ms; bound {bound:.4f} ms "
+                  f"({by}); max abs err parent {errs['parent']:.3e}, this {errs['this']:.3e} [{card}]", flush=True)
+            if max(errs.values()) > BF16_MAX_ABS:
+                raise AssertionError(f"conv3x3 ({hw}, {ci}) -> {co}: max abs err {errs}")
+            del x, xd, xc, kw, ref
+    torch.cuda.empty_cache()
 
 
 def compare_with_parent(parent: str, torch, card: str) -> None:
@@ -930,7 +1123,9 @@ def compare_with_parent(parent: str, torch, card: str) -> None:
     time (device_ms) and CUDA events around single calls (median_ms), at
     the main paths' shapes: flash at the Depth-Anything token counts
     (batch 4), the window kernel at TinyViT's three stages (batch 6) and
-    SWIN-L's four, masked (batch 4)."""
+    SWIN-L's four, masked (batch 4). Then the conv kernel
+    (compare_conv_with_parent) and Real-ESRGAN's forward (forward_in each
+    checkout, in turns)."""
     import torch.nn.functional as F
 
     from vision_tpu_torch.models.swin import compute_attention_mask
@@ -988,6 +1183,17 @@ def compare_with_parent(parent: str, torch, card: str) -> None:
               f"{errs['this']:.3e} [{card}]", flush=True)
         if max(errs.values()) > BF16_MAX_ABS:
             raise AssertionError(f"{label}: max abs err {errs}")
+    build._lib = libs["this"]
+    compare_conv_with_parent(libs["parent"], torch, card)
+    # Real-ESRGAN forward_u8, each checkout in its own process, in turns
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {}
+    for name, where in (("parent", parent), ("this", here), ("this", here), ("parent", parent)):
+        runs.setdefault(name, []).append(forward_in(where))
+    print("A/B Real-ESRGAN forward_u8 (4, 512, 512) bf16: " + "; ".join(
+        f"{name} " + ", ".join(f"{r['ms']:.3f} ms (busy {r['busy_ms']:.3f} ms, {r['launches']} launches)" for r in rs)
+        for name, rs in runs.items()) + f"; output RMS parent {runs['parent'][0]['out_rms']:.6e}, this "
+        f"{runs['this'][0]['out_rms']:.6e} [{card}]", flush=True)
 
 
 def main(argv=None) -> int:
@@ -996,8 +1202,9 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--parent", metavar="DIR", help="only time the attention kernels of the port's checkout at "
-                        "DIR against this checkout's (compare_with_parent), after phases 1 and 2")
+    parser.add_argument("--parent", metavar="DIR", help="only time the attention and conv kernels and Real-ESRGAN's "
+                        "forward of the port's checkout at DIR against this checkout's (compare_with_parent), "
+                        "after phases 1 and 2")
     args = parser.parse_args(argv)
 
     phase("1 environment")
@@ -1037,10 +1244,11 @@ def main(argv=None) -> int:
     print(f"kernel library {build.library_path().name}: ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.build_info['seconds']:.2f} s)", flush=True)
     for line in build.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line or "Potential" in line:
             print("ptxas:", line.strip())
     if args.parent:
-        phase(f"A/B the attention kernels of {args.parent} against this checkout's")
+        phase(f"A/B the attention and conv kernels and Real-ESRGAN's forward of {args.parent} against this "
+              "checkout's")
         compare_with_parent(args.parent, torch, card)
         return 0
 
@@ -1333,6 +1541,7 @@ def main(argv=None) -> int:
 
     phase(f"13 Real-ESRGAN timings on {card}")
     conv_rows = conv_timings(cc, torch, card)
+    esr_profile = {}
     for b, hw in ((1, 1024), (4, 512)):
         xb = torch.from_numpy(erng.integers(0, 256, (b, hw, hw, 3), np.uint8)).to("cuda")
         f1 = median_ms(lambda: emodel.forward_u8(xb), 3, warmup=1)
@@ -1342,8 +1551,13 @@ def main(argv=None) -> int:
         print(f"forward_u8 batch {b} at {hw}x{hw} bf16: median {f1:.3f} / {f2:.3f} ms, {b / f_ms * 1e3:.3f} img/s, "
               f"{tflops:.3f} TFLOP/s achieved [{card}]", flush=True)
         if b == 4:
-            profile_forward(emodel, xb, torch, card)
+            esr_profile = profile_forward(emodel, xb, torch, card)
         del xb
+    # no elementwise pass per RRDB: what is not a conv launch is the input's
+    # normalisation, the two nearest upsamplings and the u8 output
+    if esr_profile["other_launches"] >= emodel.p.n_blocks:
+        raise AssertionError(f"{esr_profile['other_launches']} launches other than conv3x3 in one forward of "
+                             f"{emodel.p.n_blocks} RRDBs")
     print(f"EsrganServer 6 requests (4 at 256x256, 2 at 320x240; batch 4): p50 latency {e_p50:.3f} ms, "
           f"{6 / esr_wall_s:.3f} img/s, {e_batches} batches [{card}]", flush=True)
     print(f"tiled compute 640x480 (9 tiles of 224x176, 3 chunks of 4): {tiled_ms:.3f} ms [{card}]", flush=True)
@@ -1471,9 +1685,9 @@ def main(argv=None) -> int:
               flush=True)
     del bmodel
 
-    # one RDB's five convs at 1024x1024, summed
+    # one RDB's five convs at 1024x1024 as the path runs them, summed
     rdb = conv_rows[: len(ESRGAN_RDB)]
-    rdb_bounds = [conv_bound(px, ci, co) for _, px, ci, co, *_ in rdb]
+    rdb_bounds = [conv_bound(px, ci, co, res) for _, px, ci, co, *_, res in rdb]
     rdb_bound = sum(ms for ms, _ in rdb_bounds)
     rdb_by = max(("bytes", "operations"), key=[by for _, by in rdb_bounds].count)  # what bounds most of the five
     (t_sq, k_ms, p_ms), (t_wide, k_wide, p_wide) = timings
@@ -1528,12 +1742,18 @@ def main(argv=None) -> int:
             "launches": esr_conv_launches,
             "max_abs_err": conv_worst,
             "ms": sum(r[4] for r in rdb),
-            "plain_ms": sum(r[5] for r in rdb),
+            "plain_ms": sum(r[6] for r in rdb),
             "bound_ms": rdb_bound,
             "bound_by": rdb_by,
-            "library_ms": sum(r[6] for r in rdb),
-            "timed_shape": "one RDB's five convs at (1, 1024, 1024) bf16, summed: "
-                           + ", ".join(f"{ci}->{co}" for ci, co in ESRGAN_RDB),
+            "library_ms": sum(r[7] for r in rdb),
+            "timed_shape": "one RDB's five convs at (1, 1024, 1024) bf16 with the path's epilogue and views, "
+                           "summed: " + ", ".join(f"{ci}->{co}" for ci, co in ESRGAN_RDB),
+            "timing": DEVICE_TIMING,
+            "bare_ms": sum(r[5] for r in rdb),
+            "shapes": [dict(zip(("shape", "ms", "bare_ms", "plain_ms", "library_ms", "per_call_ms"),
+                                (r[0], r[4], r[5], r[6], r[7], r[8]))) for r in conv_rows],
+            "forward_512x4_busy_ms": esr_profile["busy_ms"],
+            "forward_512x4_other_launches": esr_profile["other_launches"],
         },
         {
             "name": "deform_sample",

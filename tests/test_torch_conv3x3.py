@@ -149,7 +149,10 @@ def test_checks_reject_what_the_kernel_does_not_take(x, w, match):
 
 def test_conv_3x3_adds_the_bias_in_x_type():
     """ops/nn.py conv_3x3 against the JAX package's conv_2d(p, x, 1, 1), in
-    f32 and in bf16 (conv with f32 sums, rounded, then a bf16 bias add)."""
+    f32 and in bf16. The JAX package rounds the conv's f32 sum to bf16 and
+    adds the bias in bf16; the port adds the bias to the f32 sum and rounds
+    once, so the two differ by at most half an ulp of the rounded conv and
+    one ulp of the result (plus the f32 sums' own order error)."""
     from vision_tpu.core.params import Params as JParams
     from vision_tpu.ops import nn as jnn
 
@@ -165,9 +168,10 @@ def test_conv_3x3_adds_the_bias_in_x_type():
     pb = Params({k: torch.from_numpy(v).to(torch.bfloat16) for k, v in store.items()})
     got = nn.conv_3x3(pb["c"], torch.from_numpy(x).to(torch.bfloat16))
     assert got.dtype == torch.bfloat16
-    # two bf16 roundings (conv, bias add): at most one ulp each
+    jconv = {k: v for k, v in jb.items() if k != "c.bias"}
+    conv_bf16 = np.asarray(jnn.conv_2d(JParams(jconv)["c"], jnp.asarray(x, jnp.bfloat16), 1, 1).astype(jnp.float32))
     diff = np.abs(got.float().numpy() - expected_bf16)
-    assert (diff <= 2 * _bf16_ulp(np.abs(expected_bf16))).all(), float(diff.max())
+    assert (diff <= 0.5 * _bf16_ulp(conv_bf16) + _bf16_ulp(expected_bf16) + F32_ATOL).all(), float(diff.max())
 
 
 def test_conv_3x3_rejects_other_kernel_sizes():
@@ -188,3 +192,142 @@ def test_leaky_relu_matches_jax(dtype):
     # torch multiplies by the f32 slope, JAX by the slope rounded to bf16
     tol = 0 if dtype == torch.float32 else 2 * _bf16_ulp(np.abs(expected))
     assert (np.abs(got.float().numpy() - expected) <= tol + 1e-7).all()
+
+
+# -- the fused epilogue and the channel views --
+
+
+def _jax_rdb_tail(jnn, JParams, x, w, b, slope=None, r1=None, s1=None, r2=None, s2=None, dtype=jnp.float32):
+    """The JAX package's plain composition of what the fused epilogue does:
+    conv_2d (+ bias), leaky_relu, then x + s * y residuals, each in dtype."""
+    p = JParams({"c.weight": jnp.asarray(w, dtype), "c.bias": jnp.asarray(b, dtype)})["c"]
+    y = jnn.conv_2d(p, jnp.asarray(x, dtype), 1, 1)
+    if slope is not None:
+        y = jnn.leaky_relu(y, slope)
+    if r1 is not None:
+        y = jnp.asarray(r1, dtype) + s1 * y
+    if r2 is not None:
+        y = jnp.asarray(r2, dtype) + s2 * y
+    return np.asarray(y.astype(jnp.float32))
+
+
+_FORMS = {
+    # the Real-ESRGAN path's forms: growth conv, conv5, RDB3's conv5 with the RRDB's residual, trunk + skip
+    "leaky": dict(slope=0.2),
+    "residual": dict(r1=True, s1=0.2),
+    "double residual": dict(r1=True, s1=0.2, r2=True, s2=0.2),
+    "skip": dict(r1=True, s1=1.0),
+}
+
+
+def _form_inputs(form, n, h, w, cin, cout, seed):
+    x, wt = _inputs(seed, n, h, w, cin, cout)
+    rng = np.random.default_rng(seed + 1)
+    b = (rng.standard_normal(cout) * 0.1).astype(np.float32)
+    kw = dict(_FORMS[form])
+    for r in ("r1", "r2"):
+        if kw.get(r):
+            kw[r] = (rng.standard_normal((n, h, w, cout)) * 0.5).astype(np.float32)
+    return x, wt, b, kw
+
+
+@pytest.mark.parametrize("form", list(_FORMS))
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 9, 11, 16, 8), (1, 16, 16, 24, 12)])
+def test_fused_epilogue_matches_jax_composition_f32(form, n, h, w, cin, cout):
+    from vision_tpu.core.params import Params as JParams
+    from vision_tpu.ops import nn as jnn
+
+    x, wt, b, kw = _form_inputs(form, n, h, w, cin, cout, n * h + cin)
+    expected = _jax_rdb_tail(jnn, JParams, x, wt, b, **kw)
+    t = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
+    got = cc.conv3x3(torch.from_numpy(x), torch.from_numpy(wt), torch.from_numpy(b), **t)
+    np.testing.assert_allclose(got.numpy(), expected, atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("form", list(_FORMS))
+def test_fused_epilogue_bf16_is_no_less_precise_than_jax(form):
+    """bf16 inputs and weights: the fused form rounds once, so it is within
+    half a bf16 ulp of the f32 result (plus the sums' order error), and its
+    RMS error is no larger than the JAX composition's, which rounds after
+    the conv, the bias, the leaky ReLU and each residual sum."""
+    from vision_tpu.core.params import Params as JParams
+    from vision_tpu.ops import nn as jnn
+
+    x, wt, b, kw = _form_inputs(form, 2, 12, 13, 32, 16, 77)
+    rb = lambda a: np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))  # noqa: E731
+    x, wt, b = rb(x), rb(wt), rb(b)
+    kw = {k: (rb(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
+    exact = _jax_rdb_tail(jnn, JParams, x, wt, b, **kw)  # f32 on bf16 values
+    jax_bf16 = _jax_rdb_tail(jnn, JParams, x, wt, b, dtype=jnp.bfloat16, **kw)
+    t = {k: (torch.from_numpy(v).to(torch.bfloat16) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
+    got = cc.conv3x3(*(torch.from_numpy(a).to(torch.bfloat16) for a in (x, wt, b)), **t)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    assert (np.abs(got - exact) <= 0.5 * _bf16_ulp(exact) + F32_ATOL).all()
+    rms = lambda a: float(np.sqrt(np.mean((a - exact) ** 2)))  # noqa: E731
+    assert rms(got) <= rms(jax_bf16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_views_equal_the_contiguous_computation(dtype):
+    """A read of a channel prefix of a wider buffer and a write into a
+    channel slice give exactly the contiguous computation's values, and
+    leave every other channel as it was."""
+    x, wt = _inputs(3, 2, 10, 9, 48, 32)
+    b = np.random.default_rng(4).standard_normal(16).astype(np.float32)
+    buf = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 10, 9, 96)).astype(np.float32)).to(dtype)
+    buf[..., :48] = torch.from_numpy(x).to(dtype)
+    w16 = torch.from_numpy(wt[:16]).to(dtype)
+    b16 = torch.from_numpy(b).to(dtype)
+    want = cc.conv3x3(buf[..., :48].contiguous(), w16, b16, slope=0.2)
+    before = buf.clone()
+    got = cc.conv3x3(buf[..., :48], w16, b16, slope=0.2, out=buf[..., 48:64])
+    assert got.data_ptr() == buf[..., 48:64].data_ptr()
+    assert torch.equal(buf[..., 48:64], want)
+    assert torch.equal(buf[..., :48], before[..., :48]) and torch.equal(buf[..., 64:], before[..., 64:])
+    # a residual read from a view, the result over that very view
+    r = buf[..., 64:80]
+    want = cc.conv3x3(buf[..., :48].contiguous(), w16, b16, r1=r.contiguous(), s1=0.2)
+    cc.conv3x3(buf[..., :48], w16, b16, r1=r, s1=0.2, out=r)
+    assert torch.equal(buf[..., 64:80], want)
+
+
+def _buf(*shape, dtype=torch.float32):
+    return torch.zeros(*shape, dtype=dtype)
+
+
+_B = _buf(1, 4, 4, 32)  # one (1, 4, 4, 32) buffer for the overlap cases
+
+
+@pytest.mark.parametrize(
+    "x,w,kw,match",
+    [
+        # a view whose channels run past its buffer's pixel
+        (torch.zeros(1 * 4 * 4 * 8 + 4).as_strided((1, 4, 4, 6), (128, 32, 8, 1), 4), torch.zeros(2, 6, 3, 3), {},
+         "run past"),
+        # rows not packed: not a channel view of an NHWC buffer
+        (torch.zeros(1, 4, 6, 8)[:, :, :4], torch.zeros(2, 8, 3, 3), {}, "channel view"),
+        # a residual of the wrong shape, or type
+        (torch.zeros(1, 4, 4, 8), torch.zeros(2, 8, 3, 3), {"r1": torch.zeros(1, 4, 4, 3), "s1": 0.2}, "residual r1"),
+        (torch.zeros(1, 4, 4, 8), torch.zeros(2, 8, 3, 3), {"r2": torch.zeros(1, 4, 4, 2, dtype=torch.bfloat16)},
+         "residual r2"),
+        # a scale without its residual
+        (torch.zeros(1, 4, 4, 8), torch.zeros(2, 8, 3, 3), {"s1": 0.2}, "without the residual"),
+        # out overlaps x's channels in the same buffer
+        (_B[..., :16], torch.zeros(8, 16, 3, 3), {"out": _B[..., 12:20]}, "overlaps"),
+        (_B[..., 8:24], torch.zeros(8, 16, 3, 3), {"out": _B[..., :8]}, "CUDA device"),  # disjoint: fine up to the device
+        # out of the wrong shape, a bias of the wrong shape
+        (torch.zeros(1, 4, 4, 8), torch.zeros(2, 8, 3, 3), {"out": torch.zeros(1, 4, 4, 3)}, "out must be"),
+        (torch.zeros(1, 4, 4, 8), torch.zeros(2, 8, 3, 3), {"b": torch.zeros(3)}, "bias"),
+        # a channel stride the kernel cannot take
+        (torch.zeros(1, 4, 4, 16)[..., ::2], torch.zeros(2, 8, 3, 3), {}, "channel view"),
+        # more input channels than the bf16 kernel stages
+        (torch.zeros(1, 2, 2, 968, dtype=torch.bfloat16), torch.zeros(2, 968, 3, 3, dtype=torch.bfloat16), {},
+         "staged weight"),
+    ],
+)
+def test_checks_reject_the_epilogue_faults(x, w, kw, match):
+    kw = dict(kw)
+    b = kw.pop("b", None)
+    with pytest.raises(ValueError, match=match):
+        cc._check(x, w, b, **kw)

@@ -81,6 +81,45 @@ def test_esrgan_generate():
     _match(out, jesrgan.esrgan_generate(JParams(store), x, jesrgan.EsrganParams(4, 2)))
 
 
+def test_forward_is_one_conv_call_per_conv_on_dense_block_buffers(monkeypatch):
+    """esrgan_generate runs 1 + 15 nb + 5 calls of the conv wrapper at scale
+    4 (351 at 23 blocks) and no concatenation: each RDB's conv1-4 write
+    their growth channels into a channel view of the block's buffer with
+    leaky ReLU fused, conv5 writes x + 0.2 * y into the next buffer, and
+    RDB3's conv5 also takes the RRDB's residual."""
+    from vision_tpu_torch.ops.cuda import conv3x3 as ccm
+
+    calls = []
+    real = ccm.conv3x3
+
+    def spy(x, w, b=None, **kw):
+        out = kw.get("out")
+        calls.append((x.shape[-1], w.shape[0], kw.get("slope"), kw.get("r1") is not None, kw.get("r2") is not None,
+                      out is not None and not out.is_contiguous()))
+        return real(x, w, b, **kw)
+
+    def no_cat(*args, **kwargs):
+        raise AssertionError("torch.cat on the Real-ESRGAN path")
+
+    monkeypatch.setattr(ccm, "conv3x3", spy)
+    monkeypatch.setattr(torch, "cat", no_cat)
+    nf, gc, nb = 16, 8, 2
+    store = _store(RRDBNet(nf=nf, nb=nb, gc=gc, scale=4))
+    x = to_nhwc(input_tensor(1, 3, 12, 10))
+    out = esrgan.esrgan_generate(_port(store), torch.from_numpy(x), esrgan.EsrganParams(4, nb))
+    assert len(calls) == 1 + 15 * nb + 5
+    growth = [(nf + k * gc, gc, 0.2, False, False, True) for k in range(4)]
+    rdb = growth + [(nf + 4 * gc, nf, None, True, False, True)]
+    rdb3 = growth + [(nf + 4 * gc, nf, None, True, True, True)]
+    assert calls[0] == (3, nf, None, False, False, True)  # the stem, into the first buffer
+    assert calls[1:1 + 15 * nb] == (rdb + rdb + rdb3) * nb
+    assert calls[1 + 15 * nb:] == [(nf, nf, None, True, False, False), (nf, nf, 0.2, False, False, False),
+                                   (nf, nf, 0.2, False, False, False), (nf, nf, 0.2, False, False, False),
+                                   (nf, 3, None, False, False, False)]
+    monkeypatch.undo()
+    _match(out, jesrgan.esrgan_generate(JParams(store), x, jesrgan.EsrganParams(4, nb)))
+
+
 def test_esrgan_golden():
     """The inputs of tests/test_golden.py::test_golden_esrgan."""
     store = _store(RRDBNet(nf=8, nb=1, gc=4, scale=4))

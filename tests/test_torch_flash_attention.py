@@ -12,7 +12,7 @@ import torch
 from vision_tpu.ops.nn import attention_route as jax_attention_route
 from vision_tpu.ops.pallas.flash_attention import flash_attention as jax_flash_attention
 from vision_tpu_torch.ops.cuda import flash_attention as fa
-from vision_tpu_torch.ops.nn import CUDA_MIN_T, FUSED_LOGIT_MAX_T, attention_route
+from vision_tpu_torch.ops.nn import CUDA_MIN_T, FUSED_LOGIT_MAX_T, attention_core, attention_route
 
 
 def _qkv(seed, b, h, tq, tk, d):
@@ -107,3 +107,34 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "DEFAULT_NVCC", tmp_path / "no-nvcc")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build._nvcc()
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 128, 256])
+def test_flash_route_takes_the_head_dims_the_kernel_has(d):
+    """attention_route sends a mask-free long attention to the flash kernel
+    only at a head dim the kernel has an instance for, and the wrapper's
+    checks accept exactly those (every other rule of theirs holds for these
+    CPU tensors, so the device is what stops an accepted one)."""
+    route = attention_route(CUDA_MIN_T, False, True, cuda_ok=True, head_dim=d)
+    assert route == ("cuda" if d in fa.HEAD_DIMS else "xla_fused")
+    q = torch.zeros(1, 2, 8, d)
+    with pytest.raises(ValueError, match="CUDA device" if d in fa.HEAD_DIMS else "head dim"):
+        fa._check(q, q, q)
+
+
+def test_attention_core_on_the_cpu_keeps_the_route_at_any_head_dim(monkeypatch):
+    """The head-dim rule is the kernel's: CPU tensors still take the "cuda"
+    route at head dim 80 (SAM3's global layers), through the kernel's plain
+    version, which takes any head dim."""
+    calls = []
+    plain = fa.flash_attention_plain
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape)
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention_plain", counted)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(11, 1, 2, CUDA_MIN_T, CUDA_MIN_T, 80))
+    out = attention_core(q, k, v, flash=True)
+    assert calls == [(1, 2, CUDA_MIN_T, 80)]
+    np.testing.assert_allclose(out.numpy(), plain(q, k, v, 80**-0.5).numpy(), atol=1e-6)

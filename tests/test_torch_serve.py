@@ -83,3 +83,26 @@ def test_image_server_warmup_resets_stats(gguf_path):
     with ImageServer(model, batch_size=2, max_delay_ms=5) as srv:
         srv.warmup()
         assert srv.stats.requests == 0 and srv.stats.batches == 0
+
+
+@pytest.mark.parametrize(
+    "server,kind,default",
+    [("ImageServer", "DepthAnythingModel", 4), ("ImageServer", "BirefnetModel", 4), ("SamServer", "SamModel", 6),
+     ("EsrganServer", "EsrganModel", 4)],
+)
+def test_batch_size_none_takes_the_per_chip_default(server, kind, default):
+    """As the JAX package's _resolve_batch (vision_tpu/serve.py:93-104):
+    None is the family's per-chip default; an explicit size stays; 0
+    raises."""
+    import vision_tpu_torch.serve as serve
+
+    cls = getattr(serve, server)
+    model = type(kind, (), {})()  # the servers check their model's class name
+    for asked, want in ((None, default), (3, 3)):
+        srv = cls(model, batch_size=asked)
+        try:
+            assert srv.batch_size == want
+        finally:
+            srv.close()
+    with pytest.raises(ValueError, match="batch_size"):
+        cls(model, batch_size=0)

@@ -6,9 +6,9 @@ public functions; plain tensor code in PyTorch, and each Pallas kernel of
 the JAX package as a kernel written by hand for Hopper (``csrc/``).
 
 It imports ``torch`` and numpy, never ``jax`` or ``vision_tpu``. The port
-goes slice by slice: Depth-Anything V2 served through
-:class:`~vision_tpu_torch.serve.ImageServer`, then MobileSAM served through
-:class:`~vision_tpu_torch.serve.SamServer`, then Real-ESRGAN served through
+goes slice by slice; four are served so far: Depth-Anything V2 and BiRefNet
+through :class:`~vision_tpu_torch.serve.ImageServer`, MobileSAM through
+:class:`~vision_tpu_torch.serve.SamServer` and Real-ESRGAN through
 :class:`~vision_tpu_torch.serve.EsrganServer`.
 """
 
@@ -23,6 +23,7 @@ from .core import (
     Params,
     VispError,
     backend_init,
+    backend_is_available,
     load_weights,
     model_load,
 )
@@ -36,6 +37,7 @@ __all__ = [
     "Params",
     "VispError",
     "backend_init",
+    "backend_is_available",
     "load_weights",
     "model_load",
 ]

@@ -1,4 +1,4 @@
-from .device import BackendType, BuildFlag, Device, backend_init
+from .device import BackendType, BuildFlag, Device, backend_init, backend_is_available
 from .errors import VispError, get_last_error, raise_error, set_last_error
 from .gguf import GGMLType, GGUFFile, GGUFWriter, model_load
 from .params import Params
@@ -9,6 +9,7 @@ __all__ = [
     "BuildFlag",
     "Device",
     "backend_init",
+    "backend_is_available",
     "VispError",
     "get_last_error",
     "raise_error",

@@ -26,7 +26,7 @@ Here:
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from enum import Flag, auto
 
 import torch
@@ -38,6 +38,7 @@ __all__ = [
     "BuildFlag",
     "Device",
     "backend_init",
+    "backend_is_available",
 ]
 
 
@@ -114,6 +115,21 @@ class Device:
         """Largest single allocation we plan for — used by dynamic-resolution
         clamping (reference birefnet.cpp:288-305 uses Vulkan max_alloc)."""
         return self.total_memory // 4
+
+    def with_flags(self, flags: BuildFlag) -> "Device":
+        """This device with ``flags`` in place of its own."""
+        return replace(self, flags=flags)
+
+
+def backend_is_available(btype: BackendType) -> bool:
+    """Whether a device of ``btype`` exists (reference
+    backend_is_available): the CPU always does; the card when
+    ``torch.cuda`` finds one. A type of both asks for either."""
+    if btype & BackendType.cpu:
+        return True
+    if btype & BackendType.gpu:
+        return torch.cuda.is_available()
+    return False
 
 
 _NAMES = {"cpu": BackendType.cpu, "gpu": BackendType.gpu, "cuda": BackendType.gpu}

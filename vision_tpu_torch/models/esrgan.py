@@ -8,9 +8,16 @@ and skip, log2(scale) x (nearest 2x upsample + conv + leaky relu,
 esrgan.cpp:13-19) and two final convs. Weight names are the GGUF/torch
 "old-arch" names (``model.0``, ``model.1.sub.N.RDBk.convj.0``, ...).
 
-Every conv is a 3x3 stride-1 pad-1 conv through ops/nn.py ``conv_3x3``, so
-on the card each one is a launch of the hand-written kernel
-(csrc/conv3x3.cu): 351 per forward at scale 4 with 23 blocks.
+Every conv is a 3x3 stride-1 pad-1 conv through ops/nn.py
+``conv_3x3_fused``, so on the card each one is a launch of the hand-written
+kernel (csrc/conv3x3.cu): 351 per forward at scale 4 with 23 blocks. The
+bias, the leaky ReLUs and the residual sums run in the kernel's epilogue,
+and the dense blocks' concatenations are channel ranges of one buffer per
+block (see :func:`_dense_block`), so no elementwise pass runs between the
+convs. The epilogue rounds once where the JAX package rounds after the
+conv, after the bias, after the leaky ReLU and after each residual sum: at
+f32 the two agree to the summation order, in bf16 the port is the more
+precise.
 
 The port runs this plain form. The JAX package serves the same math
 regrouped by source (``esrgan_generate_packed``), which fills the TPU's
@@ -39,7 +46,7 @@ from ..image import (
     tile_merge,
     tile_scale,
 )
-from ..ops import conv_3x3, leaky_relu, normalize_u8, resize_nhwc
+from ..ops import conv_3x3_fused, normalize_u8, resize_nhwc
 
 __all__ = [
     "EsrganParams",
@@ -75,58 +82,100 @@ def esrgan_detect_params(file: GGUFFile) -> EsrganParams:
     return EsrganParams(scale, n_blocks)
 
 
-def _conv_block(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """conv 3x3 + leaky relu 0.2 (reference esrgan.cpp:21-25)."""
-    return leaky_relu(conv_3x3(p[0], x), 0.2)
+def _dense_block(p: Params, buf: torch.Tensor, nf: int, out: torch.Tensor, r2=None) -> None:
+    """One 5-conv dense block, 0.2 residual (reference esrgan.cpp:27-41), on
+    ``buf`` (N, H, W, nf + 4 gc), whose first nf channels hold its input x:
+    conv1-4 each read the channels so far and write their gc channels after
+    them, bias and leaky ReLU 0.2 fused (the reference's concatenations are
+    these channel ranges); conv5 reads all of them and writes x + 0.2 *
+    (conv5 + bias) into ``out`` (nf channels of another buffer), or, with
+    ``r2``, the RRDB's r2 + 0.2 * that."""
+    c = nf
+    for k in range(1, 5):
+        q = p[f"conv{k}"][0]
+        gc = q.weight("weight").shape[0]
+        conv_3x3_fused(q, buf[..., :c], slope=0.2, out=buf[..., c : c + gc])
+        c += gc
+    conv_3x3_fused(p["conv5"][0], buf[..., :c], r1=buf[..., :nf], s1=0.2, r2=r2, s2=1.0 if r2 is None else 0.2,
+                   out=out)
+
+
+def _growth(p: Params) -> int:
+    """gc, the channels each of a dense block's conv1-4 adds."""
+    return p["conv1"][0].weight("weight").shape[0]
+
+
+def _block_buffer(x: torch.Tensor, gc: int) -> torch.Tensor:
+    """An (N, H, W, nf + 4 gc) dense-block buffer for x (N, H, W, nf)."""
+    n, h, w, nf = x.shape
+    return torch.empty((n, h, w, nf + 4 * gc), dtype=x.dtype, device=x.device)
+
+
+def _rrdb(p: Params, src: torch.Tensor, mid1: torch.Tensor, mid2: torch.Tensor, out: torch.Tensor, nf: int) -> None:
+    """Residual-in-residual dense block (reference esrgan.cpp:43-51) on
+    dense-block buffers: RDB1 runs on ``src`` (the RRDB's input x in its
+    first nf channels) into mid1, RDB2 on mid1 into mid2, RDB3 on mid2 into
+    ``out`` with x + 0.2 * y fused. 15 convs, no other pass; ``out`` may be
+    src[..., :nf] (each element is read before it is written)."""
+    _dense_block(p["RDB1"], src, nf, mid1[..., :nf])
+    _dense_block(p["RDB2"], mid1, nf, mid2[..., :nf])
+    _dense_block(p["RDB3"], mid2, nf, out, r2=src[..., :nf])
 
 
 def residual_dense_block(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """5-conv dense block, 0.2 residual (reference esrgan.cpp:27-41)."""
-    x1 = _conv_block(p["conv1"], x)
-    c1 = torch.cat([x, x1], dim=-1)
-    x2 = _conv_block(p["conv2"], c1)
-    c2 = torch.cat([c1, x2], dim=-1)
-    x3 = _conv_block(p["conv3"], c2)
-    c3 = torch.cat([c2, x3], dim=-1)
-    x4 = _conv_block(p["conv4"], c3)
-    c4 = torch.cat([c3, x4], dim=-1)
-    x5 = conv_3x3(p["conv5"][0], c4)
-    return x + 0.2 * x5
+    """5-conv dense block, 0.2 residual (reference esrgan.cpp:27-41):
+    :func:`_dense_block` on a buffer of its own."""
+    buf = _block_buffer(x, _growth(p))
+    buf[..., : x.shape[-1]] = x
+    out = torch.empty_like(x)
+    _dense_block(p, buf, x.shape[-1], out)
+    return out
 
 
 def rrdb(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Residual-in-residual dense block (reference esrgan.cpp:43-51)."""
-    y = residual_dense_block(p["RDB1"], x)
-    y = residual_dense_block(p["RDB2"], y)
-    y = residual_dense_block(p["RDB3"], y)
-    return x + 0.2 * y
+    """Residual-in-residual dense block (reference esrgan.cpp:43-51):
+    :func:`_rrdb` on three buffers of its own."""
+    src, mid1, mid2 = (_block_buffer(x, _growth(p["RDB1"])) for _ in range(3))
+    src[..., : x.shape[-1]] = x
+    out = torch.empty_like(x)
+    _rrdb(p, src, mid1, mid2, out, x.shape[-1])
+    return out
 
 
 def _upsample(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """nearest 2x + conv + lrelu (reference esrgan.cpp:13-19)."""
+    """nearest 2x + conv + lrelu (reference esrgan.cpp:13-19), the leaky
+    ReLU fused."""
     _, h, w, _ = x.shape
     x = resize_nhwc(x, (h * 2, w * 2), "nearest")
-    return leaky_relu(conv_3x3(p, x), 0.2)
+    return conv_3x3_fused(p, x, slope=0.2)
 
 
 def esrgan_generate(params: Params, x: torch.Tensor, p: EsrganParams) -> torch.Tensor:
     """RRDBNet forward, NHWC (reference esrgan_generate, esrgan.cpp:55-83).
     x: (N, H, W, 3) in [0,1] -> (N, H*scale, W*scale, 3)."""
     m = params["model"]
-    x = conv_3x3(m[0], x)
-    sub = x
     block = m[1]["sub"]
+    nf = m[0].weight("weight").shape[0]
+    c = nf + 4 * _growth(block[0]["RDB1"])
+    # four dense-block buffers: the stem's output stays in s[..., :nf] for
+    # the trunk's skip; RRDB i runs src -> a -> b -> d[..., :nf], and every
+    # RRDB after the first takes d as its src (its output overwrites its
+    # input in place)
+    s, a, b, d = (torch.empty((*x.shape[:3], c), dtype=x.dtype, device=x.device) for _ in range(4))
+    feat = conv_3x3_fused(m[0], x.contiguous(), out=s[..., :nf])
+    src = s
     for i in range(p.n_blocks):
-        sub = rrdb(block[i], sub)
-    sub = conv_3x3(block[p.n_blocks], sub)
-    x = x + sub
+        _rrdb(block[i], src, a, b, d[..., :nf], nf)
+        src = d
+    del a, b  # the dense-block buffers go before the upsampled tail needs the memory
+    x = conv_3x3_fused(block[p.n_blocks], src[..., :nf], r1=feat)  # trunk conv + skip
+    del s, d, feat, src
     seq = 2
     for _ in range(int(np.log2(p.scale))):
         x = _upsample(m[seq + 1], x)
         seq += 3
-    x = conv_3x3(m[seq], x)
-    x = leaky_relu(x, 0.2)
-    return conv_3x3(m[seq + 2], x)
+    x = conv_3x3_fused(m[seq], x, slope=0.2)
+    return conv_3x3_fused(m[seq + 2], x)
 
 
 class EsrganModel:

@@ -102,7 +102,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = i
     fn = lib.vtt_conv3x3_fwd  # each size is checked below 2^31 by the wrapper
-    fn.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    q, f = ctypes.c_longlong, ctypes.c_float
+    fn.argtypes = [p, q, p, p, p, q, p, q, f, p, q, f, i, f, i, i, i, i, i, i, p]
     fn.restype = i
     fn = lib.vtt_deform_sample_fwd  # B * Ho * Wo * kh * kw is checked below 2^31 by the wrapper
     fn.argtypes = [p, p, i, p, i, p, *([i] * 10), ctypes.c_float, i, p]

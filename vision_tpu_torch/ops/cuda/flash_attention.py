@@ -29,13 +29,13 @@ import threading
 
 import torch
 
-__all__ = ["flash_attention", "flash_attention_plain", "launches"]
+__all__ = ["HEAD_DIMS", "flash_attention", "flash_attention_plain", "launches"]
 
 launches = 0
 _count_lock = threading.Lock()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128)  # the kernel's instances; attention_route sends no other to it
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -47,19 +47,16 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sca
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if not (q.is_cuda and k.is_cuda and v.is_cuda) or not (q.device == k.device == v.device):
-        raise ValueError(
-            f"flash_attention: q, k, v must lie on one CUDA device "
-            f"(got {q.device}, {k.device}, {v.device})"
-        )
+    """Raise on what the kernel does not take. The device is checked last,
+    so every other rule can be shown on CPU tensors."""
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"flash_attention: dtype must be float32 or bfloat16 for all of q, k, v "
                          f"(got {q.dtype}, {k.dtype}, {v.dtype})")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention: q, k, v must be (B, H, T, D)")
     b, h, tq, d = q.shape
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {_HEAD_DIMS}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
     if k.shape[:2] != (b, h) or k.shape[3] != d or v.shape != k.shape:
         raise ValueError(
             f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} disagree"
@@ -70,6 +67,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: q, k, v must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must start on a 16-byte boundary")
+    if not (q.is_cuda and k.is_cuda and v.is_cuda) or not (q.device == k.device == v.device):
+        raise ValueError(
+            f"flash_attention: q, k, v must lie on one CUDA device "
+            f"(got {q.device}, {k.device}, {v.device})"
+        )
 
 
 def flash_attention(q, k, v, scale: float | None = None, mask=None) -> torch.Tensor:

@@ -36,6 +36,7 @@ __all__ = [
     "batch_norm_2d",
     "conv_2d",
     "conv_3x3",
+    "conv_3x3_fused",
     "conv_2d_depthwise",
     "conv_transpose_2d",
     "patch_embed",
@@ -131,25 +132,31 @@ def conv_2d(p: Params, x: torch.Tensor, stride: int = 1, pad: int = 0) -> torch.
 
 
 def conv_3x3(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """3x3, stride-1, pad-1 conv with a torch-canonical (O, I, 3, 3) weight,
-    through the hand-written kernel's wrapper
+    """3x3, stride-1, pad-1 conv with a torch-canonical (O, I, 3, 3) weight
+    and its bias, through the hand-written kernel's wrapper
     (:func:`~vision_tpu_torch.ops.cuda.conv3x3.conv3x3`: the kernel on a CUDA
     tensor, its plain version on a CPU one). As the JAX package's
-    ``conv_2d(p, x, 1, 1)``: f32 accumulation, cast to x's type, then the
-    bias added in x's type. Real-ESRGAN's convs take this path; the other
-    families keep :func:`conv_2d`."""
+    ``conv_2d(p, x, 1, 1)``, except that the bias joins the f32 sum before
+    the one rounding to x's type (the JAX package rounds the conv, then adds
+    the bias in x's type). The other families keep :func:`conv_2d`."""
+    return conv_3x3_fused(p, x.contiguous())
+
+
+def conv_3x3_fused(p: Params, x: torch.Tensor, *, slope=None, r1=None, s1: float = 1.0, r2=None,
+                   s2: float = 1.0, out=None) -> torch.Tensor:
+    """:func:`conv_3x3` with the kernel's epilogue: ``r2 + s2 * (r1 + s1 *
+    act(conv + bias))`` in f32, rounded once to x's type; ``act`` is leaky
+    ReLU with ``slope`` (None: the identity), r1 and r2 are optional. x, r1,
+    r2 and ``out`` may be channel views of wider NHWC buffers; with ``out``
+    the result is written there. Real-ESRGAN's convs take this path."""
     from .cuda.conv3x3 import conv3x3
 
     w = p.weight("weight")
     if w.ndim != 4 or tuple(w.shape[2:]) != (3, 3):
         raise ValueError(f"conv_3x3: the weight must be (O, I, 3, 3) (got {tuple(w.shape)})")
-    y = conv3x3(x.contiguous(), w.to(x.dtype).contiguous())
     b = p.find("bias")
-    if b is not None:
-        # in place: y is the conv's own fresh output, and at 4096^2 a second
-        # copy of it is gigabytes
-        y.add_(b.to(x.dtype))
-    return y
+    return conv3x3(x, w.to(x.dtype).contiguous(), None if b is None else b.to(x.dtype).contiguous(),
+                   slope=slope, r1=r1, s1=s1, r2=r2, s2=s2, out=out)
 
 
 def conv_2d_depthwise(p: Params, x: torch.Tensor, stride: int = 1, pad: int = 0) -> torch.Tensor:
@@ -216,20 +223,27 @@ def split_qkv(p: Params, x: torch.Tensor, n_heads: int, split_dim: int):
 # | yes   | else | else         | xla_fused      |
 #
 # The "cuda" route needs tensors the kernel's wrapper serves: CUDA tensors
-# go to the kernel, CPU tensors to its plain version (the CPU tests reach
-# the route that way).
+# go to the kernel, which has instances for head dims 32, 64 and 128 only
+# (any other takes xla_fused on the card, where the JAX package's Pallas
+# kernel takes any D), and CPU tensors to its plain version at any head dim
+# (the CPU tests reach the route that way).
 
 CUDA_MIN_T = 1024
 FUSED_LOGIT_MAX_T = 512
 
 
-def attention_route(t_q: int, has_mask: bool, flash: bool, cuda_ok: bool | None = None) -> str:
+def attention_route(t_q: int, has_mask: bool, flash: bool, cuda_ok: bool | None = None,
+                    head_dim: int | None = None) -> str:
     """Resolve which attention implementation attention_core will use.
     ``cuda_ok`` says whether the flash kernel's wrapper serves the tensors;
-    None asks whether this process has a CUDA device."""
+    None asks whether this process has a CUDA device. ``head_dim``, given
+    for CUDA tensors, keeps the flash kernel to the head dims it has (None:
+    no such limit, as for the plain version that CPU tensors take)."""
+    from .cuda.flash_attention import HEAD_DIMS
+
     if not flash:
         return "naive"
-    if not has_mask and t_q >= CUDA_MIN_T:
+    if not has_mask and t_q >= CUDA_MIN_T and (head_dim is None or head_dim in HEAD_DIMS):
         if cuda_ok is None:
             cuda_ok = torch.cuda.is_available()
         if cuda_ok:
@@ -250,8 +264,11 @@ def attention_core(q, k, v, mask=None, scale: float | None = None, flash: bool =
     the output is in q's type, as in the JAX package (ops/nn.py:297-334)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    cuda_ok = q.device.type in ("cuda", "cpu")
-    route = attention_route(int(q.shape[2]), mask is not None, flash, cuda_ok)
+    # the flash kernel's wrapper serves CPU tensors (its plain version, at
+    # any head dim) and CUDA tensors at the head dims the kernel has
+    on_cuda = q.device.type == "cuda"
+    cuda_ok = on_cuda or q.device.type == "cpu"
+    route = attention_route(int(q.shape[2]), mask is not None, flash, cuda_ok, int(q.shape[-1]) if on_cuda else None)
     dt = _promoted(q, k, v)
     if route == "cuda":
         from .cuda.flash_attention import flash_attention

@@ -321,6 +321,16 @@ def _dummy_image(extent):
     return Image(np.zeros((h, w, 4), np.uint8), ImageFormat.rgba_u8)
 
 
+def _resolve_batch(batch_size: int | None, per_chip_default: int) -> int:
+    """A server's batch size: None takes the family's per-chip default, as
+    in the JAX package's ``_resolve_batch`` (one card, so no mesh scaling)."""
+    if batch_size is None:
+        return per_chip_default
+    if batch_size < 1:
+        raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    return batch_size
+
+
 # the JAX package's ImageServer families that wait for their slices
 _LATER_SLICES = {"MiganModel": "MI-GAN"}
 _IMAGE_FAMILIES = ("BirefnetModel", "DepthAnythingModel")
@@ -344,7 +354,7 @@ class ImageServer:
     def __init__(
         self,
         model,
-        batch_size: int = 4,
+        batch_size: int | None = 4,
         max_delay_ms: float = 2.0,
         prep_workers: int = 2,
         max_pixels: int = 4 * 1024 * 1024,
@@ -357,8 +367,7 @@ class ImageServer:
             )
         if kind not in _IMAGE_FAMILIES:
             raise TypeError(f"ImageServer does not support {kind}")
-        if batch_size < 1:
-            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        batch_size = _resolve_batch(batch_size, 4)
         self.model = model
         self.kind = kind
         self.batch_size = batch_size
@@ -460,14 +469,13 @@ class SamServer:
         model,
         # 6: the JAX package's default, kept for API parity; this card's own
         # operating point waits for the port's benchmark
-        batch_size: int = 6,
+        batch_size: int | None = 6,
         max_delay_ms: float = 2.0,
         prep_workers: int = 4,
     ):
         if type(model).__name__ != "SamModel":
             raise TypeError(f"SamServer serves a SamModel, got {type(model).__name__}")
-        if batch_size < 1:
-            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        batch_size = _resolve_batch(batch_size, 6)
         self.model = model
         self.batch_size = batch_size
         self._server = BatchServer(
@@ -557,15 +565,14 @@ class EsrganServer:
         model,
         # 4: whole-image RRDBNet batches grow memory linearly, and 4 keeps
         # the 1024^2 bucket inside the card (the JAX package's default)
-        batch_size: int = 4,
+        batch_size: int | None = 4,
         max_delay_ms: float = 2.0,
         prep_workers: int = 2,
         max_pixels: int = 1024 * 1024,
     ):
         if type(model).__name__ != "EsrganModel":
             raise TypeError(f"EsrganServer serves an EsrganModel, got {type(model).__name__}")
-        if batch_size < 1:
-            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        batch_size = _resolve_batch(batch_size, 4)
         self.model = model
         self.batch_size = batch_size
         self.max_pixels = max_pixels
