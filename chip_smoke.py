@@ -75,29 +75,41 @@ Phases, each raising on failure:
      numbers; and the yardsticks of the attention kernels
      (F.scaled_dot_product_attention, which the port never calls), by the
      card's own time and per call;
- 14. the deform sampler against its plain version: bf16 at the 20 shapes of a
-     batch-4 1024x1024 BiRefNet forward (Cin 112; k 1, 1, 3, 7 at 256^2,
-     128^2, 64^2 and twice at 32^2; offsets within +-3), f32 edge cases
-     (Cin 5 and 12, stride 2, samples outside the image, bound 2 with
+ 14. the deform kernels against their plain versions: the column sampler
+     (csrc/deform_sample.cu, off every served path) in bf16 at the 20 shapes
+     of a batch-4 1024x1024 BiRefNet forward (Cin 112; k 1, 1, 3, 7 at
+     256^2, 128^2, 64^2 and twice at 32^2; offsets within +-3) and f32 edge
+     cases (Cin 5 and 12, stride 2, samples outside the image, bound 2 with
      offsets of +-9, no mask, f16 offsets, one column of more than 2^31
-     elements); and the window kernel with SWIN's per-window masks at the
-     SWIN-L stage shapes (T 144, heads 6/12/24/48) and SWIN-T's T 49;
+     elements); the fused deformable conv (csrc/deform_conv.cu) at the same
+     20 shapes in bf16 with the path's epilogue (bias, BatchNorm, ReLU) into
+     28-channel views of a 140-channel buffer (the other channels checked
+     unchanged), its bf16 precision at k 7 256^2 against the f32 result
+     rounded once, and f32 and bf16 edge cases (Cin 5, 8, 120, 200; Cout 1,
+     28, 64, 100; stride 2; samples outside; bound 2 with offsets of +-9; no
+     mask; f16 offsets; offsets of +-9 without a bound; more than 2^31
+     column elements); and the window
+     kernel with SWIN's per-window masks at the SWIN-L stage shapes (T 144,
+     heads 6/12/24/48) and SWIN-T's T 49;
  15. the BiRefNet path: a birefnet GGUF of random_birefnet_params("large",
      0) (SWIN-L, 1024x1024) is written, loaded with birefnet_load_model on
      the card and on the CPU, and 8 requests (4 at 1024x1024, 2 at
      1280x720, 2 at 800x600, one extent bucket) are served through
      ImageServer (batch 4), the counts zeroed just before and read just
-     after: 48 window launches (24 masked) and 20 deform launches a batch;
+     after: 48 window launches (24 masked), 20 deform_conv launches and no
+     deform_sample launch a batch;
  16. BiRefNet parity at 384x384: the card's bf16 against the CPU's f32,
      stage by stage; the card's f32 forward (kernel routes, TF32 off)
      against the CPU's f32; the served u8 mask against the card's float
      mask;
- 17. BiRefNet timings: the deform sampler per shape and per forward against
-     its bound, its plain version and F.grid_sample over all taps (a
-     yardstick the port never calls); the masked window kernel against SDPA
-     given the combined mask (the card's own time, and per call);
-     forward_u8 at 1024x1024 batch 1 and 4; the
-     served numbers; and a torch.profiler trace of a batch-4 forward.
+ 17. BiRefNet timings, by the card's own time: the fused deformable conv
+     per shape and per forward against its bound, its plain version, the
+     yardstick F.grid_sample + mask product + torch.matmul (library calls
+     the port never makes) and the parent's route (the column sampler, then
+     torch.matmul), and the sampler alone; the masked window kernel against
+     SDPA given the combined mask (the card's own time, and per call);
+     forward_u8 at 1024x1024 batch 1 and 4 with the peak memory of each;
+     the served numbers; and a torch.profiler trace of a batch-4 forward.
 
 The line before the last is a JSON object describing every kernel of the
 paths; the last line is {"ok": true, "device": {...}}.
@@ -107,8 +119,9 @@ paths; the last line is {"ok": true, "device": {...}}.
 runs phases 1 and 2 and then only compare_with_parent: the attention and
 conv kernels of another checkout of the port at DIR (say the parent commit,
 unpacked with git archive) against this checkout's, in turns on one card,
-and Real-ESRGAN's forward_u8 at 512x512 x 4 in each checkout (its own
-process, its own package and kernel library), in turns.
+then Real-ESRGAN's forward_u8 at 512x512 x 4 and BiRefNet's at 1024x1024 x
+4 in each checkout (its own process, its own package and kernel library),
+in turns.
 """
 
 from __future__ import annotations
@@ -142,6 +155,12 @@ ESRGAN_F32_REL_RMS = 1e-4  # f32 card forward (kernel route, TF32 off) vs f32 CP
 BIREF_BLOCK_HW = (32, 32, 64, 128, 256)
 BIREF_DEFORM_KS = (1, 1, 3, 7)
 BIREF_CIN = 112
+BIREF_COUT = 28  # each ASPP branch's width, inter // 4; the branches fill a 5 * 28-channel buffer
+DEFORM_F32_REL_RMS = 2e-5  # f32 fused deformable conv vs its plain version (TF32 off): summation order only
+# the bf16 fused deformable conv's relative RMS error at most this times that
+# of the f32 result rounded once to bf16 (its columns enter the product as a
+# bf16 hi/lo pair, so the output is rounded once)
+DEFORM_ROUNDING_RATIO = 1.15
 BIREF_DEFORMS = 20  # 5 decoder blocks x 4 deformable convs per forward
 BIREF_WINDOWS, BIREF_MASKED = 48, 24  # SWIN-L blocks per forward (both scales), the shifted half
 BIREF_EXTENTS = ((1024, 1024),) * 4 + ((1280, 720),) * 2 + ((800, 600),) * 2  # (w, h); one 1024^2 bucket
@@ -155,6 +174,10 @@ DEPTH_EXTENTS = ((518, 518), (700, 500))
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor
 # cores, f32 outside the tensor cores, device memory
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# the deformable conv's bilinear blend per column element: the mask folded
+# into the four corner weights once per (pixel, tap), then one product and
+# three FMAs, 7 f32 FLOPs
+BLEND_FLOPS = 7.0
 # device_ms: a spin kernel of ~20 ms at the card's 1.98 GHz boost clock runs
 # ahead of each timed run; and how the attention kernels' times in the
 # kernels line were taken
@@ -672,6 +695,12 @@ def rel_rms(a, b) -> float:
     return float(np.sqrt(np.mean((a - b) ** 2)) / (np.sqrt(np.mean(b**2)) + 1e-12))
 
 
+def rel_rms_t(a, b) -> float:
+    """rel_rms of two tensors on the card, in f64 there."""
+    a, b = a.double(), b.double()
+    return float((a - b).pow(2).mean().sqrt() / (b.pow(2).mean().sqrt() + 1e-12))
+
+
 def sam_requests(rng, Image, ImageFormat):
     """6 point and 6 box requests over the three extents: (image, point, box)."""
     out = []
@@ -825,6 +854,122 @@ def deform_cases(dsm, torch) -> float:
     return max(worst, err)
 
 
+def deform_conv_path_forms(torch, gen, b: int, hw: int, k: int, branch: int, dtype=None, cin: int = BIREF_CIN,
+                           cout: int = BIREF_COUT):
+    """The inputs and keywords of the BiRefNet path's call of the fused
+    deformable conv for ASPP branch ``branch`` (0-3) at this shape: x, the
+    offsets (within +-3) and the 2 * sigmoid mask of deform_inputs, a weight
+    of scale 1 / sqrt(k^2 Cin), the conv bias, the BatchNorm's scale and
+    shift, ReLU, ``out`` the branch's channels of a (b, hw, hw, 5 Cout)
+    buffer filled with noise, and the weight's layout, which BirefnetModel
+    makes once. Returns (x, w, off, mask, pad, kw, buf)."""
+    from vision_tpu_torch.ops.cuda.deform_conv import weight_layout
+
+    dtype = dtype or torch.bfloat16
+    x, off, mask, pad = deform_inputs(gen, torch, b, hw, cin, k, dtype)
+    w = (torch.randn(cout, cin, k, k, device="cuda", generator=gen) / (k * k * cin) ** 0.5).to(dtype)
+    bias, shift = ((torch.randn(cout, device="cuda", generator=gen) * 0.1).to(dtype) for _ in range(2))
+    scale = (torch.rand(cout, device="cuda", generator=gen) + 0.5).to(dtype)
+    buf = torch.randn(b, hw, hw, 5 * cout, device="cuda", generator=gen).to(dtype)
+    kw = {"bias": bias, "scale": scale, "shift": shift, "relu": True,
+          "out": buf[..., branch * cout:(branch + 1) * cout], "layout": weight_layout(w, dtype)}
+    return x, w, off, mask, pad, kw, buf
+
+
+def deform_conv_cases(dcm, torch) -> tuple[float, float]:
+    """Phase 14: the fused deformable conv against deform_conv_plain. bf16
+    at the 20 shapes of a batch-4 1024x1024 BiRefNet forward with the path's
+    epilogue (bias, BatchNorm scale and shift, ReLU) into its branch's
+    channels of a 140-channel buffer, max abs <= BF16_MAX_ABS and every other
+    channel unchanged (the 256^2 shapes compare the batch's last image); at
+    k 7, 256^2 its relative RMS against the f32 result is at most
+    DEFORM_ROUNDING_RATIO times that of the f32 result rounded once to bf16;
+    edge cases in f32 (relative RMS <= DEFORM_F32_REL_RMS, TF32 off) and
+    bf16, one with more than 2^31 column elements (which the kernel never
+    holds). Returns the largest absolute difference seen and the precision
+    ratio."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    bf16, f32 = torch.bfloat16, torch.float32
+    worst, ratio = 0.0, None
+    for hw in BIREF_BLOCK_HW:
+        for branch, k in enumerate(BIREF_DEFORM_KS):
+            x, w, off, mask, pad, kw, buf = deform_conv_path_forms(torch, gen, 4, hw, k, branch)
+            before, keep = dcm.launches, buf.clone()
+            out = dcm.deform_conv(x, w, off, mask, k, k, 1, pad, **kw)
+            torch.cuda.synchronize()
+            if dcm.launches != before + 1 or out.data_ptr() != kw["out"].data_ptr():
+                raise AssertionError(f"deform_conv ({hw}, k={k}): {dcm.launches - before} launches, out not in place")
+            c0, c1 = branch * BIREF_COUT, (branch + 1) * BIREF_COUT
+            if not (torch.equal(buf[..., :c0], keep[..., :c0]) and torch.equal(buf[..., c1:], keep[..., c1:])):
+                raise AssertionError(f"deform_conv ({hw}, k={k}): channels outside the view changed")
+            s = slice(3, 4) if hw == 256 else slice(0, 4)
+            epi = {n: v.float() for n, v in kw.items() if n in ("bias", "scale", "shift")}
+            ref = dcm.deform_conv_plain(x[s].float(), w.float(), off[s], mask[s], k, k, 1, pad, relu=True, **epi)
+            label = (f"deform_conv BiRefNet (4, {hw}, {hw}, {BIREF_CIN}) k={k} -> {BIREF_COUT} bf16, bias, BN, ReLU "
+                     f"into channels {c0}:{c1} of {5 * BIREF_COUT}")
+            worst = max(worst, check_close(label, out[s], ref, bf16, torch))
+            if hw == 256 and k == 7:
+                k_err, once = rel_rms_t(out[s].float(), ref), rel_rms_t(ref.to(bf16).float(), ref)
+                ratio = k_err / once
+                print(f"deform_conv k=7 256^2 bf16: relative RMS against the f32 result {k_err:.4e}, the f32 result "
+                      f"rounded once to bf16 {once:.4e}: ratio {ratio:.4f} (bound {DEFORM_ROUNDING_RATIO})", flush=True)
+                if not ratio <= DEFORM_ROUNDING_RATIO:
+                    raise AssertionError(f"deform_conv bf16 precision ratio {ratio}")
+            del x, w, off, mask, kw, buf, keep, out, ref
+    cases = [
+        # (label, b, hw, cin, cout, k, stride, pad, dtype, off_range, bound, mask, off_dtype)
+        ("Cin 5, Cout 1", 2, 9, 5, 1, 3, 1, 1, f32, 3.0, None, True, None),
+        ("Cin 8, Cout 28", 2, 11, 8, 28, 3, 1, 1, f32, 3.0, None, True, None),
+        ("Cin 120, Cout 64", 1, 13, 120, 64, 3, 1, 1, f32, 3.0, None, True, None),
+        ("stride 2", 2, 17, 16, 28, 3, 2, 1, f32, 3.0, None, True, None),
+        ("samples outside the image", 1, 10, 8, 28, 3, 1, 1, f32, 12.0, None, True, None),
+        ("bound 2, offsets +-9", 2, 12, 8, 28, 7, 1, 3, f32, 9.0, 2, True, None),
+        ("no mask", 2, 12, 16, 28, 7, 1, 3, f32, 3.0, None, False, None),
+        ("f16 offsets read as f32", 1, 12, 16, 28, 3, 1, 1, f32, 3.0, None, True, torch.float16),
+        ("Cin 5, Cout 1 (one element a load)", 2, 9, 5, 1, 3, 1, 1, bf16, 3.0, None, True, None),
+        ("Cin 24, Cout 64 (64-wide tile)", 2, 13, 24, 64, 3, 1, 1, bf16, 3.0, None, True, None),
+        ("Cin 112, Cout 100 (two 64-wide tiles)", 1, 19, 112, 100, 7, 1, 3, bf16, 3.0, None, True, None),
+        ("stride 2, bound 2, offsets +-9", 2, 21, 32, 28, 3, 2, 1, bf16, 9.0, 2, True, None),
+        ("no mask, ragged 8x8 tiles", 3, 11, 16, 28, 7, 1, 3, bf16, 3.0, None, False, None),
+        ("Cin 200 (two blend passes), Cout 28", 1, 13, 200, 28, 3, 1, 1, bf16, 3.0, None, True, None),
+        ("Cin 112, offsets +-9 (corners far from the tile)", 1, 40, 112, 28, 7, 1, 3, bf16, 9.0, None, True, None),
+    ]
+    for label, b, hw, cin, cout, k, stride, pad, dtype, rng, bound, with_mask, off_dtype in cases:
+        x, off, mask, pad = deform_inputs(gen, torch, b, hw, cin, k, dtype, rng, stride, pad, with_mask, off_dtype)
+        w = (torch.randn(cout, cin, k, k, device="cuda", generator=gen) / (k * k * cin) ** 0.5).to(dtype)
+        bias = (torch.randn(cout, device="cuda", generator=gen) * 0.1).to(dtype)
+        out = dcm.deform_conv(x, w, off, mask, k, k, stride, pad, bound, bias=bias)
+        torch.cuda.synchronize()
+        ref = dcm.deform_conv_plain(x.float(), w.float(), off, mask, k, k, stride, pad, bound, bias=bias.float())
+        label = f"deform_conv {label} ({b}, {hw}, {hw}, {cin}) k={k} -> {cout} {dtype}"
+        if dtype == f32:
+            err = rel_rms_t(out, ref)
+            print(f"kernel {label}: relative RMS {err:.3e} [<= {DEFORM_F32_REL_RMS}] "
+                  f"{'ok' if err <= DEFORM_F32_REL_RMS else 'FAIL'}", flush=True)
+            if not err <= DEFORM_F32_REL_RMS:
+                raise AssertionError(f"{label}: relative RMS {err}")
+            err = float((out - ref).abs().max())
+        else:
+            err = check_close(label, out, ref, dtype, torch)
+        worst = max(worst, err)
+
+    # more than 2^31 column elements (B Ho Wo k^2 Cin): the last image against
+    # the plain version run on that image alone
+    x, w, off, mask, pad, kw, buf = deform_conv_path_forms(torch, gen, 6, 256, 7, 3, f32)
+    out = dcm.deform_conv(x, w, off, mask, 7, 7, 1, pad, **kw)
+    torch.cuda.synchronize()
+    epi = {n: v for n, v in kw.items() if n in ("bias", "scale", "shift")}
+    ref = dcm.deform_conv_plain(x[5:], w, off[5:], mask[5:], 7, 7, 1, pad, relu=True, **epi)
+    err = rel_rms_t(out[5:], ref)
+    print(f"kernel deform_conv large (6, 256, 256, {BIREF_CIN}) k=7 f32, {6 * 256 * 256 * 49 * BIREF_CIN} column "
+          f"elements, last image: relative RMS {err:.3e} [<= {DEFORM_F32_REL_RMS}]", flush=True)
+    if not err <= DEFORM_F32_REL_RMS:
+        raise AssertionError(f"deform_conv large: relative RMS {err}")
+    del x, w, off, mask, kw, buf, out, ref
+    torch.cuda.empty_cache()
+    return worst, ratio
+
+
 def swin_windows(torch, gen, side: int, window: int, heads: int, batch: int, dtype, bias_dtype=None):
     """q, k, v of one SWIN stage's windows (the token grid padded to the
     window), a bias (heads, T, T) in ``bias_dtype`` (default ``dtype``) and
@@ -921,11 +1066,11 @@ def birefnet_stages(model, x_u8, params=None, dtype=None):
 
 def deform_bound_ms(b: int, hw: int, cin: int, k: int, nbytes_el: int = 2) -> tuple[float, str]:
     """The sampler's least time: columns written, x, offsets and mask read
-    once (bytes), or its f32 blend on the CUDA cores: 4 corners x 2 FLOPs
-    and the mask product per column element (operations)."""
+    once (bytes), or its f32 blend on the CUDA cores (operations):
+    BLEND_FLOPS per column element."""
     cols = b * hw * hw * k * k * cin
     nbytes = nbytes_el * (cols + b * hw * hw * cin + b * hw * hw * 3 * k * k)
-    t_ops, t_bytes = 9.0 * cols / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = BLEND_FLOPS * cols / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -950,26 +1095,88 @@ def grid_sample_yardstick(x, off, k: int, pad: int, torch):
     return lambda: F.grid_sample(xc, grid, "bilinear", "zeros", align_corners=False)
 
 
-def deform_timings(dsm, torch, card: str) -> list:
-    """Phase 17: kernel, plain and F.grid_sample at each distinct (extent, k)
-    of a batch-4 1024x1024 BiRefNet forward, in turns. Returns (hw, k,
-    kernel ms, plain ms, library ms, bound ms, bound_by)."""
+def deform_conv_bound_ms(b: int, hw: int, cin: int, cout: int, k: int) -> tuple[float, str]:
+    """The fused deformable conv's least time in bf16: x, the offsets, the
+    mask and the weight read once and the output written once (bytes), or
+    the larger of its f32 blend on the CUDA cores (BLEND_FLOPS per column
+    element) and its product on the tensor cores (operations), in the
+    kernel's order: blend the Cin channels of each (pixel, tap), then
+    multiply. The columns are never written. The other order, a product of
+    every input pixel with each tap's weight and then a blend of its Cout
+    results, does fewer operations where Cout < Cin (BiRefNet's 28 < 112:
+    a blend a quarter as long, with the same product at stride 1); this
+    bound does not count that order."""
+    cols = b * hw * hw * k * k * cin
+    nbytes = 2.0 * (b * hw * hw * (cin + 3 * k * k + cout) + k * k * cin * cout)
+    t_ops = max(BLEND_FLOPS * cols / PEAK_F32_FLOPS, 2.0 * cols * cout / PEAK_BF16_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def deform_timings(dsm, dcm, torch, card: str) -> dict:
+    """Phase 17: at each distinct (extent, k) of a batch-4 1024x1024 BiRefNet
+    forward, by the card's own time (device_ms): the fused kernel with the
+    path's epilogue and view (and bare), against the parent's route (the
+    column sampler, then torch.matmul of its columns) in turns; the plain
+    version; the yardstick, F.grid_sample over all taps, the mask product
+    and torch.matmul of (B Ho Wo, k^2 Cin) columns, each timed alone and
+    summed (library calls the port never makes); the sampler alone with
+    its plain version; and the weight's layout (two device passes that the
+    model makes once, and a call given no layout at every call), alone and
+    per call with the host's work. Returns {(hw, k): {name: ms, ...}}."""
     gen = torch.Generator(device="cuda").manual_seed(10)
-    rows = []
+    bf16 = torch.bfloat16
+    rows = {}
     for hw in sorted(set(BIREF_BLOCK_HW)):
         for k in sorted(set(BIREF_DEFORM_KS)):
-            x, off, mask, pad = deform_inputs(gen, torch, 4, hw, BIREF_CIN, k, torch.bfloat16)
-            run_k = lambda: dsm.deform_sample(x, off, mask, k, k, 1, pad)  # noqa: E731
-            run_p = lambda: dsm.deform_sample_plain(x, off, mask, k, k, 1, pad)  # noqa: E731
-            run_l = grid_sample_yardstick(x, off, k, pad, torch)
-            iters = 5 if hw * hw * k * k > 2**20 else 20
-            k1, p1, l1, k2, p2, l2 = (median_ms(f, iters, warmup=2) for f in (run_k, run_p, run_l, run_k, run_p, run_l))
-            bound, by = deform_bound_ms(4, hw, BIREF_CIN, k)
-            rows.append((hw, k, min(k1, k2), min(p1, p2), min(l1, l2), bound, by))
-            print(f"deform_sample (4, {hw}, {hw}, {BIREF_CIN}) k={k} bf16: kernel median {k1:.4f} / {k2:.4f} ms, "
-                  f"plain {p1:.4f} / {p2:.4f} ms, F.grid_sample {l1:.4f} / {l2:.4f} ms, bound {bound:.4f} ms ({by}) "
+            kk = k * k
+            x, w, off, mask, pad, kw, _ = deform_conv_path_forms(torch, gen, 4, hw, k, 3)
+            wmat = w.permute(2, 3, 1, 0).reshape(kk * BIREF_CIN, BIREF_COUT).contiguous()
+            cols = torch.empty(4 * hw * hw, kk * BIREF_CIN, device="cuda", dtype=bf16).normal_(generator=gen)
+            run_f = lambda: dcm.deform_conv(x, w, off, mask, k, k, 1, pad, **kw)  # noqa: E731
+            run_b = lambda: dcm.deform_conv(x, w, off, mask, k, k, 1, pad, layout=kw["layout"])  # noqa: E731
+            run_l = lambda: dcm.weight_layout(w, bf16)  # noqa: E731
+            plain_kw = {n: v for n, v in kw.items() if n != "layout"}  # the plain version reads the weight
+            run_p = lambda: dcm.deform_conv_plain(x, w, off, mask, k, k, 1, pad, **plain_kw)  # noqa: E731
+            run_s = lambda: dsm.deform_sample(x, off, mask, k, k, 1, pad)  # noqa: E731
+            run_sp = lambda: dsm.deform_sample_plain(x, off, mask, k, k, 1, pad)  # noqa: E731
+            run_r = lambda: torch.matmul(run_s().view(-1, kk * BIREF_CIN), wmat)  # noqa: E731
+            run_g = grid_sample_yardstick(x, off, k, pad, torch)
+            sampled = run_g()  # (B, Cin, Ho, Wo k^2)
+            m4 = mask.reshape(4, 1, hw, hw * kk)
+            run_m = lambda: sampled * m4  # noqa: E731
+            run_mm = lambda: torch.matmul(cols, wmat)  # noqa: E731
+            f1, r1, f2, r2 = (device_ms(fn) for fn in (run_f, run_r, run_f, run_r))
+            t = {"fused": min(f1, f2), "route": min(r1, r2), "bare": device_ms(run_b), "sampler": device_ms(run_s),
+                 "grid_sample": device_ms(run_g), "mask_product": device_ms(run_m), "matmul": device_ms(run_mm),
+                 "plain": device_ms(run_p, calls=2, warmup=1, reps=1),
+                 "sampler_plain": device_ms(run_sp, calls=1, warmup=1, reps=1),
+                 "layout": device_ms(run_l), "layout_call": median_ms(run_l, 10)}
+            t["library"] = t["grid_sample"] + t["mask_product"] + t["matmul"]
+            # what one call allocates above its inputs: the fused kernel
+            # nothing but its output, the parent's route its columns too
+            for key, fn in (("fused_alloc_mib", run_b), ("route_alloc_mib", run_r)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                fn()
+                torch.cuda.synchronize()
+                t[key] = (torch.cuda.max_memory_allocated() - before) / 2**20
+            t["bound"], t["bound_by"] = deform_conv_bound_ms(4, hw, BIREF_CIN, BIREF_COUT, k)
+            t["sampler_bound"], t["sampler_bound_by"] = deform_bound_ms(4, hw, BIREF_CIN, k)
+            rows[(hw, k)] = t
+            print(f"deform_conv (4, {hw}, {hw}, {BIREF_CIN}) k={k} -> {BIREF_COUT} bf16 on the card: fused kernel with "
+                  f"the path's epilogue into a view {f1:.4f} / {f2:.4f} ms, bare {t['bare']:.4f} ms; the weight's "
+                  f"layout {t['layout']:.4f} ms ({t['layout_call']:.4f} ms a call with the host's work), made once by "
+                  f"the model; parent's route "
+                  f"(sampler + matmul) {r1:.4f} / {r2:.4f} ms, sampler alone {t['sampler']:.4f} ms; yardstick "
+                  f"{t['library']:.4f} ms (F.grid_sample {t['grid_sample']:.4f} + mask product "
+                  f"{t['mask_product']:.4f} + matmul {t['matmul']:.4f}); plain {t['plain']:.4f} ms, sampler plain "
+                  f"{t['sampler_plain']:.4f} ms; bound {t['bound']:.4f} ms ({t['bound_by']}), sampler's "
+                  f"{t['sampler_bound']:.4f} ms ({t['sampler_bound_by']}); one call allocates "
+                  f"{t['fused_alloc_mib']:.1f} MiB fused, {t['route_alloc_mib']:.1f} MiB by the parent's route "
                   f"[{card}]", flush=True)
-            del x, off, mask, run_l
+            del x, w, off, mask, kw, wmat, cols, sampled, m4, run_g
             torch.cuda.empty_cache()
     return rows
 
@@ -1009,9 +1216,9 @@ def masked_window_yardsticks(wa, torch, card: str) -> list:
 def parent_library(parent: str, build):
     """The kernel library of another checkout of the port at ``parent``,
     built from its vision_tpu_torch/csrc/ with this build's flags into
-    build/parent_kernels/; its attention entry points have this one's
-    signatures, its conv entry point the bare (x, w, out, sizes, dtype,
-    stream) one that this checkout's epilogue replaced."""
+    build/parent_kernels/; its attention and conv entry points have this
+    checkout's signatures (the BiRefNet A/B runs each checkout's forward
+    in its own process)."""
     import ctypes
     from pathlib import Path
 
@@ -1027,7 +1234,8 @@ def parent_library(parent: str, build):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.vtt_flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
     lib.vtt_window_attention_fwd.argtypes = [p, p, p, p, p, i, p, i, i, i, i, i, i, ctypes.c_float, p]
-    lib.vtt_conv3x3_fwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    q, f = ctypes.c_longlong, ctypes.c_float
+    lib.vtt_conv3x3_fwd.argtypes = [p, q, p, p, p, q, p, q, f, p, q, f, i, f, i, i, i, i, i, i, p]
     lib.vtt_flash_attention_fwd.restype = lib.vtt_window_attention_fwd.restype = lib.vtt_conv3x3_fwd.restype = i
     return lib
 
@@ -1062,56 +1270,88 @@ print(json.dumps({"ms": sorted(times)[1], "busy_ms": sum(k.self_device_time_tota
 """
 
 
-def forward_in(checkout: str) -> dict:
-    """FORWARD_AB run in ``checkout`` (its package, its kernel library)."""
-    out = subprocess.run([sys.executable, "-c", FORWARD_AB], cwd=checkout, capture_output=True, text=True,
+# the same for BiRefNet (SWIN-L, random_birefnet_params("large", 0)):
+# forward_u8 at 1024x1024 x 4, with the peak memory the forward allocates
+FORWARD_BIREF = """
+import json
+import numpy as np, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from vision_tpu_torch.core.device import backend_init
+from vision_tpu_torch.core.weights import params_from_numpy
+from vision_tpu_torch.models import birefnet
+from vision_tpu_torch.models.random_weights import random_birefnet_params
+from vision_tpu_torch.models.swin import SWIN_L_PARAMS
+p = birefnet.BirefnetParams(1024, 32, (1024, 1024), SWIN_L_PARAMS)
+model = birefnet.BirefnetModel(params_from_numpy(random_birefnet_params("large", 0), "cuda", torch.bfloat16), p,
+                               backend_init("gpu"))
+x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (4, 1024, 1024, 3), np.uint8)).to("cuda")
+y = model.forward_u8(x).float()
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+base = torch.cuda.memory_allocated()
+model.forward_u8(x)
+torch.cuda.synchronize()
+peak = torch.cuda.max_memory_allocated()
+times = []
+for _ in range(3):
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record(); model.forward_u8(x); e.record(); e.synchronize(); times.append(s.elapsed_time(e))
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    model.forward_u8(x); torch.cuda.synchronize()
+ks = [k for k in prof.key_averages() if k.device_type == DeviceType.CUDA]
+busy = sum(k.self_device_time_total for k in ks) / 1e3
+deform = sum(k.self_device_time_total for k in ks if "deform" in k.key) / 1e3
+print(json.dumps({"ms": sorted(times)[1], "busy_ms": busy, "deform_ms": deform, "launches": sum(k.count for k in ks),
+                  "peak_mib": peak / 2**20, "above_mib": (peak - base) / 2**20,
+                  "out_mean": float(y.double().mean())}))
+"""
+
+
+def forward_in(checkout: str, script: str = FORWARD_AB) -> dict:
+    """``script`` (FORWARD_AB or FORWARD_BIREF) run in ``checkout`` (its
+    package, its kernel library)."""
+    out = subprocess.run([sys.executable, "-c", script], cwd=checkout, capture_output=True, text=True,
                          timeout=900)
     if out.returncode != 0:
         raise RuntimeError(f"forward in {checkout} failed:\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def compare_conv_with_parent(lib, torch, card: str) -> None:
-    """``--parent DIR``: the conv kernel of the checkout at DIR (bare: its
-    entry point has no epilogue) against this checkout's, bare and with the
-    path's epilogue and views, in turns (parent, this, this, parent) by the
-    card's own time, beside F.conv2d and the bound, at phase 13's shapes;
+def compare_conv_with_parent(libs: dict, torch, card: str) -> None:
+    """``--parent DIR``: the conv kernel of the checkout at DIR against this
+    checkout's, both through this checkout's wrapper with the path's
+    epilogue and views, in turns (parent, this, this, parent) by the card's
+    own time, beside F.conv2d (bare) and the bound, at phase 13's shapes;
     each held against the plain version."""
     import torch.nn.functional as F
 
+    from vision_tpu_torch.ops.cuda import build
     from vision_tpu_torch.ops.cuda import conv3x3 as cc
-
-    def parent_conv(x, w):
-        out = torch.empty((*x.shape[:3], w.shape[0]), dtype=x.dtype, device=x.device)
-        err = lib.vtt_conv3x3_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(), *x.shape, w.shape[0], 1,
-                                  torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"parent conv3x3: cudaError {err}")
-        return out
 
     gen = torch.Generator(device="cuda").manual_seed(14)
     for hw, shapes in ((1024, ESRGAN_RDB), (4096, ESRGAN_TAIL)):
         for ci, co in shapes:
             x, wt, b, kw, res = conv_path_forms(torch, gen, hw, ci, co)
-            xd = x.contiguous()
-            xc = xd.permute(0, 3, 1, 2)
-            ref = cc.conv3x3_plain(xd, wt)
-            errs = {"parent": float((parent_conv(xd, wt).float() - ref).abs().max()),
-                    "this": float((cc.conv3x3(xd, wt).float() - ref).abs().max())}
-            runs = {"parent": lambda: parent_conv(xd, wt), "this": lambda: cc.conv3x3(xd, wt)}
-            times = {}
+            xc = x.contiguous().permute(0, 3, 1, 2)
+            ref = cc.conv3x3_plain(x, wt, b, **{n: v for n, v in kw.items() if n != "out"})
+            run = lambda: cc.conv3x3(x, wt, b, **kw)  # noqa: E731
+            errs, times = {}, {}
             for name in ("parent", "this", "this", "parent"):
-                times.setdefault(name, []).append(device_ms(runs[name]))
-            epi = device_ms(lambda: cc.conv3x3(x, wt, b, **kw))
+                build._lib = libs[name]
+                if name not in errs:
+                    errs[name] = float((run().float() - ref.float()).abs().max())
+                times.setdefault(name, []).append(device_ms(run))
+            build._lib = libs["this"]
             lib_ms = device_ms(lambda: F.conv2d(xc, wt, None, 1, 1))
-            bound, by = conv_bound(hw * hw, ci, co)
-            print(f"A/B conv3x3 (1, {hw}, {hw}, {ci}) -> {co} bf16, bare: parent "
+            bound, by = conv_bound(hw * hw, ci, co, res)
+            print(f"A/B conv3x3 (1, {hw}, {hw}, {ci}) -> {co} bf16 with the path's epilogue: parent "
                   f"{'/'.join(f'{t:.4f}' for t in times['parent'])}, this {'/'.join(f'{t:.4f}' for t in times['this'])}"
-                  f" ms; this with the path's epilogue {epi:.4f} ms; F.conv2d {lib_ms:.4f} ms; bound {bound:.4f} ms "
-                  f"({by}); max abs err parent {errs['parent']:.3e}, this {errs['this']:.3e} [{card}]", flush=True)
+                  f" ms; F.conv2d {lib_ms:.4f} ms; bound {bound:.4f} ms ({by}); max abs err parent "
+                  f"{errs['parent']:.3e}, this {errs['this']:.3e} [{card}]", flush=True)
             if max(errs.values()) > BF16_MAX_ABS:
                 raise AssertionError(f"conv3x3 ({hw}, {ci}) -> {co}: max abs err {errs}")
-            del x, xd, xc, kw, ref
+            del x, xc, kw, ref
     torch.cuda.empty_cache()
 
 
@@ -1124,8 +1364,9 @@ def compare_with_parent(parent: str, torch, card: str) -> None:
     the main paths' shapes: flash at the Depth-Anything token counts
     (batch 4), the window kernel at TinyViT's three stages (batch 6) and
     SWIN-L's four, masked (batch 4). Then the conv kernel
-    (compare_conv_with_parent) and Real-ESRGAN's forward (forward_in each
-    checkout, in turns)."""
+    (compare_conv_with_parent), Real-ESRGAN's forward and BiRefNet's
+    (forward_in each checkout, in turns: wall, busy and deform time, peak
+    memory)."""
     import torch.nn.functional as F
 
     from vision_tpu_torch.models.swin import compute_attention_mask
@@ -1184,7 +1425,7 @@ def compare_with_parent(parent: str, torch, card: str) -> None:
         if max(errs.values()) > BF16_MAX_ABS:
             raise AssertionError(f"{label}: max abs err {errs}")
     build._lib = libs["this"]
-    compare_conv_with_parent(libs["parent"], torch, card)
+    compare_conv_with_parent(libs, torch, card)
     # Real-ESRGAN forward_u8, each checkout in its own process, in turns
     here = os.path.dirname(os.path.abspath(__file__))
     runs = {}
@@ -1194,6 +1435,18 @@ def compare_with_parent(parent: str, torch, card: str) -> None:
         f"{name} " + ", ".join(f"{r['ms']:.3f} ms (busy {r['busy_ms']:.3f} ms, {r['launches']} launches)" for r in rs)
         for name, rs in runs.items()) + f"; output RMS parent {runs['parent'][0]['out_rms']:.6e}, this "
         f"{runs['this'][0]['out_rms']:.6e} [{card}]", flush=True)
+    # BiRefNet forward_u8, each checkout in its own process, in turns
+    runs = {}
+    for name, where in (("parent", parent), ("this", here), ("this", here), ("parent", parent)):
+        runs.setdefault(name, []).append(forward_in(where, FORWARD_BIREF))
+    print("A/B BiRefNet forward_u8 (4, 1024, 1024) bf16: " + "; ".join(
+        f"{name} " + ", ".join(f"{r['ms']:.3f} ms (busy {r['busy_ms']:.3f} ms, deform {r['deform_ms']:.3f} ms, "
+                               f"{r['launches']} launches, peak {r['peak_mib']:.1f} MiB, {r['above_mib']:.1f} MiB "
+                               f"above the weights and input)" for r in rs)
+        for name, rs in runs.items()) + f"; mask mean parent {runs['parent'][0]['out_mean']:.6e}, this "
+        f"{runs['this'][0]['out_mean']:.6e} [{card}]", flush=True)
+    saved = min(r["peak_mib"] for r in runs["parent"]) - max(r["peak_mib"] for r in runs["this"])
+    print(f"A/B BiRefNet peak memory: this checkout allocates {saved:.1f} MiB less at peak [{card}]", flush=True)
 
 
 def main(argv=None) -> int:
@@ -1202,9 +1455,9 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--parent", metavar="DIR", help="only time the attention and conv kernels and Real-ESRGAN's "
-                        "forward of the port's checkout at DIR against this checkout's (compare_with_parent), "
-                        "after phases 1 and 2")
+    parser.add_argument("--parent", metavar="DIR", help="only time the attention and conv kernels and the Real-ESRGAN "
+                        "and BiRefNet forwards of the port's checkout at DIR against this checkout's "
+                        "(compare_with_parent), after phases 1 and 2")
     args = parser.parse_args(argv)
 
     phase("1 environment")
@@ -1233,6 +1486,7 @@ def main(argv=None) -> int:
     from vision_tpu_torch.models.esrgan import esrgan_load_model
     from vision_tpu_torch.ops.cuda import build
     from vision_tpu_torch.ops.cuda import conv3x3 as cc
+    from vision_tpu_torch.ops.cuda import deform_conv as dcm
     from vision_tpu_torch.ops.cuda import deform_sample as dsm
     from vision_tpu_torch.ops.cuda import flash_attention as fa
     from vision_tpu_torch.ops.cuda import window_attention as wa
@@ -1247,8 +1501,8 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line or "Potential" in line:
             print("ptxas:", line.strip())
     if args.parent:
-        phase(f"A/B the attention and conv kernels and Real-ESRGAN's forward of {args.parent} against this "
-              "checkout's")
+        phase(f"A/B the attention and conv kernels and the Real-ESRGAN and BiRefNet forwards of {args.parent} "
+              "against this checkout's")
         compare_with_parent(args.parent, torch, card)
         return 0
 
@@ -1274,13 +1528,13 @@ def main(argv=None) -> int:
     print(f"model on {model.device.torch_device} {model.dtype}, flash={model.flash}", flush=True)
     with ImageServer(model, batch_size=4, max_delay_ms=20) as srv:
         srv.warmup()
-        fa.launches = wa.launches = cc.launches = dsm.launches = 0
+        fa.launches = wa.launches = cc.launches = dsm.launches = dcm.launches = 0
         t_start = time.perf_counter()
         futures = [srv.submit(img) for img in requests]
         results = [f.result(timeout=600) for f in futures]
         wall_s = time.perf_counter() - t_start
         main_launches, depth_win_launches, depth_conv_launches = fa.launches, wa.launches, cc.launches
-        other_deform = {"Depth-Anything": dsm.launches}
+        other_deform = {"Depth-Anything": (dsm.launches, dcm.launches)}
         stats = srv.stats
         n_req, n_batches = stats.requests, stats.batches
         p50_ms = stats.p50_latency_ms
@@ -1348,13 +1602,13 @@ def main(argv=None) -> int:
     print(f"model on {smodel.device.torch_device} {smodel.dtype}, flash={smodel.flash}", flush=True)
     with SamServer(smodel, batch_size=6, max_delay_ms=5_000) as ssrv:
         ssrv.warmup()
-        fa.launches = wa.launches = cc.launches = dsm.launches = 0
+        fa.launches = wa.launches = cc.launches = dsm.launches = dcm.launches = 0
         t_start = time.perf_counter()
         futures = [ssrv.submit(img, point=pt, box=bx) for img, pt, bx in sam_reqs]
         masks = [f.result(timeout=600) for f in futures]
         sam_wall_s = time.perf_counter() - t_start
         sam_win_launches, sam_flash_launches, sam_conv_launches = wa.launches, fa.launches, cc.launches
-        other_deform["MobileSAM"] = dsm.launches
+        other_deform["MobileSAM"] = (dsm.launches, dcm.launches)
         sstats = ssrv.stats
         s_req, s_batches, s_p50 = sstats.requests, sstats.batches, sstats.p50_latency_ms
     for (img, _, _), m in zip(sam_reqs, masks):
@@ -1463,13 +1717,13 @@ def main(argv=None) -> int:
     print(f"model on {emodel.device.torch_device} {emodel.dtype}, {emodel.p}", flush=True)
     with EsrganServer(emodel, batch_size=4, max_delay_ms=50) as esrv:
         esrv.warmup((256, 256))
-        fa.launches = wa.launches = cc.launches = dsm.launches = 0
+        fa.launches = wa.launches = cc.launches = dsm.launches = dcm.launches = 0
         t_start = time.perf_counter()
         futures = [esrv.submit(img) for img in esr_reqs]
         upscaled = [f.result(timeout=600) for f in futures]
         esr_wall_s = time.perf_counter() - t_start
         esr_conv_launches, esr_flash_launches, esr_win_launches = cc.launches, fa.launches, wa.launches
-        other_deform["Real-ESRGAN"] = dsm.launches
+        other_deform["Real-ESRGAN"] = (dsm.launches, dcm.launches)
         estats = esrv.stats
         e_req, e_batches, e_p50 = estats.requests, estats.batches, estats.p50_latency_ms
     for img, res in zip(esr_reqs, upscaled):
@@ -1484,15 +1738,15 @@ def main(argv=None) -> int:
     print(f"served {e_req} requests in {e_batches} batches; conv3x3 launches {esr_conv_launches}, "
           f"flash_attention launches {esr_flash_launches}, window_attention launches {esr_win_launches}", flush=True)
     big = Image(erng.integers(0, 256, (480, 640, 4), np.uint8), ImageFormat.rgba_u8)
-    cc.launches = dsm.launches = 0
+    cc.launches = dsm.launches = dcm.launches = 0
     t0 = time.perf_counter()
     tiled = emodel.compute(big)
     torch.cuda.synchronize()
     tiled_ms = (time.perf_counter() - t0) * 1e3
     tiled_launches = cc.launches
-    other_deform["Real-ESRGAN tiled"] = dsm.launches
-    if any(other_deform.values()):
-        raise AssertionError(f"deform_sample launches on the other paths: {other_deform}")
+    other_deform["Real-ESRGAN tiled"] = (dsm.launches, dcm.launches)
+    if any(any(n) for n in other_deform.values()):
+        raise AssertionError(f"(deform_sample, deform_conv) launches on the other paths: {other_deform}")
     if tiled.extent != (2560, 1920) or tiled.format != ImageFormat.rgba_u8 or tiled_launches != 3 * ESRGAN_CONVS:
         raise AssertionError(f"tiled compute: {tiled.extent} {tiled.format}, {tiled_launches} conv3x3 launches "
                              f"(9 tiles of 224x176 in 3 chunks of 4: {3 * ESRGAN_CONVS})")
@@ -1565,8 +1819,9 @@ def main(argv=None) -> int:
     flash_libs, win_lib = attention_yardsticks(fa, wa, torch, card)
     del emodel
 
-    phase("14 deform sampler and masked window kernel against their plain versions")
+    phase("14 deform kernels and masked window kernel against their plain versions")
     deform_worst = deform_cases(dsm, torch)
+    dconv_worst, dconv_ratio = deform_conv_cases(dcm, torch)
     win_worst = max(win_worst, masked_window_cases(wa, torch))
 
     phase("15 BiRefNet path: SWIN-L BiRefNet through ImageServer")
@@ -1583,20 +1838,20 @@ def main(argv=None) -> int:
           f"{bmodel.deform_bound}; GGUF written in {gguf_s:.1f} s", flush=True)
     with ImageServer(bmodel, batch_size=4, max_delay_ms=5_000) as bsrv:
         bsrv.warmup()
-        fa.launches = wa.launches = wa.masked_launches = cc.launches = dsm.launches = 0
+        fa.launches = wa.launches = wa.masked_launches = cc.launches = dsm.launches = dcm.launches = 0
         t_start = time.perf_counter()
         futures = [bsrv.submit(img) for img in bir_reqs]
         mattes = [f.result(timeout=600) for f in futures]
         bir_wall_s = time.perf_counter() - t_start
-        bir_launches = {"window": wa.launches, "window masked": wa.masked_launches, "deform": dsm.launches,
-                        "flash": fa.launches, "conv3x3": cc.launches}
+        bir_launches = {"window": wa.launches, "window masked": wa.masked_launches, "deform_conv": dcm.launches,
+                        "deform_sample": dsm.launches, "flash": fa.launches, "conv3x3": cc.launches}
         bstats = bsrv.stats
         b_req, b_batches, b_p50 = bstats.requests, bstats.batches, bstats.p50_latency_ms
     for img, m in zip(bir_reqs, mattes):
         if m.extent != img.extent or m.format != ImageFormat.alpha_u8:
             raise AssertionError(f"matte {m.extent} {m.format} for request {img.extent}")
     want = {"window": BIREF_WINDOWS * b_batches, "window masked": BIREF_MASKED * b_batches,
-            "deform": BIREF_DEFORMS * b_batches, "flash": 0, "conv3x3": 0}
+            "deform_conv": BIREF_DEFORMS * b_batches, "deform_sample": 0, "flash": 0, "conv3x3": 0}
     if b_req != 8 or b_batches != 2 or bir_launches != want:
         raise AssertionError(f"{b_req} requests in {b_batches} batches (8 in 2 expected); launches {bir_launches}, "
                              f"expected {want}")
@@ -1624,13 +1879,14 @@ def main(argv=None) -> int:
     if not bir_rms <= E2E_REL_RMS:
         raise AssertionError(f"BiRefNet bf16 parity: relative RMS {bir_rms}")
     f32_params = {k: v.to("cuda") for k, v in cpu_bmodel.params.items()}
-    wa.launches = dsm.launches = 0
+    wa.launches = dcm.launches = dsm.launches = 0
     f32_mask = birefnet_stages(bmodel, xs, f32_params, torch.float32)[-1][1]
-    f32_launches = (wa.launches, dsm.launches)
+    f32_launches = (wa.launches, dcm.launches, dsm.launches)
     bir_f32_rms = rel_rms(f32_mask.cpu(), c_mask)
-    print(f"forward f32 on the card (kernel routes, {f32_launches[0]} window and {f32_launches[1]} deform launches, "
+    print(f"forward f32 on the card (kernel routes, {f32_launches[0]} window, {f32_launches[1]} deform_conv and "
+          f"{f32_launches[2]} deform_sample launches, "
           f"TF32 off) vs CPU f32: relative RMS {bir_f32_rms:.4e} (bound {BIREF_F32_REL_RMS})", flush=True)
-    if f32_launches != (BIREF_WINDOWS, BIREF_DEFORMS) or not bir_f32_rms <= BIREF_F32_REL_RMS:
+    if f32_launches != (BIREF_WINDOWS, BIREF_DEFORMS, 0) or not bir_f32_rms <= BIREF_F32_REL_RMS:
         raise AssertionError(f"f32 forward on the card: relative RMS {bir_f32_rms}, launches {f32_launches}")
     del cpu_bmodel, f32_params, cpu_stages, gpu_stages
     # the served u8 against the card's float mask of the same one-image
@@ -1647,23 +1903,38 @@ def main(argv=None) -> int:
         raise AssertionError(f"served u8 differs from the float mask by {u8_diff} levels")
 
     phase(f"17 BiRefNet timings on {card}")
-    d_rows = deform_timings(dsm, torch, card)
-    per = {(hw, k): r for hw, k, *r in d_rows}
+    d_rows = deform_timings(dsm, dcm, torch, card)
     fwd_shapes = [(hw, k) for hw in BIREF_BLOCK_HW for k in BIREF_DEFORM_KS]  # a forward's 20 convs
-    d_ms, d_plain, d_lib, d_bound = (sum(per[s][i] for s in fwd_shapes) for i in range(4))
-    d_by = max(("bytes", "operations"), key=[per[s][4] for s in fwd_shapes].count)  # what bounds most of them
-    print(f"deform_sample over one batch-4 1024x1024 forward's {len(fwd_shapes)} convs: kernel {d_ms:.4f} ms, "
-          f"plain {d_plain:.4f} ms, F.grid_sample {d_lib:.4f} ms, bound {d_bound:.4f} ms ({d_by}) [{card}]",
-          flush=True)
+    d_sum = {key: sum(d_rows[sh][key] for sh in fwd_shapes) for key in d_rows[fwd_shapes[0]]
+             if not key.endswith("bound_by")}
+    for key in ("bound_by", "sampler_bound_by"):  # what bounds most of the 20's summed bound
+        d_sum[key] = max(("bytes", "operations"), key=lambda by, key=key: sum(
+            d_rows[sh][key[:-3]] for sh in fwd_shapes if d_rows[sh][key] == by))
+    print(f"deform over one batch-4 1024x1024 forward's {len(fwd_shapes)} convs, by the card's own time: fused "
+          f"deform_conv {d_sum['fused']:.4f} ms (bare {d_sum['bare']:.4f}; the weights' layouts, made once "
+          f"by the model: {d_sum['layout']:.4f} ms, {d_sum['layout_call']:.4f} ms with the host's work), bound "
+          f"{d_sum['bound']:.4f} ms "
+          f"({d_sum['bound_by']}), plain {d_sum['plain']:.4f} ms, yardstick F.grid_sample + mask product + matmul "
+          f"{d_sum['library']:.4f} ms, parent's route sampler + matmul {d_sum['route']:.4f} ms (sampler "
+          f"{d_sum['sampler']:.4f} ms, bound {d_sum['sampler_bound']:.4f} ms ({d_sum['sampler_bound_by']}), plain "
+          f"{d_sum['sampler_plain']:.4f} ms) [{card}]", flush=True)
     mw_rows = masked_window_yardsticks(wa, torch, card)
     for b in (1, 4):
         xb = torch.from_numpy(brng.integers(0, 256, (b, 1024, 1024, 3), np.uint8)).to("cuda")
         f1 = median_ms(lambda: bmodel.forward_u8(xb), 3, warmup=1)
         f2 = median_ms(lambda: bmodel.forward_u8(xb), 3, warmup=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 2**20
+        bmodel.forward_u8(xb)
+        torch.cuda.synchronize()
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
         print(f"BiRefNet forward_u8 batch {b} at 1024x1024 bf16: median {f1:.3f} / {f2:.3f} ms, "
-              f"{b / min(f1, f2) * 1e3:.3f} img/s [{card}]", flush=True)
+              f"{b / min(f1, f2) * 1e3:.3f} img/s; peak allocated {peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB "
+              f"above the {base_mb:.1f} MiB held before) [{card}]", flush=True)
         if b == 4:
-            profile_forward(bmodel, xb, torch, card, ("window_attention", "deform_sample"))
+            bir_profile = profile_forward(bmodel, xb, torch, card, ("window_attention", "deform_conv"))
+            bir_profile["peak_mib"] = peak_mb
         del xb
     print(f"ImageServer 8 BiRefNet requests (4 at 1024x1024, 2 at 1280x720, 2 at 800x600; batch 4): p50 latency "
           f"{b_p50:.3f} ms, {8 / bir_wall_s:.3f} img/s, {b_batches} batches [{card}]", flush=True)
@@ -1756,19 +2027,45 @@ def main(argv=None) -> int:
             "forward_512x4_other_launches": esr_profile["other_launches"],
         },
         {
+            "name": "deform_conv",
+            "route": "cuda",
+            "source": "vision_tpu_torch/csrc/deform_conv.cu",
+            "replaces": "scripts/exp_deform_pallas.py:56",
+            "launches": bir_launches["deform_conv"],
+            "max_abs_err": dconv_worst,
+            "ms": d_sum["fused"],
+            "plain_ms": d_sum["plain"],
+            "bound_ms": d_sum["bound"],
+            "bound_by": d_sum["bound_by"],
+            "library_ms": d_sum["library"],
+            "timed_shape": f"one batch-4 1024x1024 BiRefNet forward's 20 deformable convs with the path's epilogue "
+                           f"into 28-channel views, summed: Cin {BIREF_CIN} -> {BIREF_COUT} bf16, k 1, 1, 3, 7 at "
+                           f"256^2, 128^2, 64^2 and twice at 32^2",
+            "timing": DEVICE_TIMING,
+            "library_call": "F.grid_sample over all taps + the mask product + torch.matmul, each timed alone, summed",
+            "parent_route_ms": d_sum["route"],
+            "weight_layout_ms": d_sum["layout"],
+            "bf16_rounding_ratio_k7_256": dconv_ratio,
+            "forward_1024x4_busy_ms": bir_profile["busy_ms"],
+            "forward_1024x4_peak_mib": bir_profile["peak_mib"],
+            "alloc_mib_k7_256": {"fused": d_rows[(256, 7)]["fused_alloc_mib"],
+                                 "parent_route": d_rows[(256, 7)]["route_alloc_mib"]},
+        },
+        {
             "name": "deform_sample",
             "route": "cuda",
             "source": "vision_tpu_torch/csrc/deform_sample.cu",
             "replaces": "scripts/exp_deform_pallas.py:56",
-            "launches": bir_launches["deform"],
+            "launches": bir_launches["deform_sample"],
             "max_abs_err": deform_worst,
-            "ms": d_ms,
-            "plain_ms": d_plain,
-            "bound_ms": d_bound,
-            "bound_by": d_by,
-            "library_ms": d_lib,
-            "timed_shape": f"one batch-4 1024x1024 BiRefNet forward's 20 deformable convs, summed: Cin "
-                           f"{BIREF_CIN} bf16, k 1, 1, 3, 7 at 256^2, 128^2, 64^2 and twice at 32^2",
+            "ms": d_sum["sampler"],
+            "plain_ms": d_sum["sampler_plain"],
+            "bound_ms": d_sum["sampler_bound"],
+            "bound_by": d_sum["sampler_bound_by"],
+            "library_ms": d_sum["grid_sample"],
+            "timed_shape": f"the columns of one batch-4 1024x1024 BiRefNet forward's 20 deformable convs, summed: "
+                           f"Cin {BIREF_CIN} bf16; the standalone column kernel, off every served path",
+            "timing": DEVICE_TIMING,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

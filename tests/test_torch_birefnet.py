@@ -196,3 +196,29 @@ def test_deform_shift_flag_selects_the_bounded_form(monkeypatch, twin):
 
     xn = normalize_u8(torch.from_numpy(u8), IMAGENET_MEAN, IMAGENET_STD, torch.float32)
     assert torch.equal(got, birefnet.birefnet_predict(Params(params), xn, PARAMS, deform_bound=2))
+
+
+def test_model_lays_out_each_deformable_conv_weight_once(monkeypatch, twin):
+    """BirefnetModel lays out every deformable ASPP branch's weight for the
+    fused kernel when it is made, and each forward passes those layouts to
+    the kernel's calls (which lay the weight out themselves when given
+    none)."""
+    from vision_tpu_torch.ops.cuda.deform_conv import weight_layout
+
+    store, _, _ = twin
+    model = birefnet.BirefnetModel(params_from_numpy(store, "cpu", torch.float32), PARAMS, backend_init("cpu"))
+    names = sorted(k for k in model.params if k.endswith("conv.conv.weight") and ".aspp" in k)
+    assert names and sorted(model.deform_layouts) == [f"{k}_layout" for k in names]
+    for k in names:
+        assert torch.equal(model.deform_layouts[f"{k}_layout"], weight_layout(model.params[k], torch.float32))
+    seen = []
+    real = birefnet.deform_conv_2d_fused
+
+    def spy(*args, layout=None, **kwargs):
+        seen.append(layout)
+        return real(*args, layout=layout, **kwargs)
+
+    monkeypatch.setattr(birefnet, "deform_conv_2d_fused", spy)
+    model.forward_u8(torch.zeros(1, 64, 64, 3, dtype=torch.uint8))
+    assert len(seen) == len(names)
+    assert {id(t) for t in seen} == {id(t) for t in model.deform_layouts.values()}

@@ -115,6 +115,31 @@ def test_shift_form_bf16_is_within_the_jax_bf16_error():
     assert port_err <= 1.25 * jax_err, (port_err, jax_err)
 
 
+def test_exact_form_bf16_is_within_the_jax_bf16_error():
+    """bf16 at BiRefNet's k = 7, Cin 112, Cout 28, inputs rounded to bf16
+    first: the JAX exact form blends in f32, multiplies in f32 and rounds
+    once; the port feeds the product f32 columns (the kernel a bf16 hi/lo
+    pair) and rounds once too. Held against the f32 result on the same bf16
+    values, the port's relative RMS error is at most 1.1x the JAX form's
+    (columns rounded to bf16 before the product gave 1.42x)."""
+    x, wt, off, mask = _inputs(0, 1, 32, 32, 112, 28, 7, 1, 3, off_scale=3.0)
+    bf = jnp.bfloat16
+    x, wt, off, mask = (np.array(jnp.asarray(a, bf).astype(jnp.float32)) for a in (x, wt, off, mask))
+    exact = np.asarray(jdeform.deform_conv_2d(x, wt, off, mask, 1, 3))
+    jax_bf16 = np.asarray(jdeform.deform_conv_2d(*(jnp.asarray(a, bf) for a in (x, wt, off, mask)), 1, 3)
+                          .astype(jnp.float32))
+    tb = torch.bfloat16
+    out = deform.deform_conv_2d(*(_t(a).to(tb) for a in (x, wt, off, mask)), 1, 3)
+    assert out.dtype == tb
+
+    def rel_rms(a):
+        return float(np.sqrt(np.mean((a - exact) ** 2)) / np.sqrt(np.mean(exact**2)))
+
+    port_err, jax_err = rel_rms(out.float().numpy()), rel_rms(jax_bf16)
+    assert jax_err < 1e-2
+    assert port_err <= 1.1 * jax_err, (port_err, jax_err)
+
+
 def test_zero_offsets_equal_a_conv():
     x, wt, off, _ = _inputs(9, 2, 8, 8, 4, 6, 3, 1, 1)
     expected = torch.nn.functional.conv2d(_t(x).permute(0, 3, 1, 2), _t(wt), padding=1).permute(0, 2, 3, 1)

@@ -27,6 +27,7 @@ SLICE_MODULES = [
     "vision_tpu_torch.ops.cuda.window_attention",
     "vision_tpu_torch.ops.cuda.conv3x3",
     "vision_tpu_torch.ops.cuda.deform_sample",
+    "vision_tpu_torch.ops.cuda.deform_conv",
     "vision_tpu_torch.models",
     "vision_tpu_torch.models.dino",
     "vision_tpu_torch.models.depth_anything",

@@ -17,8 +17,9 @@ src/visp/vision.cpp:97-135:
 
 On the card a forward runs two hand-written kernels: every SWIN block's
 window attention (48 launches at SWIN-L: 24 blocks per scale, the 24
-shifted ones with the per-window mask) and the sampler of every deformable
-conv (20 launches: 5 decoder blocks x 4 deformable ASPP branches). The
+shifted ones with the per-window mask) and the fused deformable conv (20
+launches: 5 decoder blocks x 4 deformable ASPP branches, each with its
+bias, BatchNorm and ReLU, written into one buffer per ASPP). The
 bounded deformable conv is used only under ``BuildFlag.deform_shift``
 (off by default; core/device.py says why). Weight names follow the
 reference converter's renames. Meshes and quantized residency wait for
@@ -29,6 +30,8 @@ cache.
 from __future__ import annotations
 
 import math
+import re
+from collections import ChainMap
 from dataclasses import dataclass
 
 import numpy as np
@@ -47,8 +50,9 @@ from ..image import (
     image_u8_to_f32,
     preprocess_scale_method,
 )
-from ..ops import IMAGENET_MEAN, IMAGENET_STD, batch_norm_2d, conv_2d, normalize_u8, relu, resize_nhwc, sigmoid
-from ..ops.deform import deform_conv_2d, deform_conv_2d_shift
+from ..ops import IMAGENET_MEAN, IMAGENET_STD, conv_2d, normalize_u8, relu, resize_nhwc, sigmoid
+from ..ops.cuda.deform_conv import weight_layout
+from ..ops.deform import deform_conv_2d_fused
 from .swin import SwinParams, swin_detect_params, swin_encode
 
 __all__ = [
@@ -65,6 +69,9 @@ __all__ = [
 ]
 
 DEFORM_SHIFT_BOUND = 2  # the bound BirefnetModel uses under BuildFlag.deform_shift
+# the deformable ASPP branches' conv weights (deformable_conv_2d_block's
+# "conv.weight"), which BirefnetModel lays out once for the fused kernel
+_DEFORM_WEIGHT = re.compile(r"\.aspp(1|_deforms\.\d+)\.conv\.conv\.weight$")
 
 
 @dataclass(frozen=True)
@@ -140,20 +147,19 @@ def encode(p: Params, x: torch.Tensor, sp: SwinParams) -> list[torch.Tensor]:
 
 
 def deformable_conv_2d_block(p: Params, x: torch.Tensor, stride: int = 1, pad: int = 0,
-                             shift_bound: int | None = None) -> torch.Tensor:
-    """offset/modulator convs + deform conv (birefnet.cpp:83-91).
-    ``shift_bound`` selects the bounded-offset form (deform_conv_2d_shift)."""
+                             shift_bound: int | None = None, *, scale=None, shift=None, relu: bool = False,
+                             out=None) -> torch.Tensor:
+    """offset/modulator convs + deform conv (birefnet.cpp:83-91), the conv's
+    bias and the caller's ``act(scale * y + shift)`` in the kernel's
+    epilogue, written into ``out`` when given. ``shift_bound`` selects the
+    bounded-offset form (deform_conv_2d_shift). The weight's layout for the
+    kernel is ``conv.weight_layout`` where the model made one, else the
+    call makes it."""
     offset = conv_2d(p["offset"], x, stride, pad)
     modulator = 2.0 * sigmoid(conv_2d(p["modulator"], x, stride, pad))
-    w = p.weight("conv.weight")
-    if shift_bound is not None:
-        y = deform_conv_2d_shift(x, w, offset, modulator, stride, pad, bound=shift_bound)
-    else:
-        y = deform_conv_2d(x, w, offset, modulator, stride, pad)
-    b = p.find("conv.bias")
-    if b is not None:
-        y = y + b
-    return y
+    return deform_conv_2d_fused(x, p.weight("conv.weight"), offset, modulator, stride, pad, shift_bound,
+                                bias=p.find("conv.bias"), scale=scale, shift=shift, relu=relu, out=out,
+                                layout=p.find("conv.weight_layout"))
 
 
 def global_avg_pool(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -162,21 +168,31 @@ def global_avg_pool(p: Params, x: torch.Tensor) -> torch.Tensor:
     return relu(conv_2d(p[1], m))
 
 
-def aspp_module_deformable(p: Params, x: torch.Tensor, padding: int = 0, shift_bound: int | None = None):
-    x = deformable_conv_2d_block(p["conv"], x, 1, padding, shift_bound)
-    return relu(batch_norm_2d(p["bn"], x))
+def aspp_module_deformable(p: Params, x: torch.Tensor, padding: int = 0, shift_bound: int | None = None,
+                           out=None) -> torch.Tensor:
+    """relu(batch_norm_2d(deformable conv)), the BatchNorm's fused scale
+    and shift and the ReLU in the deform kernel's epilogue (one rounding)."""
+    bn = p["bn"]
+    if bn.find("running_mean") is not None or bn.find("running_var") is not None:
+        raise_error("batch norm was not fused at conversion (running stats present)")
+    return deformable_conv_2d_block(p["conv"], x, 1, padding, shift_bound, scale=bn.weight("weight"),
+                                    shift=bn.weight("bias"), relu=True, out=out)
 
 
 def aspp_deformable(p: Params, x: torch.Tensor, shift_bound: int | None = None) -> torch.Tensor:
-    """(birefnet.cpp:116-137)."""
+    """(birefnet.cpp:116-137). The four deformable branches write their
+    channels of one (B, H, W, 5 * C) buffer through the kernel's epilogue,
+    and the global-pool branch is copied into the last C: no concatenation."""
     kernel_sizes = (1, 3, 7)
-    x1 = aspp_module_deformable(p["aspp1"], x, 0, shift_bound)
-    deforms = [
-        aspp_module_deformable(p["aspp_deforms"][i], x, kernel_sizes[i] // 2, shift_bound) for i in range(3)
-    ]
-    x5 = _upscale_to(global_avg_pool(p["global_avg_pool"], x), x1.shape[1:3])
-    x = torch.cat([x1, *deforms, x5], dim=-1)
-    return relu(conv_2d(p["conv1"], x))
+    b, h, w, _ = x.shape
+    c = p["aspp1"]["conv"].weight("conv.weight").shape[0]
+    buf = torch.empty((b, h, w, 5 * c), dtype=x.dtype, device=x.device)
+    aspp_module_deformable(p["aspp1"], x, 0, shift_bound, out=buf[..., :c])
+    for i in range(3):
+        aspp_module_deformable(p["aspp_deforms"][i], x, kernel_sizes[i] // 2, shift_bound,
+                               out=buf[..., (i + 1) * c : (i + 2) * c])
+    buf[..., 4 * c :] = _upscale_to(global_avg_pool(p["global_avg_pool"], x), (h, w))
+    return relu(conv_2d(p["conv1"], buf))
 
 
 def basic_decoder_block(p: Params, x: torch.Tensor, shift_bound: int | None = None) -> torch.Tensor:
@@ -271,6 +287,10 @@ class BirefnetModel:
         self.dtype = device.preferred_float_type
         self.deform_bound = DEFORM_SHIFT_BOUND if device.flags & BuildFlag.deform_shift else None
         self.params = cast_float_params(params, self.dtype)
+        # the deformable convs' weights as the fused kernel reads them, made
+        # here once instead of at each of a forward's 20 calls
+        self.deform_layouts = {f"{k}_layout": weight_layout(v, self.dtype) for k, v in self.params.items()
+                               if _DEFORM_WEIGHT.search(k)}
 
     def forward_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) uint8 at a processed extent -> (N, H, W, 1) mask in
@@ -281,7 +301,8 @@ class BirefnetModel:
         with torch.inference_mode():
             x = x_u8.to(self.device.torch_device, non_blocking=True)
             x = normalize_u8(x, IMAGENET_MEAN, IMAGENET_STD, self.dtype)
-            return birefnet_predict(Params(self.params), x, self.p, deform_bound=self.deform_bound)
+            params = Params(ChainMap(self.deform_layouts, self.params))
+            return birefnet_predict(params, x, self.p, deform_bound=self.deform_bound)
 
     def compute(self, image: Image) -> Image:
         """One image -> alpha u8 mask at the image's extent."""

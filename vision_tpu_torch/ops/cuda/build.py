@@ -108,6 +108,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.vtt_deform_sample_fwd  # B * Ho * Wo * kh * kw is checked below 2^31 by the wrapper
     fn.argtypes = [p, p, i, p, i, p, *([i] * 10), ctypes.c_float, i, p]
     fn.restype = i
+    fn = lib.vtt_deform_conv_fwd  # the same rows, and H * W, are checked below 2^31 by the wrapper
+    fn.argtypes = [p, p, i, i, p, i, p, i, p, p, p, i, i, p, q, *([i] * 10), f, i, i, p]
+    fn.restype = i
 
 
 def load_library() -> ctypes.CDLL:

@@ -73,20 +73,21 @@ def conv3x3_plain(x, w, b=None, *, slope=None, r1=None, s1=1.0, r2=None, s2=1.0,
     return out.copy_(acc)
 
 
-def _pixel_stride(t: torch.Tensor, name: str) -> int:
+def _pixel_stride(t: torch.Tensor, name: str, kernel: str = "conv3x3") -> int:
     """The pixel stride of ``t``, a channel view of an NHWC buffer whose
-    pixels, rows and images are packed; raise otherwise."""
+    pixels, rows and images are packed; raise otherwise (``kernel`` names
+    the caller in the message; deform_conv checks its ``out`` here too)."""
     n, h, wd, c = t.shape
     ps = t.stride(2)
     if t.stride(3) != 1 or ps < c or (h > 1 and t.stride(1) != wd * ps) or (n > 1 and t.stride(0) != h * wd * ps):
         raise ValueError(
-            f"conv3x3: {name} must be contiguous or a channel view of a contiguous NHWC buffer "
+            f"{kernel}: {name} must be contiguous or a channel view of a contiguous NHWC buffer "
             f"(got strides {t.stride()} for shape {tuple(t.shape)})"
         )
     if ps > c and t.storage_offset() % ps + c > ps:  # a view's offset counts from its storage's start
-        raise ValueError(f"conv3x3: {name}'s channels run past its buffer's {ps}-channel pixel")
+        raise ValueError(f"{kernel}: {name}'s channels run past its buffer's {ps}-channel pixel")
     if ps > _INT_MAX:
-        raise ValueError(f"conv3x3: {name}'s pixel stride {ps} is past the kernel's 32-bit grid")
+        raise ValueError(f"{kernel}: {name}'s pixel stride {ps} is past the kernel's 32-bit grid")
     return ps
 
 

@@ -11,8 +11,7 @@ zero outside the image, with the offsets clamped to [-bound, bound] first
 when ``bound`` is given (the bounded form, ``deform_conv_2d_shift``). x is
 (B, H, W, Cin) NHWC in bf16 or f32; offset (B, Ho, Wo, 2 * kh * kw) and mask
 (B, Ho, Wo, kh * kw) or None in any float type, read as f32; the columns
-(B, Ho, Wo, kh * kw, Cin) are in x's type. ops/deform.py multiplies them by
-the weight in one matrix product.
+(B, Ho, Wo, kh * kw, Cin) are in x's type.
 
 It replaces the Pallas bodies of scripts/exp_deform_pallas.py (``sliced``,
 ``rolled``), exp_deform_pallas2.py (``d0``..``d4``), exp_deform_pallas3.py
@@ -23,8 +22,10 @@ coefficients are nonzero. The kernel (csrc/deform_sample.cu) evaluates only
 those 4 bilinear corners, per (pixel, tap) in f32, blends Cin channels from
 4 rows in 16-byte loads, multiplies by the mask in f32 and rounds once. Its
 bound is bytes: the columns written, plus x, the offsets and the mask read
-once. Its consumer on the port's path is every deformable conv of BiRefNet's
-decoder (models/birefnet.py through ops/deform.py): 20 launches per forward.
+once. It is the standalone column kernel: no served path launches it, since
+BiRefNet's deformable convs take the fused kernel (ops/cuda/deform_conv.py),
+which never writes the columns; its plain version gives that kernel's plain
+version its f32 columns.
 
 A CPU tensor goes to :func:`deform_sample_plain` (the 4-corner gather of
 the JAX package's ``_gather_pixels``, vision_tpu/ops/deform.py:30-42); a
@@ -55,11 +56,11 @@ def _gather(x_flat: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor, h: int, w:
     return torch.gather(x_flat, 1, idx).float() * inb.unsqueeze(-1)
 
 
-def deform_sample_plain(x, offset, mask, kh: int, kw: int, stride: int = 1, pad: int = 0, bound=None):
+def deform_sample_plain(x, offset, mask, kh: int, kw: int, stride: int = 1, pad: int = 0, bound=None, dtype=None):
     """The kernel's arithmetic in plain PyTorch: 4-corner bilinear samples
     with f32 coordinates and weights, summed in the order corner 00, 01, 10,
-    11, times the mask, cast once to x's type. Returns (B, Ho, Wo, kh * kw,
-    Cin)."""
+    11, times the mask, cast once to ``dtype`` (default x's type). Returns
+    (B, Ho, Wo, kh * kw, Cin)."""
     b, h, w, cin = x.shape
     ho, wo = offset.shape[1], offset.shape[2]
     kk = kh * kw
@@ -84,7 +85,7 @@ def deform_sample_plain(x, offset, mask, kh: int, kw: int, stride: int = 1, pad:
         s = term if s is None else s.add_(term)
     if mask is not None:
         s.mul_(mask.float().reshape(b, -1, 1))
-    return s.reshape(b, ho, wo, kk, cin).to(x.dtype)
+    return s.reshape(b, ho, wo, kk, cin).to(dtype or x.dtype)
 
 
 def _check(x, offset, mask, kh: int, kw: int, stride: int, pad: int) -> None:
