@@ -109,7 +109,32 @@ Phases, each raising on failure:
      torch.matmul), and the sampler alone; the masked window kernel against
      SDPA given the combined mask (the card's own time, and per call);
      forward_u8 at 1024x1024 batch 1 and 4 with the peak memory of each;
-     the served numbers; and a torch.profiler trace of a batch-4 forward.
+     the served numbers; and a torch.profiler trace of a batch-4 forward;
+ 18. the flash kernel's head-dim-80 instance against its plain version, in
+     bf16 and f32: SAM3's global layers at batch 1 and 4 ((16 or 64, 5184,
+     80)), a ragged cross case (Tq 1000, Tk 1300) and one past a tile;
+     bf16 within BF16_MAX_ABS and a relative RMS of FLASH_D80_BF16_REL_RMS;
+ 19. the SAM3 path: a sam3 GGUF in f16 (random_sam3_vision_params(0), the
+     ViT-H RoPE encoder at 1008 px with its FPN neck, under det.ve.; the
+     CLIP text encoder of sam3_text_params, under det.te.; a synthetic
+     49408-token vocabulary; ~2 GB, deleted after loading) is loaded with
+     sam3_load_model on the card and on the CPU; encode_vision runs on a
+     1008x1008 and a 1600x1200 image (the four FPN levels' shapes, finite,
+     4 flash launches each and no other hand-written kernel, the counts
+     zeroed just before and read just after each) and encode_text on 4
+     prompts ((1, 32, 1024), finite, no hand-written kernel);
+ 20. SAM3 parity: the first two layers (one window, one global at T 5184)
+     and the neck at 1008x1008, card f32 (TF32 off) and card bf16 against
+     the CPU's f32; encode_text card bf16 against the CPU's f32; the full
+     depth card bf16 against card f32, beside the same with the global
+     layers on the kernel's plain version;
+ 21. SAM3 timings: the D-80 kernel against its plain version, SDPA and the
+     bound by the card's own time; host prep per request; Sam3Model's
+     encode_vision p50; the encode_vision function at batch 1 and 4 (ms,
+     img/s, TFLOP/s from sam3_vision_flops); encode_text p50; a
+     torch.profiler trace of a batch-1 encode_vision; and one window and
+     one global layer with their parts (window partition and reverse,
+     RoPE, the weight products) by the card's own time.
 
 The line before the last is a JSON object describing every kernel of the
 paths; the last line is {"ok": true, "device": {...}}.
@@ -171,6 +196,21 @@ SWIN_L_STAGES = ((256, 6), (128, 12), (64, 24), (32, 48))
 # the Depth-Anything requests' extents (w, h): 518x518 and 700x500, which
 # depthany_image_extent snaps to 728x518
 DEPTH_EXTENTS = ((518, 518), (700, 500))
+# SAM3 (phases 18-21): the repo's configuration (random_sam3_vision_params'
+# defaults, Sam3VitParams) at 1008 px, 4 global layers of 5184 tokens at head
+# dim 80; the text encoder the smoke makes (sam3_text_params); requests at
+# 1008x1008 (as is) and 1600x1200 (resized)
+SAM3_TEXT = {"layers": 24, "width": 1024, "heads": 16, "mlp": 4096, "vocab": 49408, "max_length": 32}
+SAM3_EXTENTS = ((1008, 1008), (1600, 1200))
+SAM3_PROMPTS = ("a cat", "the red car on the left", "2 dogs!", "")
+SAM3_FPN = ((288, 256), (144, 256), (72, 256), (36, 256))  # (side, channels) of the four levels at 1008 px
+SAM3_F32_REL_RMS = 1e-4  # f32 card (kernel route, TF32 off) vs f32 CPU, first two layers + neck: summation order only
+SAM3_PLAIN_RATIO = 1.1  # full depth, if bf16 vs f32 misses E2E_REL_RMS: its RMS vs that with the plain global layers
+# the bf16 D-80 flash kernel vs its plain version's f32 result, relative RMS:
+# BF16_MAX_ABS alone is ~1.3x a typical output at T 5184 (outputs ~0.02),
+# too loose to see a dropped key tile there; bf16 rounding of p and o gives
+# ~2-3e-3
+FLASH_D80_BF16_REL_RMS = 1e-2
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor
 # cores, f32 outside the tensor cores, device memory
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -615,35 +655,41 @@ def attention_yardsticks(fa, wa, torch, card: str) -> tuple[float, float]:
 
 
 def profile_forward(model, x, torch, card: str, names=("conv3x3",)) -> dict:
-    """Phases 13 and 17: where one forward's time goes, from a torch.profiler
-    trace: device busy time (the sum of kernel times), the host's wall time,
-    the idle share, the share of each named hand-written kernel, the
+    """Phases 6, 13 and 17: profile_run over one model.forward_u8(x)."""
+    return profile_run(lambda: model.forward_u8(x), f"forward_u8 {tuple(x.shape)}", torch, card, names)
+
+
+def profile_run(run, label: str, torch, card: str, names=("conv3x3",)) -> dict:
+    """Where one call of ``run`` spends its time, from a torch.profiler
+    trace: device busy time (the sum of kernel times), the host's wall
+    time, the idle share, the share of each named hand-written kernel, the
     launches of every other kernel, and the heaviest kernels. Returns the
-    busy ms, wall ms and those other launches."""
+    busy ms, wall ms, the named kernels' ms and the other launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    model.forward_u8(x)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.forward_u8(x)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    shares = []
+    shares, named_ms = [], {}
     for name in names:
         ms = sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
+        named_ms[name] = ms
         shares.append(f"{name} {ms:.3f} ms ({ms / busy_ms:.2%} of busy)")
     others = sum(e.count for e in kernels if not any(name in e.key for name in names))
-    print(f"profile of one forward_u8 {tuple(x.shape)}: wall {wall_ms:.3f} ms (profiler on), device busy "
+    print(f"profile of one {label}: wall {wall_ms:.3f} ms (profiler on), device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.2%}, {', '.join(shares)}, "
           f"{sum(e.count for e in kernels)} kernel launches, {others} of them not of {'/'.join(names)} [{card}]",
           flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}", flush=True)
-    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "other_launches": others}
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "named_ms": named_ms, "other_launches": others}
 
 
 def esrgan_stages(params, x_u8, p, dtype, device):
@@ -1211,6 +1257,392 @@ def masked_window_yardsticks(wa, torch, card: str) -> list:
         del q, k, v, q4, k4, v4, combined
         torch.cuda.empty_cache()
     return rows
+
+
+def sam3_text_params(seed: int = 1) -> dict[str, np.ndarray]:
+    """CLIP text-encoder weights at the widths the JAX package's SAM3 code
+    assumes (24 layers, vision_tpu/models/sam3.py:195; 16 heads, :174; width
+    1024 with an MLP of 4096; the 49408-token vocabulary, :91-94; 32
+    positions, the max_length of :983), random from ``seed``, in f16 under
+    the GGUF names (``det.te.text_model.*``; no text projection, which the
+    converter skips). The repo holds no SAM3 checkpoint to take them from."""
+    rng = np.random.default_rng(seed)
+    c, m = SAM3_TEXT["width"], SAM3_TEXT["mlp"]
+    pre = "det.te.text_model."
+    p = {}
+
+    def w(name, *shape, scale=None):
+        scale = 1.0 / np.sqrt(shape[-1]) if scale is None else scale
+        p[pre + name] = (rng.standard_normal(shape, dtype=np.float32) * scale).astype(np.float16)
+
+    def ln(name):
+        p[pre + name + ".weight"] = np.ones(c, np.float16)
+        p[pre + name + ".bias"] = np.zeros(c, np.float16)
+
+    def lin(name, ci, co):
+        w(name + ".weight", co, ci)
+        p[pre + name + ".bias"] = np.zeros(co, np.float16)
+
+    w("embeddings.token_embedding.weight", SAM3_TEXT["vocab"], c, scale=0.02)
+    w("embeddings.position_embedding.weight", SAM3_TEXT["max_length"], c, scale=0.02)
+    for i in range(SAM3_TEXT["layers"]):
+        base = f"encoder.layers.{i}"
+        ln(f"{base}.layer_norm1")
+        ln(f"{base}.layer_norm2")
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            lin(f"{base}.self_attn.{proj}", c, c)
+        lin(f"{base}.mlp.fc1", c, m)
+        lin(f"{base}.mlp.fc2", m, c)
+    ln("final_layer_norm")
+    return p
+
+
+def sam3_vocab() -> tuple[list[str], list[str]]:
+    """A synthetic CLIP vocabulary of 49408 entries (BOS 49406, EOS 49407)
+    and a few merges, enough for the prompts of SAM3_PROMPTS to take real
+    BPE steps."""
+    chars = "abcdefghijklmnopqrstuvwxyz0123456789!?.,"
+    tokens = list(chars) + [ch + "</w>" for ch in chars]
+    merges = [("c", "a"), ("ca", "t</w>"), ("t", "h"), ("th", "e</w>"), ("r", "e"), ("re", "d</w>"),
+              ("c", "ar</w>"), ("a", "r</w>"), ("d", "o"), ("do", "g"), ("dog", "s</w>"), ("l", "e"),
+              ("le", "f"), ("lef", "t</w>")]
+    tokens += [a + b for a, b in merges if a + b not in tokens]
+    tokens += [f"<unused{i}>" for i in range(SAM3_TEXT["vocab"] - 2 - len(tokens))]
+    tokens += ["<|startoftext|>", "<|endoftext|>"]
+    return tokens, [f"{a} {b}" for a, b in merges]
+
+
+def write_sam3_gguf(path: str) -> int:
+    """A SAM3 GGUF in f16: random_sam3_vision_params(0) (ViT-H, 1280 wide,
+    32 layers, FPN 256) under det.ve., sam3_text_params() under det.te.,
+    the synthetic vocabulary and sam3.tokenizer.max_length. Returns its
+    size in bytes."""
+    from vision_tpu_torch.core.gguf import GGUFWriter
+    from vision_tpu_torch.models.random_weights import random_sam3_vision_params
+
+    w = GGUFWriter(path, "sam3")
+    tokens, merges = sam3_vocab()
+    w.add("tokenizer.ggml.tokens", tokens)
+    w.add("tokenizer.ggml.merges", merges)
+    w.add("tokenizer.ggml.bos_token_id", len(tokens) - 2)
+    w.add("tokenizer.ggml.eos_token_id", len(tokens) - 1)
+    w.add("tokenizer.ggml.padding_token_id", len(tokens) - 1)
+    w.add("tokenizer.ggml.unknown_token_id", len(tokens) - 1)
+    w.add("sam3.tokenizer.max_length", SAM3_TEXT["max_length"])
+    for name, a in random_sam3_vision_params(0).items():
+        w.add_tensor(f"det.ve.{name}", a.astype(np.float16))
+    for name, a in sam3_text_params().items():
+        w.add_tensor(name, a)
+    w.write()
+    return os.path.getsize(path)
+
+
+def sam3_vision_flops(vp, batch: int, dim: int = 1280, fpn_ch: int = 256) -> float:
+    """FLOPs of one encode_vision at vp's image size, counted from the
+    shapes: the patch conv, each layer's four projections (over the padded
+    windows' tokens in a window layer) and MLP (4x), each window and global
+    attention (q k^T and p v), and the neck's transposed convs and 1x1 / 3x3
+    projections."""
+    g = vp.image_size // vp.patch_size
+    t = g * g
+    flops = 2.0 * t * 3 * vp.patch_size**2 * dim
+    n_win = (-(-g // vp.window_size)) ** 2  # zero-padded windows: their tokens are projected and attended too
+    for i in range(vp.n_layers):
+        flops += 2.0 * t * 8 * dim * dim  # MLP
+        if i in vp.global_attn_indexes:
+            flops += 2.0 * t * 4 * dim * dim + 4.0 * t * t * dim
+        else:
+            flops += 2.0 * n_win * vp.window_size**2 * 4 * dim * dim + 4.0 * n_win * vp.window_size**4 * dim
+    flops += 2 * (2.0 * t * dim * (dim // 2) * 4)  # levels 0 and 1: dim -> dim/2 transposed conv at g^2
+    flops += 2.0 * (4 * t) * (dim // 2) * (dim // 4) * 4  # level 0: dim/2 -> dim/4 at (2g)^2
+    for side, ci in ((4 * g, dim // 4), (2 * g, dim // 2), (g, dim), (g // 2, dim)):
+        flops += 2.0 * side * side * fpn_ch * (ci + 9 * fpn_ch)
+    return batch * flops
+
+
+def sam3_flash_cases(fa, torch) -> float:
+    """Phase 18: the flash kernel at head dim 80 against its plain version:
+    SAM3's global layers at batch 1 and 4, a ragged cross case, in bf16 and
+    f32; bf16 also within FLASH_D80_BF16_REL_RMS of the f32 result. Returns
+    the largest absolute difference seen."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    t = (1008 // 14) ** 2
+    cases = [  # (label, B, H, Tq, Tk, dtype)
+        ("SAM3 global, batch 1", 1, 16, t, t, bf16),
+        ("SAM3 global, batch 4", 4, 16, t, t, bf16),
+        ("ragged cross", 2, 3, 1000, 1300, bf16),
+        ("ragged, one past a tile", 1, 2, 129, 257, bf16),
+        ("SAM3 global, batch 1", 1, 16, t, t, f32),
+        ("ragged cross", 2, 3, 1000, 1300, f32),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    worst = 0.0
+    for label, b, h, tq, tk, dtype in cases:
+        q = torch.randn(b, h, tq, 80, device="cuda", generator=gen).to(dtype)
+        k, v = (torch.randn(b, h, tk, 80, device="cuda", generator=gen).to(dtype) for _ in range(2))
+        before = fa.launches
+        out = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        if fa.launches != before + 1 or out.shape != q.shape or out.dtype != dtype:
+            raise AssertionError(f"{label}: launches {before} -> {fa.launches}, output {tuple(out.shape)} {out.dtype}")
+        ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), 80**-0.5)
+        name = f"flash_attention {label} (B={b} H={h} Tq={tq} Tk={tk} D=80 {dtype})"
+        worst = max(worst, check_close(name, out, ref, dtype, torch))
+        if dtype == bf16:
+            rms = rel_rms_t(out.float(), ref)
+            ok = rms <= FLASH_D80_BF16_REL_RMS
+            print(f"kernel {name}: relative RMS {rms:.3e} (output RMS {float(ref.pow(2).mean().sqrt()):.3e}) "
+                  f"[<= {FLASH_D80_BF16_REL_RMS}] {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"{name}: relative RMS {rms}")
+        del q, k, v, out, ref
+    return worst
+
+
+def sam3_flash_timings(fa, torch, card: str) -> list:
+    """Phase 21: the D-80 instance at SAM3's global shapes, batch 1 and 4,
+    against its plain version, SDPA (a yardstick the port never calls) and
+    the bound, by the card's own time, in turns. Returns per shape (BH,
+    kernel ms, plain ms, SDPA ms, bound ms, bound by)."""
+    import torch.nn.functional as F
+
+    t = (1008 // 14) ** 2
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = []
+    for b in (1, 4):
+        q, k, v = (torch.randn(b, 16, t, 80, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
+        run_k = lambda: fa.flash_attention(q, k, v)  # noqa: E731
+        run_p = lambda: fa.flash_attention_plain(q, k, v, 80**-0.5)  # noqa: E731
+        run_l = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        k1, p1, l1, l2, p2, k2 = (device_ms(f, calls=c) for f, c in ((run_k, 20), (run_p, 5), (run_l, 20),
+                                                                  (run_l, 20), (run_p, 5), (run_k, 20)))
+        bh = 16 * b
+        bound, by = bound_ms(4.0 * bh * t * t * 80, 4 * 2.0 * bh * t * 80)
+        rows.append((bh, min(k1, k2), min(p1, p2), min(l1, l2), bound, by))
+        print(f"flash_attention ({bh}, {t}, 80) bf16 on the card: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+              f"{p2:.4f} ms, SDPA {l1:.4f} / {l2:.4f} ms, bound {bound:.4f} ms ({by}), kernel at "
+              f"{bound / min(k1, k2):.2%} of the bound; per call with the host's launch work: kernel "
+              f"{median_ms(run_k, 20):.4f} ms [{card}]", flush=True)
+        del q, k, v
+    return rows
+
+
+def sam3_layer_breakdown(torch, card: str, params: dict, vp, busy_ms: float) -> None:
+    """Phase 21: one window layer and one global layer of the trunk at batch
+    1 and vp's image size, and the parts of them that are not products, by the
+    card's own time: the window partition and reverse, RoPE on q and k, the
+    six weight products, and (in the global layer) the flash kernel. Says
+    what the JAX package's window-major scan trunk, which drops the
+    partition and reverse copies, could save."""
+    import torch.nn.functional as F
+
+    from vision_tpu_torch.core.params import Params
+    from vision_tpu_torch.models.mobile_sam import window_partition, window_reverse
+    from vision_tpu_torch.models.sam3 import apply_rope_2d, rope_attention, vision_layer
+
+    layers = Params(params)["det.ve.backbone.layers"]
+    g, w, heads = vp.image_size // vp.patch_size, vp.window_size, vp.n_heads
+    win_i = next(i for i in range(vp.n_layers) if i not in vp.global_attn_indexes)
+    glob_i = vp.global_attn_indexes[0]
+    c = layers[win_i]["mlp.fc1"].weight("weight").shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x = torch.randn(1, g, g, c, device="cuda", generator=gen).to(torch.bfloat16)
+    tok = x.reshape(1, g * g, c)
+    n_win = window_partition(x, w).shape[0]
+    qw = torch.randn(n_win, w * w, heads, c // heads, device="cuda", generator=gen).to(torch.bfloat16)
+    qg = torch.randn(1, heads, g * g, c // heads, device="cuda", generator=gen).to(torch.bfloat16)
+    lp = layers[win_i]
+    ws = [lp[f"attention.{n}"].weight("weight") for n in ("q_proj", "k_proj", "v_proj", "o_proj")]
+    fc1, fc2 = lp["mlp.fc1"].weight("weight"), lp["mlp.fc2"].weight("weight")
+    hidden = torch.randn(1, g * g, fc1.shape[0], device="cuda", generator=gen).to(torch.bfloat16)
+    scale_global = float(w) / float(g)
+    xw = window_partition(x, w)
+    parts = [
+        ("window layer", lambda: vision_layer(layers[win_i], x, w, heads, w, 1.0)),
+        ("rope_attention, window form (q, k, v, RoPE, the attention, o)",
+         lambda: rope_attention(lp["attention"], xw, heads, w, 1.0)),
+        ("global layer", lambda: vision_layer(layers[glob_i], x, 0, heads, g, scale_global, flash=True)),
+        ("window partition + reverse", lambda: window_reverse(window_partition(x, w), g, g, w)),
+        ("RoPE of q and k, window form", lambda: [apply_rope_2d(qw, w, 1.0, "bthd") for _ in range(2)]),
+        ("RoPE of q and k, global form", lambda: [apply_rope_2d(qg, g, scale_global) for _ in range(2)]),
+        ("six weight products (q, k, v, o, fc1, fc2)",
+         lambda: ([F.linear(tok, wt) for wt in ws], F.linear(tok, fc1), F.linear(hidden, fc2))),
+    ]
+    with torch.inference_mode():
+        times = {name: device_ms(run, calls=10) for name, run in parts}
+    n_window = vp.n_layers - len(vp.global_attn_indexes)
+    for name, ms in times.items():
+        print(f"SAM3 trunk at batch 1, {vp.image_size}x{vp.image_size} bf16: {name} {ms:.4f} ms [{card}]", flush=True)
+    pr, rope = times["window partition + reverse"], times["RoPE of q and k, window form"]
+    products = times["six weight products (q, k, v, o, fc1, fc2)"]
+    # the four projections are a third of the six products' FLOPs
+    core = times["rope_attention, window form (q, k, v, RoPE, the attention, o)"] - rope - products / 3
+    print(f"the {n_window} window layers' partition + reverse: {n_window * pr:.3f} ms, {n_window * pr / busy_ms:.2%} of "
+          f"a batch-1 encode_vision's {busy_ms:.3f} ms busy (the most the window-major scan trunk could save); "
+          f"their RoPE {n_window * rope / busy_ms:.2%}; their attention past RoPE and the projections (logits, scale, "
+          f"f32 softmax, casts, P V, layout copies; rope_attention less RoPE and a third of the six products) "
+          f"~{core:.4f} ms a layer, ~{n_window * core / busy_ms:.2%}; all layers' products "
+          f"{vp.n_layers * products / busy_ms:.2%} [{card}]", flush=True)
+
+
+def sam3_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
+    """Phases 18-21: the flash kernel's D-80 instance against its plain
+    version; SAM3 through Sam3Model (a GGUF written at run time); its parity
+    on the card against the CPU; its timings. Returns what the kernels line
+    reports of it."""
+    from vision_tpu_torch.core.device import backend_init
+    from vision_tpu_torch.core.params import Params
+    from vision_tpu_torch.image import Image, ImageFormat
+    from vision_tpu_torch.models.sam3 import Sam3VitParams, encode_vision, sam3_load_model, sam3_process_input
+
+    phase("18 flash kernel at head dim 80 (SAM3's global layers) against its plain version")
+    worst80 = sam3_flash_cases(fa, torch)
+
+    phase("19 SAM3 path: ViT-H RoPE encoder + FPN neck and the CLIP text encoder through Sam3Model")
+    s3rng = np.random.default_rng(19)
+    s3_imgs = [Image(s3rng.integers(0, 256, (h, w, 4), np.uint8), ImageFormat.rgba_u8) for w, h in SAM3_EXTENTS]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sam3-random.gguf")
+        t0 = time.perf_counter()
+        gguf_bytes = write_sam3_gguf(path)
+        gguf_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        s3model = sam3_load_model(path, backend_init("gpu"))
+        load_s = time.perf_counter() - t0
+        cpu_s3model = sam3_load_model(path, backend_init("cpu"))
+    vp = s3model.vp
+    print(f"model on {s3model.device.torch_device} {s3model.dtype}, flash={s3model.flash}, {vp}, "
+          f"{s3model.n_text_layers} text layers, max_tokens {s3model.max_tokens}; f16 GGUF of {gguf_bytes / 2**30:.2f} "
+          f"GiB written in {gguf_s:.1f} s, loaded on the card in {load_s:.1f} s (deleted since)", flush=True)
+    want = {"flash": len(vp.global_attn_indexes), "window": 0, "conv3x3": 0, "deform_conv": 0, "deform_sample": 0}
+    sam3_launches = 0
+    for img in s3_imgs:
+        fa.launches = wa.launches = cc.launches = dsm.launches = dcm.launches = 0
+        fpn = s3model.encode_vision(img)
+        torch.cuda.synchronize()
+        got = {"flash": fa.launches, "window": wa.launches, "conv3x3": cc.launches, "deform_conv": dcm.launches,
+               "deform_sample": dsm.launches}
+        sam3_launches += fa.launches
+        shapes = [tuple(h.shape) for h in fpn]
+        if shapes != [(1, side, side, ch) for side, ch in SAM3_FPN] or got != want:
+            raise AssertionError(f"encode_vision {img.extent}: levels {shapes}, launches {got} (expected {want})")
+        if not all(bool(torch.isfinite(h).all()) for h in fpn):
+            raise AssertionError(f"encode_vision {img.extent}: non-finite output")
+        print(f"encode_vision {img.extent[0]}x{img.extent[1]}: levels {shapes} {fpn[0].dtype}, finite; launches {got}",
+              flush=True)
+    fa.launches = wa.launches = cc.launches = dsm.launches = dcm.launches = 0
+    texts = [s3model.encode_text(t) for t in SAM3_PROMPTS]
+    torch.cuda.synchronize()
+    text_launches = fa.launches + wa.launches + cc.launches + dsm.launches + dcm.launches
+    width = SAM3_TEXT["width"]
+    for prompt, out in zip(SAM3_PROMPTS, texts):
+        if tuple(out.shape) != (1, SAM3_TEXT["max_length"], width) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"encode_text {prompt!r}: {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+    if text_launches:
+        raise AssertionError(f"encode_text launched {text_launches} hand-written kernels (its masked attention has none)")
+    print(f"encode_text x{len(SAM3_PROMPTS)}: (1, {SAM3_TEXT['max_length']}, {width}) {texts[0].dtype}, finite; "
+          f"ids of {SAM3_PROMPTS[1]!r}: {s3model.tokenizer.tokenize(SAM3_PROMPTS[1], 12).token_ids.tolist()}",
+          flush=True)
+
+    phase("20 SAM3 parity: card bf16 and f32 (kernel route) vs CPU f32 (plain route)")
+    vp2 = Sam3VitParams(n_layers=2, global_attn_indexes=(1,))
+    x_cpu = torch.from_numpy(sam3_process_input(s3_imgs[0], vp.image_size)[None])
+    # f32 on the card from the CPU model's weights (the file's f16 values, exact in f32)
+    f32_params = {k: v.to("cuda") for k, v in cpu_s3model.params.items() if k.startswith("det.ve.")}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        cpu_two = encode_vision(Params(cpu_s3model.params)["det.ve"], x_cpu, vp2, flash=cpu_s3model.flash)
+        cpu_s = time.perf_counter() - t0
+        before = fa.launches
+        f32_two = encode_vision(Params(f32_params)["det.ve"], x_cpu.cuda(), vp2, flash=True)
+        bf16_two = encode_vision(Params(s3model.params)["det.ve"], x_cpu.cuda().bfloat16(), vp2, flash=True)
+        torch.cuda.synchronize()
+    if fa.launches != before + 2:
+        raise AssertionError(f"two-layer forwards launched flash {fa.launches - before} times (2 expected)")
+    two_f32, two_bf16 = [], []
+    for i, (c, f, b) in enumerate(zip(cpu_two.fpn_hidden_states, f32_two.fpn_hidden_states,
+                                      bf16_two.fpn_hidden_states)):
+        two_f32.append(rel_rms(f.cpu(), c))
+        two_bf16.append(rel_rms(b.float().cpu(), c))
+        print(f"two layers (window, global at T {(vp.image_size // vp.patch_size) ** 2}, D 80) + neck, level {i} "
+              f"{tuple(c.shape)}: relative RMS card f32 vs CPU f32 {two_f32[-1]:.4e} (bound {SAM3_F32_REL_RMS}), "
+              f"card bf16 vs CPU f32 {two_bf16[-1]:.4e} (bound {E2E_REL_RMS})", flush=True)
+    print(f"CPU f32 two-layer forward: {cpu_s:.1f} s", flush=True)
+    if not (max(two_f32) <= SAM3_F32_REL_RMS and max(two_bf16) <= E2E_REL_RMS):
+        raise AssertionError(f"SAM3 two-layer parity: f32 {two_f32}, bf16 {two_bf16}")
+    text_rms = [rel_rms(out.float().cpu(), cpu_s3model.encode_text(t)) for t, out in zip(SAM3_PROMPTS, texts)]
+    print(f"encode_text card bf16 vs CPU f32, relative RMS per prompt: {[f'{r:.4e}' for r in text_rms]} "
+          f"(bound {E2E_REL_RMS})", flush=True)
+    if not max(text_rms) <= E2E_REL_RMS:
+        raise AssertionError(f"encode_text parity {text_rms}")
+    with torch.inference_mode():
+        x_gpu = x_cpu.cuda()
+        full_f32 = encode_vision(Params(f32_params)["det.ve"], x_gpu, vp, flash=True).fpn_hidden_states
+        full_bf16 = encode_vision(Params(s3model.params)["det.ve"], x_gpu.bfloat16(), vp, flash=True).fpn_hidden_states
+        kernel_route = fa.flash_attention
+        fa.flash_attention = lambda q, k, v, scale=None, mask=None: fa.flash_attention_plain(q, k, v, scale)
+        try:
+            plain_bf16 = encode_vision(Params(s3model.params)["det.ve"], x_gpu.bfloat16(), vp,
+                                       flash=True).fpn_hidden_states
+        finally:
+            fa.flash_attention = kernel_route
+    full_rms = max(rel_rms_t(b.float(), f) for b, f in zip(full_bf16, full_f32))
+    plain_rms = max(rel_rms_t(b.float(), f) for b, f in zip(plain_bf16, full_f32))
+    full_ok = full_rms <= E2E_REL_RMS or full_rms <= SAM3_PLAIN_RATIO * plain_rms
+    print(f"full depth ({vp.n_layers} layers) + neck, worst level: relative RMS card bf16 vs card f32 {full_rms:.4e}, "
+          f"with the global layers on the plain version {plain_rms:.4e} (ratio {full_rms / plain_rms:.4f}); bound "
+          f"{E2E_REL_RMS}, else the ratio <= {SAM3_PLAIN_RATIO}: {'ok' if full_ok else 'FAIL'}", flush=True)
+    if not full_ok:
+        raise AssertionError(f"SAM3 full-depth bf16 {full_rms} vs {plain_rms} with the plain global layers")
+    del f32_params, full_f32, full_bf16, plain_bf16, f32_two, bf16_two, cpu_two, cpu_s3model
+
+    phase(f"21 SAM3 timings on {card}")
+    s3_rows = sam3_flash_timings(fa, torch, card)
+    for img in s3_imgs:
+        t_prep = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sam3_process_input(img, vp.image_size)
+            t_prep.append((time.perf_counter() - t0) * 1e3)
+        print(f"host prep of a {img.extent[0]}x{img.extent[1]} request (sam3_process_input: resize to "
+              f"{vp.image_size}x{vp.image_size}, [-1, 1] f32): median {float(np.median(t_prep)):.3f} ms [{card}]",
+              flush=True)
+    walls = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        s3model.encode_vision(s3_imgs[0])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"Sam3Model.encode_vision 1008x1008 (host prep included): p50 {float(np.median(walls[2:])):.3f} ms over "
+          f"{len(walls) - 2} [{card}]", flush=True)
+    s3_fwd = {}
+    with torch.inference_mode():
+        for b in (1, 4):
+            xb = x_cpu.cuda().bfloat16().repeat(b, 1, 1, 1)
+            run = lambda: encode_vision(Params(s3model.params)["det.ve"], xb, vp, flash=True)  # noqa: E731
+            f1 = median_ms(run, 5, warmup=2)
+            f2 = median_ms(run, 5, warmup=0)
+            ms = min(f1, f2)
+            flops = sam3_vision_flops(vp, b)
+            s3_fwd[b] = ms
+            print(f"encode_vision batch {b} at 1008x1008 bf16: median {f1:.3f} / {f2:.3f} ms, {b / ms * 1e3:.3f} img/s, "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s ({flops / 1e12:.4f} TFLOP; {flops / ms / 1e9 / 989:.2%} of the "
+                  f"989 TFLOP/s bf16 peak) [{card}]", flush=True)
+            if b == 1:
+                s3_profile = profile_run(run, "encode_vision batch 1 at 1008x1008", torch, card,
+                                         ("flash_attention",))
+                sam3_layer_breakdown(torch, card, s3model.params, vp, s3_profile["busy_ms"])
+            del xb
+    t_text = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        s3model.encode_text(SAM3_PROMPTS[1])
+        torch.cuda.synchronize()
+        t_text.append((time.perf_counter() - t0) * 1e3)
+    print(f"Sam3Model.encode_text ({SAM3_TEXT['layers']} layers, {SAM3_TEXT['max_length']} tokens): p50 "
+          f"{float(np.median(t_text[2:])):.3f} ms [{card}]", flush=True)
+    del s3model
+    return {"worst": worst80, "rows": s3_rows, "launches": sam3_launches}
 
 
 def parent_library(parent: str, build):
@@ -1956,6 +2388,8 @@ def main(argv=None) -> int:
               flush=True)
     del bmodel
 
+    s3 = sam3_phases(torch, card, fa, wa, cc, dsm, dcm)
+
     # one RDB's five convs at 1024x1024 as the path runs them, summed
     rdb = conv_rows[: len(ESRGAN_RDB)]
     rdb_bounds = [conv_bound(px, ci, co, res) for _, px, ci, co, *_, res in rdb]
@@ -1975,7 +2409,7 @@ def main(argv=None) -> int:
             "source": "vision_tpu_torch/csrc/flash_attention.cu",
             "replaces": "vision_tpu/ops/pallas/flash_attention.py:26",
             "launches": main_launches,
-            "max_abs_err": worst,
+            "max_abs_err": max(worst, s3["worst"]),
             "ms": k_ms,
             "plain_ms": p_ms,
             "bound_ms": flash_bound,
@@ -1985,6 +2419,10 @@ def main(argv=None) -> int:
             "timing": DEVICE_TIMING,
             f"at_{t_wide}_tokens": {"ms": k_wide, "plain_ms": p_wide, "bound_ms": wide_bound, "bound_by": wide_by,
                                     "library_ms": flash_libs[t_wide]},
+            **{key: dict(zip(("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
+                             (f"({bh}, {(1008 // 14) ** 2}, 80) bf16", *rest)))
+               for key, (bh, *rest) in zip(("at_sam3_global", "at_sam3_global_batch4"), s3["rows"])},
+            "launches_sam3": s3["launches"],
         },
         {
             "name": "window_attention",

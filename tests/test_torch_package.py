@@ -35,6 +35,7 @@ SLICE_MODULES = [
     "vision_tpu_torch.models.mobile_sam",
     "vision_tpu_torch.models.swin",
     "vision_tpu_torch.models.birefnet",
+    "vision_tpu_torch.models.sam3",
     "vision_tpu_torch.models.random_weights",
     "vision_tpu_torch.serve",
 ]

@@ -6,7 +6,7 @@
 // contiguous, no mask, non-causal, Tq may differ from Tk; logits and softmax
 // statistics in f32, the probabilities rounded to the input type before the
 // PV product (the Pallas body casts p to v's dtype), PV accumulated in f32,
-// output in the input type. Head dims 32, 64 and 128.
+// output in the input type. Head dims 32, 64, 80 and 128.
 //
 // The Pallas kernel keeps a whole K/V row in VMEM. On this card a block has
 // 227 KB of shared memory, and the row of a Depth-Anything request at 518x728
@@ -33,8 +33,9 @@
 //     the next tiles arrive while tile j is multiplied. The tensor maps are
 //     3-D (D, T, BH), so a ragged last tile is zero-filled by the copy engine
 //     and never holds the next head's rows. Rows are 128-byte swizzled at D
-//     64 and 128 (two 64-column boxes at D 128), 64-byte at D 32, which keeps
-//     wgmma's shared-memory reads free of bank conflicts;
+//     64 and 128 (two 64-column boxes at D 128), 64-byte at D 32, 32-byte
+//     at D 80 (five 16-column boxes, below), which keeps wgmma's
+//     shared-memory reads free of bank conflicts;
 //   * S = Q K^T by wgmma m64nNk16 (N = the tile's keys), Q and K both read
 //     from shared memory in their natural K-major layout, so nothing is
 //     transposed;
@@ -55,6 +56,29 @@
 // The tensor maps are encoded on the host for each call, through
 // cuTensorMapEncodeTiled from cudaGetDriverEntryPointByVersion, so the
 // library links no -lcuda.
+//
+// Head dim 80 (SAM3's global layers: 16 heads of a 1280-wide ViT-H at 5184
+// tokens). A 160-byte row neither fits one 128-byte swizzle span nor splits
+// into whole 64-column boxes. Of the three layouts that serve it (five
+// 16-column boxes at 32-byte swizzle; a 64-column 128-byte box beside a
+// 16-column 32-byte one; the head zero-padded to 96 or 128 in shared
+// memory), the kernel takes the first: every tile is five [rows][16] boxes
+// of 32-byte rows, 32-byte swizzled, so
+//   * each box is exactly one k16 step of Q K^T (no column offset inside a
+//     box), with one descriptor kind for all five;
+//   * V's five boxes are the five 16-wide MN-major atoms of one wgmma
+//     m64n80k16 (its leading byte offset steps from box to box), so P V is
+//     one product a k16 step, as at the other head dims;
+//   * the 8 rows x 16 bytes that a wgmma core matrix reads span all 32
+//     banks once under the 32-byte swizzle (row r and r + 4 sit 16 bytes
+//     apart), so the reads stay free of bank conflicts;
+//   * no tensor-core work is spent on padding, and the tile shapes (128
+//     keys, the 4-stage ring) stay as at D 64: q 20 KB and 40 KB a stage,
+//     181 KB in all, one block of 9 warps an SM; the O accumulator is 40
+//     floats a thread.
+// The cost is five TMA boxes of 32-byte rows per tile where D 64 takes one
+// of 128-byte rows: more copy requests for the producer warp, each row one
+// 32-byte sector of device memory.
 //
 // f32 (the CPU-parity type, off the serving path): plain FMA loops over f32
 // tiles in shared memory (4x4 register tiles per thread, 16-byte shared
@@ -84,9 +108,11 @@ constexpr int TMA_THREADS = CONSUMERS * 128 + 32;  // the consumers and one prod
 template <int D>
 struct Tiles {
   static constexpr int KEYS = D == 128 ? 64 : 128;  // keys per K/V tile
-  static constexpr int COLS = D < 64 ? D : 64;      // columns of one TMA box: one swizzle row
-  static constexpr int ROW_BYTES = COLS * 2;        // 128 (128-byte swizzle) or 64 (64-byte)
-  static constexpr uint64_t LAYOUT = ROW_BYTES == 128 ? 1 : 2;  // wgmma descriptor's swizzle code
+  // columns of one TMA box: one swizzle row (16 at D 80: five boxes)
+  static constexpr int COLS = D == 80 ? 16 : (D < 64 ? D : 64);
+  static constexpr int ROW_BYTES = COLS * 2;        // 128, 64 or 32: the swizzle span
+  // wgmma descriptor's swizzle code: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte
+  static constexpr uint64_t LAYOUT = ROW_BYTES == 128 ? 1 : (ROW_BYTES == 64 ? 2 : 3);
   static constexpr int Q_BYTES = Q_ROWS * D * 2;
   static constexpr int KV_BYTES = KEYS * D * 2;     // one K or one V tile
   // 1024 bytes to align the swizzled tiles, the q tile, the ring, the barriers
@@ -293,6 +319,24 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// m64n80k16: d += A (64 x 16, registers) * B (16 x 80, MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // m64n128k16: d += A (64 x 16, registers) * B (16 x 128, MN-major in shared memory)
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -320,7 +364,7 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
 flash_attention_fwd_bf16(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                          const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o, int tq, int tk,
                          float scale) {
-  static_assert(D == 32 || D == 64 || D == 128, "head dim must be 32, 64 or 128");
+  static_assert(D == 32 || D == 64 || D == 80 || D == 128, "head dim must be 32, 64, 80 or 128");
   using L = Tiles<D>;
   constexpr int KEYS = L::KEYS;
   constexpr int SN = KEYS / 2;         // S accumulator floats a thread
@@ -404,7 +448,8 @@ flash_attention_fwd_bf16(const __grid_constant__ CUtensorMap q_map, const __grid
     wgmma_commit();
   };
   // O += P V of tile j: k16 step kk reads 16 key rows of V as MN-major B;
-  // column boxes of V (two at D 128) sit KEYS * ROW_BYTES apart
+  // column boxes of V (two at D 128, five at D 80) sit KEYS * ROW_BYTES
+  // apart: the descriptor's leading byte offset
   auto issue_pv = [&](int j, const uint32_t (&pa)[PV_STEPS][4]) {
     const uint32_t vs = ring + (j % STAGES) * 2 * L::KV_BYTES + L::KV_BYTES;
 #pragma unroll
@@ -551,7 +596,7 @@ template <int D>
 __global__ void __launch_bounds__(FMA_THREADS)
 flash_attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                         float* __restrict__ o, int tq, int tk, float scale) {
-  static_assert(D % 16 == 0 && D >= 32, "head dim must be 32, 64 or 128");
+  static_assert(D % 16 == 0 && D >= 32, "head dim must be 32, 64, 80 or 128");
   constexpr int CPT = D / 16;  // output columns per thread
 
   extern __shared__ __align__(16) float smem_f32[];
@@ -657,12 +702,15 @@ flash_attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k
           const float4 t4 = *reinterpret_cast<const float4*>(vrow + c);
           vv[c] = t4.x; vv[c + 1] = t4.y; vv[c + 2] = t4.z; vv[c + 3] = t4.w;
         }
-      } else {
+      } else if constexpr (CPT % 2 == 0) {
 #pragma unroll
         for (int c = 0; c < CPT; c += 2) {
           const float2 t2 = *reinterpret_cast<const float2*>(vrow + c);
           vv[c] = t2.x; vv[c + 1] = t2.y;
         }
+      } else {  // D 80: 5 columns a thread, at an odd stride (conflict-free)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) vv[c] = vrow[c];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -706,18 +754,20 @@ EncodeTiled encode_tiled() {
 }
 
 // a contiguous (bh, t, d) bf16 tensor read in boxes of `rows` rows by one
-// swizzle row (min(d, 64) columns) of one head; rows past t read as zeros
-cudaError_t tensor_map(CUtensorMap* map, const void* base, int bh, int t, int d, int rows) {
+// swizzle row (`cols` columns: 128, 64 or 32 bytes, swizzled alike) of one
+// head; rows past t read as zeros
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int bh, int t, int d, int rows, int cols) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const int cols = d < 64 ? d : 64;
+  const CUtensorMapSwizzle swizzle = cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};  // bytes, dims 1 and 2
   const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -727,9 +777,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
                         cudaStream_t stream) {
   using L = Tiles<D>;
   CUtensorMap q_map, k_map, v_map;
-  cudaError_t err = tensor_map(&q_map, q, bh, tq, D, Q_ROWS);
-  if (err == cudaSuccess) err = tensor_map(&k_map, k, bh, tk, D, L::KEYS);
-  if (err == cudaSuccess) err = tensor_map(&v_map, v, bh, tk, D, L::KEYS);
+  cudaError_t err = tensor_map(&q_map, q, bh, tq, D, Q_ROWS, L::COLS);
+  if (err == cudaSuccess) err = tensor_map(&k_map, k, bh, tk, D, L::KEYS, L::COLS);
+  if (err == cudaSuccess) err = tensor_map(&v_map, v, bh, tk, D, L::KEYS, L::COLS);
   if (err != cudaSuccess) return err;
   auto kernel = flash_attention_fwd_bf16<D>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
@@ -773,6 +823,7 @@ extern "C" int vtt_flash_attention_fwd(const void* q, const void* k, const void*
   switch (d) {
     case 32: return (int)launch_d<32>(dtype, q, k, v, o, bh, tq, tk, scale, s);
     case 64: return (int)launch_d<64>(dtype, q, k, v, o, bh, tq, tk, scale, s);
+    case 80: return (int)launch_d<80>(dtype, q, k, v, o, bh, tq, tk, scale, s);
     case 128: return (int)launch_d<128>(dtype, q, k, v, o, bh, tq, tk, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }

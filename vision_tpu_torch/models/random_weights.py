@@ -20,6 +20,7 @@ __all__ = [
     "random_esrgan_params",
     "random_depth_anything_params",
     "random_birefnet_params",
+    "random_sam3_vision_params",
 ]
 
 
@@ -361,4 +362,36 @@ def random_birefnet_params(variant: str = "tiny", seed: int = 0) -> dict[str, np
     B.conv(f"{d}.lateral_block3.conv", cat[1], ch, 1)
     B.conv(f"{d}.lateral_block2.conv", cat[0], ch, 1)
     B.conv(f"{d}.conv_out1.0", ch + ipt, 1, 1)
+    return B.p
+
+
+def random_sam3_vision_params(seed: int = 0, dim: int = 1280, layers: int = 32, fpn_ch: int = 256) -> dict[str, np.ndarray]:
+    """SAM3 RoPE-ViT vision encoder + FPN neck (det.ve.* naming without the
+    prefix, ViT-H scale)."""
+    B = _Builder(seed)
+    grid = 1008 // 14
+    B.conv("backbone.embeddings.patch_embeddings.projection", 3, dim, 14)
+    B.p["backbone.embeddings.position_embeddings"] = (
+        B.rng.standard_normal((grid * grid, dim)) * 0.02
+    ).astype(np.float32)
+    B.ln("backbone.layer_norm", dim)
+    for i in range(layers):
+        base = f"backbone.layers.{i}"
+        B.ln(f"{base}.layer_norm1", dim)
+        B.ln(f"{base}.layer_norm2", dim)
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            B.lin(f"{base}.attention.{proj}", dim, dim)
+        B.lin(f"{base}.mlp.fc1", dim, dim * 4)
+        B.lin(f"{base}.mlp.fc2", dim * 4, dim)
+    # FPN neck
+    B.convT("neck.fpn_layers.0.scale_layers.0", dim, dim // 2, 2)
+    B.convT("neck.fpn_layers.0.scale_layers.2", dim // 2, dim // 4, 2)
+    B.conv("neck.fpn_layers.0.proj1", dim // 4, fpn_ch, 1)
+    B.conv("neck.fpn_layers.0.proj2", fpn_ch, fpn_ch, 3)
+    B.convT("neck.fpn_layers.1.scale_layers.0", dim, dim // 2, 2)
+    B.conv("neck.fpn_layers.1.proj1", dim // 2, fpn_ch, 1)
+    B.conv("neck.fpn_layers.1.proj2", fpn_ch, fpn_ch, 3)
+    for i in (2, 3):
+        B.conv(f"neck.fpn_layers.{i}.proj1", dim, fpn_ch, 1)
+        B.conv(f"neck.fpn_layers.{i}.proj2", fpn_ch, fpn_ch, 3)
     return B.p

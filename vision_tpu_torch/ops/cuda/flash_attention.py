@@ -3,7 +3,8 @@
 ``flash_attention`` replaces the Pallas kernel ``_attn_kernel`` at
 vision_tpu/ops/pallas/flash_attention.py:26 (launched by ``_flash_attention``
 through ``pl.pallas_call``); its consumer on the port's path is DINOv2's
-global attention inside Depth-Anything V2 (models/dino.py).
+global attention inside Depth-Anything V2 (models/dino.py), at head dim 64,
+and SAM3's four global RoPE layers (models/sam3.py), at head dim 80.
 
 The kernel (csrc/flash_attention.cu) cannot hold a whole K/V row the way the
 Pallas kernel holds it in VMEM: a 518x728 request's 1925 keys at D = 64,
@@ -16,8 +17,10 @@ warpgroups and a producer warp; K/V tiles of 128 keys arrive by TMA into a
 4-stage mbarrier ring while earlier tiles are multiplied; S = Q K^T and
 O += P V run as wgmma, P from registers and V read as MN-major, so nothing
 is transposed; the two warpgroups take turns on the tensor cores, so one's
-softmax (one FFMA and one ex2 a logit) overlaps the other's products. f32
-(the CPU-parity type) runs as FMA loops.
+softmax (one FFMA and one ex2 a logit) overlaps the other's products. At
+head dim 80 each tile is five 16-column boxes at 32-byte swizzle: one k16
+step of Q K^T a box, and P V one wgmma of N 80. f32 (the CPU-parity type)
+runs as FMA loops.
 
 A CPU tensor goes to :func:`flash_attention_plain`; a CUDA tensor goes to
 the kernel or raises. ``launches`` counts kernel launches.
@@ -35,7 +38,7 @@ launches = 0
 _count_lock = threading.Lock()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)  # the kernel's instances; attention_route sends no other to it
+HEAD_DIMS = (32, 64, 80, 128)  # the kernel's instances; attention_route sends no other to it
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:

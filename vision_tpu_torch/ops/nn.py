@@ -18,7 +18,7 @@ raising: a product runs in the promoted type of its operands and its result
 takes the activation's (or q's) type, so f32 prompts through bf16 weights
 stay f32, as they do in the JAX package's SAM decoder.
 
-LoRA adapters and pooling ops wait for the slices that use them.
+LoRA adapters and average pooling wait for the slices that use them.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ __all__ = [
     "attention",
     "gelu",
     "leaky_relu",
+    "max_pool_2d",
     "relu",
     "sigmoid",
 ]
@@ -223,10 +224,10 @@ def split_qkv(p: Params, x: torch.Tensor, n_heads: int, split_dim: int):
 # | yes   | else | else         | xla_fused      |
 #
 # The "cuda" route needs tensors the kernel's wrapper serves: CUDA tensors
-# go to the kernel, which has instances for head dims 32, 64 and 128 only
-# (any other takes xla_fused on the card, where the JAX package's Pallas
-# kernel takes any D), and CPU tensors to its plain version at any head dim
-# (the CPU tests reach the route that way).
+# go to the kernel, which has instances for head dims 32, 64, 80 and 128
+# only (any other takes xla_fused on the card, where the JAX package's
+# Pallas kernel takes any D), and CPU tensors to its plain version at any
+# head dim (the CPU tests reach the route that way).
 
 CUDA_MIN_T = 1024
 FUSED_LOGIT_MAX_T = 512
@@ -346,3 +347,18 @@ def attention(p_out: Params, q, k, v, mask=None, scale: float | None = None, fla
     b, h, t, hd = x.shape
     x = x.permute(0, 2, 1, 3).reshape(b, t, h * hd)
     return linear(p_out, x)
+
+
+# -- pooling (ggml_pool_2d; SAM3's FPN, YOLOv9t's SPPELAN) --
+
+
+def max_pool_2d(x: torch.Tensor, kernel: int, stride: int | None = None, pad: int = 0) -> torch.Tensor:
+    """NHWC max pool (a port of the JAX package's ops/nn.py:397-407). The
+    padding takes the dtype's lowest finite value, as the JAX op's
+    ``reduce_window`` init does; windows run only where they fit whole in
+    the padded input (floor mode)."""
+    stride = stride or kernel
+    if pad:
+        x = F.pad(x, (0, 0, pad, pad, pad, pad), value=torch.finfo(x.dtype).min)
+    y = x.unfold(1, kernel, stride).unfold(2, kernel, stride)  # (N, Ho, Wo, C, k, k)
+    return y.amax(dim=(-2, -1))
