@@ -134,7 +134,36 @@ Phases, each raising on failure:
      img/s, TFLOP/s from sam3_vision_flops); encode_text p50; a
      torch.profiler trace of a batch-1 encode_vision; and one window and
      one global layer with their parts (window partition and reverse,
-     RoPE, the weight products) by the card's own time.
+     RoPE, the weight products) by the card's own time;
+ 22. the conv3x3 kernel with YOLOv9t's epilogue forms against its plain
+     version: every distinct stride-1 3x3 call of a batch-8 640x640
+     forward (recorded from the forward itself: Cin and Cout 16 to 128,
+     Cout 80 in 32-channel splits, at 160^2, 80^2, 40^2 and 20^2) in bf16
+     with its BN + SiLU, the RepConv's 1x1 branch as r1, the shortcut as
+     r2 and the views it reads and writes (channels outside the written
+     view checked unchanged); ragged f32 and bf16 cases;
+ 23. the YOLOv9t path: a yolov9t GGUF of random_yolov9t_params(0) is
+     written, loaded with yolov9t_load_model on the card and on the CPU,
+     and 16 requests (4 each at 640x480, 1280x720, 500x375 and 640x640, one
+     letterboxed 640^2 bucket) are served through YoloServer (batch 8), the
+     counts zeroed just before and read just after: 112 conv3x3 launches a
+     forward and no other hand-written kernel;
+ 24. YOLOv9t parity on one request: the detect inputs f[15], f[18], f[21]
+     and the raw boxes and scores, card bf16 and card f32 (TF32 off)
+     against the CPU's f32; NMS on the card's f32 outputs against NMS on
+     the CPU's;
+ 25. the MI-GAN path: a migan GGUF of random_migan_params(512, 0) is
+     loaded on the card and the CPU, 8 (image, mask) requests (4 at
+     512x512, 2 at 1024x768, 2 RGBA at 640x480) are served through
+     ImageServer (batch 4) with no hand-written kernel launch; one
+     request's raw output, card bf16 and f32 against the CPU's f32;
+ 26. YOLOv9t and MI-GAN timings: the conv kernel at each YOLOv9t call by
+     the card's own time beside its bound, its plain version and the
+     yardstick F.conv2d + BN + SiLU (+ add), and the sums over a forward's
+     112 convs; YOLOv9t forward_u8 at 640x640 batch 1 and 8; a profile of
+     the batch-8 forward; the host's letterbox and NMS per request; the
+     served numbers; MI-GAN forward_u8 at 512x512 batch 1 and 4, a
+     profile, and the served numbers.
 
 The line before the last is a JSON object describing every kernel of the
 paths; the last line is {"ok": true, "device": {...}}.
@@ -223,6 +252,23 @@ BLEND_FLOPS = 7.0
 # kernels line were taken
 SPIN_CYCLES = 40_000_000
 DEVICE_TIMING = "the card's own time per call: CUDA events around 20 calls enqueued behind a spin kernel, over 20"
+# YOLOv9t (phases 22-24, 26): random_yolov9t_params(0) at 640 px, served at
+# YoloServer's default batch 8; 16 requests, 4 at each extent (w, h), all
+# letterboxed into one 640^2 bucket
+YOLO_CONVS = 112  # stride-1 3x3 convs a forward: 7 RepNCSPELAN4 x (2 RepCSP x 3 x 2 + 2), ELAN1's 2, the head's 12
+YOLO_BATCH = 8
+YOLO_EXTENTS = ((640, 480), (1280, 720), (500, 375), (640, 640))
+YOLO_F32_REL_RMS = 1e-4  # f32 card forward (kernel route, TF32 off) vs f32 CPU: summation order only
+# NMS on the card's f32 outputs vs on the CPU's: the share of the card's
+# detections the CPU's keeps too. Random weights put the class scores close
+# together, so f32 rounding can reorder near-ties among the candidates.
+YOLO_NMS_MATCH = 0.9
+# MI-GAN (phases 25-26): random_migan_params(512, 0), ImageServer batch 4; 8
+# (image, mask) requests, the last two RGBA images with the mask as alpha
+MIGAN_RES = 512
+MIGAN_BATCH = 4
+MIGAN_EXTENTS = ((512, 512),) * 4 + ((1024, 768),) * 2 + ((640, 480),) * 2
+MIGAN_F32_REL_RMS = 1e-4  # f32 card forward (TF32 off) vs f32 CPU: summation order only
 
 
 def phase(name: str) -> None:
@@ -1645,12 +1691,466 @@ def sam3_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
     return {"worst": worst80, "rows": s3_rows, "launches": sam3_launches}
 
 
+# YOLOv9t and MI-GAN (phases 22-26)
+
+
+def write_yolo_gguf(path: str) -> None:
+    from vision_tpu_torch.core.gguf import GGUFWriter
+    from vision_tpu_torch.models.random_weights import random_yolov9t_params
+
+    w = GGUFWriter(path, "yolov9t")
+    for name, a in random_yolov9t_params(0).items():
+        w.add_tensor(name, a)
+    w.write()
+
+
+def write_migan_gguf(path: str, resolution: int = MIGAN_RES) -> None:
+    from vision_tpu_torch.core.gguf import GGUFWriter
+    from vision_tpu_torch.models.random_weights import random_migan_params
+
+    w = GGUFWriter(path, "migan")
+    w.add("migan.image_size", resolution)
+    for name, a in random_migan_params(resolution, 0).items():
+        w.add_tensor(name, a)
+    w.write()
+
+
+def yolo_conv_calls(cc, run) -> list:
+    """The conv3x3 calls that ``run()`` makes, in order: (N, H, W, Cin,
+    Cout, x's pixel stride, x's first channel, r1 given, r2 given, out's
+    pixel stride (0: no out), out's first channel). The calls go on to the
+    real wrapper."""
+    calls = []
+    real = cc.conv3x3
+
+    def spy(x, w, b=None, **kw):
+        out = kw.get("out")
+        view = lambda t: (t.stride(2), t.storage_offset() % t.stride(2))  # noqa: E731
+        calls.append((*x.shape, int(w.shape[0]), *view(x), kw.get("r1") is not None, kw.get("r2") is not None,
+                      *(view(out) if out is not None else (0, 0))))
+        return real(x, w, b, **kw)
+
+    cc.conv3x3 = spy
+    try:
+        run()
+    finally:
+        cc.conv3x3 = real
+    return calls
+
+
+def yolo_shapes(calls) -> dict:
+    """The distinct calls of a forward with how often each comes."""
+    counts = {}
+    for c in calls:
+        counts[c] = counts.get(c, 0) + 1
+    return counts
+
+
+def yolo_form_label(call) -> str:
+    n, h, w, cin, cout, x_ps, x_off, r1, r2, o_ps, o_off = call
+    parts = ["BN + SiLU"]
+    if r1:
+        parts = ["r1 (the 1x1 branch) + BN, then SiLU"]
+    if r2:
+        parts.append("+ shortcut r2")
+    if x_ps != cin:
+        parts.append(f"x channels {x_off}:{x_off + cin} of {x_ps}")
+    if o_ps:
+        parts.append(f"into channels {o_off}:{o_off + cout} of {o_ps}")
+    return f"({n}, {h}, {w}, {cin}) -> {cout}, " + ", ".join(parts)
+
+
+def yolo_call_inputs(torch, gen, call, dtype):
+    """Inputs on the card for one recorded call: x (a channel view where the
+    path's was), the weight, the BN's scale and shift, r1 / r2, out (a view
+    of a wider buffer where the path's was) and that buffer. Values of scale
+    0.5 keep the outputs below 4, where a bf16 ulp is within BF16_MAX_ABS."""
+    n, h, w, cin, cout, x_ps, x_off, r1, r2, o_ps, o_off = call
+
+    def rnd(*shape, scale=0.5):
+        return (torch.randn(*shape, device="cuda", generator=gen) * scale).to(dtype)
+
+    x = rnd(n, h, w, x_ps)[..., x_off : x_off + cin]
+    wt = (torch.randn(cout, cin, 3, 3, device="cuda", generator=gen) / (9 * cin) ** 0.5).to(dtype)
+    kw = {"scale": (1.0 + rnd(cout, scale=0.1).float()).to(dtype), "shift": rnd(cout, scale=0.1), "silu": True}
+    if r1:
+        kw["r1"] = rnd(n, h, w, cout)
+    if r2:
+        kw["r2"] = rnd(n, h, w, cout)
+    buf = None
+    if o_ps:
+        buf = rnd(n, h, w, o_ps)
+        kw["out"] = buf[..., o_off : o_off + cout]
+    return x, wt, kw, buf
+
+
+def yolo_epilogue_cases(cc, torch, shapes: dict) -> float:
+    """Phase 22: the conv kernel with YOLOv9t's epilogue forms against
+    conv3x3_plain on the same values: every distinct call of a batch-8
+    640x640 forward in bf16 (channels outside a written view checked
+    unchanged), then ragged f32 and bf16 cases. Returns the largest
+    absolute difference."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    cases = [(yolo_form_label(c), c, torch.bfloat16) for c in shapes]
+    # ragged edges: (N, H, W, Cin, Cout, x_ps, x_off, r1, r2, o_ps, o_off)
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in ((2, 19, 23, 16, 16, 16, 0, True, False, 0, 0), (3, 7, 13, 24, 24, 24, 0, False, True, 72, 24),
+                  (1, 11, 17, 64, 80, 64, 0, False, False, 0, 0), (2, 9, 30, 16, 48, 32, 16, False, False, 112, 64),
+                  (1, 1, 5, 32, 32, 32, 0, True, True, 0, 0)):
+            cases.append((yolo_form_label(c), c, dtype))
+    worst = 0.0
+    for label, call, dtype in cases:
+        x, wt, kw, buf = yolo_call_inputs(torch, gen, call, dtype)
+        ref = cc.conv3x3_plain(x.float(), wt.float(), **{k: (v.float() if torch.is_tensor(v) else v)
+                                                         for k, v in kw.items() if k != "out"})
+        before = None if buf is None else buf.clone()
+        count = cc.launches
+        got = cc.conv3x3(x, wt, **kw)
+        torch.cuda.synchronize()
+        if cc.launches != count + 1:
+            raise AssertionError(f"{label}: launch count went {count} -> {cc.launches}")
+        if buf is not None:
+            o_off, cout = call[10], call[4]
+            keep = torch.ones(buf.shape[-1], dtype=torch.bool, device="cuda")
+            keep[o_off : o_off + cout] = False
+            if got.data_ptr() != kw["out"].data_ptr() or not torch.equal(buf[..., keep], before[..., keep]):
+                raise AssertionError(f"{label}: not written into the out view alone")
+        worst = max(worst, check_close(f"conv3x3 YOLOv9t {label} {dtype}", got, ref, dtype, torch))
+        del x, wt, kw, buf, before, ref, got
+    torch.cuda.empty_cache()
+    return worst
+
+
+def yolo_stages(params, x_u8, yp, dtype, device):
+    """The detect inputs f[15], f[18], f[21] and the raw boxes and scores of
+    one forward: a list of (name, tensor)."""
+    import torch
+
+    from vision_tpu_torch.core.params import Params
+    from vision_tpu_torch.models.yolov9t import detect_forward, yolov9t_backbone
+    from vision_tpu_torch.ops import normalize_u8
+
+    with torch.inference_mode():
+        x = normalize_u8(x_u8.to(device), dtype=dtype)
+        f = yolov9t_backbone(Params(params), x, yp.n_csp)
+        out = detect_forward(Params(params), [f[15], f[18], f[21]], yp)
+    return [("f[15]", f[15]), ("f[18]", f[18]), ("f[21]", f[21]), ("boxes", out.boxes), ("scores", out.scores)]
+
+
+def match_detections(a, b, iou: float = 0.9) -> float:
+    """The share of detections ``a`` that ``b`` keeps too: the same class and
+    a box with IoU >= ``iou``, each of b used once, in a's order."""
+    if not a:
+        return 1.0 if not b else 0.0
+    used = [False] * len(b)
+    hits = 0
+    for d in a:
+        for j, e in enumerate(b):
+            if used[j] or e.class_id != d.class_id:
+                continue
+            ix = max(0.0, min(d.x2, e.x2) - max(d.x1, e.x1))
+            iy = max(0.0, min(d.y2, e.y2) - max(d.y1, e.y1))
+            inter = ix * iy
+            union = (d.x2 - d.x1) * (d.y2 - d.y1) + (e.x2 - e.x1) * (e.y2 - e.y1) - inter
+            if union > 0 and inter / union >= iou:
+                used[j] = True
+                hits += 1
+                break
+    return hits / len(a)
+
+
+def yolo_conv_timings(cc, torch, card: str, shapes: dict) -> dict:
+    """Phase 26: the kernel at each distinct call of a batch-8 640x640
+    forward with its path's epilogue and views, by the card's own time
+    (device_ms, in turns with the yardstick), beside its bound, its plain
+    version and the yardstick F.conv2d + BN + SiLU (+ the branch, + the
+    shortcut) in channels-last bf16, library calls the port never makes;
+    and the sums over one forward's 112 calls."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    rows = []
+    for call, count in shapes.items():
+        n, h, w, cin, cout = call[:5]
+        x, wt, kw, _ = yolo_call_inputs(torch, gen, call, torch.bfloat16)
+        xc = x.contiguous().permute(0, 3, 1, 2)  # an NHWC tensor is a channels-last NCHW one
+        sc, sh = kw["scale"].view(1, -1, 1, 1), kw["shift"].view(1, -1, 1, 1)
+        r1 = kw["r1"].permute(0, 3, 1, 2) if "r1" in kw else None
+        r2 = kw["r2"].permute(0, 3, 1, 2) if "r2" in kw else None
+
+        def run_l():
+            y = F.conv2d(xc, wt, None, 1, 1) * sc + sh
+            y = F.silu(y if r1 is None else y + r1)
+            return y if r2 is None else y + r2
+
+        run_k = lambda: cc.conv3x3(x, wt, **kw)  # noqa: E731
+        k1, l1, k2, l2 = (device_ms(f) for f in (run_k, run_l, run_k, run_l))
+        plain = {k: v for k, v in kw.items() if k != "out"}
+        p_ms = device_ms(lambda: cc.conv3x3_plain(x, wt, **plain), calls=2, warmup=1, reps=1)
+        res = int("r1" in kw) + int("r2" in kw)
+        bound, by = conv_bound(n * h * w, cin, cout, res)
+        row = {"shape": yolo_form_label(call), "count": count, "ms": min(k1, k2), "plain_ms": p_ms,
+               "library_ms": min(l1, l2), "bound_ms": bound, "bound_by": by}
+        rows.append(row)
+        print(f"conv3x3 YOLOv9t {row['shape']} bf16 x{count} a forward: kernel {k1:.4f} / {k2:.4f} ms, plain "
+              f"{p_ms:.4f} ms, F.conv2d + BN + SiLU{' + add' * res} {l1:.4f} / {l2:.4f} ms, bound {bound:.4f} ms "
+              f"({by}) [{card}]", flush=True)
+        del x, wt, kw, xc, r1, r2
+    torch.cuda.empty_cache()
+    total = {k: sum(r[k] * r["count"] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    total["bound_by"] = max(("bytes", "operations"), key=[r["bound_by"] for r in rows].count)
+    print(f"conv3x3 over one batch-8 640x640 YOLOv9t forward's {sum(r['count'] for r in rows)} convs: kernel "
+          f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, F.conv2d + BN + SiLU (+ add) "
+          f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms (mostly {total['bound_by']}) [{card}]",
+          flush=True)
+    return {"rows": rows, **total}
+
+
+def yolo_migan_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
+    """Phases 22-26: the conv kernel's YOLOv9t epilogue forms against its
+    plain version; YOLOv9t through YoloServer and MI-GAN through
+    ImageServer (GGUFs written at run time); their parity on the card
+    against the CPU; their timings. Returns what the kernels line reports
+    of it."""
+    from vision_tpu_torch.core.device import backend_init
+    from vision_tpu_torch.core.params import Params
+    from vision_tpu_torch.image import Image, ImageFormat
+    from vision_tpu_torch.models.migan import migan_generate, migan_load_model
+    from vision_tpu_torch.models.yolov9t import letterbox, non_max_suppression, yolov9t_load_model
+    from vision_tpu_torch.serve import ImageServer, YoloServer
+
+    def counts():
+        return {"flash": fa.launches, "window": wa.launches, "conv3x3": cc.launches, "deform_conv": dcm.launches,
+                "deform_sample": dsm.launches}
+
+    def zero():
+        fa.launches = wa.launches = cc.launches = dsm.launches = dcm.launches = 0
+
+    yrng = np.random.default_rng(23)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "yolov9t-random.gguf")
+        write_yolo_gguf(path)
+        ymodel = yolov9t_load_model(path, backend_init("gpu"))
+        cpu_ymodel = yolov9t_load_model(path, backend_init("cpu"))
+    yp = ymodel.p
+    x8 = torch.from_numpy(yrng.integers(0, 256, (YOLO_BATCH, yp.input_size, yp.input_size, 3), np.uint8)).cuda()
+    shapes = yolo_shapes(yolo_conv_calls(cc, lambda: ymodel.forward_u8(x8)))
+    torch.cuda.synchronize()
+
+    phase("22 conv3x3 kernel with YOLOv9t's epilogue forms (BN, SiLU, r1, r2, views) against its plain version")
+    print(f"a batch-{YOLO_BATCH} {yp.input_size}x{yp.input_size} forward makes {sum(shapes.values())} conv3x3 calls "
+          f"of {len(shapes)} distinct shapes and forms", flush=True)
+    if sum(shapes.values()) != YOLO_CONVS:
+        raise AssertionError(f"{sum(shapes.values())} conv3x3 calls a forward, expected {YOLO_CONVS}")
+    conv_worst = yolo_epilogue_cases(cc, torch, shapes)
+
+    phase("23 YOLOv9t path: random_yolov9t_params(0) through YoloServer")
+    print(f"model on {ymodel.device.torch_device} {ymodel.dtype}, {yp}", flush=True)
+    reqs = [Image(yrng.integers(0, 256, (h, w, 4), np.uint8), ImageFormat.rgba_u8)
+            for w, h in YOLO_EXTENTS for _ in range(4)]
+    with YoloServer(ymodel, batch_size=YOLO_BATCH, max_delay_ms=1000) as srv:  # a window that fills each batch
+        srv.warmup()
+        zero()
+        t0 = time.perf_counter()
+        futures = [srv.submit(img) for img in reqs]
+        dets = [f.result(timeout=600) for f in futures]
+        torch.cuda.synchronize()
+        y_wall_s = time.perf_counter() - t0
+        got = counts()
+        y_req, y_batches, y_p50 = srv.stats.requests, srv.stats.batches, srv.stats.p50_latency_ms
+    want = {"flash": 0, "window": 0, "conv3x3": YOLO_CONVS * y_batches, "deform_conv": 0, "deform_sample": 0}
+    if y_req != len(reqs) or y_batches != len(reqs) // YOLO_BATCH or got != want:
+        raise AssertionError(f"YoloServer: {y_req} requests in {y_batches} batches, launches {got} (expected {want})")
+    for img, d in zip(reqs, dets):
+        w, h = img.extent
+        ok = len(d) <= 300 and all(0 <= e.x1 <= e.x2 <= w and 0 <= e.y1 <= e.y2 <= h and 0 <= e.class_id < 80
+                                   and 0.25 <= e.confidence <= 1.0 for e in d)
+        if not ok:
+            raise AssertionError(f"detections for {img.extent}: {d[:3]} ...")
+    print(f"served {y_req} requests ({', '.join(f'4 at {w}x{h}' for w, h in YOLO_EXTENTS)}) in {y_batches} batches "
+          f"of {YOLO_BATCH}; launches {got}: {YOLO_CONVS} conv3x3 a forward, no other hand-written kernel; "
+          f"detections per request {[len(d) for d in dets]}", flush=True)
+
+    phase("24 YOLOv9t parity: card bf16 and f32 (kernel route) vs CPU f32 (plain route)")
+    arr, gain, dw, dh = letterbox(reqs[0], yp.input_size)
+    x1 = torch.from_numpy(arr[None])
+    t0 = time.perf_counter()
+    cpu_st = yolo_stages(cpu_ymodel.params, x1, yp, torch.float32, "cpu")
+    cpu_s = time.perf_counter() - t0
+    f32_params = {k: v.to("cuda") for k, v in cpu_ymodel.params.items()}
+    zero()
+    f32_st = yolo_stages(f32_params, x1, yp, torch.float32, "cuda")
+    f32_launches = cc.launches
+    bf16_st = yolo_stages(ymodel.params, x1, yp, ymodel.dtype, "cuda")
+    y_f32, y_bf16 = {}, {}
+    for (name, c), (_, f), (_, b) in zip(cpu_st, f32_st, bf16_st):
+        y_f32[name], y_bf16[name] = rel_rms(f.float().cpu(), c), rel_rms(b.float().cpu(), c)
+        print(f"{name} {tuple(c.shape)}: relative RMS card f32 vs CPU f32 {y_f32[name]:.4e} (bound "
+              f"{YOLO_F32_REL_RMS}), card bf16 vs CPU f32 {y_bf16[name]:.4e} (bound {E2E_REL_RMS})", flush=True)
+    print(f"CPU f32 forward at {yp.input_size}x{yp.input_size}: {cpu_s:.2f} s; card f32 forward: {f32_launches} conv3x3 "
+          f"launches", flush=True)
+    finite = all(bool(torch.isfinite(t).all()) for _, t in f32_st + bf16_st)
+    if not (finite and f32_launches == YOLO_CONVS and max(y_f32.values()) <= YOLO_F32_REL_RMS
+            and max(y_bf16.values()) <= E2E_REL_RMS):
+        raise AssertionError(f"YOLOv9t parity: f32 {y_f32}, bf16 {y_bf16}, finite {finite}, {f32_launches} launches")
+    boxes = {k: dict(st)["boxes"][0].float().cpu().numpy() for k, st in (("cpu", cpu_st), ("f32", f32_st))}
+    scores = {k: dict(st)["scores"][0].float().cpu().numpy() for k, st in (("cpu", cpu_st), ("f32", f32_st))}
+    t0 = time.perf_counter()
+    nms = {k: non_max_suppression(boxes[k], scores[k]) for k in ("cpu", "f32")}
+    nms_ms = (time.perf_counter() - t0) * 1e3 / 2
+    cands = int((scores["cpu"] >= 0.25).sum())
+    share = match_detections(nms["f32"], nms["cpu"])
+    print(f"NMS (conf 0.25, iou 0.45, {cands} candidates at or above 0.25 on the CPU, max_nms 30000): card f32 keeps "
+          f"{len(nms['f32'])}, CPU f32 {len(nms['cpu'])}; {share:.2%} of the card's also kept on the CPU (same class, "
+          f"IoU >= 0.9; bound {YOLO_NMS_MATCH:.0%}); {nms_ms:.1f} ms a call on the host", flush=True)
+    if share < YOLO_NMS_MATCH or abs(len(nms["f32"]) - len(nms["cpu"])) > (1 - YOLO_NMS_MATCH) * len(nms["cpu"]):
+        raise AssertionError(f"NMS on the card's f32 outputs vs the CPU's: {share:.2%} matched")
+    del f32_params, cpu_ymodel, cpu_st, f32_st, bf16_st
+
+    phase("25 MI-GAN path: random_migan_params(512, 0) through ImageServer with (image, mask)")
+    mrng = np.random.default_rng(25)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "migan-random.gguf")
+        write_migan_gguf(path)
+        mmodel = migan_load_model(path, backend_init("gpu"))
+        cpu_mmodel = migan_load_model(path, backend_init("cpu"))
+    print(f"model on {mmodel.device.torch_device} {mmodel.dtype}, {mmodel.p}", flush=True)
+
+    def mask_for(w, h):
+        m = np.zeros((h, w, 1), np.uint8)
+        y0, x0 = mrng.integers(0, h // 2), mrng.integers(0, w // 2)
+        m[y0 : y0 + h // 3, x0 : x0 + w // 3] = 255
+        return m
+
+    mreqs = []
+    for i, (w, h) in enumerate(MIGAN_EXTENTS):
+        m = mask_for(w, h)
+        if i >= 6:  # RGBA: the alpha holds the mask, as a client may send it
+            img = Image(np.concatenate([mrng.integers(0, 256, (h, w, 3), np.uint8), m], 2), ImageFormat.rgba_u8)
+        else:
+            img = Image(mrng.integers(0, 256, (h, w, 3), np.uint8), ImageFormat.rgb_u8)
+        mreqs.append((img, Image(m, ImageFormat.alpha_u8)))
+    with ImageServer(mmodel, batch_size=MIGAN_BATCH, max_delay_ms=1000) as srv:
+        srv.warmup()
+        zero()
+        t0 = time.perf_counter()
+        futures = [srv.submit(r) for r in mreqs]
+        inpainted = [f.result(timeout=600) for f in futures]
+        torch.cuda.synchronize()
+        m_wall_s = time.perf_counter() - t0
+        m_got = counts()
+        m_req, m_batches, m_p50 = srv.stats.requests, srv.stats.batches, srv.stats.p50_latency_ms
+    if m_req != len(mreqs) or m_batches != len(mreqs) // MIGAN_BATCH or any(m_got.values()):
+        raise AssertionError(f"MI-GAN ImageServer: {m_req} requests in {m_batches} batches, launches {m_got}")
+    for (img, mask), res in zip(mreqs, inpainted):
+        if res.extent != img.extent or res.format != ImageFormat.rgba_u8 or not np.array_equal(res.data[..., 3:],
+                                                                                                mask.data):
+            raise AssertionError(f"MI-GAN result {res.extent} {res.format} for {img.extent}, alpha not the mask")
+    print(f"served {m_req} (image, mask) requests (4 at 512x512, 2 at 1024x768, 2 RGBA at 640x480) in {m_batches} "
+          f"batches of {MIGAN_BATCH}; launches {m_got}: no hand-written kernel; alpha = the mask", flush=True)
+    img0, mask0 = mreqs[0]
+    xi = torch.from_numpy(img0.to_rgb_u8()[None])
+    xm = torch.from_numpy(mask0.data[None])
+    t0 = time.perf_counter()
+    m_cpu = cpu_mmodel.forward_u8(xi, xm)
+    m_cpu_s = time.perf_counter() - t0
+    zero()
+    m_bf16 = mmodel.forward_u8(xi, xm).float().cpu()
+    f32_mmodel = type(mmodel)({}, mmodel.p, mmodel.device)  # the card's model in f32: the CPU's weights on the card
+    f32_mmodel.params, f32_mmodel.dtype = {k: v.to("cuda") for k, v in cpu_mmodel.params.items()}, torch.float32
+    m_f32 = f32_mmodel.forward_u8(xi, xm).float().cpu()
+    m_parity_launches = sum(counts().values())
+    m_rms_f32, m_rms_bf16 = rel_rms(m_f32, m_cpu), rel_rms(m_bf16, m_cpu)
+    print(f"raw output {tuple(m_cpu.shape)}: relative RMS card f32 vs CPU f32 {m_rms_f32:.4e} (bound "
+          f"{MIGAN_F32_REL_RMS}), card bf16 vs CPU f32 {m_rms_bf16:.4e} (bound {E2E_REL_RMS}); output range CPU "
+          f"[{float(m_cpu.min()):.4e}, {float(m_cpu.max()):.4e}], RMS {float(m_cpu.pow(2).mean().sqrt()):.4e}; CPU f32 "
+          f"forward {m_cpu_s:.2f} s; {m_parity_launches} hand-written launches", flush=True)
+    if not (bool(torch.isfinite(m_bf16).all()) and m_rms_f32 <= MIGAN_F32_REL_RMS and m_rms_bf16 <= E2E_REL_RMS
+            and m_parity_launches == 0):
+        raise AssertionError(f"MI-GAN parity: f32 {m_rms_f32}, bf16 {m_rms_bf16}, {m_parity_launches} launches")
+    del cpu_mmodel, f32_mmodel, m_cpu, m_bf16, m_f32
+
+    phase(f"26 YOLOv9t and MI-GAN timings on {card}")
+    conv = yolo_conv_timings(cc, torch, card, shapes)
+    y_fwd = {}
+    for b in (1, YOLO_BATCH):
+        xb = x8[:b]
+        f1 = median_ms(lambda: ymodel.forward_u8(xb), 10, warmup=2)
+        f2 = median_ms(lambda: ymodel.forward_u8(xb), 10, warmup=0)
+        y_fwd[b] = min(f1, f2)
+        print(f"YOLOv9t forward_u8 batch {b} at {yp.input_size}x{yp.input_size} bf16: median {f1:.3f} / {f2:.3f} ms, "
+              f"{b / y_fwd[b] * 1e3:.3f} img/s [{card}]", flush=True)
+    y_profile = profile_run(lambda: ymodel.forward_u8(x8), f"YOLOv9t forward_u8 batch {YOLO_BATCH} at "
+                            f"{yp.input_size}x{yp.input_size}", torch, card)
+    for w, h in YOLO_EXTENTS:
+        img = next(r for r in reqs if r.extent == (w, h))
+        t_lb = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            letterbox(img, yp.input_size)
+            t_lb.append((time.perf_counter() - t0) * 1e3)
+        print(f"host letterbox of a {w}x{h} request: median {float(np.median(t_lb)):.3f} ms [{card}]", flush=True)
+    srv_tmp = YoloServer(ymodel, batch_size=YOLO_BATCH)
+    try:
+        cb, cs = srv_tmp.candidates(x8[:1])
+        cb, cs = cb[0].cpu().numpy(), cs[0].cpu().numpy()
+    finally:
+        srv_tmp.close()
+    t_nms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        kept = non_max_suppression(cb, cs)
+        t_nms.append((time.perf_counter() - t0) * 1e3)
+    print(f"host NMS of one served request ({cb.shape[0]} top-K anchors x {cs.shape[1]} classes, "
+          f"{int((cs >= 0.25).sum())} candidates at or above 0.25, {len(kept)} kept): median "
+          f"{float(np.median(t_nms)):.3f} ms [{card}]", flush=True)
+    print(f"YoloServer {y_req} requests (batch {YOLO_BATCH}): p50 latency {y_p50:.3f} ms, {y_req / y_wall_s:.3f} img/s, "
+          f"{y_batches} batches [{card}]", flush=True)
+    m_fwd = {}
+    mx = torch.from_numpy(mrng.integers(0, 256, (MIGAN_BATCH, MIGAN_RES, MIGAN_RES, 3), np.uint8)).cuda()
+    mm = torch.from_numpy((mrng.random((MIGAN_BATCH, MIGAN_RES, MIGAN_RES, 1)) > 0.7).astype(np.uint8) * 255).cuda()
+    for b in (1, MIGAN_BATCH):
+        f1 = median_ms(lambda: mmodel.forward_u8(mx[:b], mm[:b]), 10, warmup=2)
+        f2 = median_ms(lambda: mmodel.forward_u8(mx[:b], mm[:b]), 10, warmup=0)
+        m_fwd[b] = min(f1, f2)
+        print(f"MI-GAN forward_u8 batch {b} at {MIGAN_RES}x{MIGAN_RES} bf16: median {f1:.3f} / {f2:.3f} ms, "
+              f"{b / m_fwd[b] * 1e3:.3f} img/s [{card}]", flush=True)
+    m_profile = profile_run(lambda: mmodel.forward_u8(mx, mm), f"MI-GAN forward_u8 batch {MIGAN_BATCH} at "
+                            f"{MIGAN_RES}x{MIGAN_RES}", torch, card, ())
+    print(f"ImageServer MI-GAN {m_req} requests (batch {MIGAN_BATCH}): p50 latency {m_p50:.3f} ms, "
+          f"{m_req / m_wall_s:.3f} img/s, {m_batches} batches [{card}]", flush=True)
+    del ymodel, mmodel, x8, mx, mm
+    torch.cuda.empty_cache()
+    return {"worst": conv_worst, "conv": conv, "launches_per_forward": got["conv3x3"] // y_batches,
+            "forward_ms": y_fwd, "profile": y_profile, "migan_forward_ms": m_fwd, "migan_profile": m_profile}
+
+
+class ParentConvEntry:
+    """A parent library whose conv entry point predates the BatchNorm / SiLU
+    epilogue (no scale and shift arguments): this checkout's wrapper calls
+    it with its own arguments, and the path's forms that the A/B times (the
+    Real-ESRGAN ones) pass neither. Every other entry point passes
+    through."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def vtt_conv3x3_fwd(self, x, x_ps, w, b, scale, shift, *rest):
+        if scale is not None or shift is not None:
+            raise ValueError("the parent's conv kernel takes no scale or shift")
+        return self._lib.vtt_conv3x3_fwd(x, x_ps, w, b, *rest)
+
+
 def parent_library(parent: str, build):
     """The kernel library of another checkout of the port at ``parent``,
     built from its vision_tpu_torch/csrc/ with this build's flags into
     build/parent_kernels/; its attention and conv entry points have this
-    checkout's signatures (the BiRefNet A/B runs each checkout's forward
-    in its own process)."""
+    checkout's signatures, or the conv's the one before the BatchNorm /
+    SiLU epilogue (ParentConvEntry) (the BiRefNet A/B runs each checkout's
+    forward in its own process)."""
     import ctypes
     from pathlib import Path
 
@@ -1667,9 +2167,11 @@ def parent_library(parent: str, build):
     lib.vtt_flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
     lib.vtt_window_attention_fwd.argtypes = [p, p, p, p, p, i, p, i, i, i, i, i, i, ctypes.c_float, p]
     q, f = ctypes.c_longlong, ctypes.c_float
-    lib.vtt_conv3x3_fwd.argtypes = [p, q, p, p, p, q, p, q, f, p, q, f, i, f, i, i, i, i, i, i, p]
+    old_conv = "const void* scale" not in (Path(parent) / "vision_tpu_torch" / "csrc" / "conv3x3.cu").read_text()
+    lib.vtt_conv3x3_fwd.argtypes = [p, q, p, p, *([] if old_conv else [p, p]), p, q, p, q, f, p, q, f, i, f,
+                                    i, i, i, i, i, i, p]
     lib.vtt_flash_attention_fwd.restype = lib.vtt_window_attention_fwd.restype = lib.vtt_conv3x3_fwd.restype = i
-    return lib
+    return ParentConvEntry(lib) if old_conv else lib
 
 
 # run in a checkout's root with ``python -c``, so that it imports that
@@ -2389,6 +2891,7 @@ def main(argv=None) -> int:
     del bmodel
 
     s3 = sam3_phases(torch, card, fa, wa, cc, dsm, dcm)
+    ym = yolo_migan_phases(torch, card, fa, wa, cc, dsm, dcm)
 
     # one RDB's five convs at 1024x1024 as the path runs them, summed
     rdb = conv_rows[: len(ESRGAN_RDB)]
@@ -2449,7 +2952,7 @@ def main(argv=None) -> int:
             "source": "vision_tpu_torch/csrc/conv3x3.cu",
             "replaces": "scripts/exp_pallas_conv.py:36",
             "launches": esr_conv_launches,
-            "max_abs_err": conv_worst,
+            "max_abs_err": max(conv_worst, ym["worst"]),
             "ms": sum(r[4] for r in rdb),
             "plain_ms": sum(r[6] for r in rdb),
             "bound_ms": rdb_bound,
@@ -2463,6 +2966,16 @@ def main(argv=None) -> int:
                                 (r[0], r[4], r[5], r[6], r[7], r[8]))) for r in conv_rows],
             "forward_512x4_busy_ms": esr_profile["busy_ms"],
             "forward_512x4_other_launches": esr_profile["other_launches"],
+            "launches_yolov9t_per_forward": ym["launches_per_forward"],
+            "yolov9t": {
+                **{k: ym["conv"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                "timed_shape": f"one batch-{YOLO_BATCH} 640x640 YOLOv9t forward's {YOLO_CONVS} stride-1 3x3 convs "
+                               f"with the path's epilogue (BN, SiLU, r1, r2) and views, summed",
+                "library_call": "F.conv2d + the BN's product and sum + F.silu (+ the branch, + the shortcut)",
+                "shapes": ym["conv"]["rows"],
+                "forward_batch8_busy_ms": ym["profile"]["busy_ms"],
+                "forward_batch8_conv3x3_ms": ym["profile"]["named_ms"]["conv3x3"],
+            },
         },
         {
             "name": "deform_conv",

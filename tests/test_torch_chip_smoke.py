@@ -65,3 +65,43 @@ def test_sam3_vocab_has_clip_ids_and_real_merges(chip_smoke):
     tk = ClipTokenizer({t: i for i, t in enumerate(tokens)}, {tuple(m.split(" ")): i for i, m in enumerate(merges)})
     ids = tk.tokenize(chip_smoke.SAM3_PROMPTS[1], 16).token_ids
     assert ids[0] == 49406 and tokens[ids[1]] == "the</w>" and tokens[ids[2]] == "red</w>"
+
+
+def test_yolo_conv_calls_are_the_forwards_112(chip_smoke):
+    """The YOLOv9t calls phases 22 and 26 check and time are recorded from
+    the port's own forward: 112 stride-1 3x3 convs at the full widths, 28
+    distinct shapes and forms (here at 64x64, batch 2, on the CPU), each
+    with its BN and SiLU, r1 for the RepConvs, r2 for the shortcuts, and
+    views of the ELAN buffers."""
+    import torch
+
+    from vision_tpu_torch.core.device import backend_init
+    from vision_tpu_torch.core.weights import params_from_numpy
+    from vision_tpu_torch.models.random_weights import random_yolov9t_params
+    from vision_tpu_torch.models.yolov9t import Yolov9tModel, Yolov9tParams
+    from vision_tpu_torch.ops.cuda import conv3x3 as cc
+
+    model = Yolov9tModel(params_from_numpy(random_yolov9t_params(0), "cpu", torch.float32), Yolov9tParams(),
+                         backend_init("cpu"))
+    calls = chip_smoke.yolo_conv_calls(cc, lambda: model.forward_u8(torch.zeros(2, 64, 64, 3, dtype=torch.uint8)))
+    shapes = chip_smoke.yolo_shapes(calls)
+    assert len(calls) == chip_smoke.YOLO_CONVS == 112 and sum(shapes.values()) == 112 and len(shapes) == 28
+    assert cc.conv3x3.__name__ == "conv3x3"  # the spy is gone
+    r1 = sum(n for c, n in shapes.items() if c[7])
+    r2 = sum(n for c, n in shapes.items() if c[8])
+    views = sum(n for c, n in shapes.items() if c[9])
+    # 7 RepNCSPELAN4 x 2 RepCSP x 3 RepConvs; as many shortcuts; the ELAN
+    # buffers' 2 x 8 convs and each RepCSP's last bottleneck
+    assert (r1, r2, views) == (42, 42, 16 + 14)
+    assert {c[4] for c in shapes} == {16, 24, 32, 48, 64, 80}
+    assert "into channels" in chip_smoke.yolo_form_label(next(c for c in shapes if c[9]))
+
+
+def test_match_detections(chip_smoke):
+    from vision_tpu_torch.models.yolov9t import Detection
+
+    a = [Detection(0, 0, 10, 10, 0.9, 1), Detection(20, 20, 30, 30, 0.8, 2)]
+    assert chip_smoke.match_detections(a, list(reversed(a))) == 1.0
+    assert chip_smoke.match_detections(a, [Detection(0, 0, 10, 10, 0.9, 3), a[1]]) == 0.5
+    assert chip_smoke.match_detections(a, [Detection(5, 5, 15, 15, 0.9, 1)]) == 0.0
+    assert chip_smoke.match_detections([], []) == 1.0

@@ -331,3 +331,128 @@ def test_checks_reject_the_epilogue_faults(x, w, kw, match):
     b = kw.pop("b", None)
     with pytest.raises(ValueError, match=match):
         cc._check(x, w, b, **kw)
+
+
+# -- YOLOv9t's epilogue forms: a fused BatchNorm, SiLU, r1 before the SiLU, r2 after --
+
+
+def _jax_yolo_conv(jnn, JParams, x, w, scale, shift, r1=None, r2=None, dtype=jnp.float32):
+    """The JAX package's composition (vision_tpu/models/yolov9t.py
+    conv_block and rep_conv): conv_2d, batch_norm_2d, + the RepConv's 1x1
+    branch (r1), silu, + the bottleneck's shortcut (r2), each in dtype."""
+    p = JParams({k: jnp.asarray(v, dtype) for k, v in
+                 (("conv.weight", w), ("bn.weight", scale), ("bn.bias", shift))})
+    y = jnn.batch_norm_2d(p["bn"], jnn.conv_2d(p["conv"], jnp.asarray(x, dtype), 1, 1))
+    if r1 is not None:
+        y = y + jnp.asarray(r1, dtype)
+    y = jnn.silu(y)
+    if r2 is not None:
+        y = jnp.asarray(r2, dtype) + y
+    return np.asarray(y.astype(jnp.float32))
+
+
+_YOLO_FORMS = {
+    # conv_block(p, x, 3); + the RepBottleneck's shortcut; RepConv's 3x3 branch with the 1x1 one as r1
+    "bn silu": (),
+    "bn silu + shortcut": ("r2",),
+    "rep_conv": ("r1",),
+}
+
+
+def _yolo_inputs(form, n, h, w, cin, cout, seed):
+    x, wt = _inputs(seed, n, h, w, cin, cout)
+    rng = np.random.default_rng(seed + 1)
+    scale = (1.0 + rng.standard_normal(cout) * 0.1).astype(np.float32)
+    shift = (rng.standard_normal(cout) * 0.1).astype(np.float32)
+    res = {r: (rng.standard_normal((n, h, w, cout)) * 0.5).astype(np.float32) for r in _YOLO_FORMS[form]}
+    return x, wt, scale, shift, res
+
+
+@pytest.mark.parametrize("form", list(_YOLO_FORMS))
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 9, 11, 16, 16), (1, 20, 20, 64, 80)])
+def test_yolo_epilogue_matches_jax_composition_f32(form, n, h, w, cin, cout):
+    """conv3x3 with scale, shift, silu and r1 / r2 against conv_2d ->
+    batch_norm_2d (-> + r1) -> silu (-> + r2) in the JAX package, f32: the
+    sums' order only (F32_ATOL)."""
+    from vision_tpu.core.params import Params as JParams
+    from vision_tpu.ops import nn as jnn
+
+    x, wt, scale, shift, res = _yolo_inputs(form, n, h, w, cin, cout, n * h + cin)
+    expected = _jax_yolo_conv(jnn, JParams, x, wt, scale, shift, **res)
+    t = lambda a: torch.from_numpy(a)  # noqa: E731
+    got = cc.conv3x3(t(x), t(wt), scale=t(scale), shift=t(shift), silu=True, **{k: t(v) for k, v in res.items()})
+    np.testing.assert_allclose(got.numpy(), expected, atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("form", list(_YOLO_FORMS))
+def test_yolo_epilogue_bf16_is_no_less_precise_than_jax(form):
+    """bf16 inputs, weights, BN and residuals: the fused form rounds once, so
+    it is within half a bf16 ulp of the f32 result on the same values (plus
+    the sums' order error), and its RMS error is no larger than the JAX
+    composition's, which rounds after the conv, the BN's product and sum,
+    the branch sum, the SiLU and the shortcut."""
+    from vision_tpu.core.params import Params as JParams
+    from vision_tpu.ops import nn as jnn
+
+    x, wt, scale, shift, res = _yolo_inputs(form, 2, 12, 13, 32, 16, 91)
+    rb = lambda a: np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))  # noqa: E731
+    x, wt, scale, shift = (rb(a) for a in (x, wt, scale, shift))
+    res = {k: rb(v) for k, v in res.items()}
+    exact = _jax_yolo_conv(jnn, JParams, x, wt, scale, shift, **res)  # f32 on bf16 values
+    jax_bf16 = _jax_yolo_conv(jnn, JParams, x, wt, scale, shift, dtype=jnp.bfloat16, **res)
+    tb = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    got = cc.conv3x3(tb(x), tb(wt), scale=tb(scale), shift=tb(shift), silu=True, **{k: tb(v) for k, v in res.items()})
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    assert (np.abs(got - exact) <= 0.5 * _bf16_ulp(exact) + F32_ATOL).all()
+    rms = lambda a: float(np.sqrt(np.mean((a - exact) ** 2)))  # noqa: E731
+    assert rms(got) <= rms(jax_bf16), (rms(got), rms(jax_bf16))
+
+
+def test_esrgan_forms_keep_their_results_beside_the_new_epilogue():
+    """Real-ESRGAN never passes a slope with r1, so placing the activation
+    after r1 leaves its forms as they were: the leaky form, the residual
+    forms and an explicit identity scale and zero shift give the earlier
+    epilogue's values ``r2 + s2 * (r1 + s1 * act(conv + b))`` exactly."""
+    x, wt = (torch.from_numpy(a) for a in _inputs(12, 2, 9, 10, 24, 16))
+    rng = np.random.default_rng(13)
+    b, r1, r2 = (torch.from_numpy((rng.standard_normal(s) * 0.5).astype(np.float32)) for s in
+                 ((16,), (2, 9, 10, 16), (2, 9, 10, 16)))
+    acc = cc.conv3x3_plain(x, wt) + b
+    leaky = torch.where(acc >= 0, acc, acc * 0.2)
+    assert torch.equal(cc.conv3x3(x, wt, b, slope=0.2), leaky)
+    assert torch.equal(cc.conv3x3(x, wt, b, r1=r1, s1=0.2, r2=r2, s2=0.2), r2 + 0.2 * (r1 + 0.2 * acc))
+    ones, zeros = torch.ones(16), torch.zeros(16)
+    assert torch.equal(cc.conv3x3(x, wt, b, scale=ones, shift=zeros, slope=0.2), leaky)
+
+
+def test_conv_3x3_fused_takes_a_fused_batchnorm():
+    """ops/nn.py conv_3x3_fused with ``bn`` is the kernel's scale and shift;
+    a BatchNorm with running statistics (not fused at conversion) raises,
+    as batch_norm_2d does."""
+    from vision_tpu_torch.core.errors import VispError
+
+    x, wt = (torch.from_numpy(a) for a in _inputs(14, 1, 6, 7, 8, 8))
+    rng = np.random.default_rng(15)
+    scale, shift = (torch.from_numpy(rng.standard_normal(8).astype(np.float32)) for _ in range(2))
+    p = Params({"c.conv.weight": wt, "c.bn.weight": scale, "c.bn.bias": shift})
+    want = cc.conv3x3(x, wt, scale=scale, shift=shift, silu=True)
+    assert torch.equal(nn.conv_3x3_fused(p["c"]["conv"], x, bn=p["c"]["bn"], silu=True), want)
+    stats = Params({**p.store, "c.bn.running_mean": torch.zeros(8)})
+    with pytest.raises(VispError, match="not fused"):
+        nn.conv_3x3_fused(stats["c"]["conv"], x, bn=stats["c"]["bn"])
+
+
+@pytest.mark.parametrize(
+    "kw,match",
+    [
+        ({"silu": True, "slope": 0.2}, "one activation"),
+        ({"silu": 1}, "silu must be a bool"),
+        ({"scale": torch.zeros(3)}, "scale must be"),
+        ({"shift": torch.zeros(2, dtype=torch.bfloat16)}, "shift must be"),
+        ({"scale": torch.zeros(2), "shift": torch.zeros(2), "silu": True}, "CUDA device"),  # fine up to the device
+    ],
+)
+def test_checks_reject_the_yolo_epilogue_faults(kw, match):
+    with pytest.raises(ValueError, match=match):
+        cc._check(torch.zeros(1, 4, 4, 8), torch.zeros(2, 8, 3, 3), **kw)

@@ -171,3 +171,55 @@ def test_attention_core_mixed_types_every_route():
         out = nn.attention_core(q[:, :, :t_q], k, v, None, None, True)
         assert route in ("cuda", "xla_fused") and out.dtype == torch.bfloat16
         np.testing.assert_allclose(out.float().numpy(), ref[:, :, :t_q].float().numpy(), atol=BF16_ATOL, rtol=BF16_RTOL)
+
+
+# -- the JAX package's remaining small ops (YOLOv9t's silu and avg_pool_2d) --
+
+
+def test_silu():
+    x = _randn(np.random.default_rng(20), 3, 5, 7, scale=4.0)
+    _match(nn.silu(torch.from_numpy(x)), jnn.silu(x))
+
+
+def test_gelu_erf_and_gelu_tanh():
+    x = _randn(np.random.default_rng(21), 4, 9, scale=3.0)
+    _match(nn.gelu_erf(torch.from_numpy(x)), jnn.gelu_erf(x))
+    _match(nn.gelu_tanh(torch.from_numpy(x)), jnn.gelu_tanh(x))
+
+
+@pytest.mark.parametrize(
+    "kernel,stride,pad,include",
+    [(2, 1, 0, True), (2, None, 0, True), (3, 1, 1, True), (3, 2, 1, False), (5, 1, 2, False)],
+)
+def test_avg_pool_2d(kernel, stride, pad, include):
+    """The f32 window sum over kernel^2, or over the cells inside the input
+    (count_include_pad False), windows where they fit (YOLOv9t's AConv:
+    kernel 2, stride 1)."""
+    x = _randn(np.random.default_rng(22), 2, 9, 11, 3)
+    _match(nn.avg_pool_2d(torch.from_numpy(x), kernel, stride, pad, include),
+           jnn.avg_pool_2d(x, kernel, stride, pad, include))
+
+
+def test_avg_pool_2d_bf16_sums_in_f32():
+    import jax.numpy as jnp
+
+    x = _randn(np.random.default_rng(23), 1, 8, 8, 4)
+    got = nn.avg_pool_2d(torch.from_numpy(x).to(torch.bfloat16), 2, 1)
+    want = np.asarray(jnn.avg_pool_2d(jnp.asarray(x, jnp.bfloat16), 2, 1).astype(jnp.float32))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("pad_h,pad_w,value", [((1, 2), (0, 3), 0.0), ((0, 0), (2, 2), -1.5)])
+def test_pad_nhwc(pad_h, pad_w, value):
+    x = _randn(np.random.default_rng(24), 2, 4, 5, 3)
+    _match(nn.pad_nhwc(torch.from_numpy(x), pad_h, pad_w, value), jnn.pad_nhwc(x, pad_h, pad_w, value), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("mode,align", [("bilinear", False), ("bicubic", True), ("nearest", False)])
+def test_interpolate(mode, align):
+    from vision_tpu.ops.resize import interpolate as j_interpolate
+    from vision_tpu_torch.ops import interpolate
+
+    x = _randn(np.random.default_rng(25), 1, 6, 7, 2)
+    _match(interpolate(torch.from_numpy(x), (11, 5), mode, align), j_interpolate(x, (11, 5), mode, align))

@@ -36,6 +36,8 @@ SLICE_MODULES = [
     "vision_tpu_torch.models.swin",
     "vision_tpu_torch.models.birefnet",
     "vision_tpu_torch.models.sam3",
+    "vision_tpu_torch.models.yolov9t",
+    "vision_tpu_torch.models.migan",
     "vision_tpu_torch.models.random_weights",
     "vision_tpu_torch.serve",
 ]

@@ -68,14 +68,13 @@ def test_image_server_rejects_oversized_upload(gguf_path):
             fut.result(timeout=600)
 
 
-def test_image_server_names_the_slice_of_a_later_family():
-    class MiganModel:  # the JAX package's family name, not yet ported
-        pass
-
-    with pytest.raises(TypeError, match="MI-GAN slice"):
-        ImageServer(MiganModel())
-    with pytest.raises(TypeError, match="does not support"):
+def test_image_server_refuses_unknown_families():
+    """ImageServer serves Depth-Anything, BiRefNet and MI-GAN; any other
+    model is refused by name."""
+    with pytest.raises(TypeError, match="does not support object"):
         ImageServer(object())
+    with pytest.raises(TypeError, match="does not support SamModel"):
+        ImageServer(type("SamModel", (), {})())
 
 
 def test_image_server_warmup_resets_stats(gguf_path):
@@ -88,7 +87,7 @@ def test_image_server_warmup_resets_stats(gguf_path):
 @pytest.mark.parametrize(
     "server,kind,default",
     [("ImageServer", "DepthAnythingModel", 4), ("ImageServer", "BirefnetModel", 4), ("SamServer", "SamModel", 6),
-     ("EsrganServer", "EsrganModel", 4)],
+     ("EsrganServer", "EsrganModel", 4), ("ImageServer", "MiganModel", 4), ("YoloServer", "Yolov9tModel", 8)],
 )
 def test_batch_size_none_takes_the_per_chip_default(server, kind, default):
     """As the JAX package's _resolve_batch (vision_tpu/serve.py:93-104):
@@ -97,7 +96,10 @@ def test_batch_size_none_takes_the_per_chip_default(server, kind, default):
     import vision_tpu_torch.serve as serve
 
     cls = getattr(serve, server)
-    model = type(kind, (), {})()  # the servers check their model's class name
+    from types import SimpleNamespace
+
+    # the servers check their model's class name; YoloServer reads its input size
+    model = type(kind, (), {"p": SimpleNamespace(input_size=640)})()
     for asked, want in ((None, default), (3, 3)):
         srv = cls(model, batch_size=asked)
         try:

@@ -6,14 +6,14 @@ public functions; plain tensor code in PyTorch, and each Pallas kernel of
 the JAX package as a kernel written by hand for Hopper (``csrc/``).
 
 It imports ``torch`` and numpy, never ``jax`` or ``vision_tpu``. The port
-goes slice by slice; five are ported so far. Four are served:
-Depth-Anything V2 and BiRefNet through
+goes slice by slice; all seven model families are ported. Six are served:
+Depth-Anything V2, BiRefNet and MI-GAN (``(image, mask)`` requests) through
 :class:`~vision_tpu_torch.serve.ImageServer`, MobileSAM through
-:class:`~vision_tpu_torch.serve.SamServer` and Real-ESRGAN through
-:class:`~vision_tpu_torch.serve.EsrganServer`. The fifth, SAM3's text and
-vision encoders, runs through
-:func:`~vision_tpu_torch.models.sam3.sam3_load_model` and
-``Sam3Model.encode_text`` / ``encode_vision``.
+:class:`~vision_tpu_torch.serve.SamServer`, Real-ESRGAN through
+:class:`~vision_tpu_torch.serve.EsrganServer` and YOLOv9t through
+:class:`~vision_tpu_torch.serve.YoloServer`. SAM3's text and vision
+encoders run through :func:`~vision_tpu_torch.models.sam3.sam3_load_model`
+and ``Sam3Model.encode_text`` / ``encode_vision``.
 """
 
 __version__ = "0.1.0"

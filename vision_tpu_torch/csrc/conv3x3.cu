@@ -3,31 +3,42 @@
 //
 //   acc[n, y, x, co] = sum over dy, dx in {0, 1, 2} and ci of
 //                      pad1(x)[n, y + dy, x + dx, ci] * w[co, ci, dy, dx]
-//   out[n, y, x, co] = r2 + s2 * (r1 + s1 * act(acc + b[co]))
+//   v[n, y, x, co]   = scale[co] * (acc + b[co]) + shift[co]
+//   out[n, y, x, co] = r2 + s2 * act(r1 + s1 * v)
 //
 // Replaces the Pallas kernel `kernel` of conv_rowblock in
 // scripts/exp_pallas_conv.py (launched through pl.pallas_call there), which
 // computes the sum for one (1, H, W, C) image with an HWIO weight over row
 // blocks whose one-row halo it fetches by async copy. Same sum, with a batch
 // axis, the weight in its torch-canonical (Cout, Cin, 3, 3) layout read in
-// place, and an epilogue: b, r1 and r2 are optional, act is the identity or
-// leaky ReLU (x if x >= 0, else x * slope), all of it in f32 on the f32 sum,
-// rounded once to x's type. x is read from a channel view of a wider NHWC
-// buffer (pixel stride x_ps >= Cin elements), and out, r1 and r2 are channel
-// views too (their own pixel strides), so Real-ESRGAN's dense block runs on
-// one buffer: conv1-4 read a channel prefix and write their 32 channels
-// after it with bias and leaky ReLU fused, conv5 writes x + 0.2 * (conv + b)
-// into the next block's buffer (models/esrgan.py). Its consumer is every
-// conv of RRDBNet: 351 launches per forward at scale 4 with 23 blocks, and
-// no elementwise pass between them.
+// place, and an epilogue: b, scale, shift (a fused BatchNorm), r1 and r2 are
+// optional, act is the identity, leaky ReLU (x if x >= 0, else x * slope) or
+// SiLU (x * sigmoid(x)), all of it in f32 on the f32 sum, rounded once to x's
+// type. x is read from a channel view of a wider NHWC buffer (pixel stride
+// x_ps >= Cin elements), and out, r1 and r2 are channel views too (their own
+// pixel strides). Two consumers:
+//   * Real-ESRGAN (models/esrgan.py): every conv of RRDBNet, 351 launches per
+//     forward at scale 4 with 23 blocks, and no elementwise pass between
+//     them. Its dense block runs on one buffer: conv1-4 read a channel prefix
+//     and write their 32 channels after it with bias and leaky ReLU fused,
+//     conv5 writes x + 0.2 * (conv + b) into the next block's buffer (act and
+//     r1 are never given together there, so act may come before or after r1);
+//   * YOLOv9t (models/yolov9t.py): its 112 stride-1 3x3 convs a forward, each
+//     with its BatchNorm and SiLU; a RepConv's 1x1 branch comes in as r1
+//     (SiLU of the branches' sum), a RepBottleneck's shortcut as r2, and the
+//     ELAN blocks' convs write into channel views of their concatenation.
 //
 // What bounds it on this card: per conv, max(FLOPs / 989 TFLOP/s, bytes /
 // 3.35 TB/s) with FLOPs = 18 * P * Cin * Cout and bytes = 2 * P * (Cin +
 // Cout) in bf16 (plus the residuals read). At the RDB shapes at 1024^2 the
 // four 32-wide growth convs are near balance (39-97 GFLOP over 0.2-0.4 GB),
 // the 192 -> 64 conv5 is bound by the tensor cores (232 GFLOP), the
-// full-resolution tail convs (64 -> 64 and 64 -> 3 at 4096^2) by bytes. The
-// design, for the tensor cores and for one read of each input byte:
+// full-resolution tail convs (64 -> 64 and 64 -> 3 at 4096^2) by bytes.
+// YOLOv9t's (16 to 128 channels at 160^2 down to 20^2, batch 8) sit at or
+// below balance: bytes bound the 160^2 and 80^2 ones, and the 20^2 ones are
+// a few microseconds of work each, where the launch and the first tiles'
+// latency weigh as much as either bound. The design, for the tensor cores
+// and for one read of each input byte:
 //   * wgmma m64nNk16 (N = BN = 64, 32 or 8 output channels), M = pixels: a
 //     block is WGS consumer warpgroups, each walking its own tiles of 4 ROWS
 //     x 16 pixels; warp w of a warpgroup owns output rows w ROWS .. w ROWS +
@@ -57,8 +68,8 @@
 //     6 bytes apart) is copied by the producer warp element by element;
 //   * two or three A register sets (SETS) keep one or two wgmma groups in
 //     flight while the next set loads;
-//   * the epilogue runs on the accumulator fragments in registers: the bias
-//     (staged as f32), leaky ReLU, r1 and r2 read in the store's fragment
+//   * the epilogue runs on the accumulator fragments in registers: the bias,
+//     scale and shift (staged as f32), the activation, r1 and r2 read in the store's fragment
 //     layout (4-byte pairs where base and stride allow, each 8-pixel group's
 //     loads issued together), one rounding.
 // The configurations (BN, ROWS, WGS, STAGES, SETS) by output width are at
@@ -90,6 +101,8 @@ struct Args {
   long long x_ps;  // pixel stride of x, elements
   const void* w;
   const void* b;   // (cout) in x's type, or null
+  const void* scale;  // (cout) in x's type, or null: a fused BatchNorm's weight
+  const void* shift;  // (cout) in x's type, or null: its bias
   void* out;
   long long o_ps;
   const void* r1;  // residuals of out's shape, or null
@@ -97,7 +110,7 @@ struct Args {
   const void* r2;
   long long r2_ps;
   float s1, s2, slope;
-  int act;         // 1: leaky ReLU with slope
+  int act;         // 0: identity, 1: leaky ReLU with slope, 2: SiLU
   int n, h, wd, cin, cout;
   int tiles_x, tiles_y;
   long long tiles;  // n * tiles_y * tiles_x
@@ -225,7 +238,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc_in));
 }
 
-__device__ __forceinline__ float act(float v, const Args& a) { return (a.act && !(v >= 0.f)) ? v * a.slope : v; }
+// SILU: the kernel instance takes act 2, SiLU by the fast exponential and
+// reciprocal (MUFU: no division subroutine to hold registers beside the
+// accumulators); the relative error is ~1e-6 at |v| ~ 20, and v * 0 where
+// e^-v overflows
+template <bool SILU>
+__device__ __forceinline__ float act(float v, const Args& a) {
+  if (a.act == 1) return !(v >= 0.f) ? v * a.slope : v;
+  if constexpr (SILU) {
+    if (a.act == 2) return __fdividef(v, 1.f + __expf(-v));
+  }
+  return v;
+}
 
 // ---------------------------------------------------------------------------
 // bf16: persistent wgmma kernel, TMA halo ring
@@ -245,15 +269,17 @@ struct Cfg {
   static constexpr int RING_BYTES = WGS * STAGES * STAGE_BYTES;
   __host__ __device__ static constexpr size_t weight_bytes(int kch) { return (size_t)kch * 9 * KC * BN * 2; }
   // 1024 bytes of slack to align the ring; the ring, the weight, the f32
-  // bias, the full and empty barriers
+  // bias, scale and shift, the full and empty barriers
   static constexpr size_t smem_bytes(int kch) {
-    return 1024 + RING_BYTES + weight_bytes(kch) + BN * 4 + 2 * WGS * STAGES * 8;
+    return 1024 + RING_BYTES + weight_bytes(kch) + 3 * BN * 4 + 2 * WGS * STAGES * 8;
   }
 };
 
 // `splits` blocks side by side cover ceil(cout / BN) * BN channels, block b
-// taking split b % splits
-template <class C>
+// taking split b % splits. BNS: the instance with the scale, the shift and
+// SiLU (YOLOv9t's); without them (Real-ESRGAN's) the epilogue keeps the
+// registers and instructions it had before they came
+template <class C, bool BNS>
 __global__ void __launch_bounds__(C::THREADS, 1)
     conv3x3_bf16(const __grid_constant__ CUtensorMap xmap, const Args a, int splits) {
   constexpr int BN = C::BN, ROWS = C::ROWS, WGS = C::WGS, STAGES = C::STAGES, SETS = C::SETS;
@@ -268,7 +294,9 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   const uint32_t ring = smem_u32(smem);
   __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem + C::RING_BYTES);
   float* bs = reinterpret_cast<float*>(smem + C::RING_BYTES + C::weight_bytes(kch));
-  const uint32_t bars = smem_u32(bs + BN);
+  float* ss = bs + BN;  // the scale, 1 where none is given
+  float* hs = ss + BN;  // the shift, 0 where none is given
+  const uint32_t bars = smem_u32(hs + BN);
   auto full = [&](int w, int st) { return bars + (uint32_t)((w * STAGES + st) * 8); };
   auto empty = [&](int w, int st) { return bars + (uint32_t)(((WGS + w) * STAGES + st) * 8); };
 
@@ -352,7 +380,8 @@ __global__ void __launch_bounds__(C::THREADS, 1)
     return;
   }
 
-  // the consumers: stage the weight and the bias once, then multiply
+  // the consumers: stage the weight, the bias, the scale and the shift once,
+  // then multiply
   const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
   const int row = a.cin * 9;  // weight elements per output channel
   auto put = [&](int n, int idx, __nv_bfloat16 v) {
@@ -381,8 +410,17 @@ __global__ void __launch_bounds__(C::THREADS, 1)
       if (co0 + n < a.cout) put(n, i % row, w[(size_t)(co0 + n) * row + i % row]);
     }
   }
-  for (int i = tid; i < BN; i += CONSUMERS)
-    bs[i] = (a.b != nullptr && co0 + i < a.cout) ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.b)[co0 + i]) : 0.f;
+  for (int i = tid; i < BN; i += CONSUMERS) {
+    const bool live = co0 + i < a.cout;
+    auto vec = [&](const void* v, float none) {
+      return live && v != nullptr ? __bfloat162float(static_cast<const __nv_bfloat16*>(v)[co0 + i]) : none;
+    };
+    bs[i] = vec(a.b, 0.f);
+    if constexpr (BNS) {
+      ss[i] = vec(a.scale, 1.f);
+      hs[i] = vec(a.shift, 0.f);
+    }
+  }
   consumers_sync();
 
   // the warpgroup index, shuffled so the compiler sees it uniform: every
@@ -473,13 +511,19 @@ __global__ void __launch_bounds__(C::THREADS, 1)
           for (int j = 0; j < BN / 8; ++j) {
             const int cl = 8 * j + 2 * tq, co = co0 + cl;
             if (y >= a.h || px >= a.wd || co >= a.cout) continue;
-            float v0 = act(acc[t][4 * j + 2 * rh] + bs[cl], a);
-            float v1 = act(acc[t][4 * j + 2 * rh + 1] + bs[cl + 1], a);
+            float v0 = acc[t][4 * j + 2 * rh] + bs[cl];
+            float v1 = acc[t][4 * j + 2 * rh + 1] + bs[cl + 1];
+            if constexpr (BNS) {
+              v0 = fmaf(ss[cl], v0, hs[cl]);
+              v1 = fmaf(ss[cl + 1], v1, hs[cl + 1]);
+            }
             if (r1 != nullptr) {
               const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rv1[j]));
               v0 = fmaf(a.s1, v0, f.x);
               v1 = fmaf(a.s1, v1, f.y);
             }
+            v0 = act<BNS>(v0, a);
+            v1 = act<BNS>(v1, a);
             if (r2 != nullptr) {
               const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rv2[j]));
               v0 = fmaf(a.s2, v0, f.x);
@@ -498,12 +542,18 @@ __global__ void __launch_bounds__(C::THREADS, 1)
             const int cl = 8 * j + 2 * tq, co = co0 + cl;
             if (y >= a.h || px >= a.wd || co >= a.cout) continue;
             const bool two = co + 1 < a.cout;
-            float v0 = act(acc[t][4 * j + 2 * rh] + bs[cl], a);
-            float v1 = act(acc[t][4 * j + 2 * rh + 1] + bs[cl + 1], a);
+            float v0 = acc[t][4 * j + 2 * rh] + bs[cl];
+            float v1 = acc[t][4 * j + 2 * rh + 1] + bs[cl + 1];
+            if constexpr (BNS) {
+              v0 = fmaf(ss[cl], v0, hs[cl]);
+              v1 = fmaf(ss[cl + 1], v1, hs[cl + 1]);
+            }
             if (r1 != nullptr) {
               v0 = fmaf(a.s1, v0, __bfloat162float(r1[pix * a.r1_ps + co]));
               if (two) v1 = fmaf(a.s1, v1, __bfloat162float(r1[pix * a.r1_ps + co + 1]));
             }
+            v0 = act<BNS>(v0, a);
+            v1 = act<BNS>(v1, a);
             if (r2 != nullptr) {
               v0 = fmaf(a.s2, v0, __bfloat162float(r2[pix * a.r2_ps + co]));
               if (two) v1 = fmaf(a.s2, v1, __bfloat162float(r2[pix * a.r2_ps + co + 1]));
@@ -575,6 +625,8 @@ __global__ void __launch_bounds__(256) conv3x3_f32(const Args a) {
   if (y >= a.h || px >= a.wd) return;
   const size_t pix = img_base + (size_t)y * a.wd + px;
   const float* b = static_cast<const float*>(a.b);
+  const float* sc = static_cast<const float*>(a.scale);
+  const float* sh = static_cast<const float*>(a.shift);
   const float* r1 = static_cast<const float*>(a.r1);
   const float* r2 = static_cast<const float*>(a.r2);
   float* o = static_cast<float*>(a.out) + pix * a.o_ps;
@@ -582,8 +634,9 @@ __global__ void __launch_bounds__(256) conv3x3_f32(const Args a) {
   for (int n = 0; n < F32_BN; ++n) {
     const int co = co0 + n;
     if (co >= a.cout) continue;
-    float v = act(acc[n] + (b != nullptr ? b[co] : 0.f), a);
+    float v = fmaf(sc != nullptr ? sc[co] : 1.f, acc[n] + (b != nullptr ? b[co] : 0.f), sh != nullptr ? sh[co] : 0.f);
     if (r1 != nullptr) v = fmaf(a.s1, v, r1[pix * a.r1_ps + co]);
+    v = act<true>(v, a);
     if (r2 != nullptr) v = fmaf(a.s2, v, r2[pix * a.r2_ps + co]);
     o[co] = v;
   }
@@ -630,7 +683,7 @@ cudaError_t halo_map(CUtensorMap* map, const Args& a, int rows) {
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <class C>
+template <class C, bool BNS>
 cudaError_t launch_bf16(Args a, cudaStream_t stream) {
   const int kch = (a.cin + KC - 1) / KC;
   const size_t smem = C::smem_bytes(kch);
@@ -641,7 +694,7 @@ cudaError_t launch_bf16(Args a, cudaStream_t stream) {
   memset(&xmap, 0, sizeof xmap);
   cudaError_t err = a.tma ? halo_map(&xmap, a, C::HR) : cudaSuccess;
   if (err != cudaSuccess) return err;
-  if ((err = cudaFuncSetAttribute(conv3x3_bf16<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+  if ((err = cudaFuncSetAttribute(conv3x3_bf16<C, BNS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
       cudaSuccess)
     return err;
   int dev = 0, sms = 0;
@@ -652,7 +705,7 @@ cudaError_t launch_bf16(Args a, cudaStream_t stream) {
   long long per_split = sms / splits > 0 ? sms / splits : 1;
   const long long needed = (a.tiles + C::WGS - 1) / C::WGS;
   if (per_split > needed) per_split = needed;
-  conv3x3_bf16<C><<<(unsigned)(per_split * splits), C::THREADS, smem, stream>>>(xmap, a, splits);
+  conv3x3_bf16<C, BNS><<<(unsigned)(per_split * splits), C::THREADS, smem, stream>>>(xmap, a, splits);
   return cudaGetLastError();
 }
 
@@ -677,13 +730,14 @@ using Growth = Cfg<32, 4, 3, 3, 2>;
 using Split = Cfg<32, 4, 3, 3, 2>;
 using Wide = Cfg<64, 2, 3, 3, 3>;
 
+template <bool BNS>
 cudaError_t launch_bf16_any(const Args& a, cudaStream_t s) {
   const int kch = (a.cin + KC - 1) / KC;
-  if (a.cout <= 8 && fits<Last>(kch)) return launch_bf16<Last>(a, s);
-  if (a.cout <= 32 && fits<Growth>(kch)) return launch_bf16<Growth>(a, s);
-  if (a.cout > 32 && a.cout <= 64 && fits<Wide>(kch)) return launch_bf16<Wide>(a, s);
-  if (fits<Split>(kch)) return launch_bf16<Split>(a, s);
-  if (fits<Last>(kch)) return launch_bf16<Last>(a, s);
+  if (a.cout <= 8 && fits<Last>(kch)) return launch_bf16<Last, BNS>(a, s);
+  if (a.cout <= 32 && fits<Growth>(kch)) return launch_bf16<Growth, BNS>(a, s);
+  if (a.cout > 32 && a.cout <= 64 && fits<Wide>(kch)) return launch_bf16<Wide, BNS>(a, s);
+  if (fits<Split>(kch)) return launch_bf16<Split, BNS>(a, s);
+  if (fits<Last>(kch)) return launch_bf16<Last, BNS>(a, s);
   return cudaErrorInvalidValue;
 }
 
@@ -691,16 +745,16 @@ cudaError_t launch_bf16_any(const Args& a, cudaStream_t s) {
 
 // dtype: 0 = float32, 1 = bfloat16. x: a (n, h, wd, cin) view whose pixels
 // are x_ps elements apart (rows and images packed); w: (cout, cin, 3, 3)
-// contiguous; b: (cout) or null; out, r1, r2: (n, h, wd, cout) views with
-// pixel strides o_ps, r1_ps, r2_ps (r1, r2 may be null); act 1 applies leaky
-// ReLU with `slope` before the residuals. Returns the cudaError_t of the
-// launch.
-extern "C" int vtt_conv3x3_fwd(const void* x, long long x_ps, const void* w, const void* b, void* out,
-                               long long o_ps, const void* r1, long long r1_ps, float s1, const void* r2,
-                               long long r2_ps, float s2, int act, float slope, int n, int h, int wd, int cin,
-                               int cout, int dtype, void* stream) {
-  if (n <= 0 || h <= 0 || wd <= 0 || cin <= 0 || cout <= 0 || (dtype != 0 && dtype != 1) || x_ps < cin ||
-      o_ps < cout || (r1 != nullptr && r1_ps < cout) || (r2 != nullptr && r2_ps < cout))
+// contiguous; b, scale, shift: (cout) or null; out, r1, r2: (n, h, wd, cout)
+// views with pixel strides o_ps, r1_ps, r2_ps (r1, r2 may be null); act 1
+// applies leaky ReLU with `slope`, act 2 SiLU, after r1 and before r2.
+// Returns the cudaError_t of the launch.
+extern "C" int vtt_conv3x3_fwd(const void* x, long long x_ps, const void* w, const void* b, const void* scale,
+                               const void* shift, void* out, long long o_ps, const void* r1, long long r1_ps,
+                               float s1, const void* r2, long long r2_ps, float s2, int act, float slope, int n,
+                               int h, int wd, int cin, int cout, int dtype, void* stream) {
+  if (n <= 0 || h <= 0 || wd <= 0 || cin <= 0 || cout <= 0 || (dtype != 0 && dtype != 1) || act < 0 || act > 2 ||
+      x_ps < cin || o_ps < cout || (r1 != nullptr && r1_ps < cout) || (r2 != nullptr && r2_ps < cout))
     return (int)cudaErrorInvalidValue;
   // the f32 kernel's 16-row tiles; a bf16 launch redoes tiles_y for its own
   const int tiles_x = (wd + TW - 1) / TW, tiles_y = (h + F32_TH - 1) / F32_TH;
@@ -711,7 +765,7 @@ extern "C" int vtt_conv3x3_fwd(const void* x, long long x_ps, const void* w, con
   const bool pairs = cout % 2 == 0 && aligned(out, 2 * esz) && o_ps % 2 == 0 &&
                      (r1 == nullptr || (aligned(r1, 2 * esz) && r1_ps % 2 == 0)) &&
                      (r2 == nullptr || (aligned(r2, 2 * esz) && r2_ps % 2 == 0));
-  const Args a{x, x_ps, w, b, out, o_ps, r1, r1_ps, r2, r2_ps, s1, s2, slope, act, n, h, wd, cin, cout,
+  const Args a{x, x_ps, w, b, scale, shift, out, o_ps, r1, r1_ps, r2, r2_ps, s1, s2, slope, act, n, h, wd, cin, cout,
                tiles_x, tiles_y, tiles,
                (int)(cin >= KC && x_ps % 8 == 0 && aligned(x, 16)),
                (int)(cin % 8 == 0 && aligned(w, 16)), (int)pairs};
@@ -721,5 +775,6 @@ extern "C" int vtt_conv3x3_fwd(const void* x, long long x_ps, const void* w, con
     conv3x3_f32<<<grid, 256, 0, s>>>(a);
     return (int)cudaGetLastError();
   }
-  return (int)launch_bf16_any(a, s);
+  const bool bns = scale != nullptr || shift != nullptr || act == 2;
+  return (int)(bns ? launch_bf16_any<true>(a, s) : launch_bf16_any<false>(a, s));
 }

@@ -1,6 +1,6 @@
 """Image layer — containers, conversions, resizes and the tiling engine (a
 numpy copy of the host-side parts of vision_tpu/image that the ported slices
-use; the native filters wait for their slices)."""
+use; the native filters wait for their queue item)."""
 
 from .image import (
     Image,
@@ -10,6 +10,7 @@ from .image import (
     image_load_array,
     image_normalize,
     image_scale,
+    image_set_alpha,
     image_u8_to_f32,
     preprocess_scale_method,
 )
@@ -23,6 +24,7 @@ __all__ = [
     "image_load_array",
     "image_normalize",
     "image_scale",
+    "image_set_alpha",
     "image_u8_to_f32",
     "preprocess_scale_method",
     "TileLayout",

@@ -272,6 +272,21 @@ def image_f32_to_u8(
     return Image(np.ascontiguousarray(_store_u8(out4, dst_format)), dst_format)
 
 
+def image_set_alpha(img: Image, alpha: Image) -> None:
+    """Write an alpha mask into a 4-channel u8 image's alpha channel, in
+    place (reference image.cpp:310-323; the JAX package's
+    image/image.py:324)."""
+    if img.extent != alpha.extent:
+        raise_error("extent mismatch in image_set_alpha")
+    if is_float(img.format) or img.channels != 4:
+        raise_error("image_set_alpha requires 4-channel u8 image")
+    if alpha.format != ImageFormat.alpha_u8:
+        # the reference asserts alpha.format == alpha_u8 (image.cpp:313); a
+        # f32 mask would silently truncate to 0/1 here
+        raise_error("image_set_alpha requires an alpha_u8 mask")
+    img.data[:, :, channel_map(img.format)[3]] = alpha.data[:, :, 0]
+
+
 def _bilinear_resize_f32(a: np.ndarray, target: tuple[int, int]) -> np.ndarray:
     """Bilinear resize, half-pixel centers, clamped edges — the shared
     resize_matrix weights (identical semantics) via the BLAS contraction."""

@@ -21,6 +21,8 @@ __all__ = [
     "random_depth_anything_params",
     "random_birefnet_params",
     "random_sam3_vision_params",
+    "random_migan_params",
+    "random_yolov9t_params",
 ]
 
 
@@ -286,6 +288,117 @@ def random_depth_anything_params(variant: str = "small", seed: int = 0) -> dict[
     B.conv("head.conv1", fusion_ch, fusion_ch // 2, 3)
     B.conv("head.conv2", fusion_ch // 2, 32, 3)
     B.conv("head.conv3", 32, 1, 1)
+    return B.p
+
+
+def random_migan_params(resolution: int = 512, seed: int = 0) -> dict[str, np.ndarray]:
+    """MI-GAN generator weight dict (original checkpoint naming)."""
+    B = _Builder(seed)
+    nf = {4: 512, 8: 512, 16: 512, 32: 512, 64: 256, 128: 128, 256: 64, 512: 32}
+
+    def sep(name, ci, co, res_out, down=False, up=False, noise=False):
+        B.dwconv(f"{name}.conv1", ci, 3, bias=False)
+        if down:
+            B.dwconv(f"{name}.downsample.filter", ci, 3, bias=False)
+        B.conv(f"{name}.conv2", ci, co, 1)
+        if up:
+            B.dwconv(f"{name}.upsample.filter", co, 4, bias=False)
+            B.p[f"{name}.upsample.filter_const"] = np.full((res_out * 2, res_out * 2), 4.0, np.float32)
+        if noise:
+            out_res = res_out * 2 if up else res_out
+            B.p[f"{name}.noise_const"] = (B.rng.standard_normal((out_res, out_res)) * 0.1).astype(np.float32)
+            B.p[f"{name}.noise_strength"] = np.zeros((), np.float32)
+
+    n = int(math.log2(resolution)) - 1
+    # encoder
+    B.conv(f"encoder.b{resolution}.fromrgb", 4, nf[resolution], 1)
+    for i in range(n - 1):
+        res = resolution >> i
+        ci, co = nf[res], nf[res >> 1]
+        sep(f"encoder.b{res}.conv1", ci, ci, res)
+        sep(f"encoder.b{res}.conv2", ci, co, res, down=True)
+    sep("encoder.b4.conv1", nf[4], nf[4], 4)
+    sep("encoder.b4.conv2", nf[4], nf[4], 4)
+    # synthesis
+    sep("synthesis.b4.conv1", nf[4], nf[4], 4)
+    sep("synthesis.b4.conv2", nf[4], nf[4], 4)
+    B.conv("synthesis.b4.torgb", nf[4], 3, 1)
+    for i in range(n - 2, -1, -1):
+        res = resolution >> i
+        ci, co = nf[res >> 1], nf[res]
+        sep(f"synthesis.b{res}.conv1", ci, co, res >> 1, up=True, noise=True)
+        sep(f"synthesis.b{res}.conv2", co, co, res, noise=True)
+        B.conv(f"synthesis.b{res}.torgb", co, 3, 1)
+        B.dwconv(f"synthesis.b{res}.upsample.filter", 3, 4, bias=False)
+        B.p[f"synthesis.b{res}.upsample.filter_const"] = np.full((res, res), 4.0, np.float32)
+    return B.p
+
+
+def random_yolov9t_params(seed: int = 0, nc: int = 80) -> dict[str, np.ndarray]:
+    """YOLOv9t weight dict (model.0..21 + detect, BN as fused scale/shift)."""
+    B = _Builder(seed)
+
+    def cv(name, ci, co, k):
+        B.conv(f"{name}.conv", ci, co, k, bias=False)
+        B.scale_shift(f"{name}.bn", co)
+
+    def rep(name, ci, co):
+        cv(f"{name}.conv1", ci, co, 3)
+        cv(f"{name}.conv2", ci, co, 1)
+
+    def repcsp(name, ci, co, n=3, e=0.5):
+        c_ = int(co * e)
+        cv(f"{name}.cv1", ci, c_, 1)
+        cv(f"{name}.cv2", ci, c_, 1)
+        cv(f"{name}.cv3", 2 * c_, co, 1)
+        for i in range(n):
+            rep(f"{name}.m.{i}.cv1", c_, c_)
+            cv(f"{name}.m.{i}.cv2", c_, c_, 3)
+
+    def rep4(name, ci, co, c3, c4, n=3):
+        cv(f"{name}.cv1", ci, c3, 1)
+        repcsp(f"{name}.cv2.0", c3 // 2, c4, n)
+        cv(f"{name}.cv2.1", c4, c4, 3)
+        repcsp(f"{name}.cv3.0", c4, c4, n)
+        cv(f"{name}.cv3.1", c4, c4, 3)
+        cv(f"{name}.cv4", c3 + 2 * c4, co, 1)
+
+    def elan1(name, ci, co, c3, c4):
+        cv(f"{name}.cv1", ci, c3, 1)
+        cv(f"{name}.cv2", c3 // 2, c4, 3)
+        cv(f"{name}.cv3", c4, c4, 3)
+        cv(f"{name}.cv4", c3 + 2 * c4, co, 1)
+
+    def aconv(name, ci, co):
+        cv(f"{name}.cv1", ci, co, 3)
+
+    cv("model.0", 3, 16, 3)
+    cv("model.1", 16, 32, 3)
+    elan1("model.2", 32, 32, 32, 16)
+    aconv("model.3", 32, 64)
+    rep4("model.4", 64, 64, 64, 32)
+    aconv("model.5", 64, 96)
+    rep4("model.6", 96, 96, 96, 48)
+    aconv("model.7", 96, 128)
+    rep4("model.8", 128, 128, 128, 64)
+    cv("model.9.cv1", 128, 64, 1)
+    cv("model.9.cv5", 256, 128, 1)
+    rep4("model.12", 224, 96, 96, 48)
+    rep4("model.15", 160, 64, 64, 32)
+    aconv("model.16", 64, 48)
+    rep4("model.18", 144, 96, 96, 48)
+    aconv("model.19", 96, 64)
+    rep4("model.21", 192, 128, 128, 64)
+    ch = [64, 96, 128]
+    c2h = max(16, ch[0] // 4, 64)
+    c3h = max(ch[0], min(nc, 100))
+    for i, c in enumerate(ch):
+        cv(f"detect.cv2.{i}.0", c, c2h, 3)
+        cv(f"detect.cv2.{i}.1", c2h, c2h, 3)
+        B.conv(f"detect.cv2.{i}.2", c2h, 64, 1)
+        cv(f"detect.cv3.{i}.0", c, c3h, 3)
+        cv(f"detect.cv3.{i}.1", c3h, c3h, 3)
+        B.conv(f"detect.cv3.{i}.2", c3h, nc, 1)
     return B.p
 
 

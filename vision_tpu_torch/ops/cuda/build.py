@@ -103,7 +103,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.restype = i
     fn = lib.vtt_conv3x3_fwd  # each size is checked below 2^31 by the wrapper
     q, f = ctypes.c_longlong, ctypes.c_float
-    fn.argtypes = [p, q, p, p, p, q, p, q, f, p, q, f, i, f, i, i, i, i, i, i, p]
+    fn.argtypes = [p, q, p, p, p, p, p, q, p, q, f, p, q, f, i, f, i, i, i, i, i, i, p]
     fn.restype = i
     fn = lib.vtt_deform_sample_fwd  # B * Ho * Wo * kh * kw is checked below 2^31 by the wrapper
     fn.argtypes = [p, p, i, p, i, p, *([i] * 10), ctypes.c_float, i, p]

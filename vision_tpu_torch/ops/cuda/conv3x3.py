@@ -5,18 +5,26 @@ its plain PyTorch version.
 scripts/exp_pallas_conv.py (launched there through ``pl.pallas_call``):
 
     acc[n, y, x, co] = sum over dy, dx, ci of pad1(x)[n, y+dy, x+dx, ci] * w[co, ci, dy, dx]
-    out[n, y, x, co] = r2 + s2 * (r1 + s1 * act(acc + b[co]))
+    v[n, y, x, co]   = scale[co] * (acc + b[co]) + shift[co]
+    out[n, y, x, co] = r2 + s2 * act(r1 + s1 * v)
 
 with x (N, H, W, Cin) NHWC, the weight in its torch-canonical (Cout, Cin, 3,
-3) layout, ``act`` the identity or leaky ReLU (``slope``), ``b``, ``r1`` and
-``r2`` optional; the sum and the whole epilogue in f32, rounded once to x's
-type (the probe takes one (1, H, W, C) image with an HWIO weight and no
-epilogue; the kernel adds the batch axis). x, ``out``, ``r1`` and ``r2`` may
-be channel views of wider NHWC buffers (``buf[..., i:i + C]``): the kernel
-reads and writes them in place, so Real-ESRGAN's dense block needs no
-concatenation. Its consumer on the port's path is every conv of RRDBNet
-(models/esrgan.py, through ops/nn.py ``conv_3x3_fused``): 351 launches per
-forward at scale 4 with 23 blocks.
+3) layout, ``act`` the identity, leaky ReLU (``slope``) or SiLU (``silu``);
+``b``, ``scale``, ``shift`` (a fused BatchNorm), ``r1`` and ``r2`` optional;
+the sum and the whole epilogue in f32, rounded once to x's type (the probe
+takes one (1, H, W, C) image with an HWIO weight and no epilogue; the kernel
+adds the batch axis). x, ``out``, ``r1`` and ``r2`` may be channel views of
+wider NHWC buffers (``buf[..., i:i + C]``): the kernel reads and writes them
+in place, so no concatenation is needed. Its consumers on the port's paths,
+through ops/nn.py ``conv_3x3_fused``:
+
+* every conv of Real-ESRGAN's RRDBNet (models/esrgan.py): 351 launches per
+  forward at scale 4 with 23 blocks, with bias, leaky ReLU and residuals
+  (it never gives ``slope`` with ``r1``, so act's place beside r1 does not
+  matter to it);
+* YOLOv9t's 112 stride-1 3x3 convs a forward (models/yolov9t.py), each with
+  its BatchNorm and SiLU; a RepConv's 1x1 branch is ``r1``, a
+  RepBottleneck's shortcut ``r2``.
 
 The bf16 kernel (csrc/conv3x3.cu) is a persistent implicit GEMM on wgmma:
 pixel tiles 16 wide, the halo tile by TMA into an mbarrier ring that a
@@ -46,13 +54,15 @@ _INT_MAX = 2**31 - 1
 _BF16_MAX_CIN = 960
 
 
-def conv3x3_plain(x, w, b=None, *, slope=None, r1=None, s1=1.0, r2=None, s2=1.0, out=None):
+def conv3x3_plain(x, w, b=None, *, scale=None, shift=None, silu=False, slope=None, r1=None, s1=1.0, r2=None,
+                  s2=1.0, out=None):
     """The Pallas ``slices`` body in plain PyTorch, with the epilogue: nine
     tap products of the zero-padded input with ``w[:, :, dy, dx]``, each in
-    f32 from the inputs' values, summed in f32; then, in f32, ``+ b``, leaky
-    ReLU with ``slope`` (None: none), ``r1 + s1 * y``, ``r2 + s2 * y``; one
-    cast to x's type. x: (N, H, W, Cin); w: (Cout, Cin, 3, 3). Returns (N, H,
-    W, Cout), or writes it into ``out`` and returns ``out``."""
+    f32 from the inputs' values, summed in f32; then, in f32, ``+ b``, ``*
+    scale``, ``+ shift``, ``r1 + s1 * y``, the activation (leaky ReLU with
+    ``slope``, SiLU with ``silu``, else none), ``r2 + s2 * y``; one cast to
+    x's type. x: (N, H, W, Cin); w: (Cout, Cin, 3, 3). Returns (N, H, W,
+    Cout), or writes it into ``out`` and returns ``out``."""
     n, h, wd, _ = x.shape
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     wf = w.float()
@@ -62,10 +72,16 @@ def conv3x3_plain(x, w, b=None, *, slope=None, r1=None, s1=1.0, r2=None, s2=1.0,
             acc += torch.matmul(xp[:, dy : dy + h, dx : dx + wd, :].float(), wf[:, :, dy, dx].t())
     if b is not None:
         acc += b.float()
-    if slope is not None:
-        acc = torch.where(acc >= 0, acc, acc * slope)
+    if scale is not None:
+        acc *= scale.float()
+    if shift is not None:
+        acc += shift.float()
     if r1 is not None:
         acc = r1.float() + s1 * acc
+    if slope is not None:
+        acc = torch.where(acc >= 0, acc, acc * slope)
+    if silu:
+        acc = acc * torch.sigmoid(acc)
     if r2 is not None:
         acc = r2.float() + s2 * acc
     if out is None:
@@ -107,7 +123,8 @@ def _overlap(x: torch.Tensor, out: torch.Tensor) -> bool:
     return xs < end(out, os_) and os_ < end(x, xs)
 
 
-def _check(x, w, b=None, *, slope=None, r1=None, s1=1.0, r2=None, s2=1.0, out=None) -> None:
+def _check(x, w, b=None, *, scale=None, shift=None, silu=False, slope=None, r1=None, s1=1.0, r2=None, s2=1.0,
+           out=None) -> None:
     """Raise on what the kernel does not take. The device is checked last,
     so every other rule can be shown on CPU tensors."""
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
@@ -130,10 +147,15 @@ def _check(x, w, b=None, *, slope=None, r1=None, s1=1.0, r2=None, s2=1.0, out=No
         raise ValueError("conv3x3: w must be contiguous")
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("conv3x3: x and w must start on a 16-byte boundary")
-    if b is not None and (b.dtype != x.dtype or tuple(b.shape) != (cout,) or not b.is_contiguous()):
-        raise ValueError(f"conv3x3: the bias must be a contiguous ({cout},) {x.dtype} (got {tuple(b.shape)} {b.dtype})")
+    for name, v in (("the bias", b), ("scale", scale), ("shift", shift)):
+        if v is not None and (v.dtype != x.dtype or tuple(v.shape) != (cout,) or not v.is_contiguous()):
+            raise ValueError(f"conv3x3: {name} must be a contiguous ({cout},) {x.dtype} (got {tuple(v.shape)} {v.dtype})")
     if slope is not None and not isinstance(slope, (int, float)):
         raise ValueError(f"conv3x3: slope must be a number or None (got {type(slope).__name__})")
+    if not isinstance(silu, bool):
+        raise ValueError(f"conv3x3: silu must be a bool (got {silu!r})")
+    if silu and slope is not None:
+        raise ValueError("conv3x3: one activation at most: silu and a leaky ReLU slope were both given")
     want = (n, h, wd, cout)
     for name, r, s in (("r1", r1, s1), ("r2", r2, s2)):
         if r is None:
@@ -149,7 +171,7 @@ def _check(x, w, b=None, *, slope=None, r1=None, s1=1.0, r2=None, s2=1.0, out=No
         _pixel_stride(out, "out")
         if _overlap(x, out):
             raise ValueError("conv3x3: out overlaps x's channels in the same buffer")
-    others = [t for t in (b, r1, r2, out) if t is not None]
+    others = [t for t in (b, scale, shift, r1, r2, out) if t is not None]
     if not (x.is_cuda and w.device == x.device and all(t.device == x.device for t in others)):
         raise ValueError(
             f"conv3x3: x, w and the epilogue's tensors must lie on one CUDA device "
@@ -157,17 +179,20 @@ def _check(x, w, b=None, *, slope=None, r1=None, s1=1.0, r2=None, s2=1.0, out=No
         )
 
 
-def conv3x3(x, w, b=None, *, slope=None, r1=None, s1=1.0, r2=None, s2=1.0, out=None):
-    """3x3 stride-1 pad-1 conv with the epilogue ``r2 + s2 * (r1 + s1 *
-    act(conv + b))`` (see the module docstring). x: (N, H, W, Cin), w: (Cout,
-    Cin, 3, 3), b: (Cout,) or None, slope: leaky ReLU's slope or None, r1 and
-    r2: (N, H, W, Cout) or None, out: (N, H, W, Cout) or None; x, r1, r2 and
-    out may be channel views of wider buffers. Returns (N, H, W, Cout) in x's
-    type: ``out`` when given, written in place."""
+def conv3x3(x, w, b=None, *, scale=None, shift=None, silu=False, slope=None, r1=None, s1=1.0, r2=None, s2=1.0,
+            out=None):
+    """3x3 stride-1 pad-1 conv with the epilogue ``r2 + s2 * act(r1 + s1 *
+    (scale * (conv + b) + shift))`` (see the module docstring). x: (N, H, W,
+    Cin), w: (Cout, Cin, 3, 3), b, scale and shift: (Cout,) or None, slope:
+    leaky ReLU's slope or None, silu: SiLU as the activation (not with a
+    slope), r1 and r2: (N, H, W, Cout) or None, out: (N, H, W, Cout) or None;
+    x, r1, r2 and out may be channel views of wider buffers. Returns (N, H,
+    W, Cout) in x's type: ``out`` when given, written in place."""
     global launches
+    epilogue = dict(scale=scale, shift=shift, silu=silu, slope=slope, r1=r1, s1=s1, r2=r2, s2=s2, out=out)
     if x.device.type == "cpu" and w.device.type == "cpu":
-        return conv3x3_plain(x, w, b, slope=slope, r1=r1, s1=s1, r2=r2, s2=s2, out=out)
-    _check(x, w, b, slope=slope, r1=r1, s1=s1, r2=r2, s2=s2, out=out)
+        return conv3x3_plain(x, w, b, **epilogue)
+    _check(x, w, b, **epilogue)
     from .build import load_library
 
     lib = load_library()
@@ -179,10 +204,11 @@ def conv3x3(x, w, b=None, *, slope=None, r1=None, s1=1.0, r2=None, s2=1.0, out=N
     ps = lambda t: 0 if t is None else t.stride(2)  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        act = 2 if silu else int(slope is not None)
         err = lib.vtt_conv3x3_fwd(
-            x.data_ptr(), x.stride(2), w.data_ptr(), ptr(b), out.data_ptr(), out.stride(2),
+            x.data_ptr(), x.stride(2), w.data_ptr(), ptr(b), ptr(scale), ptr(shift), out.data_ptr(), out.stride(2),
             ptr(r1), ps(r1), float(s1), ptr(r2), ps(r2), float(s2),
-            int(slope is not None), float(slope or 0.0), n, h, wd, cin, cout, _DTYPES[x.dtype], stream,
+            act, float(slope or 0.0), n, h, wd, cin, cout, _DTYPES[x.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"conv3x3: kernel launch failed with cudaError {err}")

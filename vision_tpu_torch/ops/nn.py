@@ -18,7 +18,7 @@ raising: a product runs in the promoted type of its operands and its result
 takes the activation's (or q's) type, so f32 prompts through bf16 weights
 stay f32, as they do in the JAX package's SAM decoder.
 
-LoRA adapters and average pooling wait for the slices that use them.
+LoRA adapters wait for the port's training work.
 """
 
 from __future__ import annotations
@@ -46,8 +46,13 @@ __all__ = [
     "attention_windows",
     "attention",
     "gelu",
+    "gelu_erf",
+    "gelu_tanh",
     "leaky_relu",
+    "silu",
     "max_pool_2d",
+    "avg_pool_2d",
+    "pad_nhwc",
     "relu",
     "sigmoid",
 ]
@@ -59,8 +64,18 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+gelu_tanh = gelu  # explicit-name alias, as in the JAX package
+
+
+def gelu_erf(x: torch.Tensor) -> torch.Tensor:
+    """The exact erf form (torch's nn.GELU default), as the JAX package's
+    ``jax.nn.gelu(approximate=False)``."""
+    return F.gelu(x)
+
+
 relu = torch.relu
 sigmoid = torch.sigmoid
+silu = F.silu  # x * sigmoid(x), as jax.nn.silu
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
@@ -139,24 +154,36 @@ def conv_3x3(p: Params, x: torch.Tensor) -> torch.Tensor:
     tensor, its plain version on a CPU one). As the JAX package's
     ``conv_2d(p, x, 1, 1)``, except that the bias joins the f32 sum before
     the one rounding to x's type (the JAX package rounds the conv, then adds
-    the bias in x's type). The other families keep :func:`conv_2d`."""
+    the bias in x's type). Real-ESRGAN's and YOLOv9t's stride-1 3x3 convs
+    take this kernel (through :func:`conv_3x3_fused`); the other families
+    keep :func:`conv_2d`."""
     return conv_3x3_fused(p, x.contiguous())
 
 
-def conv_3x3_fused(p: Params, x: torch.Tensor, *, slope=None, r1=None, s1: float = 1.0, r2=None,
-                   s2: float = 1.0, out=None) -> torch.Tensor:
-    """:func:`conv_3x3` with the kernel's epilogue: ``r2 + s2 * (r1 + s1 *
-    act(conv + bias))`` in f32, rounded once to x's type; ``act`` is leaky
-    ReLU with ``slope`` (None: the identity), r1 and r2 are optional. x, r1,
-    r2 and ``out`` may be channel views of wider NHWC buffers; with ``out``
-    the result is written there. Real-ESRGAN's convs take this path."""
+def conv_3x3_fused(p: Params, x: torch.Tensor, *, bn: Params | None = None, silu: bool = False, slope=None,
+                   r1=None, s1: float = 1.0, r2=None, s2: float = 1.0, out=None) -> torch.Tensor:
+    """:func:`conv_3x3` with the kernel's epilogue: ``r2 + s2 * act(r1 + s1
+    * (scale * (conv + bias) + shift))`` in f32, rounded once to x's type.
+    ``bn`` is a BatchNorm fused at conversion (its ``weight`` is the scale,
+    its ``bias`` the shift, as :func:`batch_norm_2d`); ``act`` is SiLU with
+    ``silu``, leaky ReLU with ``slope``, else the identity; r1 and r2 are
+    optional. x, r1, r2 and ``out`` may be channel views of wider NHWC
+    buffers; with ``out`` the result is written there. Real-ESRGAN's convs
+    (bias, leaky ReLU, residuals) and YOLOv9t's stride-1 3x3 convs (BN,
+    SiLU, a RepConv's 1x1 branch as r1, a bottleneck's shortcut as r2) take
+    this path."""
     from .cuda.conv3x3 import conv3x3
 
     w = p.weight("weight")
     if w.ndim != 4 or tuple(w.shape[2:]) != (3, 3):
         raise ValueError(f"conv_3x3: the weight must be (O, I, 3, 3) (got {tuple(w.shape)})")
-    b = p.find("bias")
-    return conv3x3(x, w.to(x.dtype).contiguous(), None if b is None else b.to(x.dtype).contiguous(),
+    vec = lambda t: None if t is None else t.to(x.dtype).contiguous()  # noqa: E731
+    scale = shift = None
+    if bn is not None:
+        if bn.find("running_mean") is not None or bn.find("running_var") is not None:
+            raise_error("batch norm was not fused at conversion (running stats present)")
+        scale, shift = vec(bn.weight("weight")), vec(bn.weight("bias"))
+    return conv3x3(x, w.to(x.dtype).contiguous(), vec(p.find("bias")), scale=scale, shift=shift, silu=silu,
                    slope=slope, r1=r1, s1=s1, r2=r2, s2=s2, out=out)
 
 
@@ -362,3 +389,26 @@ def max_pool_2d(x: torch.Tensor, kernel: int, stride: int | None = None, pad: in
         x = F.pad(x, (0, 0, pad, pad, pad, pad), value=torch.finfo(x.dtype).min)
     y = x.unfold(1, kernel, stride).unfold(2, kernel, stride)  # (N, Ho, Wo, C, k, k)
     return y.amax(dim=(-2, -1))
+
+
+def avg_pool_2d(x: torch.Tensor, kernel: int, stride: int | None = None, pad: int = 0,
+                count_include_pad: bool = True) -> torch.Tensor:
+    """NHWC average pool (a port of the JAX package's ops/nn.py:410-431): the
+    window sums in f32, over kernel^2 (with ``count_include_pad``, or no
+    padding) or over the window's cells inside the input; windows only where
+    they fit whole in the padded input; one cast back to x's type. YOLOv9t's
+    AConv calls it with kernel 2, stride 1."""
+    stride = stride or kernel
+    xf = F.pad(x.float(), (0, 0, pad, pad, pad, pad)) if pad else x.float()
+    summed = xf.unfold(1, kernel, stride).unfold(2, kernel, stride).sum(dim=(-2, -1))
+    if count_include_pad or pad == 0:
+        out = summed / (kernel * kernel)
+    else:
+        ones = F.pad(x.new_ones((1, *x.shape[1:3], 1), dtype=torch.float32), (0, 0, pad, pad, pad, pad))
+        out = summed / ones.unfold(1, kernel, stride).unfold(2, kernel, stride).sum(dim=(-2, -1))
+    return out.to(x.dtype)
+
+
+def pad_nhwc(x: torch.Tensor, pad_h: tuple[int, int], pad_w: tuple[int, int], value: float = 0.0) -> torch.Tensor:
+    """Constant padding of H and W (the JAX package's ops/nn.py:434)."""
+    return F.pad(x, (0, 0, pad_w[0], pad_w[1], pad_h[0], pad_h[1]), value=value)

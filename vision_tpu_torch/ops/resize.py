@@ -21,7 +21,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-__all__ = ["resize_nhwc", "resize_matrix"]
+__all__ = ["resize_nhwc", "resize_matrix", "interpolate"]
 
 
 def _nearest_indices(n_in: int, n_out: int) -> np.ndarray:
@@ -160,3 +160,9 @@ def resize_nhwc(
     out = torch.einsum("ow,nhwc->nhoc", wx, out)
     out = out.to(dt)
     return out[0] if squeeze else out
+
+
+def interpolate(x: torch.Tensor, size: tuple[int, int], mode: str = "bilinear", align_corners: bool = False):
+    """Alias mirroring the reference's ``interpolate`` sugar (ml.cpp:782-788),
+    as the JAX package's ops/resize.py:164."""
+    return resize_nhwc(x, size, mode, align_corners)

@@ -14,16 +14,23 @@ Two layers:
   returns immediately; a batch worker thread drains the queue, groups items
   that share a shape bucket, and runs the supplied batch function.
 * :class:`ImageServer` — whole-image serving for
-  :class:`~vision_tpu_torch.models.depth_anything.DepthAnythingModel` and
-  :class:`~vision_tpu_torch.models.birefnet.BirefnetModel`.
+  :class:`~vision_tpu_torch.models.depth_anything.DepthAnythingModel`,
+  :class:`~vision_tpu_torch.models.birefnet.BirefnetModel` and
+  :class:`~vision_tpu_torch.models.migan.MiganModel` (``(image, mask)``
+  requests).
 * :class:`SamServer` — promptable segmentation on a
   :class:`~vision_tpu_torch.models.mobile_sam.SamModel`: each group is encoded
   and decoded in one eager pass on the card.
 * :class:`EsrganServer` — whole-image super-resolution on an
   :class:`~vision_tpu_torch.models.esrgan.EsrganModel`: each same-extent
   group is one batched RRDBNet forward.
+* :class:`YoloServer` — object detection on a
+  :class:`~vision_tpu_torch.models.yolov9t.Yolov9tModel`: the letterboxed
+  group is one forward with the top-K candidate extraction on the card, NMS
+  on the host per request.
 
-The other families of the JAX package's servers arrive with their slices.
+Meshes (the JAX package's ``_run_sharded``) wait for the port's parallel
+work.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ import torch
 
 from .image import Image, ImageFormat, image_scale, preprocess_scale_method
 
-__all__ = ["BatchServer", "ServerStats", "ImageServer", "SamServer", "EsrganServer"]
+__all__ = ["BatchServer", "ServerStats", "ImageServer", "SamServer", "EsrganServer", "YoloServer"]
 
 _LATENCY_WINDOW = 4096  # most recent request latencies kept for percentiles
 
@@ -315,7 +322,7 @@ class BatchServer:
                     self._dispatch(bucket[i : i + self.batch_size])
 
 
-def _dummy_image(extent):
+def _dummy_image(extent=(64, 64)):
     """Zero image for server warmup requests (extent = (width, height))."""
     w, h = extent
     return Image(np.zeros((h, w, 4), np.uint8), ImageFormat.rgba_u8)
@@ -331,24 +338,24 @@ def _resolve_batch(batch_size: int | None, per_chip_default: int) -> int:
     return batch_size
 
 
-# the JAX package's ImageServer families that wait for their slices
-_LATER_SLICES = {"MiganModel": "MI-GAN"}
-_IMAGE_FAMILIES = ("BirefnetModel", "DepthAnythingModel")
+_IMAGE_FAMILIES = ("BirefnetModel", "DepthAnythingModel", "MiganModel")
 
 
 class ImageServer:
-    """Batched serving for the whole-image model families; in the port so
-    far, :class:`~vision_tpu_torch.models.depth_anything.DepthAnythingModel`
-    and :class:`~vision_tpu_torch.models.birefnet.BirefnetModel`.
+    """Batched serving for the whole-image model families:
+    :class:`~vision_tpu_torch.models.depth_anything.DepthAnythingModel`,
+    :class:`~vision_tpu_torch.models.birefnet.BirefnetModel` and
+    :class:`~vision_tpu_torch.models.migan.MiganModel`.
 
     N concurrent requests at one processed extent run as ONE batched
     forward (the reference handles these families strictly one request at a
-    time, ``vision.cpp:97-168``). A request is an
-    :class:`~vision_tpu_torch.image.Image`; the result, at the request's own
-    extent, is the min-max normalized depth (``alpha_f32``) for
-    Depth-Anything and the ``alpha_u8`` matte for BiRefNet. Every group is
-    padded to ``batch_size`` with its first item, so each extent bucket runs
-    one batch shape.
+    time, ``vision.cpp:97-205``). A request is an
+    :class:`~vision_tpu_torch.image.Image`; MI-GAN takes ``(image, mask)``.
+    The result, at the request's own extent, is the min-max normalized depth
+    (``alpha_f32``) for Depth-Anything, the ``alpha_u8`` matte for BiRefNet
+    and the inpainted ``rgba_u8`` image with the mask as alpha for MI-GAN.
+    Every group is padded to ``batch_size`` with its first item, so each
+    extent bucket runs one batch shape.
     """
 
     def __init__(
@@ -360,11 +367,6 @@ class ImageServer:
         max_pixels: int = 4 * 1024 * 1024,
     ):
         kind = type(model).__name__
-        if kind in _LATER_SLICES:
-            raise TypeError(
-                f"ImageServer does not serve {kind} yet: it arrives with the port's "
-                f"{_LATER_SLICES[kind]} slice"
-            )
         if kind not in _IMAGE_FAMILIES:
             raise TypeError(f"ImageServer does not support {kind}")
         batch_size = _resolve_batch(batch_size, 4)
@@ -372,8 +374,8 @@ class ImageServer:
         self.kind = kind
         self.batch_size = batch_size
         # depth-anything snaps its processed extent UP from the input, so an
-        # unguarded huge upload would run a one-off giant batch; birefnet
-        # resizes to its fixed extent but still pays host-side prep
+        # unguarded huge upload would run a one-off giant batch; birefnet and
+        # migan resize to fixed extents but still pay host-side prep
         # proportional to the upload
         self.max_pixels = max_pixels
         self._server = BatchServer(
@@ -385,13 +387,27 @@ class ImageServer:
             prep_workers=prep_workers,
         )
 
-    # prepared item = (u8 input array, processed extent, original request)
-    def _prepare(self, image):
+    # prepared item = (u8 input array [, u8 mask array], processed extent, original request)
+    def _prepare(self, request):
+        image = request[0] if isinstance(request, tuple) else request
         if image.width * image.height > self.max_pixels:
             raise ValueError(
                 f"input {image.width}x{image.height} exceeds the server's "
                 f"max_pixels ({self.max_pixels}); resize client-side or raise the cap"
             )
+        if self.kind == "MiganModel":
+            from .models.migan import _mask_u8
+
+            image, mask = request
+            res = (self.model.p.resolution, self.model.p.resolution)
+            # reduce to RGB BEFORE any resize: stb's resize premultiplies
+            # alpha, and a request's alpha channel is not MI-GAN's mask;
+            # premultiplying would black out the region to keep
+            if image.channels == 4:
+                image = Image(image.to_rgb_u8(), ImageFormat.rgb_u8)
+            img_r = image if image.extent == res else image_scale(image, res, preprocess_scale_method())
+            mask_r = mask if mask.extent == res else image_scale(mask, res, preprocess_scale_method())
+            return (img_r.to_rgb_u8(), _mask_u8(mask_r.data), res, request)
         if self.kind == "BirefnetModel":
             from .models.birefnet import birefnet_image_extent
 
@@ -404,14 +420,19 @@ class ImageServer:
         return (img.to_rgb_u8(), extent, image)
 
     def _run_group(self, items: list):
+        n = len(items)
+        padded = items + [items[0]] * (self.batch_size - n)
+        x = torch.from_numpy(np.stack([it[0] for it in padded]))
+        if self.kind == "MiganModel":
+            from .models.migan import migan_process_output
+
+            m = torch.from_numpy(np.stack([it[1] for it in padded]))
+            y = self.model.forward_u8(x, m)[:n].float().cpu().numpy()
+            return [migan_process_output(yi, img, mask) for yi, (_, _, _, (img, mask)) in zip(y, items)]
         if self.kind == "BirefnetModel":
             from .models.birefnet import birefnet_process_output as post
         else:
             from .models.depth_anything import depthany_process_output as post
-
-        n = len(items)
-        padded = items + [items[0]] * (self.batch_size - n)
-        x = torch.from_numpy(np.stack([it[0] for it in padded]))
         y = self.model.forward_u8(x)[:n].float().cpu().numpy()
         return [post(yi, it[2].extent) for yi, it in zip(y, items)]
 
@@ -419,7 +440,14 @@ class ImageServer:
         """Run one padded batch before taking traffic (the first launch
         builds the kernel library). Default extent: the model's canonical
         inference size (BiRefNet's ``p.image_extent``; Depth-Anything's own
-        snap target, image_size squared)."""
+        snap target, image_size squared); MI-GAN warms its resolution with
+        a zero mask."""
+        if self.kind == "MiganModel":
+            res = (self.model.p.resolution, self.model.p.resolution)
+            mask = Image(np.zeros((res[1], res[0], 1), np.uint8), ImageFormat.alpha_u8)
+            _warmup_wait([self.submit((_dummy_image(res), mask))], "migan")
+            self.stats.reset()
+            return
         if extent is None:
             if self.kind == "BirefnetModel":
                 extent = self.model.p.image_extent
@@ -617,6 +645,116 @@ class EsrganServer:
 
     def compute(self, image):
         return self.submit(image).result()
+
+    @property
+    def stats(self) -> ServerStats:
+        return self._server.stats
+
+    def close(self):
+        self._server.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class YoloServer:
+    """Concurrent object detection on a Yolov9tModel.
+
+    Every request letterboxes to the model's square input size, so all
+    requests share one bucket and one batch shape; the group runs as one
+    forward (the detection DAG on the card), then the candidate extraction
+    on the card: per image, the top-K anchors by their best class score
+    (``torch.topk``), their indices sorted back into anchor order (NMS
+    breaks score ties by candidate order, which must match the unbatched
+    ``compute``), and their boxes and scores gathered, so only K x (4 + nc)
+    floats an image cross to the host. NMS and the box un-letterbox run on
+    the host per request, with per-request thresholds. Results are lists of
+    :class:`~vision_tpu_torch.models.yolov9t.Detection`.
+
+    Where scores tie at the K-th place, ``torch.topk`` and the JAX package's
+    ``jax.lax.top_k`` may keep different anchors; K bounds the candidates
+    NMS sees, so with very low ``conf_thres`` (below ~0.05) raise
+    ``max_candidates``.
+    """
+
+    def __init__(self, model, batch_size: int | None = 8, max_delay_ms: float = 2.0, prep_workers: int = 2,
+                 conf_thres: float = 0.25, iou_thres: float = 0.45, max_candidates: int = 1024):
+        if type(model).__name__ != "Yolov9tModel":
+            raise TypeError(f"YoloServer serves a Yolov9tModel, got {type(model).__name__}")
+        # 8: YOLOv9t at 640 is small enough that deeper batches amortize the
+        # launches without memory pressure (the JAX package's default)
+        batch_size = _resolve_batch(batch_size, 8)
+        self.model = model
+        self.batch_size = batch_size
+        self.conf_thres = conf_thres
+        self.iou_thres = iou_thres
+        n_anchors = sum((model.p.input_size // st) ** 2 for st in (8, 16, 32))
+        self.k = min(max_candidates, n_anchors)
+        self._server = BatchServer(
+            self._run_group,
+            batch_size=batch_size,
+            max_delay_ms=max_delay_ms,
+            bucket_key=lambda it: it[0].shape,
+            prepare=self._prepare,
+            prep_workers=prep_workers,
+        )
+
+    def candidates(self, x_u8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The batched forward and the top-K extraction on the card: (B, K, 4)
+        boxes and (B, K, nc) scores, f32, anchors in their order."""
+        out = self.model.forward_u8(x_u8)
+        with torch.inference_mode():
+            idx = torch.topk(out.scores.amax(dim=-1), self.k, dim=-1).indices.sort(dim=-1).values
+            boxes = torch.gather(out.boxes, 1, idx[..., None].expand(-1, -1, out.boxes.shape[-1]))
+            scores = torch.gather(out.scores, 1, idx[..., None].expand(-1, -1, out.scores.shape[-1]))
+        return boxes, scores
+
+    # request = image | (image, conf, iou); prepared item =
+    # (letterboxed u8 array, (original extent, gain, dw, dh), conf, iou)
+    def _prepare(self, request):
+        from .models.yolov9t import letterbox
+
+        conf, iou = self.conf_thres, self.iou_thres
+        if isinstance(request, tuple):
+            request, conf, iou = request
+        arr, gain, dw, dh = letterbox(request, self.model.p.input_size)
+        return (arr, (request.extent, gain, dw, dh), conf, iou)
+
+    def _run_group(self, items: list):
+        from .models.yolov9t import non_max_suppression, scale_boxes
+
+        n = len(items)
+        padded = items + [items[0]] * (self.batch_size - n)
+        b_dev, s_dev = self.candidates(torch.from_numpy(np.stack([it[0] for it in padded])))
+        boxes, scores = b_dev[:n].cpu().numpy(), s_dev[:n].cpu().numpy()
+        results = []
+        for b, s, (_, (extent, gain, dw, dh), conf, iou) in zip(boxes, scores, items):
+            results.append(scale_boxes(non_max_suppression(b, s, conf, iou), extent, gain, dw, dh))
+        return results
+
+    def warmup(self) -> None:
+        """Run one padded batch before taking traffic (the first launch
+        builds the kernel library; letterbox gives every request the same
+        bucket), then reset the stats."""
+        _warmup_wait([self.submit(_dummy_image())], "yolov9t")
+        self.stats.reset()
+
+    def submit(self, image, conf_thres=None, iou_thres=None) -> Future:
+        """Per-request thresholds override the server's (NMS runs on the host
+        per request, so mixed thresholds batch together)."""
+        if conf_thres is None and iou_thres is None:
+            return self._server.submit(image)
+        return self._server.submit((
+            image,
+            self.conf_thres if conf_thres is None else conf_thres,
+            self.iou_thres if iou_thres is None else iou_thres,
+        ))
+
+    def compute(self, image, conf_thres=None, iou_thres=None):
+        return self.submit(image, conf_thres, iou_thres).result()
 
     @property
     def stats(self) -> ServerStats:
