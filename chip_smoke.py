@@ -20,8 +20,10 @@ Phases, each raising on failure:
      at every TinyViT and SWIN-L stage (two waves of the card at least);
   4. the Depth-Anything path: a Depth-Anything-V2-Small GGUF with random
      weights (seed 0) is written, loaded with depthany_load_model and served
-     through ImageServer (batch 4): 8 requests in two extent buckets; the
-     kernels' launch counts are zeroed just before and read just after;
+     through ImageServer (batch 4): 8 requests in two extent buckets, each
+     bucket's CUDA graph captured by a warmup first (a capture's eager
+     warm-up forward launches the kernels too); the kernels' launch counts
+     are zeroed just before and read just after;
   5. Depth-Anything parity: one request's raw depth on the card (bf16, kernel
      route) against the same port's f32 forward on the CPU (plain route);
   6. Depth-Anything timings, each beside the card name and power limit: the
@@ -57,8 +59,9 @@ Phases, each raising on failure:
      full RealESRGAN-x4 RRDBNet: nf 64, gc 32, 23 blocks) is written, loaded
      with esrgan_load_model on the card and on the CPU, 6 requests (4 at
      256x256, 2 at 320x240) are served through EsrganServer (batch 4), and
-     one 640x480 image goes through EsrganModel.compute's tiles, the counts
-     zeroed just before and read just after each;
+     one 640x480 image goes through EsrganModel.compute's tiles, each
+     shape's graph captured first, the counts zeroed just before and read
+     just after each;
  12. Real-ESRGAN parity on a crop of one request: the card's bf16 float
      output against the CPU's f32, stage by stage in esrgan_generate's
      structure (each RRDB on its dense-block buffers, the biases, leaky
@@ -108,7 +111,8 @@ Phases, each raising on failure:
      the port never makes) and the parent's route (the column sampler, then
      torch.matmul), and the sampler alone; the masked window kernel against
      SDPA given the combined mask (the card's own time, and per call);
-     forward_u8 at 1024x1024 batch 1 and 4 with the peak memory of each;
+     forward_u8 at 1024x1024 batch 1 and 4 with the peak memory of each
+     (the eager forward's: a replay allocates only its output);
      the served numbers; and a torch.profiler trace of a batch-4 forward;
  18. the flash kernel's head-dim-80 instance against its plain version, in
      bf16 and f32: SAM3's global layers at batch 1 and 4 ((16 or 64, 5184,
@@ -137,7 +141,7 @@ Phases, each raising on failure:
      RoPE, the weight products) by the card's own time;
  22. the conv3x3 kernel with YOLOv9t's epilogue forms against its plain
      version: every distinct stride-1 3x3 call of a batch-8 640x640
-     forward (recorded from the forward itself: Cin and Cout 16 to 128,
+     forward (recorded from the eager forward itself: Cin and Cout 16 to 128,
      Cout 80 in 32-channel splits, at 160^2, 80^2, 40^2 and 20^2) in bf16
      with its BN + SiLU, the RepConv's 1x1 branch as r1, the shortcut as
      r2 and the views it reads and writes (channels outside the written
@@ -163,7 +167,29 @@ Phases, each raising on failure:
      112 convs; YOLOv9t forward_u8 at 640x640 batch 1 and 8; a profile of
      the batch-8 forward; the host's letterbox and NMS per request; the
      served numbers; MI-GAN forward_u8 at 512x512 batch 1 and 4, a
-     profile, and the served numbers.
+     profile, and the served numbers;
+ 27. CUDA graphs (core/graph.py): the six families' random full-width GGUFs
+     are written once (the writers above) and loaded with load_model; each
+     of the five graphed forward_u8s (Depth-Anything 518^2, BiRefNet 1024^2,
+     Real-ESRGAN 256^2 with its float output, MI-GAN 512^2, YOLOv9t 640^2),
+     at its server's batch and then at batch 1: the replay against the eager
+     forward (_forward_u8; max abs difference, 0 expected), the first
+     call's ms (eager warm-up, capture, replay) and launches (twice a
+     forward's), the graph pool's MiB before and after the capture beside
+     the eager forward's peak allocation and its memory in a fresh pool of
+     its own (the second capture must grow the shared pool by less than
+     its eager peak), the median ms of eager and replay, and a profile of
+     one replay (device busy, idle share of the replay median, launches per
+     hand-written kernel, which must equal what the counters added);
+ 28. the CLI: python -m vision_tpu_torch.cli as a subprocess for depthany,
+     birefnet --composite, esrgan --tile 224, migan, yolov9t and sam on a
+     640x480 PNG (and a mask), each output PNG equal to the in-process
+     model.compute on the card (the composite and yolov9t's detection count
+     too), then info and compare; each verb's wall seconds; then
+     --composite's foreground estimate at 1024x1024, radius 30, through the
+     host-ops library and through its numpy forms, timed on the host;
+ 29. the served phases' p50s (their forwards now graph replays) and the
+     graphs' eager against replay ms.
 
 The line before the last is a JSON object describing every kernel of the
 paths; the last line is {"ok": true, "device": {...}}.
@@ -705,24 +731,41 @@ def profile_forward(model, x, torch, card: str, names=("conv3x3",)) -> dict:
     return profile_run(lambda: model.forward_u8(x), f"forward_u8 {tuple(x.shape)}", torch, card, names)
 
 
-def profile_run(run, label: str, torch, card: str, names=("conv3x3",)) -> dict:
+def profile_run(run, label: str, torch, card: str, names=("conv3x3",), counts=None) -> dict:
     """Where one call of ``run`` spends its time, from a torch.profiler
     trace: device busy time (the sum of kernel times), the host's wall
     time, the idle share, the share of each named hand-written kernel, the
     launches of every other kernel, and the heaviest kernels. Returns the
-    busy ms, wall ms, the named kernels' ms and the other launches."""
+    busy ms, wall ms, the named kernels' ms and launches, the other
+    launches, and with ``counts`` (a callable that reads the launch
+    counters) what the counters added during the profiled call. The
+    profiler traces one call as a warm-up step first and keeps the second:
+    right after it starts, the tracer can drop the first records of a burst
+    (a CUDA graph's replay sends its kernels at once), about ten on the
+    card (measured on one H100)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+        before = counts() if counts else {}
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        counted = {k: v - before[k] for k, v in counts().items() if v != before[k]} if counts else {}
+        prof.step()
+    # the schedule's step annotation spans the step on the device too: not a kernel
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms <= 0:
+        raise AssertionError(f"profile of one {label}: the profiler recorded no device time")
     shares, named_ms = [], {}
     for name in names:
         ms = sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
@@ -735,7 +778,9 @@ def profile_run(run, label: str, torch, card: str, names=("conv3x3",)) -> dict:
           flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}", flush=True)
-    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "named_ms": named_ms, "other_launches": others}
+    named_launches = {name: sum(e.count for e in kernels if name in e.key) for name in names}
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "named_ms": named_ms, "named_launches": named_launches,
+            "other_launches": others, "counted": counted}
 
 
 def esrgan_stages(params, x_u8, p, dtype, device):
@@ -1934,7 +1979,7 @@ def yolo_migan_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
         cpu_ymodel = yolov9t_load_model(path, backend_init("cpu"))
     yp = ymodel.p
     x8 = torch.from_numpy(yrng.integers(0, 256, (YOLO_BATCH, yp.input_size, yp.input_size, 3), np.uint8)).cuda()
-    shapes = yolo_shapes(yolo_conv_calls(cc, lambda: ymodel.forward_u8(x8)))
+    shapes = yolo_shapes(yolo_conv_calls(cc, lambda: ymodel._forward_u8(x8)))
     torch.cuda.synchronize()
 
     phase("22 conv3x3 kernel with YOLOv9t's epilogue forms (BN, SiLU, r1, r2, views) against its plain version")
@@ -2122,7 +2167,326 @@ def yolo_migan_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
     del ymodel, mmodel, x8, mx, mm
     torch.cuda.empty_cache()
     return {"worst": conv_worst, "conv": conv, "launches_per_forward": got["conv3x3"] // y_batches,
-            "forward_ms": y_fwd, "profile": y_profile, "migan_forward_ms": m_fwd, "migan_profile": m_profile}
+            "forward_ms": y_fwd, "profile": y_profile, "migan_forward_ms": m_fwd, "migan_profile": m_profile,
+            "p50_ms": y_p50, "migan_p50_ms": m_p50}
+
+
+# the front door (phases 27-29): each graphed forward at its smoke size, at
+# its server's batch and then batch 1 (the second graph shares the first's
+# pool, whose free blocks are large enough for it); the hand-written kernels
+# a forward launches (family, batches, per-image input shapes, forward
+# flags); Real-ESRGAN's float output, since its u8 output is all 0 with these
+# random weights
+GRAPH_CASES = (
+    ("depthany", (4, 1), ((518, 518, 3),), {}),
+    ("birefnet", (4, 1), ((1024, 1024, 3),), {}),
+    ("esrgan", (4, 1), ((256, 256, 3),), {"to_u8": False}),
+    ("migan", (MIGAN_BATCH, 1), ((MIGAN_RES, MIGAN_RES, 3), (MIGAN_RES, MIGAN_RES, 1)), {}),
+    ("yolov9t", (YOLO_BATCH, 1), ((640, 640, 3),), {}),
+)
+GRAPH_KERNELS = {  # family -> {counter: launches a forward}
+    "depthany": {"flash": 12},
+    "birefnet": {"window": BIREF_WINDOWS, "deform_conv": BIREF_DEFORMS},
+    "esrgan": {"conv3x3": ESRGAN_CONVS},
+    "migan": {},
+    "yolov9t": {"conv3x3": YOLO_CONVS},
+}
+# the kernel names of the counters, as the profiler shows them (substrings)
+COUNTER_KERNELS = {"flash": "flash_attention", "window": "window_attention", "conv3x3": "conv3x3",
+                   "deform_conv": "deform_conv", "deform_sample": "deform_sample"}
+CLI_EXTENT = (640, 480)  # the CLI phase's input image (w, h): ESRGAN cuts it into 224-pixel tiles
+HOST_OPS_CASE = ((1024, 1024), 30)  # --composite's foreground estimate: BiRefNet's extent, the CLI's radius
+
+
+def pool_mib(torch, pool) -> float:
+    """The device memory of the CUDA-graph pool ``pool`` (the segments the
+    caching allocator holds for it), in MiB."""
+    if pool is None:
+        return 0.0
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == tuple(pool)) / 2**20
+
+
+def front_door_ggufs(tmp: str) -> dict:
+    """The six served families' random full-width GGUFs (the writers of the
+    earlier phases) in ``tmp``: family -> path."""
+    writers = {"depthany": write_small_gguf, "birefnet": write_birefnet_gguf, "esrgan": write_esrgan_gguf,
+               "migan": write_migan_gguf, "yolov9t": write_yolo_gguf, "sam": write_sam_gguf}
+    paths = {}
+    for family, write in writers.items():
+        paths[family] = os.path.join(tmp, f"{family}.gguf")
+        write(paths[family])
+    return paths
+
+
+def graph_case(torch, card: str, family: str, model, xs: list, flags: dict, counts) -> dict:
+    """One forward_u8 key of ``model``: the eager forward (``_forward_u8``)
+    first, with the memory it allocates at its peak, and once more in a
+    fresh memory pool of its own, whose size is what the caching allocator
+    reserves for one eager forward from nothing (a graph's first capture
+    into an empty pool starts from nothing too); then the
+    first forward_u8 call (warm-up, capture, replay) with its ms and
+    launches, the replay against the eager output, the graph pool's MiB
+    before and after the capture, the median ms of eager and replay, and a
+    profile of one replay whose launches per hand-written kernel must equal
+    what the counters added. The idle share is the replay median's time
+    outside the profiled busy time (the profiler's own wall is longer: it
+    traces every kernel of the graph).
+
+    A capture into a pool that already holds another graph of the model
+    must grow it by no more than the forward's eager peak allocation: the
+    graphs share the pool's free blocks (captured on one stream), so a
+    pool holds about its largest graph, not the sum of them."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eager = model._forward_u8(*xs, **flags)
+    torch.cuda.synchronize()
+    eager_peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    fresh = torch.cuda.MemPool()
+    with torch.cuda.use_mem_pool(fresh):
+        model._forward_u8(*xs, **flags)  # its output is freed at once; the constants exist already
+    torch.cuda.synchronize()
+    eager_reserved_mib = pool_mib(torch, fresh.id)
+    del fresh
+    torch.cuda.empty_cache()
+    pool_before = pool_mib(torch, model.graphs.pool)
+    c0 = counts()
+    t0 = time.perf_counter()
+    out = model.forward_u8(*xs, **flags)
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    capture_launches = {k: v - c0[k] for k, v in counts().items() if v != c0[k]}
+    pairs = list(zip(out, eager)) if isinstance(out, tuple) else [(out, eager)]
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+    rms = max(rel_rms_t(a.float(), b.float()) for a, b in pairs)
+    eager_ms = median_ms(lambda: model._forward_u8(*xs, **flags), 10, warmup=1)
+    replay_ms = median_ms(lambda: model.forward_u8(*xs, **flags), 10, warmup=1)
+    label = f"{family} forward_u8 {tuple(xs[0].shape)}"
+    names = tuple(COUNTER_KERNELS[k] for k in GRAPH_KERNELS[family])
+    want = dict(GRAPH_KERNELS[family])
+    # the tracer can drop records of a replay's burst even past its warm-up
+    # step (one flash launch of 12 once in ~30 profiles on the card); it never
+    # adds any, so a profile short of the counters is taken again, up to
+    # three times, and one that matches shows what a replay launched
+    for attempt in range(3):
+        prof = profile_run(lambda: model.forward_u8(*xs, **flags), f"replay of {label}", torch, card, names,
+                           counts=counts)
+        short = {k: n for k, n in want.items() if prof["named_launches"].get(COUNTER_KERNELS[k], 0) < n}
+        if not short:
+            break
+        print(f"{label}: profile {attempt + 1} recorded fewer launches of {sorted(short)} than one replay makes "
+              f"({prof['named_launches']} against the counters' {prof['counted']})", flush=True)
+    row = {"capture_ms": capture_ms, "eager_ms": eager_ms, "replay_ms": replay_ms, "max_abs_diff": diff,
+           "rel_rms": rms, "pool_before_mib": pool_before, "pool_mib": pool_mib(torch, model.graphs.pool),
+           "eager_peak_mib": eager_peak_mib, "eager_reserved_mib": eager_reserved_mib, "busy_ms": prof["busy_ms"],
+           "idle": max(0.0, 1 - prof["busy_ms"] / replay_ms),
+           "launches": prof["named_launches"], "counted": prof["counted"]}
+    print(f"{label}: replay vs eager max abs difference {diff:.4e} (relative RMS {rms:.4e}); first call (eager "
+          f"warm-up + capture + replay) {capture_ms:.3f} ms with launches {capture_launches}; graph pool "
+          f"{pool_before:.1f} -> {row['pool_mib']:.1f} MiB (the eager forward allocates {eager_peak_mib:.1f} MiB at "
+          f"its peak and reserves {eager_reserved_mib:.1f} MiB in a fresh pool); median "
+          f"eager {eager_ms:.3f} ms, replay {replay_ms:.3f} ms; one replay: device busy {row['busy_ms']:.3f} ms, "
+          f"idle share {row['idle']:.2%} of the replay median, hand-written launches by the profiler "
+          f"{prof['named_launches']}, by the counters {prof['counted']} [{card}]", flush=True)
+    by_profile = {k: prof["named_launches"].get(COUNTER_KERNELS[k], 0) for k in want}
+    counted = {k: prof["counted"].get(k, 0) for k in want}
+    if by_profile != want or counted != want or set(prof["counted"]) - set(want):
+        raise AssertionError(f"{label}: one replay launched {by_profile} by the profiler and {prof['counted']} by "
+                             f"the counters; expected {want}")
+    doubled = {k: 2 * n for k, n in want.items()}
+    if capture_launches != doubled:
+        raise AssertionError(f"{label}: the first call launched {capture_launches}; expected {doubled} (the eager "
+                             f"warm-up and one replay)")
+    if diff != 0.0 and not rms <= E2E_REL_RMS:
+        raise AssertionError(f"{label}: replay differs from the eager forward, relative RMS {rms}")
+    if pool_before > 0 and row["pool_mib"] - pool_before > eager_peak_mib:
+        raise AssertionError(f"{label}: the capture grew the shared graph pool from {pool_before:.1f} to "
+                             f"{row['pool_mib']:.1f} MiB, more than the forward's eager peak {eager_peak_mib:.1f} MiB")
+    return row
+
+
+def host_ops_timing(card: str) -> dict:
+    """--composite's foreground estimate (image_estimate_foreground) at
+    HOST_OPS_CASE through the host-ops library and through its numpy forms
+    (box_blur_plain in the library's place), and the blur and the f32
+    erosion alone, each the median of 5 calls on the host; the results must
+    agree (blur atol 1e-5, erosion exact)."""
+    from vision_tpu_torch import native
+    from vision_tpu_torch.image import Image, ImageFormat, image_estimate_foreground
+    from vision_tpu_torch.image.image import box_blur_plain, erosion_plain
+
+    (w, h), radius = HOST_OPS_CASE
+    rng = np.random.default_rng(28)
+    img = Image(rng.random((h, w, 4), np.float32), ImageFormat.rgba_f32)
+    mask = Image(rng.random((h, w, 1), np.float32), ImageFormat.alpha_f32)
+
+    def host_ms(fn):
+        fn()
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    fg_native = image_estimate_foreground(img, mask, radius).data
+    fg_native_ms = host_ms(lambda: image_estimate_foreground(img, mask, radius))
+    library = native.box_blur
+    native.box_blur = box_blur_plain  # image_estimate_foreground imports it at each call
+    try:
+        fg_numpy = image_estimate_foreground(img, mask, radius).data
+        fg_numpy_ms = host_ms(lambda: image_estimate_foreground(img, mask, radius))
+    finally:
+        native.box_blur = library
+    a = img.data
+    e = mask.data
+    times = {"foreground": (fg_native_ms, fg_numpy_ms),
+             "blur": (host_ms(lambda: native.box_blur(a, radius)), host_ms(lambda: box_blur_plain(a, radius))),
+             "erosion": (host_ms(lambda: native.erosion_f32(e, radius)), host_ms(lambda: erosion_plain(e, radius)))}
+    fg_diff = float(np.abs(fg_native - fg_numpy).max())
+    blur_diff = float(np.abs(native.box_blur(a, radius) - box_blur_plain(a, radius)).max())
+    erosion_same = np.array_equal(native.erosion_f32(e, radius), erosion_plain(e, radius)[:, :, 0])
+    print(f"host ops at {w}x{h}, radius {radius} (median of 5 on the host): " + "; ".join(
+        f"{k} library {lib:.3f} ms, numpy {plain:.3f} ms ({plain / lib:.2f}x)" for k, (lib, plain) in times.items())
+        + f"; max abs difference foreground {fg_diff:.3e}, blur {blur_diff:.3e}, erosion "
+        f"{'0' if erosion_same else 'nonzero'} [{card}]", flush=True)
+    if not (fg_diff <= 1e-5 and blur_diff <= 1e-5 and erosion_same):
+        raise AssertionError("the host-ops library disagrees with its numpy forms")
+    return times
+
+
+def cli_run(args: list, label: str) -> tuple[float, str]:
+    """``python -m vision_tpu_torch.cli`` with ``args`` from the checkout's
+    root; raises unless it exits 0. Returns its wall seconds and output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "vision_tpu_torch.cli", *args], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"CLI {label} exited {res.returncode}:\n{res.stdout}\n{res.stderr}")
+    return wall_s, res.stdout
+
+
+def front_door_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
+    """Phases 27-28: every graphed forward_u8 of the five models, eager
+    against replay (GRAPH_CASES); then the CLI as a subprocess, each model
+    verb's output PNG against the in-process model.compute, plus info and
+    compare. Returns what phase 29 reports of it."""
+    import gc
+
+    from vision_tpu_torch import load_model
+    from vision_tpu_torch.cli import _composite
+    from vision_tpu_torch.core.device import backend_init
+    from vision_tpu_torch.image import (
+        Image,
+        ImageFormat,
+        image_difference_rms,
+        image_f32_to_u8,
+        image_load,
+        image_save,
+    )
+    from vision_tpu_torch.models.yolov9t import draw_detections
+
+    def counts():
+        return {"flash": fa.launches, "window": wa.launches, "conv3x3": cc.launches, "deform_conv": dcm.launches,
+                "deform_sample": dsm.launches}
+
+    gc.collect()  # the earlier phases' models and their graphs
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(27)
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = front_door_ggufs(tmp)
+        print(f"the six families' random full-width GGUFs written in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        phase("27 CUDA graphs: each forward_u8 replayed against its eager forward")
+        gpu = backend_init("gpu")
+        models = {}
+        for family, batches, shapes, flags in GRAPH_CASES:
+            models[family] = model = load_model(paths[family], gpu)
+            for b in batches:
+                xs = [torch.from_numpy(rng.integers(0, 256, (b, *sh), np.uint8)).cuda() for sh in shapes]
+                if family == "migan":
+                    xs[1] = (xs[1] > 180).to(torch.uint8) * 255
+                rows[(family, b)] = graph_case(torch, card, family, model, xs, flags, counts)
+            if len(model.graphs.cache) != len(batches):
+                raise AssertionError(f"{family}: {len(model.graphs.cache)} graphs for {len(batches)} keys")
+
+        phase("28 CLI: python -m vision_tpu_torch.cli, every model verb and info and compare")
+        w, h = CLI_EXTENT
+        y, x = np.mgrid[0:h, 0:w]
+        px = np.stack([(x * 3 + y) % 256, (y * 5) % 256, (x * y // 7) % 256], -1)
+        px = (px + rng.integers(0, 24, px.shape)).clip(0, 255).astype(np.uint8)
+        mask = np.zeros((h, w, 1), np.uint8)
+        mask[h // 4 : h * 3 // 4, w // 3 : w * 2 // 3] = 255
+        src, msk = os.path.join(tmp, "in.png"), os.path.join(tmp, "mask.png")
+        image_save(Image(px, ImageFormat.rgb_u8), src)
+        image_save(Image(mask, ImageFormat.alpha_u8), msk)
+        image, mask_img = image_load(src), image_load(msk)
+        out = lambda name: os.path.join(tmp, f"out_{name}.png")  # noqa: E731
+        verbs = {
+            "depthany": ["-i", src],
+            "birefnet": ["-i", src, "--composite", out("composite")],
+            "esrgan": ["-i", src, "--tile", "224"],
+            "migan": ["-i", src, msk],
+            "yolov9t": ["-i", src],
+            "sam": ["-i", src, "-p", str(w // 2), str(h // 3)],
+        }
+        cli_s = {}
+        for verb, extra in verbs.items():
+            cli_s[verb], stdout = cli_run([verb, "-m", paths[verb], "-o", out(verb), *extra], verb)
+            got = image_load(out(verb))
+            model = models.get(verb) or load_model(paths[verb], gpu)
+            if verb == "depthany":
+                want = image_f32_to_u8(model.compute(image), ImageFormat.alpha_u8)
+            elif verb == "esrgan":
+                want = model.compute(image, tile_size=224)
+            elif verb == "migan":
+                want = model.compute(image, mask_img)
+            elif verb == "yolov9t":
+                dets = model.compute(image, 0.25, 0.45)
+                want = draw_detections(image, dets)
+                if f"Found {len(dets)} objects:" not in stdout:
+                    raise AssertionError(f"CLI yolov9t printed {stdout[:300]!r}, in-process found {len(dets)}")
+            elif verb == "sam":
+                model.encode(image)
+                want = model.compute(point=(w // 2, h // 3))
+            else:
+                want = model.compute(image)
+                _composite(image, want, out("composite_in_process"))
+                if not np.array_equal(image_load(out("composite")).data,
+                                      image_load(out("composite_in_process")).data):
+                    raise AssertionError("CLI birefnet --composite differs from the in-process composite")
+            if verb not in models:
+                del model
+                gc.collect()
+                torch.cuda.empty_cache()
+            same = got.format == want.format and np.array_equal(got.data, want.data)
+            off = float((got.data != want.data).mean()) if got.data.shape == want.data.shape else 1.0
+            phases_line = " | ".join(ln for ln in stdout.splitlines() if "done (" in ln)
+            print(f"CLI {verb}: exit 0 in {cli_s[verb]:.2f} s wall ({phases_line}); {got.extent} {got.format.value}, "
+                  f"{'equal to' if same else f'{off:.4%} of values differ from'} the in-process model.compute "
+                  f"[{card}]", flush=True)
+            if not same:
+                raise AssertionError(f"CLI {verb}: output differs from the in-process model.compute")
+        cli_s["info"], stdout = cli_run(["info", "-m", paths["birefnet"]], "info")
+        if "family: birefnet" not in stdout:
+            raise AssertionError(f"CLI info printed {stdout[:300]!r}")
+        matte = image_load(out("birefnet"))
+        image_save(matte, out("birefnet_copy"))
+        cli_s["compare"], stdout = cli_run(["compare", "-i", out("birefnet"), out("birefnet_copy"), "--max-rms", "0"],
+                                           "compare")
+        if not stdout.startswith("rms  0.000000") or image_difference_rms(matte, image_load(out("birefnet_copy"))):
+            raise AssertionError(f"CLI compare printed {stdout!r}")
+        print(f"CLI info {cli_s['info']:.2f} s, compare {cli_s['compare']:.2f} s wall: exit 0 [{card}]", flush=True)
+        host_ops = host_ops_timing(card)
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"graphs": rows, "cli_s": cli_s, "host_ops": host_ops}
 
 
 class ParentConvEntry:
@@ -2462,6 +2826,7 @@ def main(argv=None) -> int:
     print(f"model on {model.device.torch_device} {model.dtype}, flash={model.flash}", flush=True)
     with ImageServer(model, batch_size=4, max_delay_ms=20) as srv:
         srv.warmup()
+        srv.warmup((w_wide, h_wide))  # each bucket's graph is captured before the counted run
         fa.launches = wa.launches = cc.launches = dsm.launches = dcm.launches = 0
         t_start = time.perf_counter()
         futures = [srv.submit(img) for img in requests]
@@ -2651,6 +3016,7 @@ def main(argv=None) -> int:
     print(f"model on {emodel.device.torch_device} {emodel.dtype}, {emodel.p}", flush=True)
     with EsrganServer(emodel, batch_size=4, max_delay_ms=50) as esrv:
         esrv.warmup((256, 256))
+        esrv.warmup((320, 240))  # each bucket's graph is captured before the counted run
         fa.launches = wa.launches = cc.launches = dsm.launches = dcm.launches = 0
         t_start = time.perf_counter()
         futures = [esrv.submit(img) for img in esr_reqs]
@@ -2672,6 +3038,8 @@ def main(argv=None) -> int:
     print(f"served {e_req} requests in {e_batches} batches; conv3x3 launches {esr_conv_launches}, "
           f"flash_attention launches {esr_flash_launches}, window_attention launches {esr_win_launches}", flush=True)
     big = Image(erng.integers(0, 256, (480, 640, 4), np.uint8), ImageFormat.rgba_u8)
+    emodel.compute(big)  # captures the tiles' graph before the counted, timed run
+    torch.cuda.synchronize()
     cc.launches = dsm.launches = dcm.launches = 0
     t0 = time.perf_counter()
     tiled = emodel.compute(big)
@@ -2860,7 +3228,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base_mb = torch.cuda.memory_allocated() / 2**20
-        bmodel.forward_u8(xb)
+        bmodel._forward_u8(xb)  # the eager forward: a replay allocates nothing beyond its output
         torch.cuda.synchronize()
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         print(f"BiRefNet forward_u8 batch {b} at 1024x1024 bf16: median {f1:.3f} / {f2:.3f} ms, "
@@ -2892,6 +3260,18 @@ def main(argv=None) -> int:
 
     s3 = sam3_phases(torch, card, fa, wa, cc, dsm, dcm)
     ym = yolo_migan_phases(torch, card, fa, wa, cc, dsm, dcm)
+    fd = front_door_phases(torch, card, fa, wa, cc, dsm, dcm)
+
+    phase(f"29 served p50s through graph replays, and the graphs' eager against replay ms, on {card}")
+    served = {"Depth-Anything (8 requests, batch 4)": p50_ms, "MobileSAM (12, batch 6; encoder eager)": s_p50,
+              "Real-ESRGAN (6, batch 4)": e_p50, "BiRefNet (8, batch 4)": b_p50,
+              f"YOLOv9t (16, batch {YOLO_BATCH})": ym["p50_ms"], f"MI-GAN (8, batch {MIGAN_BATCH})": ym["migan_p50_ms"]}
+    print("served p50 latency: " + "; ".join(f"{k} {v:.3f} ms" for k, v in served.items()) + f" [{card}]", flush=True)
+    for (family, b), r in fd["graphs"].items():
+        print(f"{family} batch {b}: eager {r['eager_ms']:.3f} ms, replay {r['replay_ms']:.3f} ms "
+              f"({r['eager_ms'] / r['replay_ms']:.2f}x), replay busy {r['busy_ms']:.3f} ms, idle {r['idle']:.2%}, "
+              f"first call {r['capture_ms']:.1f} ms, pool {r['pool_before_mib']:.1f} -> {r['pool_mib']:.1f} MiB (eager "
+              f"peak {r['eager_peak_mib']:.1f}, reserved {r['eager_reserved_mib']:.1f}) [{card}]", flush=True)
 
     # one RDB's five convs at 1024x1024 as the path runs them, summed
     rdb = conv_rows[: len(ESRGAN_RDB)]

@@ -11,10 +11,12 @@ SLICE_MODULES = [
     "vision_tpu_torch.core.device",
     "vision_tpu_torch.core.errors",
     "vision_tpu_torch.core.gguf",
+    "vision_tpu_torch.core.graph",
     "vision_tpu_torch.core.params",
     "vision_tpu_torch.core.weights",
     "vision_tpu_torch.image",
     "vision_tpu_torch.image.image",
+    "vision_tpu_torch.image.png",
     "vision_tpu_torch.image.tiling",
     "vision_tpu_torch.ops",
     "vision_tpu_torch.ops.nn",
@@ -40,6 +42,11 @@ SLICE_MODULES = [
     "vision_tpu_torch.models.migan",
     "vision_tpu_torch.models.random_weights",
     "vision_tpu_torch.serve",
+    "vision_tpu_torch.api",
+    "vision_tpu_torch.cli",
+    "vision_tpu_torch.native",
+    "vision_tpu_torch.utils",
+    "vision_tpu_torch.utils.metrics",
 ]
 
 

@@ -13,7 +13,10 @@ Depth-Anything V2, BiRefNet and MI-GAN (``(image, mask)`` requests) through
 :class:`~vision_tpu_torch.serve.EsrganServer` and YOLOv9t through
 :class:`~vision_tpu_torch.serve.YoloServer`. SAM3's text and vision
 encoders run through :func:`~vision_tpu_torch.models.sam3.sam3_load_model`
-and ``Sam3Model.encode_text`` / ``encode_vision``.
+and ``Sam3Model.encode_text`` / ``encode_vision``. :func:`load_model` loads
+any family's GGUF, and ``python -m vision_tpu_torch.cli`` runs the model
+verbs. On the card each model's ``forward_u8`` replays one CUDA graph per
+input shape (:class:`~vision_tpu_torch.core.graph.ForwardGraphs`).
 """
 
 __version__ = "0.1.0"
@@ -24,6 +27,7 @@ from .core import (
     Device,
     GGUFFile,
     GGUFWriter,
+    GraphCache,
     Params,
     VispError,
     backend_init,
@@ -31,6 +35,8 @@ from .core import (
     load_weights,
     model_load,
 )
+from .api import load_model, model_detect_family
+from .core.graph import shape_bucket, snap_to_multiple
 
 __all__ = [
     "BackendType",
@@ -38,10 +44,15 @@ __all__ = [
     "Device",
     "GGUFFile",
     "GGUFWriter",
+    "GraphCache",
     "Params",
     "VispError",
     "backend_init",
     "backend_is_available",
+    "load_model",
     "load_weights",
+    "model_detect_family",
     "model_load",
+    "shape_bucket",
+    "snap_to_multiple",
 ]

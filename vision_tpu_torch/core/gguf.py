@@ -501,6 +501,16 @@ def _read_value(f: BinaryIO, vtype: GGUFValueType, limit: int) -> Any:
     return v
 
 
+# general.file_type (the gguf LLAMA_FTYPE_* convention) -> the float type:
+# f32, f16, bf16 and the block types of the JAX package's requantizer
+# (vision_tpu/core/gguf.py REQUANTIZE_TYPES)
+_FILE_TYPES = {
+    0: GGMLType.F32, 1: GGMLType.F16, 2: GGMLType.Q4_0, 3: GGMLType.Q4_1, 7: GGMLType.Q8_0, 8: GGMLType.Q5_0,
+    9: GGMLType.Q5_1, 10: GGMLType.Q2_K, 11: GGMLType.Q3_K, 14: GGMLType.Q4_K, 16: GGMLType.Q5_K,
+    18: GGMLType.Q6_K, 25: GGMLType.IQ4_NL, 30: GGMLType.IQ4_XS, 32: GGMLType.BF16,
+}
+
+
 class GGUFFile:
     """Parsed GGUF file: metadata KV dict + lazily-readable tensors.
 
@@ -613,6 +623,10 @@ class GGUFFile:
     @property
     def arch(self) -> str:
         return str(self.metadata.get("general.architecture", ""))
+
+    @property
+    def float_type(self) -> GGMLType:
+        return _FILE_TYPES.get(int(self.metadata.get("general.file_type", 0)), GGMLType.F32)
 
     @property
     def tensor_layout(self) -> str:

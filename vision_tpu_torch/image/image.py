@@ -2,15 +2,18 @@
 
 A copy of the parts of vision_tpu/image/image.py that the ported slices use,
 with the same semantics contract with the reference implementation
-(src/visp/image.cpp, src/visp/image-impl.h). File IO, the box blur, erosion
-and the foreground estimate wait for the slices that call them; the tiling
-engine is in tiling.py.
+(src/visp/image.cpp, src/visp/image-impl.h). PNG files are read and written
+by the port's own codec (png.py), other formats through PIL where it
+imports; the box blur and erosion run in the host-ops library (native/),
+whose plain numpy forms stay here for the tests; the tiling engine is in
+tiling.py.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from enum import Enum
+from pathlib import Path
 
 import numpy as np
 
@@ -24,12 +27,22 @@ __all__ = [
     "channel_map",
     "alpha_channel",
     "image_alloc",
+    "image_clear",
+    "image_load",
     "image_load_array",
+    "image_save",
     "image_u8_to_f32",
     "image_f32_to_u8",
+    "image_to_mask",
+    "image_set_alpha",
     "image_scale",
     "preprocess_scale_method",
+    "image_blur",
+    "image_erosion",
+    "image_estimate_foreground",
+    "image_alpha_composite",
     "image_normalize",
+    "image_difference_rms",
 ]
 
 
@@ -194,6 +207,10 @@ def image_alloc(extent: tuple[int, int], fmt: ImageFormat) -> Image:
     return Image(np.zeros((extent[1], extent[0], n_channels(fmt)), dtype), fmt)
 
 
+def image_clear(img: Image) -> None:
+    img.data[:] = 0
+
+
 def _format_from_channels(c: int, float_: bool = False) -> ImageFormat:
     if float_:
         return {1: ImageFormat.alpha_f32, 3: ImageFormat.rgb_f32, 4: ImageFormat.rgba_f32}[c]
@@ -210,6 +227,72 @@ def image_load_array(array: np.ndarray, fmt: ImageFormat | None = None) -> Image
         fmt = _format_from_channels(a.shape[2], float_=np.issubdtype(a.dtype, np.floating))
     dtype = np.float32 if is_float(fmt) else np.uint8
     return Image(np.ascontiguousarray(a.astype(dtype)), fmt)
+
+
+def _pil(filepath):
+    """PIL's Image module, for the formats other than PNG; without PIL a
+    VispError that names it."""
+    try:
+        from PIL import Image as PILImage
+    except ImportError:
+        raise_error("{}: only PNG is read and written without PIL, and PIL is not installed", filepath)
+    return PILImage
+
+
+def _load_pil(filepath) -> np.ndarray:
+    """The JAX package's image_load, through PIL."""
+    PILImage = _pil(filepath)
+    try:
+        pil = PILImage.open(filepath)
+    except Exception as e:  # noqa: BLE001
+        raise_error("Failed to load image {}: {}", filepath, e)
+    if pil.mode == "P":
+        pil = pil.convert("RGBA" if "transparency" in pil.info else "RGB")
+    elif pil.mode == "LA":  # gray+alpha: keep the alpha channel
+        pil = pil.convert("RGBA")
+    elif pil.mode not in ("L", "RGB", "RGBA"):
+        pil = pil.convert("RGB")
+    return np.asarray(pil)
+
+
+def image_load(filepath: str | Path) -> Image:
+    """Load an image file (reference image_load, image.cpp:187-196): a PNG
+    by the port's codec (png.py; one outside its scope through PIL), any
+    other format through PIL. Gray stays one channel (alpha_u8), gray +
+    alpha becomes RGBA, a palette RGB, or RGBA with transparency."""
+    from .png import PNG_SIGNATURE, PngUnsupported, read_png
+
+    try:
+        data = Path(filepath).read_bytes()
+    except OSError as e:
+        raise_error("Failed to load image {}: {}", filepath, e)
+    a = None
+    if data.startswith(PNG_SIGNATURE):
+        try:
+            a = read_png(data)
+        except PngUnsupported:
+            pass
+    if a is None:
+        a = _load_pil(filepath)
+    if a.ndim == 2:
+        a = a[:, :, None]
+    return Image(np.ascontiguousarray(a), _format_from_channels(a.shape[2]))
+
+
+def image_save(img: Image, filepath: str | Path) -> None:
+    """Save an alpha, RGB or RGBA u8 image (reference image_save,
+    image.cpp:198-210): to a ``.png`` path by the port's codec, to any other
+    through PIL, which picks the format from the suffix."""
+    if img.format not in (ImageFormat.alpha_u8, ImageFormat.rgb_u8, ImageFormat.rgba_u8):
+        raise_error("Unsupported image format for saving [{}]", img.format)
+    if Path(filepath).suffix.lower() == ".png":
+        from .png import write_png
+
+        write_png(filepath, img.data)
+        return
+    a = img.data
+    mode = {1: "L", 3: "RGB", 4: "RGBA"}[a.shape[2]]
+    _pil(filepath).fromarray(a.squeeze(2) if mode == "L" else a, mode).save(filepath)
 
 
 def image_u8_to_f32(
@@ -270,6 +353,11 @@ def image_f32_to_u8(
         raise_error("image_f32_to_u8 does not support writing {}", dst_format)
     out4 = src.load_f32x4() * np.float32(scale) + np.float32(offset)
     return Image(np.ascontiguousarray(_store_u8(out4, dst_format)), dst_format)
+
+
+def image_to_mask(src: Image) -> Image:
+    """Keep first (red) channel (reference image.cpp:290-308)."""
+    return Image(np.ascontiguousarray(src.data[:, :, :1]), ImageFormat.alpha_u8)
 
 
 def image_set_alpha(img: Image, alpha: Image) -> None:
@@ -465,6 +553,100 @@ def image_scale(img: Image, target: tuple[int, int], method: str = "auto") -> Im
     return Image(np.ascontiguousarray(out), img.format)
 
 
+def _box_blur_axis(a: np.ndarray, radius: int, axis: int) -> np.ndarray:
+    """1-D sliding box filter over edge-replicated signal (exact match to the
+    reference's running-sum loop, image.cpp:358-408): the plain numpy form of
+    the host-ops library's blur."""
+    n = a.shape[axis]
+    pad = [(0, 0)] * a.ndim
+    pad[axis] = (radius + 1, radius)
+    padded = np.pad(a, pad, mode="edge").astype(np.float64)
+    cs = np.cumsum(padded, axis=axis)
+    upper = np.take(cs, np.arange(n) + 2 * radius + 1, axis=axis)
+    lower = np.take(cs, np.arange(n), axis=axis)
+    return ((upper - lower) / (2 * radius + 1)).astype(np.float32)
+
+
+def box_blur_plain(a: np.ndarray, radius: int) -> np.ndarray:
+    """The separable box blur in numpy (horizontal, then vertical)."""
+    return _box_blur_axis(_box_blur_axis(a, radius, axis=1), radius, axis=0)
+
+
+def erosion_plain(a: np.ndarray, radius: int) -> np.ndarray:
+    """Min filter with replicate border in numpy: separable running minimum
+    (no (2r+1)-way full-image stack)."""
+    for axis in (1, 0):
+        pad = [(0, 0)] * a.ndim
+        pad[axis] = (radius, radius)
+        p = np.pad(a, pad, mode="edge")
+        idx = np.arange(a.shape[axis])
+        out = np.take(p, idx, axis=axis).copy()
+        for k in range(1, 2 * radius + 1):
+            np.minimum(out, np.take(p, idx + k, axis=axis), out=out)
+        a = out
+    return a
+
+
+def image_blur(src: Image, radius: int) -> Image:
+    """Separable box blur, f32 formats only (reference image.cpp:410-419),
+    in the host-ops library."""
+    from ..native import box_blur
+
+    if src.format not in (ImageFormat.alpha_f32, ImageFormat.rgba_f32):
+        raise_error("Unsupported image format for blur operation")
+    if radius <= 0:
+        raise_error("blur radius must be > 0")
+    return Image(box_blur(src.data, radius), src.format)
+
+
+def image_erosion(src: Image, radius: int) -> Image:
+    """Min-filter with replicate border (reference image.cpp:509-535): f32
+    in the host-ops library, u8 in numpy."""
+    from ..native import erosion_f32
+
+    if src.format not in (ImageFormat.alpha_u8, ImageFormat.alpha_f32):
+        raise_error("erosion operation only supports single channel alpha formats")
+    if src.format == ImageFormat.alpha_f32:
+        return Image(erosion_f32(src.data, radius).reshape(src.data.shape), src.format)
+    return Image(np.ascontiguousarray(erosion_plain(src.data, radius)), src.format)
+
+
+def _blur_fusion_foreground(img, fg, bg, mask, radius):
+    """One pass of Approximate Fast Foreground Colour Estimation
+    (ieee 9506164; reference image.cpp:421-469). All args (H,W,4)/(H,W,1) f32."""
+    from ..native import box_blur
+
+    blurred_mask = box_blur(mask, radius)
+    blurred_fg = box_blur(fg * mask, radius) / (blurred_mask + 1e-5)
+    blurred_bg = box_blur(bg * (1.0 - mask), radius) / ((1.0 - blurred_mask) + 1e-5)
+    f = blurred_fg + mask * (img - mask * blurred_fg - (1.0 - mask) * blurred_bg)
+    f = np.clip(f, 0.0, 1.0)
+    f[:, :, 3] = mask[:, :, 0]
+    return f, blurred_bg
+
+
+def image_estimate_foreground(img: Image, mask: Image, radius: int = 30) -> Image:
+    """Two-pass blur-fusion foreground estimation (image.cpp:471-476).
+    ``img`` is 4-channel, ``mask`` single-channel; both f32 in [0,1]."""
+    if img.extent != mask.extent:
+        raise_error("extent mismatch in image_estimate_foreground")
+    i4 = img.load_f32x4()
+    m = mask.load_f32x4()[:, :, :1]
+    fg, blur_bg = _blur_fusion_foreground(i4, i4, i4, m, radius)
+    fg2, _ = _blur_fusion_foreground(i4, fg, blur_bg, m, 3)
+    return Image(np.ascontiguousarray(fg2.astype(np.float32)), ImageFormat.rgba_f32)
+
+
+def image_alpha_composite(fg: Image, bg: Image, mask: Image) -> Image:
+    """dst = fg*a + bg*(1-a), u8 path (reference image.cpp:478-507)."""
+    if not (fg.extent == bg.extent == mask.extent):
+        raise_error("extent mismatch in image_alpha_composite")
+    w = mask.load_f32x4()[:, :, 3:4]
+    v = w * fg.load_f32x4() + (1.0 - w) * bg.load_f32x4()
+    v[:, :, 3] = 1.0
+    return Image(np.ascontiguousarray(_store_u8(v, ImageFormat.rgba_u8)), ImageFormat.rgba_u8)
+
+
 def image_normalize(src: Image, min_val: float = 0.0, max_val: float = 1.0) -> Image:
     """Per-channel min/max rescale (reference image.cpp:537-582)."""
     if not is_float(src.format):
@@ -479,3 +661,11 @@ def image_normalize(src: Image, min_val: float = 0.0, max_val: float = 1.0) -> I
     return Image(np.ascontiguousarray(out.astype(np.float32)), src.format)
 
 
+
+
+def image_difference_rms(a: Image, b: Image) -> float:
+    """sqrt(mean over pixels of squared 4-lane diffs) (image.cpp:584-607)."""
+    if a.extent != b.extent:
+        raise_error("extent mismatch in image_difference_rms")
+    d = a.load_f32x4().astype(np.float64) - b.load_f32x4().astype(np.float64)
+    return float(np.sqrt((d * d).sum(axis=2).mean()))

@@ -40,6 +40,7 @@ import torch
 from ..core.device import BuildFlag, Device, backend_init
 from ..core.errors import raise_error
 from ..core.gguf import GGUFFile, model_load
+from ..core.graph import ForwardGraphs, shape_bucket
 from ..core.params import Params
 from ..core.weights import cast_float_params, load_weights, params_from_numpy, unpermute_cwhn
 from ..image import (
@@ -82,10 +83,6 @@ class BirefnetParams:
     encoder: SwinParams = None
 
 
-def _next_multiple(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
 def birefnet_image_extent(input_extent, p: BirefnetParams, max_alloc: int) -> tuple[int, int]:
     """(reference birefnet_image_extent, birefnet.cpp:288-305)."""
     if p.image_size != -1:
@@ -96,7 +93,7 @@ def birefnet_image_extent(input_extent, p: BirefnetParams, max_alloc: int) -> tu
         scale = math.sqrt(max_alloc / req)
         w = max(1, int(w * scale) - p.image_multiple)
         h = max(1, int(h * scale) - p.image_multiple)
-    return (_next_multiple(w, p.image_multiple), _next_multiple(h, p.image_multiple))
+    return shape_bucket((w, h), p.image_multiple)
 
 
 def birefnet_batch_extent(input_extents, p: BirefnetParams, max_alloc: int) -> tuple[int, int]:
@@ -291,13 +288,20 @@ class BirefnetModel:
         # here once instead of at each of a forward's 20 calls
         self.deform_layouts = {f"{k}_layout": weight_layout(v, self.dtype) for k, v in self.params.items()
                                if _DEFORM_WEIGHT.search(k)}
+        self.graphs = ForwardGraphs(self._forward_u8, device.torch_device)
 
     def forward_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) uint8 at a processed extent -> (N, H, W, 1) mask in
-        the model dtype, on the model's device: ImageNet normalization on the
+        """(N, H, W, 3) uint8 at a processed extent -> (N, H, W, 1) mask in the
+        model dtype, on the model's device: ImageNet normalization on the
         device, then the prediction. Runs under ``torch.inference_mode``,
         entered here because the mode is thread-local and servers call this
-        from their own worker thread."""
+        from their own worker thread. On the card each input shape runs as one
+        CUDA graph, captured at its first call and replayed after
+        (core/graph.py); the result is a copy that the caller keeps."""
+        return self.graphs(x_u8)
+
+    def _forward_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
+        """The eager forward that :meth:`forward_u8` captures (the reference of its tests)."""
         with torch.inference_mode():
             x = x_u8.to(self.device.torch_device, non_blocking=True)
             x = normalize_u8(x, IMAGENET_MEAN, IMAGENET_STD, self.dtype)

@@ -22,6 +22,7 @@ import torch
 
 from ..core.device import BuildFlag, Device, backend_init
 from ..core.gguf import GGUFFile, model_load
+from ..core.graph import ForwardGraphs, shape_bucket, snap_to_multiple
 from ..core.params import Params
 from ..core.weights import cast_float_params, load_weights, params_from_numpy, unpermute_cwhn
 from ..image import (
@@ -64,17 +65,13 @@ def depthany_detect_params(file: GGUFFile) -> DepthAnythingParams:
     )
 
 
-def _next_multiple(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
 def depthany_image_extent(extent: tuple[int, int], p: DepthAnythingParams) -> tuple[int, int]:
     """Snap to short side >= image_size and multiples of 14
     (reference depthany_image_extent, depth-anything.cpp:112-117)."""
     min_side = min(extent)
-    tgt_side = max(p.image_size, _next_multiple(min_side, p.image_multiple))
+    tgt_side = max(p.image_size, snap_to_multiple(min_side, p.image_multiple))
     target = (extent[0] * tgt_side // min_side, extent[1] * tgt_side // min_side)
-    return (_next_multiple(target[0], p.image_multiple), _next_multiple(target[1], p.image_multiple))
+    return shape_bucket(target, p.image_multiple)
 
 
 # -- DPT neck (reference depth-anything.cpp:12-103) --
@@ -185,12 +182,20 @@ class DepthAnythingModel:
         self.dtype = device.preferred_float_type
         self.flash = bool(device.flags & BuildFlag.flash_attention)
         self.params = cast_float_params(params, self.dtype)
+        self.graphs = ForwardGraphs(self._forward_u8, device.torch_device)
 
     def forward_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) uint8 at a snapped extent -> (N, H, W, 1) raw depth
-        in the model dtype, on the model's device. Runs under
-        ``torch.inference_mode``, entered here because the mode is
-        thread-local and servers call this from their own worker thread."""
+        """(N, H, W, 3) uint8 at a snapped extent -> (N, H, W, 1) raw depth in
+        the model dtype, on the model's device. Runs under
+        ``torch.inference_mode``, entered here because the mode is thread-local
+        and servers call this from their own worker thread. On the card each
+        input shape runs as one CUDA graph, captured at its first call and
+        replayed after (core/graph.py); the result is a copy that the caller
+        keeps."""
+        return self.graphs(x_u8)
+
+    def _forward_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
+        """The eager forward that :meth:`forward_u8` captures (the reference of its tests)."""
         with torch.inference_mode():
             x = x_u8.to(self.device.torch_device, non_blocking=True)
             x = normalize_u8(x, IMAGENET_MEAN, IMAGENET_STD, self.dtype)

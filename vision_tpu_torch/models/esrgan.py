@@ -35,6 +35,7 @@ import torch
 from ..core.device import Device, backend_init
 from ..core.errors import raise_error
 from ..core.gguf import GGUFFile, model_load
+from ..core.graph import ForwardGraphs
 from ..core.params import Params
 from ..core.weights import cast_float_params, load_weights
 from ..image import (
@@ -191,14 +192,22 @@ class EsrganModel:
         self.device = device
         self.dtype = device.preferred_float_type
         self.params = cast_float_params(params, self.dtype)
+        self.graphs = ForwardGraphs(self._forward_u8, device.torch_device)
 
     def forward_u8(self, x_u8: torch.Tensor, to_u8: bool = True) -> torch.Tensor:
         """(N, H, W, 3) uint8 -> (N, H*scale, W*scale, 3) on the model's
-        device: uint8 (clamped to [0, 1], times 255, truncated) with
-        ``to_u8``, else the forward's float output in the model's type. As
-        the JAX package's ``_esrgan_run_fn``. Runs under
-        ``torch.inference_mode``, entered here because the mode is
-        thread-local and servers call this from their own worker thread."""
+        device: uint8 (clamped to [0, 1], times 255, truncated) with ``to_u8``,
+        else the forward's float output in the model's type. As the JAX
+        package's ``_esrgan_run_fn``. Runs under ``torch.inference_mode``,
+        entered here because the mode is thread-local and servers call this
+        from their own worker thread. On the card each input shape and
+        ``to_u8`` runs as one CUDA graph, captured at its first call and
+        replayed after (core/graph.py); the result is a copy that the caller
+        keeps."""
+        return self.graphs(x_u8, to_u8=to_u8)
+
+    def _forward_u8(self, x_u8: torch.Tensor, to_u8: bool = True) -> torch.Tensor:
+        """The eager forward that :meth:`forward_u8` captures (the reference of its tests)."""
         with torch.inference_mode():
             x = normalize_u8(x_u8.to(self.device.torch_device, non_blocking=True), dtype=self.dtype)
             y = esrgan_generate(Params(self.params), x, self.p)

@@ -35,6 +35,7 @@ import torch
 from ..core.device import Device, backend_init
 from ..core.errors import raise_error
 from ..core.gguf import GGUFFile, model_load
+from ..core.graph import ForwardGraphs
 from ..core.params import Params
 from ..core.weights import cast_float_params, load_weights
 from ..image import (
@@ -228,15 +229,23 @@ class MiganModel:
         self.device = device
         self.dtype = device.preferred_float_type
         self.params = cast_float_params(params, self.dtype)
+        self.graphs = ForwardGraphs(self._forward_u8, device.torch_device)
 
     def forward_u8(self, image_u8: torch.Tensor, mask_u8: torch.Tensor) -> torch.Tensor:
-        """(N, res, res, 3) uint8 image and (N, res, res, 1) uint8 mask ->
-        the generator's raw (N, res, res, 3) output in [-1, 1], in the
-        model's type on its device. The preprocess runs there in f32, as the
-        JAX package's ``_migan_program``: [alpha - 0.5, alpha * (2 rgb - 1)]
-        with alpha = 1 - mask / 255 (``invert_mask``), one cast. Runs under
-        ``torch.inference_mode``, entered here because the mode is
-        thread-local and servers call this from their own worker thread."""
+        """(N, res, res, 3) uint8 image and (N, res, res, 1) uint8 mask -> the
+        generator's raw (N, res, res, 3) output in [-1, 1], in the model's type
+        on its device. The preprocess runs there in f32, as the JAX package's
+        ``_migan_program``: [alpha - 0.5, alpha * (2 rgb - 1)] with alpha = 1 -
+        mask / 255 (``invert_mask``), one cast. Runs under
+        ``torch.inference_mode``, entered here because the mode is thread-local
+        and servers call this from their own worker thread. On the card each
+        input shape pair runs as one CUDA graph, captured at its first call and
+        replayed after (core/graph.py); the result is a copy that the caller
+        keeps."""
+        return self.graphs(image_u8, mask_u8)
+
+    def _forward_u8(self, image_u8: torch.Tensor, mask_u8: torch.Tensor) -> torch.Tensor:
+        """The eager forward that :meth:`forward_u8` captures (the reference of its tests)."""
         dev = self.device.torch_device
         with torch.inference_mode():
             rgb = image_u8.to(dev, non_blocking=True).float() / 255.0

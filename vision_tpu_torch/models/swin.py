@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from ..core.errors import raise_error
 from ..core.gguf import GGUFFile
+from ..core.graph import device_cache
 from ..core.params import Params
 from ..ops import attention_windows, gelu, layer_norm, linear, patch_embed
 
@@ -140,13 +141,13 @@ def compute_attention_mask(w: int, h: int, window: int) -> np.ndarray:
     return mask
 
 
-@lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _device_mask(w: int, h: int, window: int, device: torch.device) -> torch.Tensor:
     """compute_attention_mask as a float32 tensor on ``device``, made once."""
     return torch.tensor(compute_attention_mask(w, h, window), device=device)
 
 
-@lru_cache(maxsize=32)
+@device_cache(maxsize=32)
 def _device_index(window: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_relative_position_index(window).reshape(-1).astype(np.int64)).to(device)
 

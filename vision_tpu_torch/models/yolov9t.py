@@ -33,7 +33,6 @@ ctypes library. Meshes and quantized residency wait for their queue items.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -41,9 +40,10 @@ import torch
 
 from ..core.device import Device, backend_init
 from ..core.gguf import GGUFFile, model_load
+from ..core.graph import ForwardGraphs, device_cache
 from ..core.params import Params
 from ..core.weights import cast_float_params, load_weights
-from ..image import Image, image_scale, preprocess_scale_method
+from ..image import Image, ImageFormat, image_scale, preprocess_scale_method
 from ..ops import avg_pool_2d, batch_norm_2d, conv_2d, conv_3x3_fused, max_pool_2d, normalize_u8, resize_nhwc, silu
 
 __all__ = [
@@ -71,6 +71,8 @@ __all__ = [
     "scale_boxes",
     "Yolov9tModel",
     "yolov9t_load_model",
+    "get_class_color",
+    "draw_detections",
     "COCO_CLASS_NAMES",
 ]
 
@@ -259,7 +261,7 @@ def make_anchors(shapes, strides=(8.0, 16.0, 32.0), offset: float = 0.5):
     )
 
 
-@lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _anchor_tensors(shapes: tuple, device: str) -> tuple[torch.Tensor, torch.Tensor]:
     """make_anchors as tensors on ``device``, made once per input size."""
     anchors, strides = make_anchors(shapes)
@@ -447,13 +449,20 @@ class Yolov9tModel:
         self.device = device
         self.dtype = device.preferred_float_type
         self.params = cast_float_params(params, self.dtype)
+        self.graphs = ForwardGraphs(self._forward_u8, device.torch_device)
 
     def forward_u8(self, x_u8: torch.Tensor) -> DetectOutput:
         """(B, H, W, 3) uint8 -> the forward's boxes and scores (f32) on the
-        model's device: the /255 and the cast run there, as the JAX
-        package's ``_yolo_program``. Runs under ``torch.inference_mode``,
-        entered here because the mode is thread-local and servers call this
-        from their own worker thread."""
+        model's device: the /255 and the cast run there, as the JAX package's
+        ``_yolo_program``. Runs under ``torch.inference_mode``, entered here
+        because the mode is thread-local and servers call this from their own
+        worker thread. On the card each input shape runs as one CUDA graph,
+        captured at its first call and replayed after (core/graph.py); the
+        result is a copy that the caller keeps."""
+        return self.graphs(x_u8)
+
+    def _forward_u8(self, x_u8: torch.Tensor) -> DetectOutput:
+        """The eager forward that :meth:`forward_u8` captures (the reference of its tests)."""
         with torch.inference_mode():
             x = normalize_u8(x_u8.to(self.device.torch_device, non_blocking=True), dtype=self.dtype)
             return yolov9t_forward(Params(self.params), x, self.p)
@@ -473,6 +482,82 @@ def yolov9t_load_model(filepath: str, device: Device | None = None) -> Yolov9tMo
     device = device or backend_init()
     file = model_load(filepath)
     return Yolov9tModel(load_weights(file, device), yolov9t_detect_params(file), device)
+
+
+def get_class_color(class_id: int) -> tuple[int, int, int]:
+    """HSV-derived per-class color (reference get_class_color,
+    yolov9t.cpp:1420-1442)."""
+    h = (class_id * 137) % 360
+    s, v = 0.8, 0.95
+    c = v * s
+    x = c * (1 - abs((h / 60.0) % 2 - 1))
+    m = v - c
+    r1, g1, b1 = [
+        (c, x, 0), (x, c, 0), (0, c, x), (0, x, c), (x, 0, c), (c, 0, x),
+    ][int(h // 60) % 6]
+    return (int((r1 + m) * 255), int((g1 + m) * 255), int((b1 + m) * 255))
+
+
+def _hline(a: np.ndarray, x0: int, y: int, x1: int, color) -> None:
+    """Pixels x0..x1 of row y, clipped (PIL's hline)."""
+    h, w = a.shape[:2]
+    if 0 <= y < h:
+        x0, x1 = max(min(x0, x1), 0), min(max(x0, x1), w - 1)
+        if x0 <= x1:
+            a[y, x0 : x1 + 1] = color
+
+
+def _rectangle(a: np.ndarray, xy, color, fill: bool = False, width: int = 1) -> None:
+    """PIL's ``ImageDraw.rectangle`` in numpy: the corners truncated to
+    ints; filled, every row y0..y1; else a ``width``-pixel outline of two
+    row bands and two column bands, the columns drawn from y0 + width toward
+    y1 - width + 1 as PIL draws them."""
+    x0, y0, x1, y1 = (int(v) for v in xy)
+    if fill:
+        for y in range(max(y0, 0), min(y1, a.shape[0] - 1) + 1):
+            _hline(a, x0, y, x1, color)
+        return
+    # PIL's vertical line from ya toward yb stops one pixel short of yb
+    ya, yb = y0 + width, y1 - width + 1
+    lo, hi = (ya, yb) if ya <= yb else (yb + 1, ya + 1)
+    for i in range(width):
+        _hline(a, x0, y0 + i, x1, color)
+        _hline(a, x0, y1 - i, x1, color)
+        for x in (x1 - i, x0 + i):
+            if 0 <= x < a.shape[1]:
+                a[max(lo, 0) : max(min(hi, a.shape[0]), 0), x] = color
+
+
+def draw_detections(image: Image, detections: list[Detection], thickness: int = 2) -> Image:
+    """Draw boxes + labels (reference draw_detections, yolov9t.cpp:1444-1546):
+    each box's outline, a label bar above it and the label in it. Where PIL
+    imports it draws them, as the JAX package does. Where it does not, the
+    outlines and bars are drawn in numpy on the pixels PIL would colour, the
+    bar as wide as PIL's bitmap default font makes a label (6 pixels a
+    character), and the text is left out (the CLI prints every label)."""
+    a = image.data
+    if a.shape[2] == 1:
+        a = np.repeat(a, 3, axis=2)
+    a = np.ascontiguousarray(a[:, :, :3])
+    labelled = [(d, get_class_color(d.class_id), f"{_class_name(d.class_id)} {d.confidence:.2f}") for d in detections]
+    try:
+        from PIL import Image as PILImage, ImageDraw
+    except ImportError:
+        for d, color, label in labelled:
+            _rectangle(a, (d.x1, d.y1, d.x2, d.y2), color, width=thickness)
+            _rectangle(a, (d.x1, max(0, d.y1 - 12), d.x1 + 6 * len(label) + 4, d.y1), color, fill=True)
+        return Image(a, ImageFormat.rgb_u8)
+    pil = PILImage.fromarray(a)
+    draw = ImageDraw.Draw(pil)
+    for d, color, label in labelled:
+        draw.rectangle([d.x1, d.y1, d.x2, d.y2], outline=color, width=thickness)
+        draw.rectangle([d.x1, max(0, d.y1 - 12), d.x1 + draw.textlength(label) + 4, d.y1], fill=color)
+        draw.text((d.x1 + 2, max(0, d.y1 - 12)), label, fill=(0, 0, 0))
+    return Image(np.array(pil), ImageFormat.rgb_u8)
+
+
+def _class_name(class_id: int) -> str:
+    return COCO_CLASS_NAMES[class_id] if class_id < len(COCO_CLASS_NAMES) else str(class_id)
 
 
 COCO_CLASS_NAMES = [

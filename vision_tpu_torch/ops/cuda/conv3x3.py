@@ -40,6 +40,8 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from . import count_launch
+
 __all__ = ["conv3x3", "conv3x3_plain", "launches"]
 
 launches = 0
@@ -188,7 +190,6 @@ def conv3x3(x, w, b=None, *, scale=None, shift=None, silu=False, slope=None, r1=
     slope), r1 and r2: (N, H, W, Cout) or None, out: (N, H, W, Cout) or None;
     x, r1, r2 and out may be channel views of wider buffers. Returns (N, H,
     W, Cout) in x's type: ``out`` when given, written in place."""
-    global launches
     epilogue = dict(scale=scale, shift=shift, silu=silu, slope=slope, r1=r1, s1=s1, r2=r2, s2=s2, out=out)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return conv3x3_plain(x, w, b, **epilogue)
@@ -212,6 +213,5 @@ def conv3x3(x, w, b=None, *, scale=None, shift=None, silu=False, slope=None, r1=
         )
     if err != 0:
         raise RuntimeError(f"conv3x3: kernel launch failed with cudaError {err}")
-    with _count_lock:
-        launches += 1
+    count_launch(__name__, launches=1)
     return out

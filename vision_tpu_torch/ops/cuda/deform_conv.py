@@ -42,6 +42,7 @@ import threading
 
 import torch
 
+from . import count_launch
 from .conv3x3 import _pixel_stride
 from .deform_sample import deform_sample_plain
 
@@ -176,7 +177,6 @@ def deform_conv(x, weight, offset, mask, kh: int, kw: int, stride: int = 1, pad:
     :func:`weight_layout` of the weight for x's type, or None to lay it out
     at this call (the plain version reads the weight). Returns (B, Ho, Wo,
     Cout) in x's type: ``out`` when given, written in place."""
-    global launches
     tensors = [t for t in (x, weight, offset, mask, bias, scale, shift, out, layout) if t is not None]
     if all(t.device.type == "cpu" for t in tensors):
         return deform_conv_plain(x, weight, offset, mask, kh, kw, stride, pad, bound, bias=bias, scale=scale,
@@ -214,6 +214,5 @@ def deform_conv(x, weight, offset, mask, kh: int, kw: int, stride: int = 1, pad:
         )
     if err != 0:
         raise RuntimeError(f"deform_conv: kernel launch failed with cudaError {err}")
-    with _count_lock:
-        launches += 1
+    count_launch(__name__, launches=1)
     return out

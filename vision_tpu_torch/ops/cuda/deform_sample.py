@@ -39,6 +39,8 @@ import threading
 
 import torch
 
+from . import count_launch
+
 __all__ = ["deform_sample", "deform_sample_plain", "launches"]
 
 launches = 0
@@ -124,7 +126,6 @@ def _check(x, offset, mask, kh: int, kw: int, stride: int, pad: int) -> None:
 def deform_sample(x, offset, mask, kh: int, kw: int, stride: int = 1, pad: int = 0, bound=None) -> torch.Tensor:
     """The modulated deformable-conv columns (B, Ho, Wo, kh * kw, Cin) in x's
     type; ``bound``: None for the exact form, else the offsets' clamp."""
-    global launches
     if all(t.device.type == "cpu" for t in (x, offset, mask) if t is not None):
         return deform_sample_plain(x, offset, mask, kh, kw, stride, pad, bound)
     # any other float type is read as f32
@@ -148,6 +149,5 @@ def deform_sample(x, offset, mask, kh: int, kw: int, stride: int = 1, pad: int =
         )
     if err != 0:
         raise RuntimeError(f"deform_sample: kernel launch failed with cudaError {err}")
-    with _count_lock:
-        launches += 1
+    count_launch(__name__, launches=1)
     return out

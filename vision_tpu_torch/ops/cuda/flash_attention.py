@@ -32,6 +32,8 @@ import threading
 
 import torch
 
+from . import count_launch
+
 __all__ = ["HEAD_DIMS", "flash_attention", "flash_attention_plain", "launches"]
 
 launches = 0
@@ -84,7 +86,6 @@ def flash_attention(q, k, v, scale: float | None = None, mask=None) -> torch.Ten
     The kernel supports NO mask (its consumers are mask-free global
     attentions; attention_core routes masked shapes elsewhere), so a mask
     raises rather than being silently ignored."""
-    global launches
     if mask is not None:
         raise ValueError(
             "flash_attention does not support masks; use attention_core (it routes "
@@ -108,6 +109,5 @@ def flash_attention(q, k, v, scale: float | None = None, mask=None) -> torch.Ten
         )
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with cudaError {err}")
-    with _count_lock:
-        launches += 1
+    count_launch(__name__, launches=1)
     return out

@@ -53,6 +53,8 @@ from typing import NamedTuple
 
 import torch
 
+from . import count_launch
+
 __all__ = ["window_attention", "window_attention_plain", "window_plan", "WindowPlan", "launches", "masked_launches"]
 
 launches = 0
@@ -231,7 +233,6 @@ def window_attention(q, k, v, bias, n_heads: int, scale: float, window_mask=None
     (H, T, T), read in its own type and added in f32; window_mask: None or
     (nW, T, T) float32, window w taking mask w % nW, added in f32. Returns
     (NW, T, C) in q's type."""
-    global launches, masked_launches
     if all(x.device.type == "cpu" for x in (q, k, v, bias, window_mask) if x is not None):
         return window_attention_plain(q, k, v, bias, n_heads, scale, window_mask)
     if bias is not None:
@@ -254,7 +255,5 @@ def window_attention(q, k, v, bias, n_heads: int, scale: float, window_mask=None
         )
     if err != 0:
         raise RuntimeError(f"window_attention: kernel launch failed with cudaError {err}")
-    with _count_lock:
-        launches += 1
-        masked_launches += window_mask is not None
+    count_launch(__name__, launches=1, masked_launches=int(window_mask is not None))
     return out

@@ -21,6 +21,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..core.graph import device_cache
+
 __all__ = ["resize_nhwc", "resize_matrix", "interpolate"]
 
 
@@ -126,6 +128,19 @@ def _axis_weights_impl(n_in: int, n_out: int, method: str, align_corners: bool) 
     raise ValueError(f"unknown resize method: {method}")
 
 
+@device_cache(maxsize=32)
+def _device_weights(n_in: int, n_out: int, method: str, align_corners: bool, device: torch.device) -> torch.Tensor:
+    """_axis_weights as an f32 tensor on ``device``, made once (a copy: the
+    cached matrices are read-only numpy arrays)."""
+    return torch.tensor(_axis_weights(n_in, n_out, method, align_corners), device=device)
+
+
+@device_cache(maxsize=32)
+def _device_nearest(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """_nearest_indices as an int64 tensor on ``device``, made once."""
+    return torch.from_numpy(_nearest_indices(n_in, n_out)).to(device)
+
+
 def resize_matrix(n_in: int, n_out: int, method: str, align_corners: bool) -> np.ndarray:
     return _axis_weights(n_in, n_out, method, align_corners)
 
@@ -146,13 +161,10 @@ def resize_nhwc(
         return x[0] if squeeze else x
     dt = x.dtype
     if method == "nearest":
-        ys = torch.from_numpy(_nearest_indices(h, h_out)).to(x.device)
-        xs = torch.from_numpy(_nearest_indices(w, w_out)).to(x.device)
-        out = x[:, ys][:, :, xs]
+        out = x[:, _device_nearest(h, h_out, x.device)][:, :, _device_nearest(w, w_out, x.device)]
         return out[0] if squeeze else out
-    # torch.tensor copies: the cached matrices are read-only numpy arrays
-    wy = torch.tensor(_axis_weights(h, h_out, method, align_corners), device=x.device)
-    wx = torch.tensor(_axis_weights(w, w_out, method, align_corners), device=x.device)
+    wy = _device_weights(h, h_out, method, align_corners, x.device)
+    wx = _device_weights(w, w_out, method, align_corners, x.device)
     xf = x.float()
     # contract H: (h_out,h) x (n,h,w,c) -> (n,h_out,w,c)
     out = torch.einsum("oh,nhwc->nowc", wy, xf)
