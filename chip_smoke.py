@@ -189,7 +189,47 @@ Phases, each raising on failure:
      --composite's foreground estimate at 1024x1024, radius 30, through the
      host-ops library and through its numpy forms, timed on the host;
  29. the served phases' p50s (their forwards now graph replays) and the
-     graphs' eager against replay ms.
+     graphs' eager against replay ms;
+ 30. the HTTP front end (serve_http.py): VisionHTTPServer over the six
+     models of phases 27-28 on 127.0.0.1, port 0, each service at its
+     default batch, every bucket's graph captured first; 8 client threads
+     send 34 PNG bodies (the port's encode_png) at once: Depth-Anything 8
+     at 518x518 and 700x500, BiRefNet 4 at 1024x1024 and 1280x720, SAM 6
+     (3 points, 3 boxes) at 1024x1024 and 640x480, Real-ESRGAN 4 at
+     256x256, MI-GAN 4 RGBA at 512x512, YOLOv9t 8 at 640x480 and 1280x720.
+     Every response is 200 and equals the same request through the
+     in-process service within one u8 level on at most 0.1% of its values
+     (YOLOv9t's JSON its Detections, within the JSON's roundings); the
+     hand-written launches, counted from 0, equal each service's
+     per-forward count (12 flash; 48 window and 20 deform_conv; 10 window
+     an encoder batch; 351 and 112 conv3x3; none for MI-GAN) times its
+     batches; /healthz reports the six services, one with fewer batches than
+     requests; no result is copied to the host on a handler thread; a
+     truncated PNG gets 400, an unknown route 404, a Content-Length past
+     MAX_BODY_BYTES 413; the host codec's ms (decode of each body extent,
+     encode of each response); then each endpoint alone gets a stream of
+     200 requests (its bodies, cycled), 8 in flight at a time, over HTTP and
+     then straight to its service: p50, p99 and req/s of each, and the
+     service's own p50 and p99 of the HTTP requests;
+ 31. bulk (bulk.py): bulk_run on the card over a directory of 12 PNGs at
+     three extents (Depth-Anything) and one of 8 (YOLOv9t, with
+     detections.json), each file against the in-process server (YOLOv9t's
+     annotations may move a box edge by a pixel; its JSON within its
+     roundings), the launches equal to the per-forward count times the
+     forwards the server called; img/s and occupancy;
+ 32. the verbs as subprocesses: ``eval -m`` Depth-Anything over phase 31's
+     images against the port's CPU f32 depth (AbsRel within EVAL_ABSREL)
+     and YOLOv9t against the CPU's detections.json (mAP printed, not gated);
+     ``serve`` with Depth-Anything and YOLOv9t on port 0 (each route
+     answered, 404 for the families not loaded, then SIGINT and exit 0
+     within 30 s); ``depthany -i <dir>``, its files equal to phase 31's; a
+     16-frame video through ``depthany`` where OpenCV imports (where it
+     does not, a line says video_run was not driven); last, the readings
+     that place eval's bound: the AbsRel of the served depth before its u8
+     store, and of bulk_run's files from a Depth-Anything with a fault
+     planted in the flash kernel's entry point (the ragged last key tile
+     dropped; the first 64-key tile dropped), each of which must pass the
+     bound.
 
 The line before the last is a JSON object describing every kernel of the
 paths; the last line is {"ok": true, "device": {...}}.
@@ -206,6 +246,7 @@ in turns.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -772,10 +813,11 @@ def profile_run(run, label: str, torch, card: str, names=("conv3x3",), counts=No
         named_ms[name] = ms
         shares.append(f"{name} {ms:.3f} ms ({ms / busy_ms:.2%} of busy)")
     others = sum(e.count for e in kernels if not any(name in e.key for name in names))
+    launches = f"{sum(e.count for e in kernels)} kernel launches, " + (
+        f"{others} of them not of {'/'.join(names)}" if names else "no hand-written kernel in this forward")
     print(f"profile of one {label}: wall {wall_ms:.3f} ms (profiler on), device busy "
-          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.2%}, {', '.join(shares)}, "
-          f"{sum(e.count for e in kernels)} kernel launches, {others} of them not of {'/'.join(names)} [{card}]",
-          flush=True)
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.2%}, {''.join(s + ', ' for s in shares)}"
+          f"{launches} [{card}]", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}", flush=True)
     named_launches = {name: sum(e.count for e in kernels if name in e.key) for name in names}
@@ -2194,6 +2236,45 @@ GRAPH_KERNELS = {  # family -> {counter: launches a forward}
 # the kernel names of the counters, as the profiler shows them (substrings)
 COUNTER_KERNELS = {"flash": "flash_attention", "window": "window_attention", "conv3x3": "conv3x3",
                    "deform_conv": "deform_conv", "deform_sample": "deform_sample"}
+# phases 30-32, the front ends: each HTTP service's request bodies, (w, h)
+# each (SAM's alternate a point and a box; MI-GAN's are RGBA with the mask in
+# alpha), sent by HTTP_CLIENTS threads at once
+HTTP_EXTENTS = {
+    "depthany": ((518, 518),) * 4 + ((700, 500),) * 4,
+    "birefnet": ((1024, 1024),) * 2 + ((1280, 720),) * 2,
+    "sam": ((1024, 1024), (640, 480)) * 3,
+    "esrgan": ((256, 256),) * 4,
+    "migan": ((512, 512),) * 4,
+    "yolo": ((640, 480),) * 4 + ((1280, 720),) * 4,
+}
+HTTP_CLIENTS = 8
+# phase 30's latency: each endpoint alone gets a stream of HTTP_STREAM requests
+# (its bodies of HTTP_EXTENTS, cycled), HTTP_CLIENTS in flight at a time, over
+# HTTP and then straight to its service
+HTTP_STREAM = 200
+HTTP_ROUTES = {"sam": "/v1/sam/mask", "esrgan": "/v1/esrgan", "birefnet": "/v1/birefnet", "depthany": "/v1/depthany",
+               "migan": "/v1/migan", "yolo": "/v1/yolo"}
+SERVICE_FAMILIES = {"sam": "sam", "esrgan": "esrgan", "birefnet": "birefnet", "depthany": "depthany",
+                    "migan": "migan", "yolo": "yolov9t"}  # HTTP service -> model family
+# each service's hand-written launches a forward (SAM: an encoder batch)
+SERVICE_KERNELS = {**{s: GRAPH_KERNELS[f] for s, f in SERVICE_FAMILIES.items() if f in GRAPH_KERNELS},
+                   "sam": {"window": 10}}
+MAX_SHARE_OFF = 1e-3  # a served image against the in-process one: values off by one u8 level at most, this share
+BULK_EXTENTS = {"depthany": ((518, 518), (700, 500), (640, 480)) * 4, "yolov9t": YOLO_EXTENTS * 2}
+# eval -m depthany scores the card's served u8 depth (bf16) against the CPU's
+# f32 depth shifted into [1, 2]: the affine alignment absorbs the shift, which
+# keeps AbsRel's division away from the min-max normalized map's zero. The
+# bound lies between the readings of depth_eval_readings on the card: 7.09e-4
+# sound (6.87e-4 of it bf16's own, before the u8 store) and 1.64e-3 with the
+# subtler DEPTH_FAULTS fault (3.14e-3 with the other)
+EVAL_ABSREL = 1.1e-3
+# the flash kernel faults planted in a Depth-Anything that EVAL_ABSREL must
+# catch: which keys of T each attention keeps (the kernel's key loop stopping
+# at the last full 64-key tile; skipping the first tile)
+DEPTH_FAULTS = {"ragged last key tile dropped": lambda t: slice(0, t // 64 * 64),
+                "first 64-key tile dropped": lambda t: slice(64, t)}
+VIDEO_FRAMES = 16
+SERVE_EXIT_S = 30  # the serve verb must exit 0 this soon after SIGINT
 CLI_EXTENT = (640, 480)  # the CLI phase's input image (w, h): ESRGAN cuts it into 224-pixel tiles
 HOST_OPS_CASE = ((1024, 1024), 30)  # --composite's foreground estimate: BiRefNet's extent, the CLI's radius
 
@@ -2321,29 +2402,20 @@ def host_ops_timing(card: str) -> dict:
     img = Image(rng.random((h, w, 4), np.float32), ImageFormat.rgba_f32)
     mask = Image(rng.random((h, w, 1), np.float32), ImageFormat.alpha_f32)
 
-    def host_ms(fn):
-        fn()
-        ts = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            fn()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(ts))
-
     fg_native = image_estimate_foreground(img, mask, radius).data
-    fg_native_ms = host_ms(lambda: image_estimate_foreground(img, mask, radius))
+    fg_native_ms = host_median_ms(lambda: image_estimate_foreground(img, mask, radius))
     library = native.box_blur
     native.box_blur = box_blur_plain  # image_estimate_foreground imports it at each call
     try:
         fg_numpy = image_estimate_foreground(img, mask, radius).data
-        fg_numpy_ms = host_ms(lambda: image_estimate_foreground(img, mask, radius))
+        fg_numpy_ms = host_median_ms(lambda: image_estimate_foreground(img, mask, radius))
     finally:
         native.box_blur = library
     a = img.data
     e = mask.data
     times = {"foreground": (fg_native_ms, fg_numpy_ms),
-             "blur": (host_ms(lambda: native.box_blur(a, radius)), host_ms(lambda: box_blur_plain(a, radius))),
-             "erosion": (host_ms(lambda: native.erosion_f32(e, radius)), host_ms(lambda: erosion_plain(e, radius)))}
+             "blur": (host_median_ms(lambda: native.box_blur(a, radius)), host_median_ms(lambda: box_blur_plain(a, radius))),
+             "erosion": (host_median_ms(lambda: native.erosion_f32(e, radius)), host_median_ms(lambda: erosion_plain(e, radius)))}
     fg_diff = float(np.abs(fg_native - fg_numpy).max())
     blur_diff = float(np.abs(native.box_blur(a, radius) - box_blur_plain(a, radius)).max())
     erosion_same = np.array_equal(native.erosion_f32(e, radius), erosion_plain(e, radius)[:, :, 0])
@@ -2369,11 +2441,13 @@ def cli_run(args: list, label: str) -> tuple[float, str]:
     return wall_s, res.stdout
 
 
-def front_door_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
+def front_door_phases(torch, card: str, fa, wa, cc, dsm, dcm, tmp: str) -> dict:
     """Phases 27-28: every graphed forward_u8 of the five models, eager
     against replay (GRAPH_CASES); then the CLI as a subprocess, each model
     verb's output PNG against the in-process model.compute, plus info and
-    compare. Returns what phase 29 reports of it."""
+    compare. The six GGUFs are written into ``tmp``. Returns what phase 29
+    reports of it, and the GGUFs' paths, the six models on the card and the
+    launch-count reader, which phases 30-32 reuse."""
     import gc
 
     from vision_tpu_torch import load_model
@@ -2397,96 +2471,769 @@ def front_door_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
     torch.cuda.empty_cache()
     rng = np.random.default_rng(27)
     rows = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        paths = front_door_ggufs(tmp)
-        print(f"the six families' random full-width GGUFs written in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    paths = front_door_ggufs(tmp)
+    print(f"the six families' random full-width GGUFs written in {time.perf_counter() - t0:.1f} s", flush=True)
 
-        phase("27 CUDA graphs: each forward_u8 replayed against its eager forward")
-        gpu = backend_init("gpu")
-        models = {}
-        for family, batches, shapes, flags in GRAPH_CASES:
-            models[family] = model = load_model(paths[family], gpu)
-            for b in batches:
-                xs = [torch.from_numpy(rng.integers(0, 256, (b, *sh), np.uint8)).cuda() for sh in shapes]
-                if family == "migan":
-                    xs[1] = (xs[1] > 180).to(torch.uint8) * 255
-                rows[(family, b)] = graph_case(torch, card, family, model, xs, flags, counts)
-            if len(model.graphs.cache) != len(batches):
-                raise AssertionError(f"{family}: {len(model.graphs.cache)} graphs for {len(batches)} keys")
+    phase("27 CUDA graphs: each forward_u8 replayed against its eager forward")
+    gpu = backend_init("gpu")
+    models = {}
+    for family, batches, shapes, flags in GRAPH_CASES:
+        models[family] = model = load_model(paths[family], gpu)
+        for b in batches:
+            xs = [torch.from_numpy(rng.integers(0, 256, (b, *sh), np.uint8)).cuda() for sh in shapes]
+            if family == "migan":
+                xs[1] = (xs[1] > 180).to(torch.uint8) * 255
+            rows[(family, b)] = graph_case(torch, card, family, model, xs, flags, counts)
+        if len(model.graphs.cache) != len(batches):
+            raise AssertionError(f"{family}: {len(model.graphs.cache)} graphs for {len(batches)} keys")
 
-        phase("28 CLI: python -m vision_tpu_torch.cli, every model verb and info and compare")
-        w, h = CLI_EXTENT
+    phase("28 CLI: python -m vision_tpu_torch.cli, every model verb and info and compare")
+    w, h = CLI_EXTENT
+    y, x = np.mgrid[0:h, 0:w]
+    px = np.stack([(x * 3 + y) % 256, (y * 5) % 256, (x * y // 7) % 256], -1)
+    px = (px + rng.integers(0, 24, px.shape)).clip(0, 255).astype(np.uint8)
+    mask = np.zeros((h, w, 1), np.uint8)
+    mask[h // 4 : h * 3 // 4, w // 3 : w * 2 // 3] = 255
+    src, msk = os.path.join(tmp, "in.png"), os.path.join(tmp, "mask.png")
+    image_save(Image(px, ImageFormat.rgb_u8), src)
+    image_save(Image(mask, ImageFormat.alpha_u8), msk)
+    image, mask_img = image_load(src), image_load(msk)
+    out = lambda name: os.path.join(tmp, f"out_{name}.png")  # noqa: E731
+    verbs = {
+        "depthany": ["-i", src],
+        "birefnet": ["-i", src, "--composite", out("composite")],
+        "esrgan": ["-i", src, "--tile", "224"],
+        "migan": ["-i", src, msk],
+        "yolov9t": ["-i", src],
+        "sam": ["-i", src, "-p", str(w // 2), str(h // 3)],
+    }
+    cli_s = {}
+    for verb, extra in verbs.items():
+        cli_s[verb], stdout = cli_run([verb, "-m", paths[verb], "-o", out(verb), *extra], verb)
+        got = image_load(out(verb))
+        if verb not in models:  # SAM: phase 30 serves it too
+            models[verb] = load_model(paths[verb], gpu)
+        model = models[verb]
+        if verb == "depthany":
+            want = image_f32_to_u8(model.compute(image), ImageFormat.alpha_u8)
+        elif verb == "esrgan":
+            want = model.compute(image, tile_size=224)
+        elif verb == "migan":
+            want = model.compute(image, mask_img)
+        elif verb == "yolov9t":
+            dets = model.compute(image, 0.25, 0.45)
+            want = draw_detections(image, dets)
+            if f"Found {len(dets)} objects:" not in stdout:
+                raise AssertionError(f"CLI yolov9t printed {stdout[:300]!r}, in-process found {len(dets)}")
+        elif verb == "sam":
+            model.encode(image)
+            want = model.compute(point=(w // 2, h // 3))
+        else:
+            want = model.compute(image)
+            _composite(image, want, out("composite_in_process"))
+            if not np.array_equal(image_load(out("composite")).data,
+                                  image_load(out("composite_in_process")).data):
+                raise AssertionError("CLI birefnet --composite differs from the in-process composite")
+        same = got.format == want.format and np.array_equal(got.data, want.data)
+        off = float((got.data != want.data).mean()) if got.data.shape == want.data.shape else 1.0
+        phases_line = " | ".join(ln for ln in stdout.splitlines() if "done (" in ln)
+        print(f"CLI {verb}: exit 0 in {cli_s[verb]:.2f} s wall ({phases_line}); {got.extent} {got.format.value}, "
+              f"{'equal to' if same else f'{off:.4%} of values differ from'} the in-process model.compute "
+              f"[{card}]", flush=True)
+        if not same:
+            raise AssertionError(f"CLI {verb}: output differs from the in-process model.compute")
+    cli_s["info"], stdout = cli_run(["info", "-m", paths["birefnet"]], "info")
+    if "family: birefnet" not in stdout:
+        raise AssertionError(f"CLI info printed {stdout[:300]!r}")
+    matte = image_load(out("birefnet"))
+    image_save(matte, out("birefnet_copy"))
+    cli_s["compare"], stdout = cli_run(["compare", "-i", out("birefnet"), out("birefnet_copy"), "--max-rms", "0"],
+                                       "compare")
+    if not stdout.startswith("rms  0.000000") or image_difference_rms(matte, image_load(out("birefnet_copy"))):
+        raise AssertionError(f"CLI compare printed {stdout!r}")
+    print(f"CLI info {cli_s['info']:.2f} s, compare {cli_s['compare']:.2f} s wall: exit 0 [{card}]", flush=True)
+    host_ops = host_ops_timing(card)
+    counters = {"flash": fa, "window": wa, "conv3x3": cc, "deform_conv": dcm, "deform_sample": dsm}
+    return {"graphs": rows, "cli_s": cli_s, "host_ops": host_ops, "paths": paths, "models": models, "counts": counts,
+            "counters": counters}
+
+
+def front_images(rng, extents, channels: int = 3) -> list:
+    """Smooth seeded u8 images, one per (w, h) extent: the CLI phase's
+    pattern plus noise. With 4 channels the alpha is MI-GAN's mask: 255 to
+    keep, a hole of 0 in the middle."""
+    out = []
+    for w, h in extents:
         y, x = np.mgrid[0:h, 0:w]
         px = np.stack([(x * 3 + y) % 256, (y * 5) % 256, (x * y // 7) % 256], -1)
         px = (px + rng.integers(0, 24, px.shape)).clip(0, 255).astype(np.uint8)
-        mask = np.zeros((h, w, 1), np.uint8)
-        mask[h // 4 : h * 3 // 4, w // 3 : w * 2 // 3] = 255
-        src, msk = os.path.join(tmp, "in.png"), os.path.join(tmp, "mask.png")
-        image_save(Image(px, ImageFormat.rgb_u8), src)
-        image_save(Image(mask, ImageFormat.alpha_u8), msk)
-        image, mask_img = image_load(src), image_load(msk)
-        out = lambda name: os.path.join(tmp, f"out_{name}.png")  # noqa: E731
-        verbs = {
-            "depthany": ["-i", src],
-            "birefnet": ["-i", src, "--composite", out("composite")],
-            "esrgan": ["-i", src, "--tile", "224"],
-            "migan": ["-i", src, msk],
-            "yolov9t": ["-i", src],
-            "sam": ["-i", src, "-p", str(w // 2), str(h // 3)],
+        if channels == 4:
+            alpha = np.full((h, w, 1), 255, np.uint8)
+            alpha[h // 4 : h // 2, w // 3 : w * 2 // 3] = 0
+            px = np.concatenate([px, alpha], axis=2)
+        out.append(px)
+    return out
+
+
+def http_requests(rng) -> list:
+    """Phase 30's requests in the order the clients send them (a seeded
+    shuffle of HTTP_EXTENTS): (service, path with its query, pixels,
+    prompt), the prompt SAM's ("point", (x, y)) or ("box", ((x0, y0), (x1,
+    y1))), else None."""
+    reqs = []
+    for service, extents in HTTP_EXTENTS.items():
+        for i, px in enumerate(front_images(rng, extents, 4 if service == "migan" else 3)):
+            h, w = px.shape[:2]
+            path, prompt = HTTP_ROUTES[service], None
+            if service == "sam" and i % 2 == 0:
+                prompt = ("point", (w // 3, h // 2))
+                path += f"?x={w // 3}&y={h // 2}"
+            elif service == "sam":
+                prompt = ("box", ((w // 8, h // 8), (w * 5 // 8, h * 3 // 4)))
+                path += f"?box={w // 8},{h // 8},{w * 5 // 8},{h * 3 // 4}"
+            reqs.append((service, path, px, prompt))
+    return [reqs[i] for i in rng.permutation(len(reqs))]
+
+
+def submit_in_process(svc, service: str, img, prompt):
+    """The request the HTTP handler makes of a decoded body, straight to the
+    service: SAM's prompt, MI-GAN's alpha as the mask."""
+    from vision_tpu_torch.image import Image, ImageFormat
+
+    if service == "sam":
+        kind, where = prompt
+        return svc.submit(img, **{kind: where})
+    if service == "migan":
+        return svc.submit((img, Image(np.ascontiguousarray(img.data[:, :, 3:4]), ImageFormat.alpha_u8)))
+    return svc.submit(img)
+
+
+def response_pixels(service: str, result) -> np.ndarray:
+    """What the HTTP endpoint encodes of a server result (serve_http's
+    _png_bytes through result_u8); MI-GAN's RGB."""
+    from vision_tpu_torch.image.image import result_u8
+
+    a = result_u8(result.data)
+    return a[:, :, :3] if service == "migan" else a
+
+
+def lsb_close(got: np.ndarray, want: np.ndarray, max_diff: int = 1) -> tuple[bool, int, float]:
+    """(within ``max_diff`` u8 levels on at most MAX_SHARE_OFF of the
+    values, max difference, share of values that differ). An annotated
+    YOLOv9t image takes max_diff 255: a box edge lands a pixel apart where
+    a coordinate within 1e-3 px of the other crosses a pixel boundary."""
+    if got.shape != want.shape:
+        return False, -1, 1.0
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    mx, share = int(diff.max()), float((diff > 0).mean())
+    return mx <= max_diff and share <= MAX_SHARE_OFF, mx, share
+
+
+def detections_match(doc: list, dets: list, box_round: float, conf_round: float) -> bool:
+    """A JSON detection list (the HTTP endpoint's or bulk's) against
+    Detections: the same classes in order, boxes and confidences within
+    their roundings (``box_round``, ``conf_round``: half the last digit
+    kept) plus 1e-3 px and 1e-4."""
+    if len(doc) != len(dets):
+        return False
+    for j, d in zip(doc, dets):
+        cls = j["class_id"] if "class_id" in j else j["class"]
+        if cls not in (d.class_id, _class_name(d.class_id)):
+            return False
+        if max(abs(a - b) for a, b in zip(j["box"], (d.x1, d.y1, d.x2, d.y2))) > box_round + 1e-3:
+            return False
+        if abs(j["confidence"] - d.confidence) > conf_round + 1e-4:
+            return False
+    return True
+
+
+def _class_name(class_id: int) -> str:
+    from vision_tpu_torch.models.yolov9t import COCO_CLASS_NAMES
+
+    return COCO_CLASS_NAMES[class_id] if class_id < len(COCO_CLASS_NAMES) else str(class_id)
+
+
+def http_call(port: int, method: str, path: str, body: bytes | None = None, headers: dict | None = None):
+    """One request to 127.0.0.1:port: (status, body, content type). The
+    headers as given (default: the body's Content-Length)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.putrequest(method, path, skip_accept_encoding=True)
+        for k, v in (headers if headers is not None else {"Content-Length": str(len(body or b""))}).items():
+            conn.putheader(k, v)
+        conn.endheaders()
+        if body:
+            conn.send(body)
+        r = conn.getresponse()
+        return r.status, r.read(), r.getheader("Content-Type")
+    finally:
+        conn.close()
+
+
+# phase 30's HTTP client, a process of its own (no torch): argv port, a JSON
+# plan [[path, body file], ...], an output directory ("-": keep no response)
+# and the thread count. Each thread reads its body first, then times the
+# request; each response is written to <dir>/<i>.bin; prints {"answers":
+# [[status, content type, ms], ...], "wall_s": the plan's wall seconds}.
+HTTP_CLIENT = """
+import http.client, json, sys, time
+from concurrent.futures import ThreadPoolExecutor
+port, plan, out = int(sys.argv[1]), json.load(open(sys.argv[2])), sys.argv[3]
+def send(i):
+    path, body_file = plan[i]
+    body = open(body_file, "rb").read()
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", path, body)
+    r = conn.getresponse()
+    data = r.read()
+    ms = (time.perf_counter() - t0) * 1e3
+    conn.close()
+    if out != "-":
+        open(f"{out}/{i}.bin", "wb").write(data)
+    return [r.status, r.getheader("Content-Type"), ms]
+t0 = time.perf_counter()
+with ThreadPoolExecutor(int(sys.argv[4])) as pool:
+    answers = list(pool.map(send, range(len(plan))))
+print(json.dumps({"answers": answers, "wall_s": time.perf_counter() - t0}))
+"""
+
+
+def http_client(port: int, plan: list, plan_path: str, out_dir: str) -> dict:
+    """HTTP_CLIENT over ``plan`` ([[path, body file], ...], written to
+    ``plan_path``) from HTTP_CLIENTS threads; raises unless it exits 0 and
+    every answer is 200. Returns its printed object."""
+    with open(plan_path, "w") as f:
+        json.dump(plan, f)
+    res = subprocess.run([sys.executable, "-c", HTTP_CLIENT, str(port), plan_path, out_dir, str(HTTP_CLIENTS)],
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"the HTTP client exited {res.returncode}:\n{res.stderr}")
+    got = json.loads(res.stdout)
+    bad = [(i, a[0]) for i, a in enumerate(got["answers"]) if a[0] != 200]
+    if bad:
+        raise AssertionError(f"HTTP answers other than 200 (plan index, status): {bad[:10]}")
+    return got
+
+
+def stream_plan(reqs: list, service: str, n: int) -> list:
+    """The indexes into ``reqs`` of ``service``'s latency stream: its
+    requests in their order, cycled to ``n``."""
+    mine = [i for i, r in enumerate(reqs) if r[0] == service]
+    return [mine[k % len(mine)] for k in range(n)]
+
+
+def latency_streams(card: str, srv, reqs: list, body_files: list, decoded: list, tmp: str) -> dict:
+    """Phase 30's latency: each endpoint alone, HTTP_STREAM requests
+    (stream_plan) from HTTP_CLIENTS threads of the client process, then the
+    same requests from HTTP_CLIENTS threads of this process straight to the
+    service (the bodies decoded beforehand). Each stream's p50 and p99 over
+    all its requests and its req/s; for the HTTP stream also the service's
+    own p50 and p99 of the same requests (submit to result, its stats) and
+    its batches. Returns service -> those numbers."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rows = {}
+    for service in HTTP_EXTENTS:
+        svc, plan = srv.services[service], stream_plan(reqs, service, HTTP_STREAM)
+        svc.stats.reset()
+        got = http_client(srv.port, [[reqs[i][1], body_files[i]] for i in plan],
+                          os.path.join(tmp, f"stream_{service}.json"), "-")
+        http_ms = [a[2] for a in got["answers"]]
+        stats = svc.stats
+        row = {"http_p50": float(np.percentile(http_ms, 50)), "http_p99": float(np.percentile(http_ms, 99)),
+               "http_rps": len(plan) / got["wall_s"], "svc_p50": stats.p50_latency_ms,
+               "svc_p99": stats.p99_latency_ms, "batches": stats.batches}
+        in_ms = []
+
+        def submit(i, svc=svc, service=service, in_ms=in_ms):
+            t0 = time.perf_counter()
+            submit_in_process(svc, service, decoded[i], reqs[i][3]).result(timeout=600)
+            in_ms.append((time.perf_counter() - t0) * 1e3)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+            list(pool.map(submit, plan))
+        row.update(in_p50=float(np.percentile(in_ms, 50)), in_p99=float(np.percentile(in_ms, 99)),
+                   in_rps=len(plan) / (time.perf_counter() - t0))
+        rows[service] = row
+        print(f"{service}: {len(plan)} requests, {HTTP_CLIENTS} in flight: HTTP p50 {row['http_p50']:.3f} ms, p99 "
+              f"{row['http_p99']:.3f} ms, {row['http_rps']:.3f} req/s in {row['batches']} batches (the service's "
+              f"own p50 {row['svc_p50']:.3f} ms, p99 {row['svc_p99']:.3f} ms of them); in-process p50 "
+              f"{row['in_p50']:.3f} ms, p99 {row['in_p99']:.3f} ms, {row['in_rps']:.3f} req/s [{card}]", flush=True)
+    return rows
+
+
+def host_median_ms(fn) -> float:
+    """The median of 5 calls of ``fn`` on the host's clock, in ms, after
+    one call to warm up."""
+    fn()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def expected_launches(batches: dict) -> dict:
+    """The hand-written launches of ``batches`` (service -> batches run):
+    each service's per-forward counts (SERVICE_KERNELS) times its batches,
+    summed by counter; every counter of COUNTER_KERNELS, 0 where none."""
+    want = {k: 0 for k in COUNTER_KERNELS}
+    for service, n in batches.items():
+        for k, per in SERVICE_KERNELS[service].items():
+            want[k] += per * n
+    return want
+
+
+def http_phase(torch, card: str, fd: dict, tmp: str) -> dict:
+    """Phase 30: VisionHTTPServer over the six models on 127.0.0.1, port 0,
+    each service at its default batch; HTTP_CLIENTS threads of a client
+    process of their own (HTTP_CLIENT) send the bodies of http_requests (the
+    port's encode_png) at once. Every response is 200 and equals the same
+    request through the in-process service within lsb_close (YOLOv9t's JSON
+    its Detections); the hand-written launches equal SERVICE_KERNELS times
+    each service's batches; /healthz reports the six services, one of them
+    with fewer batches than requests; no result is copied to the host on a
+    handler thread; a truncated PNG gets 400, an unknown route 404, a
+    Content-Length past MAX_BODY_BYTES 413. Prints the host codec's ms and
+    each endpoint's latency_streams, which it returns."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vision_tpu_torch import serve_http as thttp
+    from vision_tpu_torch.image.png import encode_png, read_png
+
+    phase("30 HTTP: VisionHTTPServer over the six families at full width, 8 clients at once")
+    models, counts = fd["models"], fd["counts"]
+    reqs = http_requests(np.random.default_rng(30))
+    bodies = [encode_png(px) for _, _, px, _ in reqs]
+    out_dir = os.path.join(tmp, "http_responses")
+    os.makedirs(out_dir)
+    body_files = [os.path.join(tmp, f"http_body_{i}.png") for i in range(len(bodies))]
+    for path, body in zip(body_files, bodies):
+        with open(path, "wb") as f:
+            f.write(body)
+    srv = thttp.VisionHTTPServer(**{f"{s}_model": models[f] for s, f in SERVICE_FAMILIES.items()}, port=0)
+    tensor_cpu = torch.Tensor.cpu
+    try:
+        svcs = srv.services
+        # every bucket's graph is captured before the counted run (a capture's
+        # eager warm-up launches the kernels too); warmup() resets the stats
+        svcs["depthany"].warmup()
+        svcs["depthany"].warmup((700, 500))
+        svcs["esrgan"].warmup((256, 256))
+        for name in ("birefnet", "sam", "migan", "yolo"):
+            svcs[name].warmup()
+        srv.start()
+        host_copies = []  # the threads that copy a tensor to the host while clients send
+
+        def spy_cpu(self, *args, **kw):
+            host_copies.append(threading.current_thread().name)
+            return tensor_cpu(self, *args, **kw)
+
+        for m in fd["counters"].values():
+            m.launches = 0
+        torch.Tensor.cpu = spy_cpu
+        got = http_client(srv.port, [[path, f] for (_, path, _, _), f in zip(reqs, body_files)],
+                          os.path.join(tmp, "http_plan.json"), out_dir)
+        torch.Tensor.cpu = tensor_cpu
+        launched = counts()
+        batches = {name: svc.stats.batches for name, svc in svcs.items()}
+        health = json.loads(http_call(srv.port, "GET", "/healthz")[1])
+        responses = []
+        for i, (status, ctype, _) in enumerate(got["answers"]):
+            with open(os.path.join(out_dir, f"{i}.bin"), "rb") as f:
+                responses.append((status, f.read(), ctype))
+        want = expected_launches(batches)
+        print(f"{len(reqs)} HTTP requests from {HTTP_CLIENTS} client threads of a process of their own in "
+              f"{got['wall_s']:.3f} s; batches {batches}; hand-written launches {launched}, expected {want} [{card}]",
+              flush=True)
+        if launched != want:
+            raise AssertionError(f"launches {launched}, expected {want} (per forward times batches)")
+        sent = {s: len(e) for s, e in HTTP_EXTENTS.items()}
+        models_health = health["models"]
+        if set(models_health) != set(sent) or any(models_health[s]["requests"] != n for s, n in sent.items()):
+            raise AssertionError(f"/healthz {health}, sent {sent}")
+        shared = [s for s in sent if models_health[s]["batches"] < models_health[s]["requests"]]
+        print(f"/healthz: {json.dumps(models_health)}; services whose clients shared a forward: {shared}",
+              flush=True)
+        if health["status"] != "ok" or not shared:
+            raise AssertionError(f"/healthz shows no shared forward: {health}")
+        on_handlers = sorted({t for t in host_copies if "process_request_thread" in t})
+        if not host_copies or on_handlers:
+            raise AssertionError(f"host copies on handler threads {on_handlers} (of {len(host_copies)})")
+        print(f"{len(host_copies)} copies to the host while clients sent, all on the servers' batch workers "
+              f"({sorted(set(host_copies))[:3]}...)", flush=True)
+
+        depth_body = bodies[next(i for i, r in enumerate(reqs) if r[0] == "depthany")]
+        errors = {
+            "truncated PNG": (http_call(srv.port, "POST", "/v1/depthany", depth_body[: len(depth_body) // 2]), 400),
+            "unknown route": (http_call(srv.port, "POST", "/v1/nope", b"x"), 404),
+            "Content-Length past MAX_BODY_BYTES": (http_call(
+                srv.port, "POST", "/v1/migan", b"x", {"Content-Length": str(thttp.MAX_BODY_BYTES + 1)}), 413),
         }
-        cli_s = {}
-        for verb, extra in verbs.items():
-            cli_s[verb], stdout = cli_run([verb, "-m", paths[verb], "-o", out(verb), *extra], verb)
-            got = image_load(out(verb))
-            model = models.get(verb) or load_model(paths[verb], gpu)
-            if verb == "depthany":
-                want = image_f32_to_u8(model.compute(image), ImageFormat.alpha_u8)
-            elif verb == "esrgan":
-                want = model.compute(image, tile_size=224)
-            elif verb == "migan":
-                want = model.compute(image, mask_img)
-            elif verb == "yolov9t":
-                dets = model.compute(image, 0.25, 0.45)
-                want = draw_detections(image, dets)
-                if f"Found {len(dets)} objects:" not in stdout:
-                    raise AssertionError(f"CLI yolov9t printed {stdout[:300]!r}, in-process found {len(dets)}")
-            elif verb == "sam":
-                model.encode(image)
-                want = model.compute(point=(w // 2, h // 3))
+        for label, ((status, body, _), want_status) in errors.items():
+            print(f"{label}: HTTP {status} {body[:120]!r}", flush=True)
+            if status != want_status:
+                raise AssertionError(f"{label}: HTTP {status}, expected {want_status}")
+
+        # the same requests through the same services in process, from 8 threads in the same order
+        decoded = [thttp._load_image_bytes(b) for b in bodies]
+        results = [None] * len(reqs)
+
+        def submit(i):
+            service, _, _, prompt = reqs[i]
+            results[i] = submit_in_process(svcs[service], service, decoded[i], prompt).result(timeout=600)
+
+        with ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+            list(pool.map(submit, range(len(reqs))))
+        worst = {}
+        for (service, path, _, _), (_, body, ctype), res in zip(reqs, responses, results):
+            if service == "yolo":
+                if ctype != "application/json" or not detections_match(json.loads(body), res, 0.005, 5e-5):
+                    raise AssertionError(f"{path}: the JSON differs from the in-process Detections")
+                continue
+            ok, mx, share = lsb_close(read_png(body), response_pixels(service, res))
+            prev = worst.get(service, (0, 0.0))
+            worst[service] = (max(prev[0], mx), max(prev[1], share))
+            if ctype != "image/png" or not ok:
+                raise AssertionError(f"{path}: max difference {mx}, {share:.4%} of values differ from in-process")
+        print("HTTP responses against the in-process services: " + "; ".join(
+            f"{s} max u8 difference {mx}, {share:.4%} of values off" for s, (mx, share) in worst.items())
+              + "; yolo's JSON equal to the Detections within its roundings", flush=True)
+
+        # the host codec: decode of each body extent, encode of each service's response
+        decode_ms = {}
+        for (service, _, px, _), body in zip(reqs, bodies):
+            key = f"{px.shape[1]}x{px.shape[0]}x{px.shape[2]}"
+            if key not in decode_ms:
+                decode_ms[key] = host_median_ms(lambda: read_png(body))
+        encode_ms = {}
+        for (service, _, _, _), res in zip(reqs, results):
+            if service != "yolo" and service not in encode_ms:
+                enc_img = res
+                if service == "migan":
+                    from vision_tpu_torch.image import Image, ImageFormat
+
+                    enc_img = Image(np.ascontiguousarray(res.data[:, :, :3]), ImageFormat.rgb_u8)
+                encode_ms[service] = (host_median_ms(lambda: thttp._png_bytes(enc_img)),
+                                      f"{res.width}x{res.height}x{response_pixels(service, res).shape[2]}")
+        print("host codec (median of 5 on the host): decode " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                                                        decode_ms.items())
+              + "; encode " + ", ".join(f"{s} {ext} {ms:.3f} ms" for s, (ms, ext) in encode_ms.items())
+              + f" [{card}]", flush=True)
+        return latency_streams(card, srv, reqs, body_files, decoded, tmp)
+    finally:
+        torch.Tensor.cpu = tensor_cpu
+        srv.close()
+
+
+def count_forwards(model) -> list:
+    """Shadows ``model.forward_u8`` with a wrapper that appends to the
+    returned list at each call; ``del model.forward_u8`` brings the class's
+    method back."""
+    calls, forward = [], model.forward_u8
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return forward(*args, **kw)
+
+    model.forward_u8 = counted
+    return calls
+
+
+def bulk_phase(torch, card: str, fd: dict, tmp: str) -> dict:
+    """Phase 31: bulk_run on the card over a directory of 12 PNGs at mixed
+    extents (Depth-Anything) and one of 8 (YOLOv9t, with detections.json),
+    each Depth-Anything bucket's graph captured first. Every written file
+    equals that image through the in-process server within lsb_close
+    (YOLOv9t's annotation and JSON against its Detections), and the
+    hand-written launches equal the per-forward count times the forwards
+    that bulk_run's server called. Prints img/s and occupancy."""
+    from vision_tpu_torch.bulk import bulk_inputs, bulk_run
+    from vision_tpu_torch.image import Image, ImageFormat, image_load, image_save
+    from vision_tpu_torch.models.depth_anything import depthany_image_extent
+    from vision_tpu_torch.models.yolov9t import draw_detections
+    from vision_tpu_torch.serve import ImageServer, YoloServer
+
+    phase("31 bulk: bulk_run over directories of PNGs (Depth-Anything at mixed extents, YOLOv9t)")
+    models, counts = fd["models"], fd["counts"]
+    rng = np.random.default_rng(31)
+    dm = models["depthany"]
+    for w, h in sorted({depthany_image_extent(e, dm.p) for e in BULK_EXTENTS["depthany"]}):
+        dm.forward_u8(torch.zeros((4, h, w, 3), dtype=torch.uint8, device=dm.device.torch_device))  # bulk's batch
+    out = {"dirs": {}, "outs": {}}  # family -> its input and output directory, which phase 32 reads
+    for family, service in (("depthany", "depthany"), ("yolov9t", "yolo")):
+        src = os.path.join(tmp, f"bulk_in_{family}")
+        os.makedirs(src)
+        for i, px in enumerate(front_images(rng, BULK_EXTENTS[family])):
+            image_save(Image(px, ImageFormat.rgb_u8), os.path.join(src, f"{family}_{i:02d}.png"))
+        inputs, dst, logs = bulk_inputs(src), os.path.join(tmp, f"bulk_out_{family}"), []
+        model = models[family]
+        forwards = count_forwards(model)
+        for m in fd["counters"].values():
+            m.launches = 0
+        try:
+            t0 = time.perf_counter()
+            written = bulk_run(model, inputs, dst, log=logs.append)
+            wall_s = time.perf_counter() - t0
+        finally:
+            del model.forward_u8  # the class's method again
+        launched = counts()
+        want = expected_launches({service: len(forwards)})
+        print(f"bulk_run {family}: {len(inputs)} images -> {len(written)} files in {wall_s:.3f} s, "
+              f"{len(inputs) / wall_s:.3f} img/s; its summary: {logs[-1].strip()}; {len(forwards)} forwards; "
+              f"hand-written launches {launched}, expected {want} [{card}]", flush=True)
+        if launched != want:
+            raise AssertionError(f"bulk {family}: launches {launched}, expected {want}")
+        if family == "depthany":
+            with ImageServer(models[family]) as srv:
+                res = [f.result(timeout=600) for f in [srv.submit(image_load(p)) for p in inputs]]
+            checks = [(os.path.join(dst, os.path.basename(p)), response_pixels("depthany", r), 1)
+                      for p, r in zip(inputs, res)]
+        else:
+            with YoloServer(models[family]) as srv:
+                imgs = [image_load(p) for p in inputs]
+                res = [f.result(timeout=600) for f in [srv.submit(img) for img in imgs]]
+            doc = json.load(open(os.path.join(dst, "detections.json")))
+            for p, dets in zip(inputs, res):
+                if not detections_match(doc[os.path.splitext(os.path.basename(p))[0]], dets, 0.05, 5e-5):
+                    raise AssertionError(f"bulk yolov9t: detections.json for {p} differs from the in-process")
+            checks = [(os.path.join(dst, os.path.basename(p)), draw_detections(img, d).data, 255)
+                      for p, img, d in zip(inputs, imgs, res)]
+        worst = (0, 0.0)
+        for path, want_px, max_diff in checks:
+            got = image_load(path).data
+            ok, mx, share = lsb_close(got, want_px, max_diff)
+            worst = (max(worst[0], mx), max(worst[1], share))
+            if not ok:
+                raise AssertionError(f"bulk {path}: max difference {mx}, {share:.4%} of values off")
+        print(f"bulk_run {family}: every file against the in-process server: max difference {worst[0]}, "
+              f"share off {worst[1]:.4%}", flush=True)
+        out["dirs"][family], out["outs"][family] = src, dst
+    return out
+
+
+def serve_verb(card: str, fd: dict, tmp: str) -> None:
+    """Phase 32's serve: ``python -m vision_tpu_torch.cli serve`` with
+    Depth-Anything and --extra-model YOLOv9t on port 0, the port read from
+    its "serving on port N" line; one request to each of the six routes
+    (the four families not loaded get 404), the two answers against the
+    in-process servers; then SIGINT, after which it must exit 0 within
+    SERVE_EXIT_S."""
+    import queue
+    import signal
+    import threading
+
+    from vision_tpu_torch import serve_http as thttp
+    from vision_tpu_torch.image.png import encode_png, read_png
+    from vision_tpu_torch.serve import ImageServer, YoloServer
+
+    paths, models = fd["paths"], fd["models"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    err_path = os.path.join(tmp, "serve_stderr.txt")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "vision_tpu_torch.cli", "serve", "-m", paths["depthany"],
+                                 "--extra-model", paths["yolov9t"], "--port", "0"], cwd=root,
+                                stdout=subprocess.PIPE, stderr=err, text=True)
+    try:
+        lines: queue.Queue = queue.Queue()
+        threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout] + [lines.put(None)],
+                         daemon=True).start()
+        t0 = time.perf_counter()
+        port, seen = None, []
+        while port is None:
+            line = lines.get(timeout=600)
+            if line is None:
+                raise AssertionError(f"serve exited {proc.wait()} before listening:\n{''.join(seen)}\n"
+                                     f"{open(err_path).read()}")
+            seen.append(line)
+            if line.startswith("serving on port "):
+                port = int(line.split()[3].rstrip(":"))
+        start_s = time.perf_counter() - t0
+        rng = np.random.default_rng(32)
+        depth_px, yolo_px = front_images(rng, ((700, 500), (1280, 720)))
+        answers = {route: http_call(port, "POST", route, encode_png(depth_px if "depth" in route else yolo_px))
+                   for route in HTTP_ROUTES.values()}
+        with ImageServer(models["depthany"]) as srv:
+            depth_want = srv.submit(thttp._load_image_bytes(encode_png(depth_px))).result(timeout=600)
+        with YoloServer(models["yolov9t"]) as srv:
+            yolo_want = srv.submit(thttp._load_image_bytes(encode_png(yolo_px))).result(timeout=600)
+        for route, (status, body, ctype) in answers.items():
+            service = next(s for s, r in HTTP_ROUTES.items() if r == route)
+            if service == "depthany":
+                ok = status == 200 and lsb_close(read_png(body), response_pixels("depthany", depth_want))[0]
+            elif service == "yolo":
+                ok = status == 200 and detections_match(json.loads(body), yolo_want, 0.005, 5e-5)
             else:
-                want = model.compute(image)
-                _composite(image, want, out("composite_in_process"))
-                if not np.array_equal(image_load(out("composite")).data,
-                                      image_load(out("composite_in_process")).data):
-                    raise AssertionError("CLI birefnet --composite differs from the in-process composite")
-            if verb not in models:
-                del model
-                gc.collect()
-                torch.cuda.empty_cache()
-            same = got.format == want.format and np.array_equal(got.data, want.data)
-            off = float((got.data != want.data).mean()) if got.data.shape == want.data.shape else 1.0
-            phases_line = " | ".join(ln for ln in stdout.splitlines() if "done (" in ln)
-            print(f"CLI {verb}: exit 0 in {cli_s[verb]:.2f} s wall ({phases_line}); {got.extent} {got.format.value}, "
-                  f"{'equal to' if same else f'{off:.4%} of values differ from'} the in-process model.compute "
-                  f"[{card}]", flush=True)
-            if not same:
-                raise AssertionError(f"CLI {verb}: output differs from the in-process model.compute")
-        cli_s["info"], stdout = cli_run(["info", "-m", paths["birefnet"]], "info")
-        if "family: birefnet" not in stdout:
-            raise AssertionError(f"CLI info printed {stdout[:300]!r}")
-        matte = image_load(out("birefnet"))
-        image_save(matte, out("birefnet_copy"))
-        cli_s["compare"], stdout = cli_run(["compare", "-i", out("birefnet"), out("birefnet_copy"), "--max-rms", "0"],
-                                           "compare")
-        if not stdout.startswith("rms  0.000000") or image_difference_rms(matte, image_load(out("birefnet_copy"))):
-            raise AssertionError(f"CLI compare printed {stdout!r}")
-        print(f"CLI info {cli_s['info']:.2f} s, compare {cli_s['compare']:.2f} s wall: exit 0 [{card}]", flush=True)
-        host_ops = host_ops_timing(card)
-    del models
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"graphs": rows, "cli_s": cli_s, "host_ops": host_ops}
+                ok = status == 404 and json.loads(body) == {"error": f"no {service} model loaded"}
+            print(f"serve subprocess {route}: HTTP {status} ({ctype}), {'as expected' if ok else 'UNEXPECTED'}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"serve subprocess {route}: HTTP {status} {body[:200]!r}")
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=SERVE_EXIT_S)
+        exit_s = time.perf_counter() - t1
+        print(f"serve subprocess: listening {start_s:.2f} s after start (port {port}); exit {rc} "
+              f"{exit_s:.2f} s after SIGINT [{card}]", flush=True)
+        if rc != 0:
+            raise AssertionError(f"serve exited {rc} on SIGINT:\n{open(err_path).read()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def verbs_phase(torch, card: str, fd: dict, tmp: str, bulk: dict) -> None:
+    """Phase 32: the CLI's new verbs as subprocesses on the card. ``eval -m``
+    for Depth-Anything over phase 31's 12 images, its ground truth the
+    port's CPU f32 depth of the same images shifted into [1, 2] (.npy):
+    AbsRel within EVAL_ABSREL. ``eval -m`` for YOLOv9t, its ground truth the
+    CPU f32 detections.json: its mAP printed, not gated (random weights put
+    every score near 0.5). ``serve`` (serve_verb). ``depthany -i <dir>``,
+    whose files must equal phase 31's within lsb_close. A video through
+    ``depthany`` where OpenCV imports, and otherwise a line that says it was
+    not driven (video_verb). Last, depth_eval_readings: every planted flash
+    fault must put AbsRel past EVAL_ABSREL."""
+    from vision_tpu_torch import load_model
+    from vision_tpu_torch.bulk import bulk_inputs, bulk_run
+    from vision_tpu_torch.core.device import backend_init
+    from vision_tpu_torch.image import image_load
+
+    phase("32 the verbs as subprocesses: eval -m, serve, a directory -i, a video")
+    paths = fd["paths"]
+    cpu = backend_init("cpu")
+    t0 = time.perf_counter()
+    gt_depth, gt_yolo = os.path.join(tmp, "gt_depth"), os.path.join(tmp, "gt_yolov9t")
+    os.makedirs(gt_depth)
+    cpu_model = load_model(paths["depthany"], cpu)
+    for f in bulk_inputs(bulk["dirs"]["depthany"]):
+        depth = cpu_model.compute(image_load(f)).data
+        np.save(os.path.join(gt_depth, os.path.splitext(os.path.basename(f))[0] + ".npy"), depth + 1.0)
+    cpu_model = load_model(paths["yolov9t"], cpu)
+    bulk_run(cpu_model, bulk_inputs(bulk["dirs"]["yolov9t"]), gt_yolo, log=lambda *_: None)
+    del cpu_model
+    print(f"ground truth from the port's f32 forwards on the CPU in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    scores = {}
+    for family, gt in (("depthany", gt_depth), ("yolov9t", os.path.join(gt_yolo, "detections.json"))):
+        result = os.path.join(tmp, f"eval_{family}.json")
+        wall, stdout = cli_run(["eval", "-m", paths[family], "-i", bulk["dirs"][family], "--gt", gt, "-o", result],
+                               f"eval -m {family}")
+        r = json.load(open(result))
+        report = "\n".join(ln for ln in stdout[stdout.index("task "):].splitlines() if not ln.startswith("-> "))
+        print(f"CLI eval -m {family}: exit 0 in {wall:.2f} s wall; " + " | ".join(report.splitlines()) + f" [{card}]",
+              flush=True)
+        want_task = "depth" if family == "depthany" else "detection"
+        if r["task"] != want_task or r["n_images"] != len(BULK_EXTENTS[family]):
+            raise AssertionError(f"eval {family}: {r['task']} over {r['n_images']} images")
+        scores[family] = r["mean"]
+    depth, det = scores["depthany"], scores["yolov9t"]
+    print(f"eval -m depthany, card bf16 against CPU f32: AbsRel {depth['absrel']:.4e} (bound {EVAL_ABSREL}), "
+          f"delta1 {depth['delta1']:.6f}; eval -m yolov9t against the CPU's detections: mAP@0.5 "
+          f"{det['map50']:.4f}, mAP@[.5:.95] {det['map50_95']:.4f} (random weights: printed, not gated)", flush=True)
+    if not depth["absrel"] <= EVAL_ABSREL:
+        raise AssertionError(f"eval -m depthany AbsRel {depth['absrel']} past {EVAL_ABSREL}")
+
+    serve_verb(card, fd, tmp)
+
+    dst = os.path.join(tmp, "cli_bulk_depthany")
+    wall, stdout = cli_run(["depthany", "-m", paths["depthany"], "-i", bulk["dirs"]["depthany"], "-o", dst],
+                           "depthany -i <dir>")
+    worst, equal = (0, 0.0), 0
+    for name in sorted(os.listdir(bulk["outs"]["depthany"])):
+        got, want = image_load(os.path.join(dst, name)).data, image_load(os.path.join(bulk["outs"]["depthany"],
+                                                                                     name)).data
+        ok, mx, share = lsb_close(got, want)
+        worst, equal = (max(worst[0], mx), max(worst[1], share)), equal + (mx == 0)
+        if not ok:
+            raise AssertionError(f"CLI depthany -i <dir>: {name} differs from phase 31's (max {mx}, {share:.4%})")
+    print(f"CLI depthany -i <dir>: exit 0 in {wall:.2f} s wall; {equal} of {len(BULK_EXTENTS['depthany'])} files "
+          f"equal to phase 31's, max difference {worst[0]}, share off {worst[1]:.4%} [{card}]", flush=True)
+
+    video_verb(card, fd, tmp)
+
+    faults = depth_eval_readings(card, fd, bulk_inputs(bulk["dirs"]["depthany"]), gt_depth, tmp)
+    missed = {k: v for k, v in faults.items() if not v > EVAL_ABSREL}
+    if missed:
+        raise AssertionError(f"planted flash faults within eval -m's AbsRel bound {EVAL_ABSREL}: {missed}")
+
+
+def video_verb(card: str, fd: dict, tmp: str) -> None:
+    """Phase 32's video: ``depthany -i <clip>`` on a VIDEO_FRAMES-frame clip
+    that VideoWriter made, where OpenCV imports; otherwise a line that says
+    it was not driven and why."""
+    paths = fd["paths"]
+    try:
+        import cv2  # noqa: F401
+    except ImportError as e:
+        print(f"video: video_run was not driven on this machine: OpenCV (cv2) does not import ({e}), and "
+              f"video.py decodes and encodes through it", flush=True)
+        return
+    from vision_tpu_torch.video import VideoReader, VideoWriter
+
+    clip, clip_out = os.path.join(tmp, "clip.avi"), os.path.join(tmp, "clip_depth.avi")
+    with VideoWriter(clip, 12.0, (640, 480)) as w:
+        for px in front_images(np.random.default_rng(33), ((640, 480),) * VIDEO_FRAMES):
+            w.write(px)
+    wall, _ = cli_run(["depthany", "-m", paths["depthany"], "-i", clip, "-o", clip_out], "depthany -i <video>")
+    with VideoReader(clip_out) as r:
+        n, extent = sum(1 for _ in r), r.extent
+    print(f"CLI depthany -i <video>: exit 0 in {wall:.2f} s wall; {n} frames of {extent} written for "
+          f"{VIDEO_FRAMES} [{card}]", flush=True)
+    if n != VIDEO_FRAMES or extent != (640, 480):
+        raise AssertionError(f"video: {n} frames of {extent}")
+
+
+def depth_eval_readings(card: str, fd: dict, inputs: list, gt_dir: str, tmp: str) -> dict:
+    """What eval -m depthany's AbsRel can see, as evaluate scores it against
+    ``gt_dir``: the card's served depth (ImageServer, bf16) before its u8
+    store, as .npy; and, for each DEPTH_FAULTS fault planted in the flash
+    kernel's entry point, the u8 files bulk_run writes from a fresh
+    Depth-Anything (its graphs capture the fault). Prints them all and
+    returns fault -> AbsRel."""
+    import vision_tpu_torch.ops.cuda.flash_attention as flash_mod
+    from vision_tpu_torch import load_model
+    from vision_tpu_torch.bulk import bulk_run
+    from vision_tpu_torch.core.device import backend_init
+    from vision_tpu_torch.evaluate import evaluate
+    from vision_tpu_torch.image import image_load
+    from vision_tpu_torch.serve import ImageServer
+
+    floats = os.path.join(tmp, "depth_f32_card")
+    os.makedirs(floats)
+    with ImageServer(fd["models"]["depthany"]) as srv:
+        futures = [(p, srv.submit(image_load(p))) for p in inputs]
+        for p, fut in futures:
+            np.save(os.path.join(floats, os.path.splitext(os.path.basename(p))[0] + ".npy"),
+                    fut.result(timeout=600).data)
+    before_u8 = evaluate("depth", floats, gt_dir)["mean"]["absrel"]
+    faults = {}
+    flash = flash_mod.flash_attention
+    for n, (label, keys) in enumerate(DEPTH_FAULTS.items()):
+        def faulty(q, k, v, *args, keys=keys, **kw):
+            keep = keys(k.shape[2])
+            return flash(q, k[:, :, keep].contiguous(), v[:, :, keep].contiguous(), *args, **kw)
+
+        dst = os.path.join(tmp, f"depth_fault_{n}")
+        flash_mod.flash_attention = faulty
+        try:
+            model = load_model(fd["paths"]["depthany"], backend_init("gpu"))
+            bulk_run(model, inputs, dst, log=lambda *_: None)
+        finally:
+            flash_mod.flash_attention = flash
+        del model
+        faults[label] = evaluate("depth", dst, gt_dir)["mean"]["absrel"]
+    print(f"eval -m depthany's AbsRel beside its readings: served float depth, before the u8 store {before_u8:.4e}; "
+          + "; ".join(f"u8 files, {k} {v:.4e}" for k, v in faults.items()) + f" (bound {EVAL_ABSREL}) [{card}]",
+          flush=True)
+    return faults
 
 
 class ParentConvEntry:
@@ -3221,6 +3968,10 @@ def main(argv=None) -> int:
           f"{d_sum['sampler']:.4f} ms, bound {d_sum['sampler_bound']:.4f} ms ({d_sum['sampler_bound_by']}), plain "
           f"{d_sum['sampler_plain']:.4f} ms) [{card}]", flush=True)
     mw_rows = masked_window_yardsticks(wa, torch, card)
+    print("window_attention masked, SWIN-L stages 2-4 at batch 4, by the card's own time: " + "; ".join(
+        f"stage {i + 2} kernel {k:.4f} ms, bound {bd:.4f} ms ({by}, {k / bd:.2f}x), SDPA with the combined mask "
+        f"{lib:.4f} ms ({k / lib:.2f}x)" for i, (_, k, _, lib, bd, by) in enumerate(mw_rows[1:])) + f" [{card}]",
+          flush=True)
     for b in (1, 4):
         xb = torch.from_numpy(brng.integers(0, 256, (b, 1024, 1024, 3), np.uint8)).to("cuda")
         f1 = median_ms(lambda: bmodel.forward_u8(xb), 3, warmup=1)
@@ -3260,18 +4011,29 @@ def main(argv=None) -> int:
 
     s3 = sam3_phases(torch, card, fa, wa, cc, dsm, dcm)
     ym = yolo_migan_phases(torch, card, fa, wa, cc, dsm, dcm)
-    fd = front_door_phases(torch, card, fa, wa, cc, dsm, dcm)
+    with tempfile.TemporaryDirectory() as fd_tmp:
+        fd = front_door_phases(torch, card, fa, wa, cc, dsm, dcm, fd_tmp)
 
-    phase(f"29 served p50s through graph replays, and the graphs' eager against replay ms, on {card}")
-    served = {"Depth-Anything (8 requests, batch 4)": p50_ms, "MobileSAM (12, batch 6; encoder eager)": s_p50,
-              "Real-ESRGAN (6, batch 4)": e_p50, "BiRefNet (8, batch 4)": b_p50,
-              f"YOLOv9t (16, batch {YOLO_BATCH})": ym["p50_ms"], f"MI-GAN (8, batch {MIGAN_BATCH})": ym["migan_p50_ms"]}
-    print("served p50 latency: " + "; ".join(f"{k} {v:.3f} ms" for k, v in served.items()) + f" [{card}]", flush=True)
-    for (family, b), r in fd["graphs"].items():
-        print(f"{family} batch {b}: eager {r['eager_ms']:.3f} ms, replay {r['replay_ms']:.3f} ms "
-              f"({r['eager_ms'] / r['replay_ms']:.2f}x), replay busy {r['busy_ms']:.3f} ms, idle {r['idle']:.2%}, "
-              f"first call {r['capture_ms']:.1f} ms, pool {r['pool_before_mib']:.1f} -> {r['pool_mib']:.1f} MiB (eager "
-              f"peak {r['eager_peak_mib']:.1f}, reserved {r['eager_reserved_mib']:.1f}) [{card}]", flush=True)
+        phase(f"29 served p50s through graph replays, and the graphs' eager against replay ms, on {card}")
+        served = {"Depth-Anything (8 requests, batch 4)": p50_ms, "MobileSAM (12, batch 6; encoder eager)": s_p50,
+                  "Real-ESRGAN (6, batch 4)": e_p50, "BiRefNet (8, batch 4)": b_p50,
+                  f"YOLOv9t (16, batch {YOLO_BATCH})": ym["p50_ms"],
+                  f"MI-GAN (8, batch {MIGAN_BATCH})": ym["migan_p50_ms"]}
+        print("served p50 latency: " + "; ".join(f"{k} {v:.3f} ms" for k, v in served.items()) + f" [{card}]",
+              flush=True)
+        for (family, b), r in fd["graphs"].items():
+            print(f"{family} batch {b}: eager {r['eager_ms']:.3f} ms, replay {r['replay_ms']:.3f} ms "
+                  f"({r['eager_ms'] / r['replay_ms']:.2f}x), replay busy {r['busy_ms']:.3f} ms, idle "
+                  f"{r['idle']:.2%}, first call {r['capture_ms']:.1f} ms, pool {r['pool_before_mib']:.1f} -> "
+                  f"{r['pool_mib']:.1f} MiB (eager peak {r['eager_peak_mib']:.1f}, reserved "
+                  f"{r['eager_reserved_mib']:.1f}) [{card}]", flush=True)
+
+        # phases 30-32 over phase 27's GGUFs and the models phases 27-28 loaded
+        http_phase(torch, card, fd, fd_tmp)
+        verbs_phase(torch, card, fd, fd_tmp, bulk_phase(torch, card, fd, fd_tmp))
+        del fd["models"]
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # one RDB's five convs at 1024x1024 as the path runs them, summed
     rdb = conv_rows[: len(ESRGAN_RDB)]

@@ -136,3 +136,15 @@ def test_package_exports():
 
     for name in ("load_model", "model_detect_family", "GraphCache", "shape_bucket", "snap_to_multiple"):
         assert name in vt.__all__ and getattr(vt, name) is not None
+
+
+@pytest.mark.parametrize("family", list(api.ModelFamily), ids=lambda f: f.value)
+def test_family_loader_is_load_models_dispatch(family):
+    """The CLI's model verbs load through family_loader, the dispatch
+    load_model makes after detecting the family."""
+    import importlib
+
+    module, name = {"sam": ("mobile_sam", "sam_load_model"), "depth_anything": ("depth_anything",
+                    "depthany_load_model")}.get(family.value, (family.value, f"{family.value}_load_model"))
+    want = getattr(importlib.import_module(f"vision_tpu_torch.models.{module}"), name)
+    assert api.family_loader(family) is want

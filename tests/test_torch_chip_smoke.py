@@ -105,3 +105,140 @@ def test_match_detections(chip_smoke):
     assert chip_smoke.match_detections(a, [Detection(0, 0, 10, 10, 0.9, 3), a[1]]) == 0.5
     assert chip_smoke.match_detections(a, [Detection(5, 5, 15, 15, 0.9, 1)]) == 0.0
     assert chip_smoke.match_detections([], []) == 1.0
+
+
+def test_the_phase_list_runs_to_32(chip_smoke):
+    doc = chip_smoke.__doc__
+    numbers = [int(ln.split(".")[0]) for ln in doc.splitlines() if ln[:4].strip().rstrip(".").isdigit()]
+    assert numbers == list(range(1, 33))
+    for name in ("http_phase", "bulk_phase", "verbs_phase", "serve_verb"):
+        assert callable(getattr(chip_smoke, name))
+
+
+def test_http_requests_are_phase_30s_mix(chip_smoke):
+    """34 bodies: Depth-Anything 8, BiRefNet 4, SAM 6 (3 points, 3 boxes,
+    each prompt in its query), Real-ESRGAN 4, MI-GAN 4 RGBA with the mask in
+    alpha, YOLOv9t 8; a seeded order, the same each run."""
+    import numpy as np
+
+    reqs = chip_smoke.http_requests(np.random.default_rng(30))
+    assert len(reqs) == 34
+    by = {}
+    for service, path, px, prompt in reqs:
+        by.setdefault(service, []).append((path, px, prompt))
+        assert path.startswith(chip_smoke.HTTP_ROUTES[service])
+    assert {s: len(v) for s, v in by.items()} == {"depthany": 8, "birefnet": 4, "sam": 6, "esrgan": 4, "migan": 4,
+                                                 "yolo": 8}
+    for service, items in by.items():
+        extents = sorted((px.shape[1], px.shape[0]) for _, px, _ in items)
+        assert extents == sorted(chip_smoke.HTTP_EXTENTS[service])
+        assert all(px.shape[2] == (4 if service == "migan" else 3) for _, px, _ in items)
+    kinds = sorted(prompt[0] for _, _, prompt in by["sam"])
+    assert kinds == ["box"] * 3 + ["point"] * 3
+    for path, px, (kind, where) in by["sam"]:
+        query = path.split("?")[1]
+        assert query == (f"x={where[0]}&y={where[1]}" if kind == "point" else
+                         "box=" + ",".join(str(v) for xy in where for v in xy))
+    migan_alpha = by["migan"][0][1][:, :, 3]
+    assert set(np.unique(migan_alpha)) == {0, 255}
+    again = chip_smoke.http_requests(np.random.default_rng(30))
+    assert [r[1] for r in again] == [r[1] for r in reqs] and all(
+        np.array_equal(a[2], b[2]) for a, b in zip(again, reqs))
+
+
+def test_expected_launches_are_per_forward_counts_times_batches(chip_smoke):
+    want = chip_smoke.expected_launches({"depthany": 2, "sam": 1, "birefnet": 1, "esrgan": 1, "yolo": 3, "migan": 5})
+    assert want == {"flash": 24, "window": 10 + 48, "conv3x3": 351 + 3 * 112, "deform_conv": 20, "deform_sample": 0}
+    assert chip_smoke.expected_launches({"migan": 4}) == dict.fromkeys(chip_smoke.COUNTER_KERNELS, 0)
+
+
+def test_lsb_close_and_detections_match(chip_smoke):
+    import numpy as np
+
+    from vision_tpu_torch.models.yolov9t import Detection
+
+    a = np.zeros((40, 50, 1), np.uint8)
+    b = a.copy()
+    b[0, 0] = 1
+    assert chip_smoke.lsb_close(a, b) == (True, 1, 1 / 2000)
+    b[0, 1] = 2
+    assert not chip_smoke.lsb_close(a, b)[0] and chip_smoke.lsb_close(a, b, max_diff=255)[0]
+    b[:2] = 1  # 100 of 2000 values off: past MAX_SHARE_OFF
+    assert not chip_smoke.lsb_close(a, b, max_diff=255)[0]
+    assert chip_smoke.lsb_close(a, a[:, :, 0])[0] is False
+    dets = [Detection(1.234567, 2.0, 30.0, 40.0, 0.512345, 0), Detection(5.0, 6.0, 7.0, 8.0, 0.3, 85)]
+    http_doc = [{"box": [1.23, 2.0, 30.0, 40.0], "confidence": 0.5123, "class_id": 0, "class_name": "person"},
+                {"box": [5.0, 6.0, 7.0, 8.0], "confidence": 0.3, "class_id": 85, "class_name": "85"}]
+    bulk_doc = [{"class": "person", "confidence": 0.5123, "box": [1.2, 2.0, 30.0, 40.0]},
+                {"class": "85", "confidence": 0.3, "box": [5.0, 6.0, 7.0, 8.0]}]
+    assert chip_smoke.detections_match(http_doc, dets, 0.005, 5e-5)
+    assert chip_smoke.detections_match(bulk_doc, dets, 0.05, 5e-5)
+    assert not chip_smoke.detections_match(bulk_doc, dets, 0.005, 5e-5)  # 1.2 is not 1.23 rounded
+    assert not chip_smoke.detections_match(http_doc[:1], dets, 0.005, 5e-5)
+    assert not chip_smoke.detections_match([dict(http_doc[0], class_id=1), http_doc[1]], dets, 0.005, 5e-5)
+
+
+def test_bulk_extents_fill_three_depth_buckets(chip_smoke):
+    """Phase 31: 12 Depth-Anything images in three snapped extents (each
+    bucket's graph captured before the count), 8 YOLOv9t images."""
+    from vision_tpu_torch.models.depth_anything import DepthAnythingParams, depthany_image_extent
+
+    depth, yolo = chip_smoke.BULK_EXTENTS["depthany"], chip_smoke.BULK_EXTENTS["yolov9t"]
+    assert len(depth) == 12 and len(yolo) == 8
+    assert len({depthany_image_extent(e, DepthAnythingParams()) for e in depth}) == 3
+
+
+def test_response_pixels_follow_the_endpoint(chip_smoke):
+    import numpy as np
+
+    from vision_tpu_torch import serve_http
+    from vision_tpu_torch.image import Image, ImageFormat
+    from vision_tpu_torch.image.png import read_png
+
+    depth = Image(np.linspace(-0.2, 1.2, 30, dtype=np.float32).reshape(5, 6, 1), ImageFormat.alpha_f32)
+    np.testing.assert_array_equal(chip_smoke.response_pixels("depthany", depth),
+                                  read_png(serve_http._png_bytes(depth)))
+    rgba = Image(np.arange(5 * 6 * 4, dtype=np.uint8).reshape(5, 6, 4), ImageFormat.rgba_u8)
+    assert chip_smoke.response_pixels("migan", rgba).shape == (5, 6, 3)
+
+
+def test_stream_plan_cycles_each_endpoints_bodies(chip_smoke):
+    """Phase 30's latency streams: HTTP_STREAM requests an endpoint, only
+    its own bodies, each used as often as the others within one."""
+    import numpy as np
+
+    reqs = chip_smoke.http_requests(np.random.default_rng(30))
+    assert chip_smoke.HTTP_STREAM >= 200
+    for service, extents in chip_smoke.HTTP_EXTENTS.items():
+        plan = chip_smoke.stream_plan(reqs, service, chip_smoke.HTTP_STREAM)
+        assert len(plan) == chip_smoke.HTTP_STREAM and {reqs[i][0] for i in plan} == {service}
+        uses = np.bincount(plan, minlength=len(reqs))[[i for i, r in enumerate(reqs) if r[0] == service]]
+        assert len(uses) == len(extents) and uses.max() - uses.min() <= 1
+
+
+def test_count_forwards_counts_calls_and_gives_the_method_back(chip_smoke):
+    class Model:
+        def forward_u8(self, x):
+            return x + 1
+
+    m = Model()
+    calls = chip_smoke.count_forwards(m)
+    assert [m.forward_u8(1), m.forward_u8(2)] == [2, 3] and len(calls) == 2
+    del m.forward_u8
+    assert m.forward_u8(3) == 4 and len(calls) == 2
+
+
+@pytest.mark.parametrize("extent", [(518, 518), (700, 500), (640, 480)])
+def test_depth_faults_drop_keys_at_every_eval_extent(chip_smoke, extent):
+    """Each planted flash fault drops keys at every extent phase 32 scores
+    (no token count there is a whole number of 64-key tiles), and only the
+    keys it names."""
+    import numpy as np
+
+    assert extent in chip_smoke.BULK_EXTENTS["depthany"]
+    t = chip_smoke.depth_tokens(extent)
+    keys = np.arange(t)
+    tail = keys[chip_smoke.DEPTH_FAULTS["ragged last key tile dropped"](t)]
+    first = keys[chip_smoke.DEPTH_FAULTS["first 64-key tile dropped"](t)]
+    assert t % 64 and len(tail) == t // 64 * 64 and tail[0] == 0
+    assert len(first) == t - 64 and first[0] == 64 and first[-1] == t - 1

@@ -110,9 +110,16 @@ def test_input_rules(data, tmp_path, capsys):
     assert rc == 1 and "Expected 2 (point) or 4 (box)" in err
     rc, _, err = _run(tcli, ["esrgan", "-m", tmp_path / "none.gguf", "-b", "cpu", "-i", data / "in.png"], capsys)
     assert rc == 1 and "Model file not found" in err
-    rc, _, err = _run(tcli, ["esrgan", "-m", data / "esrgan.gguf", "-b", "cpu", "-i", tmp_path], capsys)
+    rc, _, err = _run(tcli, ["esrgan", "-m", data / "esrgan.gguf", "-b", "cpu", "-i", tmp_path / "none.png"], capsys)
     assert rc == 1 and "Input file not found" in err
-    for verb in ("serve", "quantize", "eval", "finetune", "distill", "bench", "export"):
+    # a directory is bulk input (tests/test_torch_bulk.py): an empty one has no images
+    rc, _, err = _run(tcli, ["esrgan", "-m", data / "esrgan.gguf", "-b", "cpu", "-i", tmp_path], capsys)
+    assert rc == 1 and "bulk: no images" in err
+    # serve and eval are verbs (tests/test_torch_serve_http.py, tests/test_torch_eval.py)
+    assert _run(tcli, ["serve", "-i", "x"], capsys)[2] == "Error: No model specified (-m)\n"
+    with pytest.raises(SystemExit):
+        tcli.main(["eval", "-i", "x"])  # no --gt
+    for verb in ("quantize", "finetune", "distill", "bench", "export"):
         with pytest.raises(SystemExit):
             tcli.main([verb, "-i", "x"])
     capsys.readouterr()

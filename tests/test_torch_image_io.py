@@ -384,3 +384,28 @@ def test_png_round_trip_without_pil(tmp_path, monkeypatch):
         timage.image_save(img, tmp_path / f"{c}.png")
         back = timage.image_load(tmp_path / f"{c}.png")
         assert back.format == img.format and timage.image_difference_rms(img, back) == 0
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_result_u8_is_the_jax_endpoints_conversion(channels, dtype):
+    """The u8 pixels the port's front ends write of a server result are the
+    JAX HTTP endpoint's: floats by clip, x 255, + 0.5 (half levels, values
+    outside [0, 1]), u8 as given; read back from the JAX package's PNG."""
+    from vision_tpu import serve_http as jhttp
+    from vision_tpu_torch.image.image import result_u8
+
+    rng = np.random.default_rng(channels)
+    if dtype == np.float32:
+        a = rng.uniform(-0.2, 1.2, (6, 7, channels)).astype(np.float32)
+        a.flat[:4] = (np.arange(4, dtype=np.float32) + 0.5) / 255  # exactly half a level
+    else:
+        a = rng.integers(0, 256, (6, 7, channels), dtype=np.uint8)
+    fmt = {1: jimage.ImageFormat.alpha_f32, 3: jimage.ImageFormat.rgb_f32, 4: jimage.ImageFormat.rgba_f32}
+    if dtype == np.uint8:
+        fmt = {1: jimage.ImageFormat.alpha_u8, 3: jimage.ImageFormat.rgb_u8, 4: jimage.ImageFormat.rgba_u8}
+    want = np.asarray(PILImage.open(io.BytesIO(jhttp._png_bytes(jimage.Image(a, fmt[channels])))))
+    got = result_u8(a)
+    assert got.dtype == np.uint8 and got.shape == a.shape
+    np.testing.assert_array_equal(got, want.reshape(a.shape))
+    np.testing.assert_array_equal(result_u8(a[:, :, 0]), got[:, :, :1])  # a 2-D map gains its channel axis

@@ -42,6 +42,10 @@ SLICE_MODULES = [
     "vision_tpu_torch.models.migan",
     "vision_tpu_torch.models.random_weights",
     "vision_tpu_torch.serve",
+    "vision_tpu_torch.serve_http",
+    "vision_tpu_torch.bulk",
+    "vision_tpu_torch.video",
+    "vision_tpu_torch.evaluate",
     "vision_tpu_torch.api",
     "vision_tpu_torch.cli",
     "vision_tpu_torch.native",

@@ -15,7 +15,9 @@ Depth-Anything V2, BiRefNet and MI-GAN (``(image, mask)`` requests) through
 encoders run through :func:`~vision_tpu_torch.models.sam3.sam3_load_model`
 and ``Sam3Model.encode_text`` / ``encode_vision``. :func:`load_model` loads
 any family's GGUF, and ``python -m vision_tpu_torch.cli`` runs the model
-verbs. On the card each model's ``forward_u8`` replays one CUDA graph per
+verbs on an image, a directory (``bulk``) or a video (``video``), serves
+the families over HTTP (``serve_http``) and scores predictions
+(``evaluate``). On the card each model's ``forward_u8`` replays one CUDA graph per
 input shape (:class:`~vision_tpu_torch.core.graph.ForwardGraphs`).
 """
 

@@ -1,7 +1,7 @@
 """High-level model API — the port of vision_tpu/api.py:19-141:
 ``model_detect_family`` maps a GGUF's ``general.architecture`` string to its
 family (reference src/visp/vision.cpp:7-21) and ``load_model`` dispatches
-to the family's ``*_load_model``. LoRA adapters (``merge_adapter``) wait
+to the family's ``*_load_model`` (``family_loader``). LoRA adapters (``merge_adapter``) wait
 for the training slice."""
 
 from __future__ import annotations
@@ -48,14 +48,10 @@ def model_detect_family(file: GGUFFile | str) -> ModelFamily:
     return fam
 
 
-def load_model(filepath: str | GGUFFile, device: Device | None = None):
-    """Generic loader: detect the family and dispatch to the arch loader,
-    on ``device`` (default: the CUDA device; without one, backend_init
-    raises). The GGUF header is parsed once: the open file flows through to
-    the family loader (model_load passes a GGUFFile straight through)."""
-    device = device or backend_init()
-    file = model_load(filepath)
-    family = model_detect_family(file)
+def family_loader(family: ModelFamily):
+    """The family's ``*_load_model(file, device)``: load_model's dispatch,
+    which a caller that already knows the family (a CLI model verb) calls
+    directly."""
     if family == ModelFamily.sam:
         from .models.mobile_sam import sam_load_model as load
     elif family == ModelFamily.birefnet:
@@ -70,4 +66,14 @@ def load_model(filepath: str | GGUFFile, device: Device | None = None):
         from .models.yolov9t import yolov9t_load_model as load
     else:
         from .models.sam3 import sam3_load_model as load
-    return load(file, device)
+    return load
+
+
+def load_model(filepath: str | GGUFFile, device: Device | None = None):
+    """Generic loader: detect the family and dispatch to the arch loader,
+    on ``device`` (default: the CUDA device; without one, backend_init
+    raises). The GGUF header is parsed once: the open file flows through to
+    the family loader (model_load passes a GGUFFile straight through)."""
+    device = device or backend_init()
+    file = model_load(filepath)
+    return family_loader(model_detect_family(file))(file, device)

@@ -355,6 +355,17 @@ def image_f32_to_u8(
     return Image(np.ascontiguousarray(_store_u8(out4, dst_format)), dst_format)
 
 
+def result_u8(a: np.ndarray) -> np.ndarray:
+    """A server result's pixels as the front ends write them (the HTTP
+    responses, bulk's files, video frames): floats in [0, 1] to u8 by
+    clip, x 255, + 0.5 (round half up, where image_f32_to_u8 truncates),
+    u8 as given; a 2-D map gains its channel axis."""
+    a = np.asarray(a)
+    if np.issubdtype(a.dtype, np.floating):  # e.g. Depth-Anything's alpha_f32
+        a = (np.clip(a, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    return a[:, :, None] if a.ndim == 2 else a
+
+
 def image_to_mask(src: Image) -> Image:
     """Keep first (red) channel (reference image.cpp:290-308)."""
     return Image(np.ascontiguousarray(src.data[:, :, :1]), ImageFormat.alpha_u8)

@@ -3,11 +3,15 @@ the port loads and saves images without PIL.
 
 Scope (what ``image_load`` / ``image_save`` exchange): 8-bit samples, no
 interlacing, colour types 0 (gray), 2 (RGB), 3 (palette, with ``tRNS``
-alpha), 4 (gray + alpha) and 6 (RGBA). A file outside it raises
-:class:`PngUnsupported`. The decoded pixels follow what the JAX package's
-``image_load`` makes of a file through PIL: gray stays one channel, gray +
-alpha becomes RGBA, a palette becomes RGB, or RGBA when the file has a
-``tRNS`` chunk; a ``tRNS`` colour key of a gray or RGB file is ignored.
+alpha), 4 (gray + alpha) and 6 (RGBA). Beside it, :func:`read_png16` reads
+16-bit gray (the usual encoding of depth ground truth, which the JAX
+package's evaluator reads through PIL's ``I;16``). A file outside both
+raises :class:`PngUnsupported`. The decoded pixels follow what the JAX
+package's ``image_load`` makes of a file through PIL: gray stays one
+channel, gray + alpha becomes RGBA, a palette becomes RGB, or RGBA when the
+file has a ``tRNS`` chunk; a ``tRNS`` colour key of a gray or RGB file is
+ignored. :func:`encode_png` makes the bytes :func:`write_png` writes (the
+HTTP front end answers with them).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import numpy as np
 
 from ..core.errors import VispError
 
-__all__ = ["PNG_SIGNATURE", "PngUnsupported", "read_png", "write_png"]
+__all__ = ["PNG_SIGNATURE", "PngUnsupported", "encode_png", "read_png", "read_png16", "write_png"]
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -35,8 +39,10 @@ def _chunks(data: bytes):
     while pos + 12 <= len(data):
         (n,) = struct.unpack(">I", data[pos : pos + 4])
         kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
+        if pos + 12 + n > len(data):
+            raise VispError(f"PNG: chunk {kind!r} is truncated")
         (crc,) = struct.unpack(">I", data[pos + 8 + n : pos + 12 + n])
-        if len(body) != n or zlib.crc32(kind + body) != crc:
+        if zlib.crc32(kind + body) != crc:
             raise VispError(f"PNG: chunk {kind!r} is truncated or fails its CRC")
         yield kind, body
         if kind == b"IEND":
@@ -84,10 +90,10 @@ def _unfilter(ft: np.ndarray, f: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(xs[1:, 1:])
 
 
-def read_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, C) uint8 pixels, C in 1, 3, 4 (see the module
-    docstring). Raises :class:`VispError` on a damaged file and
-    :class:`PngUnsupported` outside the scope."""
+def _decode(data: bytes):
+    """The chunks of a PNG, checked, and its scanlines decompressed: (IHDR
+    fields, PLTE as (n, 3) u8 or None, tRNS bytes or None, the raw image
+    data as u8). Raises :class:`VispError` on a damaged file."""
     if not data.startswith(PNG_SIGNATURE):
         raise VispError("PNG: bad signature")
     header = palette = trns = None
@@ -103,19 +109,34 @@ def read_png(data: bytes) -> np.ndarray:
             idat.append(body)
     if header is None or not idat:
         raise VispError("PNG: no IHDR or IDAT chunk")
-    w, h, depth, ctype, _, _, interlace = header
-    if ctype not in _CHANNELS:
-        raise VispError(f"PNG: unknown colour type {ctype}")
-    if depth != 8 or interlace:
-        raise PngUnsupported(f"PNG: bit depth {depth}, interlace {interlace} (8-bit, not interlaced only)")
-    bpp = _CHANNELS[ctype]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if header[3] not in _CHANNELS:
+        raise VispError(f"PNG: unknown colour type {header[3]}")
+    return header, palette, trns, b"".join(idat)
+
+
+def _scanlines(idat: bytes, w: int, h: int, bpp: int, ctype: int) -> np.ndarray:
+    """Decompress and unfilter the image data: (H, W, bpp) bytes, bpp the
+    bytes of one pixel."""
+    try:
+        raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    except zlib.error as e:
+        raise VispError(f"PNG: image data does not inflate: {e}") from None
     if raw.size != h * (1 + w * bpp):
         raise VispError(f"PNG: {raw.size} bytes of image data for {w}x{h}, colour type {ctype}")
     raw = raw.reshape(h, 1 + w * bpp)
     if raw[:, 0].max(initial=0) > 4:
         raise VispError("PNG: unknown scanline filter")
-    px = _unfilter(raw[:, 0], raw[:, 1:].reshape(h, w, bpp))
+    return _unfilter(raw[:, 0], raw[:, 1:].reshape(h, w, bpp))
+
+
+def read_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, C) uint8 pixels, C in 1, 3, 4 (see the module
+    docstring). Raises :class:`VispError` on a damaged file and
+    :class:`PngUnsupported` outside the scope."""
+    (w, h, depth, ctype, _, _, interlace), palette, trns, idat = _decode(data)
+    if depth != 8 or interlace:
+        raise PngUnsupported(f"PNG: bit depth {depth}, interlace {interlace} (8-bit, not interlaced only)")
+    px = _scanlines(idat, w, h, _CHANNELS[ctype], ctype)
     if ctype == 4:  # gray + alpha -> RGBA
         return np.ascontiguousarray(px[:, :, [0, 0, 0, 1]])
     if ctype == 3:
@@ -130,9 +151,22 @@ def read_png(data: bytes) -> np.ndarray:
     return px
 
 
-def write_png(path: str | Path, pixels: np.ndarray) -> None:
-    """Write (H, W, C) uint8 pixels, C in 1, 3, 4 (gray, RGB, RGBA), as an
-    8-bit PNG. Every scanline takes the Up filter (the byte above
+def read_png16(data: bytes) -> np.ndarray:
+    """16-bit gray PNG bytes -> (H, W, 1) uint16 samples (PNG stores them
+    big-endian; PIL reads such a file as mode ``I;16``). Raises
+    :class:`VispError` on a damaged file and :class:`PngUnsupported` for any
+    other bit depth or colour type, or an interlaced file."""
+    (w, h, depth, ctype, _, _, interlace), _, _, idat = _decode(data)
+    if depth != 16 or ctype != 0 or interlace:
+        raise PngUnsupported(f"PNG: bit depth {depth}, colour type {ctype}, interlace {interlace} "
+                             "(16-bit gray, not interlaced only)")
+    px = _scanlines(idat, w, h, 2, ctype)
+    return ((px[:, :, 0].astype(np.uint16) << 8) | px[:, :, 1])[:, :, None]
+
+
+def encode_png(pixels: np.ndarray) -> bytes:
+    """(H, W, C) uint8 pixels, C in 1, 3, 4 (gray, RGB, RGBA), as the bytes
+    of an 8-bit PNG. Every scanline takes the Up filter (the byte above
     subtracted), which zlib then compresses at its default level."""
     a = np.ascontiguousarray(pixels)
     if a.dtype != np.uint8 or a.ndim != 3 or a.shape[2] not in (1, 3, 4):
@@ -148,9 +182,14 @@ def write_png(path: str | Path, pixels: np.ndarray) -> None:
         return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
     ctype = {1: 0, 3: 2, 4: 6}[c]
-    Path(path).write_bytes(
+    return (
         PNG_SIGNATURE
         + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
         + chunk(b"IDAT", zlib.compress(up.tobytes()))
         + chunk(b"IEND", b"")
     )
+
+
+def write_png(path: str | Path, pixels: np.ndarray) -> None:
+    """Write (H, W, C) uint8 pixels as an 8-bit PNG (:func:`encode_png`)."""
+    Path(path).write_bytes(encode_png(pixels))
