@@ -229,7 +229,30 @@ Phases, each raising on failure:
      store, and of bulk_run's files from a Depth-Anything with a fault
      planted in the flash kernel's entry point (the ragged last key tile
      dropped; the first 64-key tile dropped), each of which must pass the
-     bound.
+     bound;
+ 33. the dequant kernel (csrc/dequant.cu) against its plain version, bit for
+     bit, for the seven int8-resident block formats (Q8_0, Q4_0, Q4_1, Q5_0,
+     Q5_1, IQ4_NL, IQ4_XS) in bf16 and f32: the identity at an n that is no
+     multiple of a block of threads, a conv stored (O, H, W, I) under the
+     permute (0, 3, 1, 2) and a depthwise conv stored (H, W, 1, C) under
+     (3, 2, 0, 1); the f32 result also against the file's own dequant;
+ 34. quantized residency on the served paths: requantize_gguf writes Q8_0
+     copies of phase 27's Depth-Anything, MobileSAM, BiRefNet, MI-GAN and
+     YOLOv9t GGUFs (MI-GAN's and YOLOv9t's stored cwhn first, cwhn_gguf, so
+     that their 3x3 convs' rows divide the block) and Q4_1 and IQ4_NL copies
+     of Depth-Anything; each copy is loaded on the card expanded and
+     int8-resident (keep_quantized): store bytes and allocated MiB of each,
+     every resident weight's dequant bit-equal to the expanded weight, the
+     forward (a graph replay at the server's batch; MobileSAM's encode_u8 and
+     decode, eager) bit-equal, the same hand-written launches, and as many
+     dequant launches as the resident model's forward looks up weights on
+     the CPU; replay (or eager) ms and graph pool MiB of each. The resident
+     Depth-Anything serves 8 requests through ImageServer, equal to the
+     expanded one's; one BiRefNet forward's dequants are timed as one graph,
+     kernel and plain, beside their bytes bound;
+ 35. the quantize verb as a subprocess (``quantize -t q8_0 --verify``) over
+     the Depth-Anything GGUF: its report, and a file equal to phase 34's
+     in-process requantize_gguf copy.
 
 The line before the last is a JSON object describing every kernel of the
 paths; the last line is {"ok": true, "device": {...}}.
@@ -340,6 +363,16 @@ MIGAN_F32_REL_RMS = 1e-4  # f32 card forward (TF32 off) vs f32 CPU: summation or
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+
+
+def zero_counts() -> None:
+    """Set every hand-written kernel's launch counts to 0."""
+    from vision_tpu_torch.ops.cuda import conv3x3, deform_conv, deform_sample, dequant, flash_attention
+    from vision_tpu_torch.ops.cuda import window_attention
+
+    for m in (conv3x3, deform_conv, deform_sample, dequant, flash_attention, window_attention):
+        m.launches = 0
+    window_attention.masked_launches = 0
 
 
 def card_line() -> str:
@@ -1650,7 +1683,7 @@ def sam3_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
     want = {"flash": len(vp.global_attn_indexes), "window": 0, "conv3x3": 0, "deform_conv": 0, "deform_sample": 0}
     sam3_launches = 0
     for img in s3_imgs:
-        fa.launches = wa.launches = cc.launches = dsm.launches = dcm.launches = 0
+        zero_counts()
         fpn = s3model.encode_vision(img)
         torch.cuda.synchronize()
         got = {"flash": fa.launches, "window": wa.launches, "conv3x3": cc.launches, "deform_conv": dcm.launches,
@@ -1663,7 +1696,7 @@ def sam3_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
             raise AssertionError(f"encode_vision {img.extent}: non-finite output")
         print(f"encode_vision {img.extent[0]}x{img.extent[1]}: levels {shapes} {fpn[0].dtype}, finite; launches {got}",
               flush=True)
-    fa.launches = wa.launches = cc.launches = dsm.launches = dcm.launches = 0
+    zero_counts()
     texts = [s3model.encode_text(t) for t in SAM3_PROMPTS]
     torch.cuda.synchronize()
     text_launches = fa.launches + wa.launches + cc.launches + dsm.launches + dcm.launches
@@ -1788,6 +1821,38 @@ def write_yolo_gguf(path: str) -> None:
     w = GGUFWriter(path, "yolov9t")
     for name, a in random_yolov9t_params(0).items():
         w.add_tensor(name, a)
+    w.write()
+
+
+def cwhn_gguf(src: str, dst: str) -> None:
+    """A copy of the GGUF at ``src``, whose tensors are all stored in the
+    canonical layout (as random_weights makes them for Depth-Anything,
+    MI-GAN and YOLOv9t), in the cwhn layout that the converter's ``--layout
+    cwhn`` writes: every conv weight (the converter's is_conv_2d)
+    stored (O, H, W, I), depthwise (H, W, 1, C), and
+    ``{arch}.tensor_data_layout`` cwhn. A weight whose stored form the
+    loader's shape heuristic (weights.unpermute_cwhn) would not read back
+    as it was stays in its own layout, which must read back unchanged. Block quantization runs along the
+    innermost stored dim, so in this layout the 3x3 convs' rows are their
+    input channels and a Q8_0 copy keeps them int8 where Cin divides 32."""
+    from vision_tpu_torch.convert.convert import conv_2d_to_nhwc, is_conv_2d
+    from vision_tpu_torch.core.gguf import GGUFFile, GGUFWriter
+    from vision_tpu_torch.core.weights import unpermute_cwhn
+
+    f = GGUFFile(src)
+    w = GGUFWriter(dst, f.arch)
+    for k, v in f.metadata.items():
+        if k != f"{f.arch}.tensor_data_layout":
+            w.add(k, v, vtype=f.kv_types.get(k))
+    w.add(f"{f.arch}.tensor_data_layout", "cwhn")
+    for name in f.tensor_names():
+        a = f.tensor(name)
+        stored = conv_2d_to_nhwc(a) if is_conv_2d(name, a) else a
+        if not np.array_equal(unpermute_cwhn(name, stored), a):
+            stored = a
+            if not np.array_equal(unpermute_cwhn(name, stored), a):
+                raise RuntimeError(f"cwhn_gguf: {name} {a.shape} reads back in neither layout")
+        w.add_tensor(name, stored)
     w.write()
 
 
@@ -2010,9 +2075,6 @@ def yolo_migan_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
         return {"flash": fa.launches, "window": wa.launches, "conv3x3": cc.launches, "deform_conv": dcm.launches,
                 "deform_sample": dsm.launches}
 
-    def zero():
-        fa.launches = wa.launches = cc.launches = dsm.launches = dcm.launches = 0
-
     yrng = np.random.default_rng(23)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "yolov9t-random.gguf")
@@ -2037,7 +2099,7 @@ def yolo_migan_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
             for w, h in YOLO_EXTENTS for _ in range(4)]
     with YoloServer(ymodel, batch_size=YOLO_BATCH, max_delay_ms=1000) as srv:  # a window that fills each batch
         srv.warmup()
-        zero()
+        zero_counts()
         t0 = time.perf_counter()
         futures = [srv.submit(img) for img in reqs]
         dets = [f.result(timeout=600) for f in futures]
@@ -2065,7 +2127,7 @@ def yolo_migan_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
     cpu_st = yolo_stages(cpu_ymodel.params, x1, yp, torch.float32, "cpu")
     cpu_s = time.perf_counter() - t0
     f32_params = {k: v.to("cuda") for k, v in cpu_ymodel.params.items()}
-    zero()
+    zero_counts()
     f32_st = yolo_stages(f32_params, x1, yp, torch.float32, "cuda")
     f32_launches = cc.launches
     bf16_st = yolo_stages(ymodel.params, x1, yp, ymodel.dtype, "cuda")
@@ -2119,7 +2181,7 @@ def yolo_migan_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
         mreqs.append((img, Image(m, ImageFormat.alpha_u8)))
     with ImageServer(mmodel, batch_size=MIGAN_BATCH, max_delay_ms=1000) as srv:
         srv.warmup()
-        zero()
+        zero_counts()
         t0 = time.perf_counter()
         futures = [srv.submit(r) for r in mreqs]
         inpainted = [f.result(timeout=600) for f in futures]
@@ -2141,7 +2203,7 @@ def yolo_migan_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
     t0 = time.perf_counter()
     m_cpu = cpu_mmodel.forward_u8(xi, xm)
     m_cpu_s = time.perf_counter() - t0
-    zero()
+    zero_counts()
     m_bf16 = mmodel.forward_u8(xi, xm).float().cpu()
     f32_mmodel = type(mmodel)({}, mmodel.p, mmodel.device)  # the card's model in f32: the CPU's weights on the card
     f32_mmodel.params, f32_mmodel.dtype = {k: v.to("cuda") for k, v in cpu_mmodel.params.items()}, torch.float32
@@ -2554,7 +2616,9 @@ def front_door_phases(torch, card: str, fa, wa, cc, dsm, dcm, tmp: str) -> dict:
         raise AssertionError(f"CLI compare printed {stdout!r}")
     print(f"CLI info {cli_s['info']:.2f} s, compare {cli_s['compare']:.2f} s wall: exit 0 [{card}]", flush=True)
     host_ops = host_ops_timing(card)
-    counters = {"flash": fa, "window": wa, "conv3x3": cc, "deform_conv": dcm, "deform_sample": dsm}
+    from vision_tpu_torch.ops.cuda import dequant as dqm
+
+    counters = {"flash": fa, "window": wa, "conv3x3": cc, "deform_conv": dcm, "deform_sample": dsm, "dequant": dqm}
     return {"graphs": rows, "cli_s": cli_s, "host_ops": host_ops, "paths": paths, "models": models, "counts": counts,
             "counters": counters}
 
@@ -3255,6 +3319,398 @@ class ParentConvEntry:
         return self._lib.vtt_conv3x3_fwd(x, x_ps, w, b, *rest)
 
 
+# phases 33-35: quantized residency. The seven block formats a weight can
+# stay int8-resident in (core/gguf.py _RESIDENT_TYPES)
+QUANT_TYPES = ("Q8_0", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "IQ4_NL", "IQ4_XS")
+# phase 34's families, their Q8_0 copies' sources (MI-GAN's and YOLOv9t's
+# stored cwhn first, cwhn_gguf), and the graphed ones' forward_u8 at their
+# server's batch (as phase 27)
+RESIDENT_FAMILIES = ("depthany", "sam", "birefnet", "migan", "yolov9t")
+RESIDENT_CWHN = ("migan", "yolov9t")
+RESIDENT_GRAPHS = {"depthany": (4, ((518, 518, 3),)), "birefnet": (4, ((1024, 1024, 3),)),
+                   "migan": (MIGAN_BATCH, ((MIGAN_RES, MIGAN_RES, 3), (MIGAN_RES, MIGAN_RES, 1))),
+                   "yolov9t": (YOLO_BATCH, ((640, 640, 3),))}
+# the CPU runs that count a forward's resident lookups: small inputs (the
+# count does not depend on the extent; MI-GAN's is its resolution)
+LOOKUP_SHAPES = {"depthany": ((1, 126, 126, 3),), "birefnet": ((1, 128, 128, 3),),
+                 "migan": ((1, MIGAN_RES, MIGAN_RES, 3), (1, MIGAN_RES, MIGAN_RES, 1)), "yolov9t": ((1, 64, 64, 3),)}
+DEPTH_QUANT_EXTRA = ("q4_1", "iq4_nl")  # Depth-Anything's other copies
+
+
+def dequant_inputs(torch, rng, name: str, file_shape: tuple):
+    """A random tensor of ``file_shape`` encoded in block format ``name`` by
+    the port's quantizer, decomposed by quant_blocks: (q, scale, minv) on
+    the card, and the file's own f32 dequant (numpy) of the same bytes."""
+    from vision_tpu_torch.core.gguf import _DEQUANTIZE, GGMLType, quant_blocks
+    from vision_tpu_torch.core.quantize import quantize_blocks
+
+    fmt = GGMLType[name]
+    n = int(np.prod(file_shape))
+    x = rng.standard_normal(n).astype(np.float32) * rng.uniform(0.01, 2.0)
+    raw = quantize_blocks(fmt, x)
+    q, scale, minv = quant_blocks(fmt, raw, n)
+    expanded = _DEQUANTIZE[fmt][0](raw, n).reshape(file_shape)
+    on = [None if a is None else torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (q, scale, minv)]
+    return on, expanded
+
+
+def same_bits(torch, a, b) -> bool:
+    """Bit equality of two float tensors of one type (a -0.0 is not a 0.0)."""
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+
+def dequant_cases(dqm, torch) -> int:
+    """Phase 33: the dequant kernel against its plain version on the card,
+    bit for bit, for every resident format in bf16 and f32: the identity at
+    an n that is no multiple of a block of threads (256 threads of 8
+    elements), a conv stored (O, H, W, I) under the permute (0, 3, 1, 2)
+    and a depthwise conv stored (H, W, 1, C) under (3, 2, 0, 1); the f32
+    result also against the file's own dequant. Returns the cases run and
+    the largest absolute difference from the plain version (0 when every
+    case is bit-equal)."""
+    rng = np.random.default_rng(33)
+    cases, worst = 0, 0.0
+    for name in QUANT_TYPES:
+        width = 256 if name == "IQ4_XS" else 96  # IQ4_XS encodes 256-element super-blocks
+        for file_shape, permute in (((67, width), None), ((5, 3, 3, width), (0, 3, 1, 2)),
+                                    ((3, 3, 1, 3 * width), (3, 2, 0, 1))):
+            (q, scale, minv), expanded = dequant_inputs(torch, rng, name, file_shape)
+            want = expanded if permute is None else expanded.transpose(permute)
+            for dtype in (torch.bfloat16, torch.float32):
+                out = dqm.dequant(q, scale, minv, file_shape, permute, dtype)
+                ref = dqm.dequant_plain(q, scale, minv, file_shape, permute, dtype)
+                torch.cuda.synchronize()
+                worst = max(worst, float((out.float() - ref.float()).abs().max()))
+                if not (out.is_contiguous() and same_bits(torch, out, ref)):
+                    bad = int((out.float() != ref.float()).sum())
+                    raise AssertionError(f"dequant {name} {file_shape} permute {permute} {dtype}: {bad} of "
+                                         f"{out.numel()} elements differ from the plain version")
+                if dtype == torch.float32 and not np.array_equal(out.cpu().numpy().view(np.uint32),
+                                                                 np.ascontiguousarray(want).view(np.uint32)):
+                    raise AssertionError(f"dequant {name} {file_shape} permute {permute}: differs from the "
+                                         f"file's own dequant")
+                cases += 1
+            print(f"dequant {name:6s} {str(file_shape):16s} permute {str(permute):12s} n {int(np.prod(file_shape))}: "
+                  f"bf16 and f32 bit-equal to the plain version, f32 to the file's dequant", flush=True)
+    return cases, worst
+
+
+def resident_lookups(model, run) -> list:
+    """The keys of ``model``'s int8-resident weights that one call of
+    ``run`` dequantizes, in order, repeats included (a spy on
+    QuantResident.dequant)."""
+    from vision_tpu_torch.core.quant import QuantResident, is_quant
+
+    names = {id(v): k for k, v in model.params.items() if is_quant(v)}
+    seen, real = [], QuantResident.dequant
+
+    def spy(self):
+        seen.append(names[id(self)])
+        return real(self)
+
+    QuantResident.dequant = spy
+    try:
+        run()
+    finally:
+        QuantResident.dequant = real
+    return seen
+
+
+def cpu_lookups(torch, path: str) -> dict:
+    """One forward's resident lookups of the resident model of ``path``
+    loaded on the CPU (f32): per run (forward, or SAM's encode and decode),
+    the keys in order."""
+    from vision_tpu_torch import load_model
+    from vision_tpu_torch.core.device import BuildFlag, backend_init
+
+    cpu = backend_init("cpu")
+    model = load_model(path, cpu.with_flags(cpu.flags | BuildFlag.keep_quantized))
+    rng = np.random.default_rng(34)
+    if not hasattr(model, "graphs"):  # MobileSAM: the encoder and the decoder
+        x = torch.from_numpy(rng.integers(0, 256, (1, 1024, 1024, 3), np.uint8))
+        coords = np.array([[[500.0, 400.0], [0.0, 0.0]]], np.float32)
+        emb = []
+        encode = resident_lookups(model, lambda: emb.append(model.encode_u8(x)))
+        return {"encode": encode, "decode": resident_lookups(model, lambda: model.decode(emb[0], coords, "point"))}
+    family = {"DepthAnythingModel": "depthany", "BirefnetModel": "birefnet", "MiganModel": "migan",
+              "Yolov9tModel": "yolov9t"}[type(model).__name__]
+    xs = [torch.from_numpy(rng.integers(0, 256, sh, np.uint8)) for sh in LOOKUP_SHAPES[family]]
+    return {"forward": resident_lookups(model, lambda: model._forward_u8(*xs))}
+
+
+def dequant_graph_ms(torch, fn, residents) -> float:
+    """The card's time for ``fn`` over ``residents`` (each result dropped at
+    once, as in a forward), captured as one CUDA graph and replayed: the
+    median of 10 replays by CUDA events."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for r in residents:
+            fn(r)
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for r in residents:
+            fn(r)
+    ms = median_ms(graph.replay, 10, warmup=2)
+    del graph
+    return ms
+
+
+def dequant_bound_ms(torch, residents) -> tuple[float, str]:
+    """The least time for dequantizing ``residents``: q, the scales and the
+    minimums read once and the output written once, over the memory rate;
+    one f32 product (and sum) an element over the f32 rate."""
+    nbytes = flops = 0
+    for r in residents:
+        n = r.q.numel()
+        nbytes += r.nbytes + n * torch.empty(0, dtype=r.dtype).element_size()
+        flops += n * (1 if r.minv is None else 2)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def loaded(torch, load):
+    """``load()`` and the device memory it left allocated, in MiB."""
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = load()
+    torch.cuda.synchronize()
+    return model, (torch.cuda.memory_allocated() - base) / 2**20
+
+
+def resident_weights_equal(torch, res, exp) -> int:
+    """Every weight a resident forward sees (its dequant on the card) against
+    the expanded load's tensor, bit for bit. Returns how many."""
+    from vision_tpu_torch.core.quant import is_quant
+
+    n = 0
+    for k, v in res.params.items():
+        if is_quant(v):
+            w = v.dequant()
+            if not (w.is_contiguous() and same_bits(torch, w, exp.params[k])):
+                raise AssertionError(f"resident weight {k} {tuple(v.shape)} permute {v.permute}: its dequant differs "
+                                     f"from the expanded load's")
+            n += 1
+        elif not torch.equal(v, exp.params[k]):
+            raise AssertionError(f"weight {k} differs between the resident and the expanded load")
+    return n
+
+
+def residency_case(torch, card: str, family: str, label: str, path: str, lookups: dict, counts) -> dict:
+    """One quantized GGUF loaded on the card expanded and int8-resident:
+    store bytes, allocated MiB, every resident weight against the expanded
+    one, the forward (a graph replay at its server's batch; SAM's encode_u8
+    and decode, eager) resident against expanded, bit for bit, with the
+    hand-written launches of each and the dequant launches against the CPU's
+    count of lookups, the replay or eager ms and the graph pool's MiB."""
+    from vision_tpu_torch import load_model
+    from vision_tpu_torch.core.device import BuildFlag, backend_init
+    from vision_tpu_torch.core.quant import is_quant, store_nbytes
+
+    gpu = backend_init("gpu")
+    exp, exp_mib = loaded(torch, lambda: load_model(path, gpu))
+    res, res_mib = loaded(torch, lambda: load_model(path, gpu.with_flags(gpu.flags | BuildFlag.keep_quantized)))
+    n_res = sum(is_quant(v) for v in res.params.values())
+    b_res, b_exp = store_nbytes(res.params), store_nbytes(exp.params)
+    if not (n_res > 0 and b_res < b_exp and not any(is_quant(v) for v in exp.params.values())):
+        raise AssertionError(f"{label}: {n_res} residents, store {b_res} B resident against {b_exp} B expanded")
+    n_equal = resident_weights_equal(torch, res, exp)
+    rng = np.random.default_rng(34)
+    row = {"residents": n_res, "store_mb": (b_res / 1e6, b_exp / 1e6), "alloc_mib": (res_mib, exp_mib),
+           "weights_equal": n_equal}
+    runs = {}
+    if family in RESIDENT_GRAPHS:
+        batch, shapes = RESIDENT_GRAPHS[family]
+        xs = [torch.from_numpy(rng.integers(0, 256, (batch, *sh), np.uint8)).cuda() for sh in shapes]
+        if family == "migan":
+            xs[1] = (xs[1] > 180).to(torch.uint8) * 255
+        runs["forward"] = {m: (lambda m=m: m.forward_u8(*xs)) for m in (res, exp)}
+        for m in (res, exp):
+            m.forward_u8(*xs)  # the eager warm-up and the capture
+    else:
+        x = torch.from_numpy(rng.integers(0, 256, (1, 1024, 1024, 3), np.uint8)).cuda()
+        coords = np.array([[[500.0, 400.0], [0.0, 0.0]]], np.float32)
+        emb = exp.encode_u8(x)
+        runs["encode"] = {m: (lambda m=m: m.encode_u8(x)) for m in (res, exp)}
+        runs["decode"] = {m: (lambda m=m: tuple(m.decode(emb, coords, "point"))) for m in (res, exp)}
+    for name, fns in runs.items():
+        outs, launched = {}, {}
+        for m, fn in fns.items():
+            torch.cuda.synchronize()
+            zero_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            outs[m], launched[m] = out if isinstance(out, tuple) else (out,), counts()
+        hand_res = {k: v for k, v in launched[res].items() if k != "dequant" and v}
+        hand_exp = {k: v for k, v in launched[exp].items() if k != "dequant" and v}
+        want = len(lookups[name])
+        if hand_res != hand_exp or launched[exp].get("dequant", 0) != 0 or launched[res].get("dequant", 0) != want:
+            raise AssertionError(f"{label} {name}: resident launches {launched[res]}, expanded {launched[exp]}; "
+                                 f"expected the same hand-written launches and {want} dequant launches (the CPU "
+                                 f"run's resident lookups) resident, none expanded")
+        if not all(same_bits(torch, a, b) if a.is_floating_point() else torch.equal(a, b)
+                   for a, b in zip(outs[res], outs[exp])):
+            diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(outs[res], outs[exp]))
+            raise AssertionError(f"{label} {name}: the resident output differs from the expanded one (max abs "
+                                 f"{diff})")
+        ms = {m: median_ms(fn, 10, warmup=1) for m, fn in fns.items()}
+        row[name] = {"dequant_launches": want, "hand_written": hand_res, "ms": (ms[res], ms[exp])}
+    if family in RESIDENT_GRAPHS:
+        row["pool_mib"] = (pool_mib(torch, res.graphs.pool), pool_mib(torch, exp.graphs.pool))
+    else:  # eager: what one dequant costs the caller, host work and launch included
+        rs = [res.params[k] for k in lookups["decode"]]
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for r in rs:
+                r.dequant()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / len(rs) * 1e6)
+        row["eager_dequant_us"] = float(np.median(walls))
+        for name, fns in runs.items():  # where the eager runs spend the difference: host or device
+            for m, fn in fns.items():
+                kind = "resident" if m is res else "expanded"
+                prof = profile_run(fn, f"{label} {kind} {name} (eager)", torch, card, names=("dequant", "window"))
+                row[name][f"busy_ms_{kind}"] = prof["busy_ms"]
+    parts = [f"{n}: {r['ms'][0]:.3f} ms resident, {r['ms'][1]:.3f} ms expanded"
+             + (f" (device busy {r['busy_ms_resident']:.3f} and {r['busy_ms_expanded']:.3f} ms)"
+                if "busy_ms_resident" in r else "")
+             + f", {r['dequant_launches']} dequant launches, hand-written {r['hand_written']}"
+             for n, r in row.items() if isinstance(r, dict)]
+    pool = (f"; graph pool {row['pool_mib'][0]:.1f} MiB resident, {row['pool_mib'][1]:.1f} MiB expanded"
+            if "pool_mib" in row else f"; an eager dequant {row['eager_dequant_us']:.1f} µs a call (host clock, the "
+            f"decode's {len(lookups['decode'])} in turn)")
+    print(f"{label}: {n_res} residents; store {row['store_mb'][0]:.1f} MB resident, {row['store_mb'][1]:.1f} MB "
+          f"expanded ({b_res / b_exp:.3f}x); allocated after load {res_mib:.1f} MiB resident, {exp_mib:.1f} MiB "
+          f"expanded; {n_equal} resident weights bit-equal to the expanded ones; "
+          f"{'; '.join(parts)}{pool}; outputs bit-equal [{card}]", flush=True)
+    row["models"] = (res, exp)
+    return row
+
+
+def residency_phase(torch, card: str, fd: dict, tmp: str) -> dict:
+    """Phase 34: Q8_0 copies (requantize_gguf) of phase 27's Depth-Anything,
+    MobileSAM, BiRefNet, MI-GAN and YOLOv9t GGUFs (MI-GAN's and YOLOv9t's
+    stored cwhn first), and Q4_1 and IQ4_NL copies of Depth-Anything, each
+    loaded on the card expanded and int8-resident (residency_case); the
+    resident Depth-Anything serves 8 requests through ImageServer against
+    the expanded one; one BiRefNet forward's dequants timed as a graph,
+    kernel and plain. Returns the copies' paths, the rows and the kernel's
+    figures."""
+    from vision_tpu_torch.core.gguf import requantize_gguf
+    from vision_tpu_torch.ops.cuda import dequant as dqm
+
+    def counts():
+        out = dict(fd["counts"]())
+        out["dequant"] = dqm.launches
+        return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    copies, rows = {}, {}
+    for family in RESIDENT_FAMILIES:
+        src = fd["paths"][family]
+        if family in RESIDENT_CWHN:
+            cwhn_gguf(src, os.path.join(tmp, f"{family}-cwhn.gguf"))
+            src = os.path.join(tmp, f"{family}-cwhn.gguf")
+        for ftype in ("q8_0",) + (DEPTH_QUANT_EXTRA if family == "depthany" else ()):
+            t0 = time.perf_counter()
+            copies[(family, ftype)] = str(requantize_gguf(src, os.path.join(tmp, f"{family}-{ftype}.gguf"), ftype))
+            print(f"{family} {ftype} copy written by requantize_gguf in {time.perf_counter() - t0:.1f} s "
+                  f"({os.path.getsize(copies[(family, ftype)]) / 1e6:.1f} MB, from {os.path.getsize(src) / 1e6:.1f} "
+                  f"MB)", flush=True)
+    served = biref = None
+    for (family, ftype), path in copies.items():
+        t0 = time.perf_counter()
+        lookups = cpu_lookups(torch, path)
+        print(f"{family} {ftype}: the CPU's resident forward looks up "
+              f"{', '.join(f'{len(v)} resident weights a {k}' for k, v in lookups.items())} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        row = residency_case(torch, card, family, f"{family} {ftype}", path, lookups, counts)
+        res, exp = row.pop("models")
+        rows[(family, ftype)] = row
+        if family == "birefnet":
+            biref = [res.params[k] for k in lookups["forward"]]
+        if (family, ftype) == ("depthany", "q8_0"):
+            served = serve_resident_depth(torch, card, res, exp, len(lookups["forward"]), counts)
+        del res, exp
+        gc.collect()
+        torch.cuda.empty_cache()
+    kernel_ms = dequant_graph_ms(torch, lambda r: r.dequant(), biref)
+    plain_ms = dequant_graph_ms(torch, lambda r: dqm.dequant_plain(r.q, r.scale, r.minv, r.file_shape, r.permute,
+                                                                    r.dtype), biref)
+    bound, by = dequant_bound_ms(torch, biref)
+    print(f"dequant: one BiRefNet (SWIN-L) resident forward's {len(biref)} dequants as one graph: kernel "
+          f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({by}; "
+          f"{kernel_ms / bound:.2f}x the bound) [{card}]", flush=True)
+    del biref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"copies": copies, "rows": rows, "served": served, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by}
+
+
+def serve_resident_depth(torch, card: str, res, exp, per_forward: int, counts) -> dict:
+    """The resident Depth-Anything serves 8 requests (phase 4's extents)
+    through ImageServer, then the expanded one the same requests: equal
+    results, 12 flash and ``per_forward`` dequant launches a batch."""
+    from vision_tpu_torch.image import Image, ImageFormat
+    from vision_tpu_torch.serve import ImageServer
+
+    rng = np.random.default_rng(4)
+    (w_sq, h_sq), (w_wide, h_wide) = DEPTH_EXTENTS
+    requests = [Image(rng.integers(0, 256, (h, w, 4), np.uint8), ImageFormat.rgba_u8)
+                for w, h in [(w_sq, h_sq)] * 5 + [(w_wide, h_wide)] * 3]
+    out = {}
+    for label, model in (("resident", res), ("expanded", exp)):
+        with ImageServer(model, batch_size=4, max_delay_ms=20) as srv:
+            srv.warmup()
+            srv.warmup((w_wide, h_wide))
+            zero_counts()
+            t0 = time.perf_counter()
+            results = [f.result(timeout=600) for f in [srv.submit(img) for img in requests]]
+            wall_s = time.perf_counter() - t0
+            launched, stats = counts(), srv.stats
+        want = {"flash": 12 * stats.batches, "dequant": per_forward * stats.batches if model is res else 0}
+        got = {k: launched.get(k, 0) for k in want}
+        if stats.requests != 8 or got != want or any(v for k, v in launched.items() if k not in want):
+            raise AssertionError(f"{label} Depth-Anything served {stats.requests} requests in {stats.batches} "
+                                 f"batches with launches {launched}; expected {want}")
+        out[label] = {"results": results, "p50_ms": stats.p50_latency_ms, "wall_s": wall_s, "launches": got}
+    for a, b in zip(out["resident"]["results"], out["expanded"]["results"]):
+        if not np.array_equal(a.data, b.data):
+            raise AssertionError("the resident Depth-Anything's served depth differs from the expanded one's")
+    r, e = out["resident"], out["expanded"]
+    print(f"ImageServer 8 Depth-Anything requests (batch 4): resident p50 {r['p50_ms']:.3f} ms, launches "
+          f"{r['launches']}; expanded p50 {e['p50_ms']:.3f} ms, launches {e['launches']}; results equal [{card}]",
+          flush=True)
+    return {"launches": r["launches"]["dequant"], "p50_ms": (r["p50_ms"], e["p50_ms"])}
+
+
+def quantize_verb_phase(card: str, src: str, in_process: str, tmp: str) -> float:
+    """Phase 35: ``python -m vision_tpu_torch.cli quantize -t q8_0 --verify``
+    over the Depth-Anything GGUF as a subprocess: exit 0, its per-tensor
+    report, and a file equal to the in-process requantize_gguf's."""
+    out = os.path.join(tmp, "depthany-verb-q8_0.gguf")
+    wall_s, stdout = cli_run(["quantize", "-m", src, "-o", out, "-t", "q8_0", "--verify"], "quantize")
+    lines = stdout.splitlines()
+    if not (lines[0].startswith("Quantizing to q8_0... done") and any("rel-rms" in ln for ln in lines)
+            and lines[-1].startswith(f"-> {out} (")):
+        raise AssertionError(f"quantize printed:\n{stdout}")
+    with open(out, "rb") as a, open(in_process, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("the quantize verb's file differs from requantize_gguf's")
+    worst = next((ln.strip() for ln in lines if ln.strip().startswith("worst rel-rms")), "")
+    print(f"CLI quantize -t q8_0 --verify: exit 0 in {wall_s:.2f} s wall; {len(lines) - 2} tensor lines, {worst}; "
+          f"file equal to requantize_gguf's [{card}]", flush=True)
+    return wall_s
+
+
 def parent_library(parent: str, build):
     """The kernel library of another checkout of the port at ``parent``,
     built from its vision_tpu_torch/csrc/ with this build's flags into
@@ -3533,6 +3989,7 @@ def main(argv=None) -> int:
     from vision_tpu_torch.ops.cuda import conv3x3 as cc
     from vision_tpu_torch.ops.cuda import deform_conv as dcm
     from vision_tpu_torch.ops.cuda import deform_sample as dsm
+    from vision_tpu_torch.ops.cuda import dequant as dqm
     from vision_tpu_torch.ops.cuda import flash_attention as fa
     from vision_tpu_torch.ops.cuda import window_attention as wa
     from vision_tpu_torch.serve import EsrganServer, ImageServer, SamServer
@@ -3574,7 +4031,7 @@ def main(argv=None) -> int:
     with ImageServer(model, batch_size=4, max_delay_ms=20) as srv:
         srv.warmup()
         srv.warmup((w_wide, h_wide))  # each bucket's graph is captured before the counted run
-        fa.launches = wa.launches = cc.launches = dsm.launches = dcm.launches = 0
+        zero_counts()
         t_start = time.perf_counter()
         futures = [srv.submit(img) for img in requests]
         results = [f.result(timeout=600) for f in futures]
@@ -3648,7 +4105,7 @@ def main(argv=None) -> int:
     print(f"model on {smodel.device.torch_device} {smodel.dtype}, flash={smodel.flash}", flush=True)
     with SamServer(smodel, batch_size=6, max_delay_ms=5_000) as ssrv:
         ssrv.warmup()
-        fa.launches = wa.launches = cc.launches = dsm.launches = dcm.launches = 0
+        zero_counts()
         t_start = time.perf_counter()
         futures = [ssrv.submit(img, point=pt, box=bx) for img, pt, bx in sam_reqs]
         masks = [f.result(timeout=600) for f in futures]
@@ -3764,7 +4221,7 @@ def main(argv=None) -> int:
     with EsrganServer(emodel, batch_size=4, max_delay_ms=50) as esrv:
         esrv.warmup((256, 256))
         esrv.warmup((320, 240))  # each bucket's graph is captured before the counted run
-        fa.launches = wa.launches = cc.launches = dsm.launches = dcm.launches = 0
+        zero_counts()
         t_start = time.perf_counter()
         futures = [esrv.submit(img) for img in esr_reqs]
         upscaled = [f.result(timeout=600) for f in futures]
@@ -3887,7 +4344,7 @@ def main(argv=None) -> int:
           f"{bmodel.deform_bound}; GGUF written in {gguf_s:.1f} s", flush=True)
     with ImageServer(bmodel, batch_size=4, max_delay_ms=5_000) as bsrv:
         bsrv.warmup()
-        fa.launches = wa.launches = wa.masked_launches = cc.launches = dsm.launches = dcm.launches = 0
+        zero_counts()
         t_start = time.perf_counter()
         futures = [bsrv.submit(img) for img in bir_reqs]
         mattes = [f.result(timeout=600) for f in futures]
@@ -4032,6 +4489,14 @@ def main(argv=None) -> int:
         http_phase(torch, card, fd, fd_tmp)
         verbs_phase(torch, card, fd, fd_tmp, bulk_phase(torch, card, fd, fd_tmp))
         del fd["models"]
+
+        phase("33 dequant kernel against its plain version: the seven resident formats, bf16 and f32, three layouts")
+        dq_cases, dq_worst = dequant_cases(dqm, torch)
+        phase("34 quantized residency on the served paths: Q8_0 (and Q4_1, IQ4_NL) copies loaded expanded and "
+              "int8-resident")
+        quant = residency_phase(torch, card, fd, fd_tmp)
+        phase("35 the quantize verb as a subprocess")
+        quantize_verb_phase(card, fd["paths"]["depthany"], quant["copies"][("depthany", "q8_0")], fd_tmp)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4159,6 +4624,33 @@ def main(argv=None) -> int:
             "timed_shape": f"the columns of one batch-4 1024x1024 BiRefNet forward's 20 deformable convs, summed: "
                            f"Cin {BIREF_CIN} bf16; the standalone column kernel, off every served path",
             "timing": DEVICE_TIMING,
+        },
+        {
+            "name": "dequant",
+            "route": "cuda",
+            "source": "vision_tpu_torch/csrc/dequant.cu",
+            # no Pallas kernel: the JAX package's QuantResident.dequant, which XLA fuses into the consumer
+            "replaces": "vision_tpu/core/quant.py:93",
+            "launches": quant["served"]["launches"],
+            "max_abs_err": dq_worst,
+            "ms": quant["ms"],
+            "plain_ms": quant["plain_ms"],
+            "bound_ms": quant["bound_ms"],
+            "bound_by": quant["bound_by"],
+            "library_ms": None,
+            "timed_shape": "one BiRefNet (SWIN-L, Q8_0) resident forward's dequants to bf16, replayed as one CUDA graph",
+            "timing": "CUDA events around one graph replay, the median of 10",
+            "cases_bit_equal": dq_cases,
+            "per_forward": {f"{family} {ftype}": {
+                name: {"dequant_launches": r[name]["dequant_launches"], "ms_resident": r[name]["ms"][0],
+                       "ms_expanded": r[name]["ms"][1],
+                       **{k: v for k, v in r[name].items() if k.startswith("busy_ms")}}
+                for name in ("forward", "encode", "decode") if name in r}
+                | {"store_mb_resident": r["store_mb"][0], "store_mb_expanded": r["store_mb"][1],
+                   "alloc_mib_resident": r["alloc_mib"][0], "alloc_mib_expanded": r["alloc_mib"][1]}
+                | ({"pool_mib_resident": r["pool_mib"][0], "pool_mib_expanded": r["pool_mib"][1]}
+                   if "pool_mib" in r else {"eager_dequant_us": r["eager_dequant_us"]})
+                for (family, ftype), r in quant["rows"].items()},
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -119,7 +119,11 @@ def test_input_rules(data, tmp_path, capsys):
     assert _run(tcli, ["serve", "-i", "x"], capsys)[2] == "Error: No model specified (-m)\n"
     with pytest.raises(SystemExit):
         tcli.main(["eval", "-i", "x"])  # no --gt
-    for verb in ("quantize", "finetune", "distill", "bench", "export"):
+    # quantize is a verb (tests/test_torch_quantize.py) that needs -m
+    with pytest.raises(SystemExit):
+        tcli.main(["quantize", "-i", "x"])
+    assert "quantize requires -m" in capsys.readouterr().err
+    for verb in ("finetune", "distill", "bench", "export"):
         with pytest.raises(SystemExit):
             tcli.main([verb, "-i", "x"])
     capsys.readouterr()

@@ -13,6 +13,8 @@ SLICE_MODULES = [
     "vision_tpu_torch.core.gguf",
     "vision_tpu_torch.core.graph",
     "vision_tpu_torch.core.params",
+    "vision_tpu_torch.core.quant",
+    "vision_tpu_torch.core.quantize",
     "vision_tpu_torch.core.weights",
     "vision_tpu_torch.image",
     "vision_tpu_torch.image.image",
@@ -30,6 +32,7 @@ SLICE_MODULES = [
     "vision_tpu_torch.ops.cuda.conv3x3",
     "vision_tpu_torch.ops.cuda.deform_sample",
     "vision_tpu_torch.ops.cuda.deform_conv",
+    "vision_tpu_torch.ops.cuda.dequant",
     "vision_tpu_torch.models",
     "vision_tpu_torch.models.dino",
     "vision_tpu_torch.models.depth_anything",
@@ -48,6 +51,8 @@ SLICE_MODULES = [
     "vision_tpu_torch.evaluate",
     "vision_tpu_torch.api",
     "vision_tpu_torch.cli",
+    "vision_tpu_torch.convert",
+    "vision_tpu_torch.convert.convert",
     "vision_tpu_torch.native",
     "vision_tpu_torch.utils",
     "vision_tpu_torch.utils.metrics",

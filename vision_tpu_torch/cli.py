@@ -1,7 +1,7 @@
 """Command-line interface — the port of vision_tpu/cli.py for the verbs the
 port serves:
 
-    python -m vision_tpu_torch.cli <sam|birefnet|depthany|migan|esrgan|yolov9t|serve|info|compare|eval> [options]
+    python -m vision_tpu_torch.cli <sam|birefnet|depthany|migan|esrgan|yolov9t|serve|quantize|info|compare|eval> [options]
 
 with the reference's options (-i/-o/-m/-p, --composite, --tile, --conf,
 --iou), the model search paths (./models, $VISION_MODEL_DIR, XDG data dirs —
@@ -12,11 +12,13 @@ mask directory), and one given a video runs its frames (video.py, which
 needs OpenCV; MI-GAN takes a video and one mask image). ``serve`` puts the
 -m model and every --extra-model behind the HTTP front end (serve_http.py),
 ``eval`` scores a prediction directory against ground truth (evaluate.py),
-after running -m over the -i images when given a model; ``info`` inspects
-a GGUF and ``compare`` two images. ``-b`` takes ``cpu`` or ``gpu``; without
-it the CLI takes the card and fails without one. The JAX CLI's other verbs
-(quantize, finetune, distill, bench, export) and its ``--dp``, ``--adapter``,
-``--dump`` and ``--profile`` flags wait for their modules.
+after running -m over the -i images when given a model; ``quantize``
+rewrites a GGUF at another float type (core/gguf.py requantize_gguf, no
+device), ``info`` inspects a GGUF and ``compare`` two images. ``-b`` takes
+``cpu`` or ``gpu``; without it the CLI takes the card and fails without one.
+The JAX CLI's other verbs (finetune, distill, bench, export) and its
+``--dp``, ``--adapter``, ``--dump`` and ``--profile`` flags wait for their
+modules.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ USAGE_COMMANDS = {
     "esrgan": "ESRGAN/Real-ESRGAN upscaling",
     "yolov9t": "YOLOv9t object detection",
     "serve": "HTTP serving (batched endpoints for every served family: -m and each --extra-model)",
+    "quantize": "rewrite a .gguf at a different float type (q8_0, q4_0/1, q5_0/1, K-quants, iq4_nl/xs, f16, f32)",
     "info": "inspect a .gguf: metadata, detected family, tensor/type breakdown",
     "compare": "compare two images: RMS (reference image_difference_rms semantics), PSNR, SSIM",
     "eval": "score a prediction directory against ground truth (mask IoU/F1, depth AbsRel/delta1, PSNR/SSIM, "
@@ -193,6 +196,37 @@ def _info(args, parser) -> int:
             tname = getattr(info.ggml_type, "name", str(info.ggml_type))
             shape = "x".join(str(d) for d in info.shape)
             print(f"    {info.name:<{width}}  {tname:<7} {shape}")
+    return 0
+
+
+def _quantize(args, parser) -> int:
+    """A pure file rewrite (core/gguf.py requantize_gguf): no device, no
+    model load; with --verify the per-tensor reconstruction error."""
+    from .core.gguf import requantize_gguf
+
+    if not args.model:
+        parser.error("quantize requires -m <in.gguf>")
+    try:
+        src = find_model(args.model)
+        dst = args.output
+        if dst is None:  # no -o: derive a gguf name next to the source
+            dst = str(Path(src).with_suffix("")) + f"-{args.type.upper()}.gguf"
+        stats = [] if args.verify else None
+        with _Timer(f"Quantizing to {args.type}"):
+            out = requantize_gguf(src, dst, args.type, stats_out=stats)
+    except VispError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    if stats:
+        width = max(len(n) for n, _, _ in stats)
+        for n, tname, rms in stats:
+            err = "  (int, copied)" if rms is None else f"  rel-rms {rms:.4f}"
+            print(f"  {n:<{width}}  {tname:<7}{err}")
+        lossy = [r for _, _, r in stats if r]
+        if lossy:
+            print(f"  worst rel-rms {max(lossy):.4f} over {len(lossy)} quantized tensors")
+    print(f"-> {out} ({Path(out).stat().st_size / 1e6:.1f} MB, "
+          f"from {Path(src).stat().st_size / 1e6:.1f} MB)")
     return 0
 
 
@@ -421,6 +455,13 @@ def main(argv=None) -> int:
     parser.add_argument("--tile", type=int, default=-1, help="tile size for large images")
     parser.add_argument("--conf", type=float, default=0.25, help="yolo confidence threshold")
     parser.add_argument("--iou", type=float, default=0.45, help="yolo IoU threshold")
+    from .core.gguf import REQUANTIZE_TYPES
+
+    parser.add_argument("--type", "-t", default="q8_0", choices=list(REQUANTIZE_TYPES),
+                        help="quantize: target float storage type")
+    parser.add_argument("--verify", action="store_true",
+                        help="quantize: report per-tensor reconstruction error (rel-RMS) after writing, like "
+                        "llama-quantize's per-tensor stats")
     parser.add_argument("--tensors", action="store_true", help="info: also print the full per-tensor table")
     parser.add_argument("--max-rms", type=float, default=None, metavar="T",
                         help="compare: exit 2 if RMS exceeds T (scripted regression gating)")
@@ -449,7 +490,7 @@ def main(argv=None) -> int:
     parser.add_argument("--pred-out", default=None, metavar="DIR",
                         help="eval with -m: keep the generated predictions here (default: a temporary directory)")
     args = parser.parse_args(argv)
-    if args.input is None and args.command not in ("serve", "info"):
+    if args.input is None and args.command not in ("serve", "quantize", "info"):
         parser.error("-i/--input is required")
     if args.output is None and args.command in REQUIRED_INPUTS:
         # directory input = bulk mode (output is a directory); video
@@ -477,6 +518,8 @@ def main(argv=None) -> int:
             return 1
     if args.command == "compare":
         return _compare(args, parser)
+    if args.command == "quantize":
+        return _quantize(args, parser)
     if args.command == "info":
         return _info(args, parser)
     if args.command == "eval":

@@ -21,6 +21,11 @@ Here:
     package turns it on for the TPU only, to dodge slow row gathers, while the
     card's sampler evaluates four bilinear corners either way, so the exact
     form costs the same there (and the goldens were made with it).
+  * ``BuildFlag.keep_quantized`` (``VISP_KEEP_QUANT``) keeps a GGUF's
+    block-quantized tensors as int8 levels and scales on the device, each
+    dequantized at its use (core/quant.py); the loaders of Depth-Anything,
+    MobileSAM, BiRefNet, MI-GAN and YOLOv9t read it. Off by default on every
+    backend, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -53,11 +58,13 @@ class BuildFlag(Flag):
     none = 0
     flash_attention = auto()  # route big mask-free attentions to the flash kernel
     deform_shift = auto()  # BiRefNet's deformable convs with offsets clamped to +-2
+    keep_quantized = auto()  # quantized weights stay int8-resident (core/quant.py)
 
 
 _FLAG_ENVS = (
     ("VISP_FLASH_ATTENTION", BuildFlag.flash_attention),
     ("VISP_DEFORM_SHIFT", BuildFlag.deform_shift),
+    ("VISP_KEEP_QUANT", BuildFlag.keep_quantized),
 )
 
 _FALSY_ENV = ("", "0", "off", "false", "no")

@@ -1,10 +1,11 @@
 """GGUF file reader/writer in pure Python + numpy.
 
 A numpy-only copy of ``vision_tpu/core/gguf.py`` (the JAX package's module
-imports jax through its package ``__init__``), without the quantized-
-residency decomposition and the requantizer, which wait for the port's
-quantization work. Replacement for the reference's gguf/ggml-backed
-model_file (reference: src/visp/ml.cpp:203-281, include/visp/ml.h:83-103). The loader
+imports jax through its package ``__init__``), with the integer
+decomposition of the block formats that quantized residency keeps on the
+device (``quant_blocks``, core/quant.py) and the requantizer behind the
+``quantize`` verb (``requantize_gguf``). Replacement for the reference's
+gguf/ggml-backed model_file (reference: src/visp/ml.cpp:203-281, include/visp/ml.h:83-103). The loader
 must consume the exact .gguf files produced by the reference's
 scripts/convert.py — including per-arch metadata KVs (``{arch}.image_size``
 etc.), ``{arch}.tensor_data_layout``, the ``{arch}.conv2d_weights`` index
@@ -35,6 +36,7 @@ __all__ = [
     "GGUFFile",
     "GGUFWriter",
     "model_load",
+    "requantize_gguf",
     "GGUF_MAGIC",
 ]
 
@@ -369,7 +371,8 @@ _IQ4_KVALUES = np.array(
 
 def _iq4_nl_unpack(raw: bytes, n_elements: int) -> tuple[np.ndarray, np.ndarray]:
     """IQ4_NL payload -> (d f32 (nb, 1), kvalue indices (nb, 32)) — the one
-    unpack shared by the IQ4 dequantizers."""
+    unpack shared by dequantize_iq4_nl and quant_blocks (their bit-for-bit
+    agreement is the residency contract)."""
     n_blocks = n_elements // 32
     buf = np.frombuffer(raw, dtype=np.uint8, count=n_blocks * 18).reshape(n_blocks, 18)
     d = buf[:, :2].copy().view(np.float16).astype(np.float32)
@@ -426,6 +429,101 @@ _DEQUANTIZE = {
     GGMLType.IQ4_NL: (dequantize_iq4_nl, 32, 18),
     GGMLType.IQ4_XS: (dequantize_iq4_xs, 256, 136),
 }
+
+
+# types quant_blocks can decompose for int8-resident weights (core/quant.py);
+# K-quants expand at load instead (their 6-bit scale tables don't reduce to
+# one (q, scale, min) per 32-block without materializing the same f32 data)
+_RESIDENT_TYPES = frozenset(
+    {
+        GGMLType.Q4_0,
+        GGMLType.Q4_1,
+        GGMLType.Q5_0,
+        GGMLType.Q5_1,
+        GGMLType.Q8_0,
+        GGMLType.IQ4_NL,
+        GGMLType.IQ4_XS,
+    }
+)
+
+
+def q8_0_block_levels(x: np.ndarray, block: int = 32) -> tuple[np.ndarray, np.ndarray]:
+    """Shared Q8_0 absmax block quantization: f32 -> (q int8 (nb, block),
+    d f32 (nb,)). ggml quantize_row_q8_0 semantics — d = amax/127 and
+    roundf (half AWAY from zero, not numpy's half-to-even) so files match
+    llama-quantize/gguf-py bit-for-bit on exact ties. Used by the file
+    quantizer below, the in-memory residency quantizer (core/quant.py),
+    and the Q8_K encoder (block=256; core/quantize.py)."""
+    a = np.ascontiguousarray(x, dtype=np.float32).reshape(-1)
+    if a.size % block != 0:
+        raise_error("quantize_q8_0: size {} not a multiple of {}", a.size, block)
+    b = a.reshape(-1, block)
+    amax = np.abs(b).max(axis=1)
+    d = (amax / 127.0).astype(np.float32)
+    inv = np.where(d > 0, 1.0 / np.where(d == 0, 1.0, d), 0.0).astype(np.float32)
+    v = b * inv[:, None]
+    q = np.clip(np.sign(v) * np.floor(np.abs(v) + 0.5), -127, 127).astype(np.int8)
+    return q, d
+
+
+def quantize_q8_0(x: np.ndarray) -> bytes:
+    """Quantize f32 -> Q8_0 block bytes (34 bytes/block; see
+    q8_0_block_levels for the rounding semantics)."""
+    q, d = q8_0_block_levels(x)
+    out = np.empty((q.shape[0], 34), np.uint8)
+    out[:, :2] = d.astype(np.float16).reshape(-1, 1).view(np.uint8)
+    out[:, 2:] = q.view(np.uint8)
+    return out.tobytes()
+
+
+def _int_nibbles(qs: np.ndarray) -> np.ndarray:
+    """Like _nibbles but keeping integer levels (n_blocks, 32) int8."""
+    return np.concatenate([qs & 0x0F, qs >> 4], axis=1).astype(np.int8)
+
+
+def quant_blocks(ggml_type: GGMLType, raw: bytes, n_elements: int):
+    """Exact integer decomposition of a block-quantized payload.
+
+    Returns ``(q, scale, minv)`` with ``q`` int8 ``(n,)`` levels, ``scale``
+    f32 ``(n // 32,)``, ``minv`` f32 per-block minimum or None, such that
+    ``q * scale (+ minv)`` in f32 reproduces ``dequantize_*`` bit-for-bit.
+    Feeds quantized weight residency (core/quant.py) — the TPU analog of
+    ggml computing directly from quantized blocks."""
+    nb = n_elements // 32
+    if ggml_type == GGMLType.Q8_0:
+        buf = np.frombuffer(raw, dtype=np.uint8, count=nb * 34).reshape(nb, 34)
+        d = buf[:, :2].copy().view(np.float16).astype(np.float32).reshape(-1)
+        return buf[:, 2:].copy().view(np.int8).reshape(-1), d, None
+    if ggml_type == GGMLType.Q4_0:
+        buf = np.frombuffer(raw, dtype=np.uint8, count=nb * 18).reshape(nb, 18)
+        d = buf[:, :2].copy().view(np.float16).astype(np.float32).reshape(-1)
+        return (_int_nibbles(buf[:, 2:]) - 8).reshape(-1), d, None
+    if ggml_type == GGMLType.Q4_1:
+        buf = np.frombuffer(raw, dtype=np.uint8, count=nb * 20).reshape(nb, 20)
+        d = buf[:, :2].copy().view(np.float16).astype(np.float32).reshape(-1)
+        m = buf[:, 2:4].copy().view(np.float16).astype(np.float32).reshape(-1)
+        return _int_nibbles(buf[:, 4:]).reshape(-1), d, m
+    if ggml_type == GGMLType.Q5_0:
+        buf = np.frombuffer(raw, dtype=np.uint8, count=nb * 22).reshape(nb, 22)
+        d = buf[:, :2].copy().view(np.float16).astype(np.float32).reshape(-1)
+        q = _int_nibbles(buf[:, 6:]) + _high_bits(buf[:, 2:6]).astype(np.int8)
+        return (q - 16).reshape(-1), d, None
+    if ggml_type == GGMLType.Q5_1:
+        buf = np.frombuffer(raw, dtype=np.uint8, count=nb * 24).reshape(nb, 24)
+        d = buf[:, :2].copy().view(np.float16).astype(np.float32).reshape(-1)
+        m = buf[:, 2:4].copy().view(np.float16).astype(np.float32).reshape(-1)
+        q = _int_nibbles(buf[:, 8:]) + _high_bits(buf[:, 4:8]).astype(np.int8)
+        return q.reshape(-1), d, m
+    if ggml_type == GGMLType.IQ4_NL:
+        # non-linear grid, but kvalues are int8 — the LEVEL VALUES themselves
+        # are the resident int8 tensor: v = kvalues[idx] * d.
+        d, idx = _iq4_nl_unpack(raw, n_elements)
+        return _IQ4_KVALUES[idx].astype(np.int8).reshape(-1), d.reshape(-1), None
+    if ggml_type == GGMLType.IQ4_XS:
+        # sub-block scales are exactly per-32, matching this contract
+        d, ls, idx = _iq4_xs_unpack(raw, n_elements)
+        return _IQ4_KVALUES[idx].astype(np.int8).reshape(-1), (d * ls).reshape(-1), None
+    raise_error("quant_blocks: unsupported ggml type {}", ggml_type.name)
 
 
 class _RawBlob:
@@ -501,16 +599,6 @@ def _read_value(f: BinaryIO, vtype: GGUFValueType, limit: int) -> Any:
     return v
 
 
-# general.file_type (the gguf LLAMA_FTYPE_* convention) -> the float type:
-# f32, f16, bf16 and the block types of the JAX package's requantizer
-# (vision_tpu/core/gguf.py REQUANTIZE_TYPES)
-_FILE_TYPES = {
-    0: GGMLType.F32, 1: GGMLType.F16, 2: GGMLType.Q4_0, 3: GGMLType.Q4_1, 7: GGMLType.Q8_0, 8: GGMLType.Q5_0,
-    9: GGMLType.Q5_1, 10: GGMLType.Q2_K, 11: GGMLType.Q3_K, 14: GGMLType.Q4_K, 16: GGMLType.Q5_K,
-    18: GGMLType.Q6_K, 25: GGMLType.IQ4_NL, 30: GGMLType.IQ4_XS, 32: GGMLType.BF16,
-}
-
-
 class GGUFFile:
     """Parsed GGUF file: metadata KV dict + lazily-readable tensors.
 
@@ -541,7 +629,7 @@ class GGUFFile:
                     key = _read_string(f, file_size)
                     vtype = GGUFValueType(struct.unpack("<I", f.read(4))[0])
                     # record the stored type (for arrays, the element type
-                    # too) so a read -> rewrite preserves
+                    # too) so a read -> rewrite (requantize_gguf) preserves
                     # f64 / u64 / i64 KVs instead of re-deriving a narrower
                     # type from the Python value
                     if vtype == GGUFValueType.ARRAY:
@@ -626,7 +714,14 @@ class GGUFFile:
 
     @property
     def float_type(self) -> GGMLType:
-        return _FILE_TYPES.get(int(self.metadata.get("general.file_type", 0)), GGMLType.F32)
+        # general.file_type (gguf LLAMA_FTYPE_* convention): 0 = f32,
+        # 1 = f16, 32 = bf16, plus every MOSTLY_* quant code our own
+        # requantize_gguf / converter can write (REQUANTIZE_TYPES keeps the
+        # code <-> tensor-type pairing in one place)
+        ft = int(self.metadata.get("general.file_type", 0))
+        codes = {code: t for code, t in REQUANTIZE_TYPES.values() if t is not None}
+        codes.update({0: GGMLType.F32, 1: GGMLType.F16, 32: GGMLType.BF16})
+        return codes.get(ft, GGMLType.F32)
 
     @property
     def tensor_layout(self) -> str:
@@ -703,6 +798,17 @@ class GGUFFile:
 
     def is_quantized(self, name: str) -> bool:
         return self.tensors[name].ggml_type in _DEQUANTIZE
+
+    def tensor_quant_blocks(self, name: str):
+        """Integer levels + scales of a block-quantized tensor (see
+        quant_blocks); None when the tensor has no int8 residency
+        decomposition — either it is not block-quantized at all, or it is a
+        K-quant (which ``is_quantized`` reports True for but which always
+        expands at load; gguf.py _RESIDENT_TYPES)."""
+        info = self.tensors[name]
+        if info.ggml_type not in _RESIDENT_TYPES:
+            return None
+        return quant_blocks(info.ggml_type, self.raw(name).tobytes(), info.n_elements)
 
     def load_all(self, dtype: np.dtype | None = None) -> dict[str, np.ndarray]:
         return {name: self.tensor(name, dtype) for name in self.tensors}
@@ -852,7 +958,7 @@ class GGUFWriter:
     def write(self) -> None:
         # honor a caller-supplied general.alignment KV: the layout below
         # MUST pad with the same value a reader will parse back, or every
-        # tensor offset is silently shifted (a rewriter copies the KV
+        # tensor offset is silently shifted (requantize_gguf copies the KV
         # from its source file verbatim)
         self.alignment = int(self.kv.get("general.alignment", GGUF_DEFAULT_ALIGNMENT))
         if self.alignment < 1:
@@ -895,3 +1001,124 @@ class GGUFWriter:
                 if i != len(blobs) - 1:
                     pad = (len(blob) + self.alignment - 1) // self.alignment * self.alignment - len(blob)
                     f.write(b"\x00" * pad)
+
+
+# ggml llama_ftype values for the single-type files requantize_gguf writes
+# (the K entries are the _S "plain" variants — every eligible tensor gets
+# the same type, no per-tensor mixing)
+REQUANTIZE_TYPES = {
+    "f32": (0, None),
+    "f16": (1, None),
+    "q4_0": (2, GGMLType.Q4_0),
+    "q4_1": (3, GGMLType.Q4_1),
+    "q8_0": (7, GGMLType.Q8_0),
+    "q5_0": (8, GGMLType.Q5_0),
+    "q5_1": (9, GGMLType.Q5_1),
+    "q2_k": (10, GGMLType.Q2_K),
+    "q3_k": (11, GGMLType.Q3_K),
+    "q4_k": (14, GGMLType.Q4_K),
+    "q5_k": (16, GGMLType.Q5_K),
+    "q6_k": (18, GGMLType.Q6_K),
+    "iq4_nl": (25, GGMLType.IQ4_NL),
+    "iq4_xs": (30, GGMLType.IQ4_XS),
+}
+
+
+def requantize_gguf(
+    src: str | Path,
+    dst: str | Path,
+    float_type: str = "q8_0",
+    stats_out: list | None = None,
+) -> Path:
+    """Rewrite a GGUF file at a different float storage type.
+
+    The ``vision-cli quantize`` workhorse — the analog of the gguf-py /
+    llama-quantize tooling the reference's quantized model files come from
+    (and strictly wider: the reference's own converter only writes f16/f32).
+    Every KV and the stored tensor layout are preserved; only float payloads
+    change representation:
+
+    * block types (``q8_0``/``q4_0``/``q4_1``/``q5_0``/``q5_1`` and the
+      K-quants ``q2_k``/``q3_k``/``q4_k``/``q5_k``/``q6_k``) — floats with
+      >= 2 dims whose innermost stored dim divides the type's block
+      (32 legacy / 256 K) are encoded via core/quantize.py; tensors already
+      stored at the target type are copied block-for-block. Ineligible
+      floats fall back down the same ladder llama-quantize uses:
+      K-ineligible but 32-divisible tensors become q8_0; everything else
+      stays f32 (biases/norms keep full precision).
+    * ``f16`` / ``f32`` — everything float (including quantized payloads,
+      which dequantize first) is stored at that width.
+
+    Integer tensors are copied unchanged.
+
+    ``stats_out``: pass a list to collect per-tensor
+    ``(name, stored_type_name, rel_rms)`` reconstruction stats (the
+    llama-quantize per-tensor report; rel_rms is 0.0 for lossless copies,
+    None for integer tensors). Costs one extra dequant pass per quantized
+    tensor.
+    """
+    if float_type not in REQUANTIZE_TYPES:
+        raise_error("requantize: unsupported float type '{}'", float_type)
+    from .quantize import block_size, quantize_blocks
+
+    file_type_kv, target = REQUANTIZE_TYPES[float_type]
+    f = GGUFFile(src)
+    w = GGUFWriter(dst, f.arch or "unknown")
+    for k, v in f.metadata.items():
+        if k != "general.file_type":
+            # echo with the SOURCE storage type so f64/u64/i64 KVs (and
+            # array element types) survive the rewrite byte-exactly
+            w.add(k, v, vtype=f.kv_types.get(k))
+    w.add("general.file_type", file_type_kv)
+    def note(name, stored: GGMLType, a=None, raw=None, n=0):
+        if stats_out is None:
+            return
+        if a is None:
+            stats_out.append((name, stored.name, None))
+            return
+        if raw is None:
+            rms = 0.0
+            if stored == GGMLType.F16:  # lossy width cut
+                back = a.astype(np.float16).astype(np.float32)
+                denom = float(np.sqrt(np.mean(a**2))) or 1.0
+                rms = float(np.sqrt(np.mean((back - a) ** 2))) / denom
+        else:
+            back = _DEQUANTIZE[stored][0](raw, n)
+            denom = float(np.sqrt(np.mean(a**2))) or 1.0
+            rms = float(np.sqrt(np.mean((back - a.reshape(-1)) ** 2))) / denom
+        stats_out.append((name, stored.name, rms))
+
+    block = block_size(target) if target is not None else 0
+    for name in f.tensor_names():
+        info = f.tensors[name]
+        if target is not None and info.ggml_type == target:
+            w.add_raw_tensor(name, info.shape, target, f.raw(name).tobytes())
+            if stats_out is not None:
+                # byte-identical pass-through: rel-rms is 0 by construction,
+                # no need to dequantize the payload twice to report it
+                stats_out.append((name, target.name, 0.0))
+            continue
+        a = f.tensor(name)
+        if not np.issubdtype(a.dtype, np.floating):
+            w.add_tensor(name, a)
+            note(name, info.ggml_type)
+            continue
+        a = np.ascontiguousarray(a, np.float32)
+        if target is not None and a.ndim >= 2 and a.shape[-1] % block == 0:
+            raw = quantize_blocks(target, a)
+            w.add_raw_tensor(name, a.shape, target, raw)
+            note(name, target, a, raw, a.size)
+        elif target is not None and block > 32 and a.ndim >= 2 and a.shape[-1] % 32 == 0:
+            # super-block-ineligible (K / iq4_xs) but 32-divisible -> q8_0,
+            # same fallback rung llama-quantize uses
+            raw = quantize_q8_0(a)
+            w.add_raw_tensor(name, a.shape, GGMLType.Q8_0, raw)
+            note(name, GGMLType.Q8_0, a, raw, a.size)
+        elif float_type == "f16":
+            w.add_tensor(name, a, GGMLType.F16)
+            note(name, GGMLType.F16, a)
+        else:
+            w.add_tensor(name, a)
+            note(name, GGMLType.F32, a)
+    w.write()
+    return Path(dst)

@@ -9,7 +9,7 @@ The reference's ``model_ref`` (src/visp/ml.cpp:564-625, include/visp/ml.h:
 Here params live in a flat ``dict[str, torch.Tensor]`` keyed by the *same
 dotted GGUF tensor names* as the JAX package (so parity tests feed both
 packages one store), and ``Params`` provides the prefix-chaining view.
-Quantized-resident tensors wait for the port's quantization work.
+Quantized-resident tensors (core/quant.QuantResident) dequantize on lookup.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from dataclasses import dataclass
 from typing import Any, Iterator, Mapping
 
 from .errors import raise_error
+from .quant import QuantResident
 
 __all__ = ["Params"]
 
@@ -35,9 +36,17 @@ class Params:
         return Params(self.store, new)
 
     def find(self, name: str):
-        """Lookup; returns None if absent (reference model_ref::find)."""
+        """Lookup; returns None if absent (reference model_ref::find).
+
+        Quantized-resident tensors (core/quant.QuantResident) dequantize
+        transparently here — on the card one dequant kernel a lookup, which a
+        captured forward records into its graph — so model code sees ordinary
+        tensors either way."""
         full = f"{self.prefix}.{name}" if self.prefix else name
-        return self.store.get(full)
+        t = self.store.get(full)
+        if t is not None and isinstance(t, QuantResident):
+            return t.dequant()
+        return t
 
     def weight(self, name: str):
         """Lookup; raises if absent (reference model_ref::weights)."""

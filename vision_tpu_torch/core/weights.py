@@ -11,9 +11,9 @@ JAX package:
     ``{arch}.conv2d_weights`` index list, when present, is authoritative.
   * float tensors are cast to the device float policy (bf16 on CUDA);
     integer tensors (index tables) stay as they are.
-
-Quantized residency waits for the port's quantization work: block-quantized
-tensors expand to floats at load.
+  * block-quantized tensors expand to floats, or with ``keep_quantized``
+    stay int8 levels and per-block scales (core/quant.QuantResident),
+    dequantized at each use.
 """
 
 from __future__ import annotations
@@ -26,17 +26,15 @@ import torch
 from .device import Device, backend_init
 from .errors import raise_error
 from .gguf import GGUFFile
+from .quant import _CONV_KERNEL_SIZES, QuantResident, is_quant
 
 __all__ = [
     "load_weights",
     "cast_float_params",
+    "is_conv_2d_name",
     "unpermute_cwhn",
     "params_from_numpy",
 ]
-
-# square kernel sizes the reference converter's is_conv_2d accepts
-# (vision_tpu/core/quant.py _CONV_KERNEL_SIZES)
-_CONV_KERNEL_SIZES = (1, 3, 4, 7, 14)
 
 
 def _is_float(a: np.ndarray) -> bool:
@@ -51,9 +49,10 @@ def cast_float_params(params: dict, dtype: torch.dtype) -> dict:
     ``load_weights`` already returns policy-cast tensors, so on the loader path
     this is a no-op; model constructors call it so DIRECT construction
     (random/test weights, always f32) also matches the model's dtype. Integer
-    tensors pass through untouched."""
+    tensors and quantized-resident leaves (core/quant.QuantResident) pass
+    through untouched."""
     return {
-        k: v.to(dtype) if v.is_floating_point() and v.dtype != dtype else v
+        k: v.to(dtype) if not is_quant(v) and v.is_floating_point() and v.dtype != dtype else v
         for k, v in params.items()
     }
 
@@ -64,17 +63,32 @@ def params_from_numpy(
     """Turn a numpy parameter store (the JAX package's parameters, torch-
     canonical shapes under the same names) into the port's: floats become
     ``dtype`` on ``device`` (a bf16 array goes through f32), integers keep
-    their type. Always copies into C order, so the result never aliases a
-    read-only mmap and is contiguous whatever the source's strides (a kernel
-    takes only contiguous tensors)."""
+    their type, and a numpy-backed :class:`QuantResident` moves its integer
+    payload there, its dequant retargeted to ``dtype``. Always copies into C order, so
+    the result never aliases a read-only mmap and is contiguous whatever the
+    source's strides (a kernel takes only contiguous tensors)."""
     out = {}
     for k, v in store.items():
+        if is_quant(v):
+            out[k] = v.astype(dtype).to(device)
+            continue
         a = np.asarray(v)
         if _is_float(a):
             out[k] = torch.from_numpy(np.array(a, np.float32, order="C")).to(device=device, dtype=dtype)
         else:
             out[k] = torch.from_numpy(np.array(a, order="C")).to(device=device)
     return out
+
+
+def is_conv_2d_name(name: str, shape: tuple[int, ...]) -> bool:
+    """Heuristic matching the reference converter's is_conv_2d
+    (scripts/convert.py:110-117): 4D, square small kernel, '.weight' name."""
+    return (
+        len(shape) == 4
+        and shape[2] == shape[3]
+        and shape[2] in _CONV_KERNEL_SIZES
+        and name.endswith("weight")
+    )
 
 
 def unpermute_cwhn(name: str, a: np.ndarray, trusted: bool = False) -> np.ndarray:
@@ -113,6 +127,7 @@ def load_weights(
     device: Device | None = None,
     float_dtype: torch.dtype | None = None,
     as_numpy: bool = False,
+    keep_quantized: bool = False,
 ) -> dict:
     """Read all tensors, normalize layout, cast floats, move to the device.
 
@@ -121,7 +136,10 @@ def load_weights(
     loaders do: the CUDA card, or a ``VispError`` naming
     ``backend_init("cpu")`` when there is none. With ``as_numpy`` the host
     arrays (floats as f32) come back before the transfer, for loaders that
-    fix up layouts first; that needs no device."""
+    fix up layouts first; that needs no device. With ``keep_quantized``
+    block-quantized tensors of the seven resident formats stay int8 levels +
+    per-block scales (core/quant.QuantResident, numpy-backed under
+    ``as_numpy``) and dequantize at each use; K-quants still expand."""
     if not as_numpy:
         device = device or backend_init()
         if float_dtype is None:
@@ -140,8 +158,22 @@ def load_weights(
                 bad[0], len(names_in_order),
             )
         conv_names = {names_in_order[i] for i in idx_list}
-    out: dict[str, np.ndarray] = {}
+    out: dict = {}
     for name in file.tensor_names():
+        if keep_quantized and file.is_quantized(name):
+            # K-quants have no int8-residency decomposition (gguf.py
+            # _RESIDENT_TYPES) -> blocks is None and the tensor expands below
+            blocks = file.tensor_quant_blocks(name)
+            if blocks is not None:
+                q, scale, minv = blocks
+                r = QuantResident(q, scale, minv, tuple(file.tensors[name].shape), None,
+                                  torch.float32 if float_dtype is None else float_dtype)
+                # same authority rule as the dense path below: a present
+                # conv2d_weights list overrides the shape heuristic
+                if layout == "cwhn" and (conv_names is None or name in conv_names):
+                    r = r.unpermute_cwhn(name, trusted=conv_names is not None)
+                out[name] = r
+                continue
         a = file.tensor(name)
         if layout == "cwhn" and (conv_names is None or name in conv_names):
             a = unpermute_cwhn(name, a, trusted=conv_names is not None)

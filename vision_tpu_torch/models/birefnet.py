@@ -22,9 +22,10 @@ launches: 5 decoder blocks x 4 deformable ASPP branches, each with its
 bias, BatchNorm and ReLU, written into one buffer per ASPP). The
 bounded deformable conv is used only under ``BuildFlag.deform_shift``
 (off by default; core/device.py says why). Weight names follow the
-reference converter's renames. Meshes and quantized residency wait for
-their queue items; PyTorch runs eagerly, so there is no per-extent program
-cache.
+reference converter's renames. Int8-resident weights (``keep_quantized``,
+core/quant.py) dequantize at each use, SWIN-L's once for each of the two
+scales. Meshes wait for their queue item; PyTorch runs eagerly, so there
+is no per-extent program cache.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from ..core.errors import raise_error
 from ..core.gguf import GGUFFile, model_load
 from ..core.graph import ForwardGraphs, shape_bucket
 from ..core.params import Params
+from ..core.quant import is_quant
 from ..core.weights import cast_float_params, load_weights, params_from_numpy, unpermute_cwhn
 from ..image import (
     Image,
@@ -261,13 +263,14 @@ def fixup_weights(file: GGUFFile, params: dict) -> dict:
     """patch_embed conv is always stored cwhn (convert.py convert_birefnet).
     Applies to whcn converter files only — cwhn files were un-permuted
     generically, "torch" files are fully canonical. ``params``: host numpy
-    arrays, as ``load_weights(..., as_numpy=True)`` returns them."""
+    arrays and quantized residents, as ``load_weights(..., as_numpy=True)``
+    returns them."""
     if file.tensor_layout in ("cwhn", "torch"):
         return params
     out = dict(params)
     for name, a in params.items():
         if "patch_embed" in name and a.ndim == 4 and name.endswith("weight"):
-            out[name] = unpermute_cwhn(name, a)
+            out[name] = a.unpermute_cwhn(name) if is_quant(a) else unpermute_cwhn(name, a)
     return out
 
 
@@ -285,9 +288,10 @@ class BirefnetModel:
         self.deform_bound = DEFORM_SHIFT_BOUND if device.flags & BuildFlag.deform_shift else None
         self.params = cast_float_params(params, self.dtype)
         # the deformable convs' weights as the fused kernel reads them, made
-        # here once instead of at each of a forward's 20 calls
-        self.deform_layouts = {f"{k}_layout": weight_layout(v, self.dtype) for k, v in self.params.items()
-                               if _DEFORM_WEIGHT.search(k)}
+        # here once instead of at each of a forward's 20 calls (from the
+        # dequantized weight where it is int8-resident)
+        self.deform_layouts = {f"{k}_layout": weight_layout(v.dequant() if is_quant(v) else v, self.dtype)
+                               for k, v in self.params.items() if _DEFORM_WEIGHT.search(k)}
         self.graphs = ForwardGraphs(self._forward_u8, device.torch_device)
 
     def forward_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
@@ -351,12 +355,14 @@ def birefnet_process_output(mask: np.ndarray, target_extent: tuple[int, int]) ->
 
 def birefnet_load_model(filepath: str, device: Device | None = None, dynamic_extent=(0, 0)) -> BirefnetModel:
     """Load a BiRefNet GGUF onto ``device`` (default: the CUDA device;
-    without one, backend_init raises). Block-quantized tensors expand at
-    load."""
+    without one, backend_init raises). With the device's ``keep_quantized``
+    flag (``VISP_KEEP_QUANT``) block-quantized tensors stay int8-resident and
+    dequantize at each use (core/quant.py); without it they expand at load."""
     device = device or backend_init()
     file = model_load(filepath)
     p = birefnet_detect_params(file, dynamic_extent, device.max_alloc)
-    params = fixup_weights(file, load_weights(file, as_numpy=True))
+    keep_q = bool(device.flags & BuildFlag.keep_quantized)
+    params = fixup_weights(file, load_weights(file, as_numpy=True, keep_quantized=keep_q))
     params = params_from_numpy(params, device.torch_device, device.preferred_float_type)
     return BirefnetModel(params, p, device)
 

@@ -10,7 +10,8 @@ depth-anything.cpp:112-117); output is min-max normalized and resized back.
 
 PyTorch runs eagerly, so :class:`DepthAnythingModel` needs no per-extent
 program cache: ``forward_u8`` is one batched forward at whatever extent it is
-given. Meshes and quantized residency wait for their queue items.
+given; int8-resident weights (``keep_quantized``, core/quant.py) dequantize
+at each use. Meshes wait for their queue item.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from ..core.device import BuildFlag, Device, backend_init
 from ..core.gguf import GGUFFile, model_load
 from ..core.graph import ForwardGraphs, shape_bucket, snap_to_multiple
 from ..core.params import Params
+from ..core.quant import is_quant
 from ..core.weights import cast_float_params, load_weights, params_from_numpy, unpermute_cwhn
 from ..image import (
     Image,
@@ -154,8 +156,8 @@ def fixup_weights(file: GGUFFile, params: dict) -> dict:
     (scripts/convert.py convert_depth_anything): `patch_embeddings` and
     non-fusion `projection` conv weights are stored pre-permuted (cwhn) even
     in whcn files; `resize` transpose convs are always torch layout.
-    ``params``: host numpy arrays, as ``load_weights(..., as_numpy=True)``
-    returns them."""
+    ``params``: host numpy arrays and quantized residents, as
+    ``load_weights(..., as_numpy=True)`` returns them."""
     if file.tensor_layout in ("cwhn", "torch"):
         # cwhn: generic unpermute already handled everything; torch:
         # every tensor is torch-canonical
@@ -165,7 +167,7 @@ def fixup_weights(file: GGUFFile, params: dict) -> dict:
         if a.ndim == 4 and name.endswith("weight") and (
             "patch_embeddings" in name or ("projection" in name and "fusion" not in name)
         ):
-            out[name] = unpermute_cwhn(name, a)
+            out[name] = a.unpermute_cwhn(name) if is_quant(a) else unpermute_cwhn(name, a)
     return out
 
 
@@ -223,11 +225,14 @@ def depthany_process_output(depth: np.ndarray, target_extent: tuple[int, int]) -
 
 def depthany_load_model(filepath: str, device: Device | None = None) -> DepthAnythingModel:
     """Load a Depth-Anything V2 GGUF onto ``device`` (default: the CUDA
-    device; without one, backend_init raises)."""
+    device; without one, backend_init raises). With the device's
+    ``keep_quantized`` flag (``VISP_KEEP_QUANT``) block-quantized tensors
+    stay int8-resident and dequantize at each use (core/quant.py)."""
     device = device or backend_init()
+    keep_q = bool(device.flags & BuildFlag.keep_quantized)
     file = model_load(filepath)
     p = depthany_detect_params(file)
-    params = fixup_weights(file, load_weights(file, as_numpy=True))
+    params = fixup_weights(file, load_weights(file, as_numpy=True, keep_quantized=keep_q))
     params = params_from_numpy(params, device.torch_device, device.preferred_float_type)
     return DepthAnythingModel(params, p, device)
 

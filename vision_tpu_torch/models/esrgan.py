@@ -268,7 +268,7 @@ class EsrganModel:
 def esrgan_load_model(filepath: str, device: Device | None = None) -> EsrganModel:
     """Load a Real-ESRGAN GGUF onto ``device`` (default: the CUDA device;
     without one, backend_init raises). Block-quantized tensors expand at
-    load."""
+    load: there is no ``keep_quantized`` path, as in the JAX package."""
     device = device or backend_init()
     file = model_load(filepath)
     p = esrgan_detect_params(file)

@@ -20,8 +20,9 @@ Reference: src/visp/arch/migan.{cpp,h}, src/visp/vision.cpp:170-203:
 Every op is a depthwise or 1x1 conv, a nearest upsample or an elementwise
 pass, in PyTorch, as the JAX package leaves them to XLA: no Pallas kernel
 fits this model, so its path launches no hand-written kernel. Weight names
-match the original MI-GAN checkpoints (convert.py:482-497). Meshes and
-quantized residency wait for their queue items.
+match the original MI-GAN checkpoints (convert.py:482-497); int8-resident
+weights (``keep_quantized``, core/quant.py) dequantize at each use, one
+dequant kernel a weight on the card. Meshes wait for their queue item.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from ..core.device import Device, backend_init
+from ..core.device import BuildFlag, Device, backend_init
 from ..core.errors import raise_error
 from ..core.gguf import GGUFFile, model_load
 from ..core.graph import ForwardGraphs
@@ -265,11 +266,14 @@ class MiganModel:
 
 def migan_load_model(filepath: str, device: Device | None = None) -> MiganModel:
     """Load an MI-GAN GGUF onto ``device`` (default: the CUDA device; without
-    one, backend_init raises). Block-quantized tensors expand at load."""
+    one, backend_init raises). With the device's ``keep_quantized`` flag
+    (``VISP_KEEP_QUANT``) block-quantized tensors stay int8-resident and
+    dequantize at each use (core/quant.py); without it they expand at load."""
     device = device or backend_init()
     file = model_load(filepath)
     p = replace(migan_detect_params(file), invert_mask=True)
-    return MiganModel(load_weights(file, device), p, device)
+    params = load_weights(file, device, keep_quantized=bool(device.flags & BuildFlag.keep_quantized))
+    return MiganModel(params, p, device)
 
 
 def migan_compute(model: MiganModel, image: Image, mask: Image) -> Image:

@@ -20,7 +20,8 @@ PyTorch runs eagerly, so :class:`SamModel` needs no program cache. Types
 follow the JAX package: the prompts are f32 (the positional encoding computes
 in f32) while the weights and the image embedding are in the device type, so
 on the card the decoder's queries stay f32 and its keys bf16, and masks and
-IoU come out f32. Meshes and quantized residency wait for their queue items.
+IoU come out f32. Int8-resident weights (``keep_quantized``, core/quant.py)
+dequantize at each use, in ``decode`` too. Meshes wait for their queue item.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 from ..core.device import BuildFlag, Device, backend_init
 from ..core.gguf import GGUFFile, model_load
 from ..core.params import Params
+from ..core.quant import is_quant
 from ..core.weights import cast_float_params, load_weights, params_from_numpy, unpermute_cwhn
 from ..image import (
     Image,
@@ -506,14 +508,14 @@ def fixup_weights(file: GGUFFile, params: dict) -> dict:
     local_conv weights are ALWAYS stored cwhn; neck.0/neck.2 follow the
     conv2d_weights list (torch layout in whcn files, handled generically).
     cwhn files were un-permuted generically, "torch" files are canonical.
-    ``params``: host numpy arrays, as ``load_weights(..., as_numpy=True)``
-    returns them (quantized blocks already expanded)."""
+    ``params``: host numpy arrays and quantized residents, as
+    ``load_weights(..., as_numpy=True)`` returns them."""
     if file.tensor_layout in ("cwhn", "torch"):
         return params
     out = dict(params)
     for name, a in params.items():
         if "local_conv" in name and a.ndim == 4 and name.endswith("weight"):
-            out[name] = unpermute_cwhn(name, a)
+            out[name] = a.unpermute_cwhn(name) if is_quant(a) else unpermute_cwhn(name, a)
     return out
 
 
@@ -599,14 +601,23 @@ class SamModel:
         return self._masks(coords, "box")
 
 
-def sam_load_model(filepath: str, device: Device | None = None) -> SamModel:
+def sam_load_model(filepath: str, device: Device | None = None, keep_quantized: bool | None = None) -> SamModel:
     """Load a MobileSAM GGUF onto ``device`` (default: the CUDA device;
-    without one, backend_init raises). Block-quantized tensors expand at load; every float,
-    the positional tables included, lands in the device's float type, which
-    is where the JAX package's tables end up too (its loader keeps them f32
-    and its SamModel then casts them)."""
+    without one, backend_init raises). Every float, the positional tables
+    included, lands in the device's float type, which is where the JAX
+    package's tables end up too (its loader keeps them f32 and its SamModel
+    then casts them).
+
+    ``keep_quantized``: block-quantized tensors stay int8-resident on the
+    device and dequantize at each use (core/quant.py) — defaults to the
+    device's ``keep_quantized`` build flag (``VISP_KEEP_QUANT``). Positional
+    tables dequantize at load and stay full precision, as in the JAX
+    package."""
     device = device or backend_init()
+    if keep_quantized is None:
+        keep_quantized = bool(device.flags & BuildFlag.keep_quantized)
     file = model_load(filepath)
-    params = fixup_weights(file, load_weights(file, as_numpy=True))
+    params = fixup_weights(file, load_weights(file, as_numpy=True, keep_quantized=keep_quantized))
+    params = {k: v.dequant().numpy() if is_quant(v) and "positional" in k else v for k, v in params.items()}
     params = params_from_numpy(params, device.torch_device, device.preferred_float_type)
     return SamModel(params, SamParams(), device)

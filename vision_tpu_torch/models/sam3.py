@@ -509,7 +509,8 @@ class Sam3Model:
 
 def sam3_load_model(filepath: str, device: Device | None = None) -> Sam3Model:
     """Load a SAM3 GGUF onto ``device`` (default: the CUDA device; without
-    one, backend_init raises). Quantized tensors expand to floats at load."""
+    one, backend_init raises). Quantized tensors expand to floats at load:
+    there is no ``keep_quantized`` path, as in the JAX package."""
     device = device or backend_init()
     file = model_load(filepath)
     tokenizer = clip_tokenizer_init(file)

@@ -27,7 +27,8 @@ the summation order, in bf16 the port is the more precise.
 NMS runs on the host, as in the JAX package, but through a vectorised numpy
 greedy loop of this module (:func:`non_max_suppression`) with the native
 library's arithmetic (``visp_nms``, vision_tpu/native/host_ops.cpp), not a
-ctypes library. Meshes and quantized residency wait for their queue items.
+ctypes library. Int8-resident weights (``keep_quantized``, core/quant.py)
+dequantize at each use. Meshes wait for their queue item.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.device import Device, backend_init
+from ..core.device import BuildFlag, Device, backend_init
 from ..core.gguf import GGUFFile, model_load
 from ..core.graph import ForwardGraphs, device_cache
 from ..core.params import Params
@@ -478,10 +479,13 @@ class Yolov9tModel:
 
 def yolov9t_load_model(filepath: str, device: Device | None = None) -> Yolov9tModel:
     """Load a YOLOv9t GGUF onto ``device`` (default: the CUDA device; without
-    one, backend_init raises). Block-quantized tensors expand at load."""
+    one, backend_init raises). With the device's ``keep_quantized`` flag
+    (``VISP_KEEP_QUANT``) block-quantized tensors stay int8-resident and
+    dequantize at each use (core/quant.py); without it they expand at load."""
     device = device or backend_init()
     file = model_load(filepath)
-    return Yolov9tModel(load_weights(file, device), yolov9t_detect_params(file), device)
+    params = load_weights(file, device, keep_quantized=bool(device.flags & BuildFlag.keep_quantized))
+    return Yolov9tModel(params, yolov9t_detect_params(file), device)
 
 
 def get_class_color(class_id: int) -> tuple[int, int, int]:

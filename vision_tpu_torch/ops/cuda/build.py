@@ -111,6 +111,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.vtt_deform_conv_fwd  # the same rows, and H * W, are checked below 2^31 by the wrapper
     fn.argtypes = [p, p, i, i, p, i, p, i, p, p, p, i, i, p, q, *([i] * 10), f, i, i, p]
     fn.restype = i
+    fn = lib.vtt_dequant_fwd  # n is checked below 2^31 by the wrapper; shape and stride are 4 host ints each
+    fn.argtypes = [p, p, p, p, i, ctypes.POINTER(i), ctypes.POINTER(i), i, i, p]
+    fn.restype = i
 
 
 def load_library() -> ctypes.CDLL:
