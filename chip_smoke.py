@@ -254,8 +254,39 @@ Phases, each raising on failure:
      the Depth-Anything GGUF: its report, and a file equal to phase 34's
      in-process requantize_gguf copy.
 
+ 36. gradients: each kernel's autograd function (Conv3x3Fn, WindowAttentionFn,
+     DeformConvFn: the kernel forward, a PyTorch backward) against autograd
+     of the kernel's plain version on the same CUDA tensors, TF32 off, at
+     the training path's shapes: the conv with Real-ESRGAN's epilogues at
+     the recipe's 16^2 LR batch of 4 and its 32^2 / 64^2 tail; SWIN-L's
+     four window stages at 256^2, batch 2, unmasked and shift-masked, the
+     per-head bias a leaf; the ASPP's deformable convs at 256^2 (extents
+     8^2-64^2, k 1, 3, 7) with bias, BatchNorm and ReLU; f32 within
+     GRAD_F32_REL_RMS, one bf16 case each within GRAD_BF16_REL_RMS;
+ 37. the three recipes at full width on 8 PNGs the run writes (with
+     same-stem masks): Real-ESRGAN x4 on 64^2 patches (batch 4), BiRefNet
+     SWIN-L at 256^2 (batch 2, flip and color jitter), Depth-Anything-V2-Base
+     distilled into V2-Small at 252^2 (batch 4, rank-8 LoRA over an
+     int8-resident base). For each, through train.py as the recipe drives
+     it: the first step's loss and every trainable leaf's gradient on the
+     card (f32) against the port's CPU f32 on the same batch; a step's
+     hand-written launches equal to a forward's (351 conv3x3; 48 window, 24
+     masked, and 20 deform_conv; the student's dequant lookups) and none
+     other; the trainable leaves moved, the int8 residents bit-unchanged; a
+     checkpoint restored bit-equal into a fresh state. Then the recipe
+     function itself (finetune_esrgan with an EMA, finetune_birefnet,
+     distill_depthany with lora_out), 2 steps with a checkpoint and the
+     export: its launches, a finite loss, the exported GGUF loaded with
+     load_model and serving one request on the card;
+ 38. training timings beside the card's name and power limit: ms a step
+     (median of 3 after a warm-up), peak allocated memory above what the
+     run held before the recipe's state, and profiles of
+     one step and of one forward (device busy ms; the hand-written kernels'
+     ms and share; the backward and update's share of the step).
+
 The line before the last is a JSON object describing every kernel of the
-paths; the last line is {"ok": true, "device": {...}}.
+paths (with its launches a training step); the last line is {"ok": true,
+"device": {...}}.
 
     python3 chip_smoke.py --parent DIR
 
@@ -834,9 +865,11 @@ def profile_run(run, label: str, torch, card: str, names=("conv3x3",), counts=No
         wall_ms = (time.perf_counter() - t0) * 1e3
         counted = {k: v - before[k] for k, v in counts().items() if v != before[k]} if counts else {}
         prof.step()
-    # the schedule's step annotation spans the step on the device too: not a kernel
+    # the schedule's step annotation, and any other user annotation (the
+    # optimizer's step), spans its kernels on the device too: not a kernel
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
+               if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")
+               and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
         raise AssertionError(f"profile of one {label}: the profiler recorded no device time")
@@ -3711,6 +3744,462 @@ def quantize_verb_phase(card: str, src: str, in_process: str, tmp: str) -> float
     return wall_s
 
 
+# -- training (phases 36-38): the three recipes of finetune.py at full width --
+#
+# Real-ESRGAN x4 (the full RRDBNet) on 64^2 HR patches (16^2 LR), batch 4;
+# BiRefNet (SWIN-L) on (image, mask) pairs at 256^2, batch 2, augmented;
+# Depth-Anything-V2-Base distilled into V2-Small at 252^2, batch 4, with
+# rank-8 LoRA over an int8-resident (QLoRA) base. Each on TRAIN_IMAGES PNGs
+# of TRAIN_EXTENT (w, h) the run writes.
+TRAIN_IMAGES = 8
+TRAIN_EXTENT = (300, 270)
+TRAIN_LR = 1e-4
+TRAIN_STEPS = 2  # the recipe functions' steps
+TRAIN_TIMED = 3  # the harness's timed steps, after one warm-up step
+ESRGAN_TRAIN = {"batch": 4, "patch": 64}
+BIREF_TRAIN = {"batch": 2, "size": 256}
+DISTILL_TRAIN = {"batch": 4, "size": 252, "lora_rank": 8}
+# an autograd function's gradients against autograd of its kernel's plain
+# version on the same CUDA tensors: f32 (TF32 off) differs by the order of
+# the sums (the conv's backward is cuDNN's, its plain version's nine
+# products); bf16 by one rounding of each gradient to bf16 (~2-4e-3)
+GRAD_F32_REL_RMS = 1e-4
+GRAD_BF16_REL_RMS = 1e-2
+# a recipe's first step on the card (f32, TF32 off) against the port's CPU
+# f32 on the same batch: the loss, and each leaf's gradient relative to its
+# RMS or to 1% of all the gradients' RMS where that is larger (a leaf whose
+# gradient is zero in exact arithmetic, such as attention's key biases,
+# holds rounding noise in both). The gradients' bound is wider than the
+# losses': a bilinear sample's derivative in its position jumps where the
+# position crosses a pixel and a ReLU's at 0, so a value within rounding of
+# one takes the other side on the other device, and a bias's gradient sums
+# terms that cancel (measured on one H100: BiRefNet's deformable ASPP and
+# gates 1.5-3.4e-3, Real-ESRGAN's worst leaf 2.1e-5)
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_REL_RMS = 1e-2
+STEP_GRAD_FLOOR = 1e-2
+TRAIN_DEVICE = "cuda"  # where phases 36-38 put their tensors (a CPU rehearsal sets "cpu")
+
+
+def grad_case(label: str, kernel_fn, plain_fn, inputs: dict, dtype, torch, counter=None) -> float:
+    """Phase 36, one case: ``kernel_fn`` (the wrapper, whose CUDA route under
+    autograd is the kernel's autograd function) and ``plain_fn`` (the
+    kernel's plain version), each a function of a dict of leaves, on the
+    same CUDA leaves (``inputs``, cloned to require grad): the outputs
+    (check_close) and
+    each leaf's gradient for one cotangent (relative RMS). ``counter``:
+    (module, launches the kernel's forward must add). The bf16 outputs are
+    held by relative RMS too (an output of magnitude ~8 has a bf16 ulp of
+    0.03, past BF16_MAX_ABS). Returns the worst gradient error."""
+    results = []
+    for fn in (kernel_fn, plain_fn):
+        leaves = {k: v.detach().clone().requires_grad_() for k, v in inputs.items()}
+        before = counter[0].launches if counter else 0
+        out = fn(leaves)
+        if fn is kernel_fn and counter and counter[0].launches - before != counter[1]:
+            raise AssertionError(f"{label}: {counter[0].launches - before} kernel launches, not {counter[1]}")
+        if fn is kernel_fn and out.grad_fn is None:
+            raise AssertionError(f"{label}: the kernel's output has no autograd function")
+        gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(36)
+        cot = torch.randn(out.shape, generator=gen, device=TRAIN_DEVICE)
+        grads = torch.autograd.grad(out, list(leaves.values()), cot.to(out.dtype))
+        torch.cuda.synchronize()
+        results.append((out.detach(), grads))
+    (out, grads), (ref, ref_grads) = results
+    bound = GRAD_F32_REL_RMS if dtype == torch.float32 else GRAD_BF16_REL_RMS
+    if dtype == torch.float32:
+        check_close(f"{label} forward", out, ref.float(), dtype, torch)
+    elif not rel_rms_t(out.float(), ref.float()) <= bound:
+        raise AssertionError(f"{label} forward: relative RMS {rel_rms_t(out.float(), ref.float())} past {bound}")
+    errs = {k: rel_rms_t(g.float(), r.float()) for k, g, r in zip(inputs, grads, ref_grads)}
+    bad = {k: e for k, e in errs.items() if not e <= bound}
+    print(f"grad {label}: output {rel_rms_t(out.float(), ref.float()):.2e}, "
+          + ", ".join(f"d{k} {e:.2e}" for k, e in errs.items())
+          + f" [relative RMS <= {bound}] {'FAIL' if bad else 'ok'}", flush=True)
+    if bad:
+        raise AssertionError(f"{label}: gradients off {bad}")
+    return max(errs.values())
+
+
+def grad_cases(torch) -> dict:
+    """Phase 36: each autograd function on the card against autograd of its
+    kernel's plain version, at the training path's shapes, in f32 (TF32 off)
+    and one bf16 case each: the conv with Real-ESRGAN's epilogues at the
+    recipe's 16^2 LR batch of 4 (and its 32^2 / 64^2 tail); SWIN-L's four
+    window stages at 256^2, batch 2, unmasked and with the shift mask, the
+    per-head bias a leaf; the ASPP's deformable convs at 256^2 (decoder
+    extents 8^2 to 64^2, k 1, 3, 7, Cin 112 -> 28) with bias, BatchNorm
+    scale and shift and ReLU, the offsets and the mask leaves. Returns the
+    worst gradient error of each."""
+    from vision_tpu_torch.models.swin import compute_attention_mask
+    from vision_tpu_torch.ops.cuda import conv3x3 as cc
+    from vision_tpu_torch.ops.cuda import deform_conv as dcm
+    from vision_tpu_torch.ops.cuda import window_attention as wa
+
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(36)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def rnd(*shape, dt=f32, scale=1.0):
+        return (torch.randn(*shape, device=TRAIN_DEVICE, generator=gen) * scale).to(dt)
+
+    worst = {"conv3x3": 0.0, "window_attention": 0.0, "deform_conv": 0.0}
+    b, lo = ESRGAN_TRAIN["batch"], ESRGAN_TRAIN["patch"] // 4
+    conv_forms = [("stem", 3, 64, lo, {}, ())] + [
+        (f"conv{k + 1}", ci, co, lo, {"slope": 0.2}, ()) for k, (ci, co) in enumerate(ESRGAN_RDB[:4])] + [
+        ("conv5 x + 0.2 y", 192, 64, lo, {"s1": 0.2}, ("r1",)),
+        ("RDB3 conv5 r2 + 0.2 (x + 0.2 y)", 192, 64, lo, {"s1": 0.2, "s2": 0.2}, ("r1", "r2")),
+        ("trunk + skip", 64, 64, lo, {}, ("r1",)),
+        ("upsample", 64, 64, 2 * lo, {"slope": 0.2}, ()), ("upsample, hr", 64, 64, 4 * lo, {"slope": 0.2}, ()),
+        ("last", 64, 3, 4 * lo, {}, ())]
+    for dt in (f32, bf16):
+        for name, ci, co, hw, kw, res in (conv_forms if dt == f32 else conv_forms[6:7]):
+            inputs = {"x": rnd(b, hw, hw, ci, dt=dt), "w": rnd(co, ci, 3, 3, dt=dt, scale=0.1),
+                      "b": rnd(co, dt=dt, scale=0.1)} | {r: rnd(b, hw, hw, co, dt=dt) for r in res}
+
+            def conv(fn, kw=kw):
+                return lambda t: fn(t["x"], t["w"], t["b"], r1=t.get("r1"), r2=t.get("r2"), **kw)
+
+            label = f"conv3x3 {name} ({b}, {hw}, {hw}, {ci} -> {co}) {str(dt).removeprefix('torch.')}"
+            worst["conv3x3"] = max(worst["conv3x3"], grad_case(
+                label, conv(cc.conv3x3), conv(cc.conv3x3_plain), inputs, dt, torch, (cc, 1)))
+    bw, window = BIREF_TRAIN["batch"], 12
+    for dt in (f32, bf16):
+        for side, heads in (((64, 6), (32, 12), (16, 24), (8, 48)) if dt == f32 else ((64, 6),)):
+            padded = -(-side // window) * window
+            nw, t, c = bw * (padded // window) ** 2, window * window, 32 * heads
+            for masked in ((False, True) if dt == f32 else (True,)):
+                inputs = {"q": rnd(nw, t, c, dt=dt), "k": rnd(nw, t, c, dt=dt), "v": rnd(nw, t, c, dt=dt),
+                          "bias": rnd(heads, t, t, dt=dt)}
+                mask = torch.tensor(compute_attention_mask(side, side, window), device=TRAIN_DEVICE) if masked else None
+
+                def attn(fn, heads=heads, mask=mask):
+                    return lambda tt: fn(tt["q"], tt["k"], tt["v"], tt["bias"], heads, 32**-0.5, mask)
+
+                label = (f"window_attention SWIN-L {side}^2 ({nw}, {t}, {c}) {'masked' if masked else 'unmasked'} "
+                         f"{str(dt).removeprefix('torch.')}")
+                worst["window_attention"] = max(worst["window_attention"], grad_case(
+                    label, attn(wa.window_attention), attn(wa.window_attention_plain), inputs, dt, torch, (wa, 1)))
+    for dt in (f32, bf16):
+        for hw, k in ([(hw, k) for hw in (8, 16, 32, 64) for k in (1, 3, 7)] if dt == f32 else [(64, 7)]):
+            x, off, mask, pad = deform_inputs(gen, torch, bw, hw, BIREF_CIN, k, dt)
+            inputs = {"x": x, "w": rnd(BIREF_COUT, BIREF_CIN, k, k, dt=dt, scale=0.05), "offset": off, "mask": mask,
+                      "bias": rnd(BIREF_COUT, dt=dt, scale=0.1), "scale": rnd(BIREF_COUT, dt=dt),
+                      "shift": rnd(BIREF_COUT, dt=dt, scale=0.1)}
+
+            def deform(fn, k=k, pad=pad):
+                return lambda t: fn(t["x"], t["w"], t["offset"], t["mask"], k, k, 1, pad, bias=t["bias"],
+                                    scale=t["scale"], shift=t["shift"], relu=True)
+
+            label = (f"deform_conv ({bw}, {hw}, {hw}, {BIREF_CIN} -> {BIREF_COUT}) k={k} "
+                     f"{str(dt).removeprefix('torch.')}")
+            worst["deform_conv"] = max(worst["deform_conv"], grad_case(
+                label, deform(dcm.deform_conv), deform(dcm.deform_conv_plain), inputs, dt, torch, (dcm, 1)))
+    return worst
+
+
+def write_depth_base_gguf(path: str) -> None:
+    """Depth-Anything-V2-Base (DINOv2-B: 768 wide, 12 heads, 12 layers; the
+    DPT head at 128) with random weights, seed 1: the distillation's
+    teacher."""
+    from vision_tpu_torch.core.gguf import GGUFWriter
+    from vision_tpu_torch.models.random_weights import random_depth_anything_params
+
+    w = GGUFWriter(path, "depthanything")
+    for k, v in (("dino.patch_size", 14), ("dino.embed_dim", 768), ("dino.n_heads", 12), ("dino.n_layers", 12),
+                 ("depthanything.image_size", 518), ("depthanything.feature_layers", [2, 5, 8, 11]),
+                 ("depthanything.tensor_data_layout", "torch")):
+        w.add(k, v)
+    for name, a in random_depth_anything_params("base", seed=1).items():
+        w.add_tensor(name, a)
+    w.write()
+
+
+def train_folder(tmp: str) -> tuple[list, str]:
+    """TRAIN_IMAGES random PNGs of TRAIN_EXTENT and a same-stem mask for
+    each (0 / 255), in ``tmp``: (image paths, mask directory)."""
+    from vision_tpu_torch.image import Image, ImageFormat, image_save
+
+    rng = np.random.default_rng(36)
+    w, h = TRAIN_EXTENT
+    os.makedirs(os.path.join(tmp, "train"), exist_ok=True)
+    os.makedirs(os.path.join(tmp, "masks"), exist_ok=True)
+    paths = []
+    for i in range(TRAIN_IMAGES):
+        paths.append(os.path.join(tmp, "train", f"im{i}.png"))
+        image_save(Image(rng.integers(0, 256, (h, w, 3), np.uint8), ImageFormat.rgb_u8), paths[-1])
+        mask = ((rng.random((h, w, 1)) > 0.5) * 255).astype(np.uint8)
+        image_save(Image(mask, ImageFormat.alpha_u8), os.path.join(tmp, "masks", f"im{i}.png"))
+    return paths, os.path.join(tmp, "masks")
+
+
+def _to(batch, device):
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_to(b, device) for b in batch)
+    return batch.to(device) if hasattr(batch, "to") else batch
+
+
+def first_step_check(torch, label: str, loss_fn, card_params: dict, cpu_params: dict, names, batch) -> dict:
+    """Phase 37: the first step's loss and each trainable leaf's gradient on
+    the card (f32, the kernels' autograd functions) against the port's CPU
+    f32 (the plain versions) on the same batch. Returns each leaf's max
+    gradient magnitude on the CPU (0: a leaf the step does not move)."""
+    out = []
+    for params, b in ((card_params, batch), (cpu_params, _to(batch, "cpu"))):
+        leaves = [params[k] for k in names]
+        loss = loss_fn(params, b)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        out.append((float(loss.detach()), [torch.zeros_like(p) if g is None else g.float().cpu()
+                                           for p, g in zip(leaves, grads)]))
+    (loss, grads), (ref_loss, ref_grads) = out
+    overall = float(torch.cat([g.flatten().double() for g in ref_grads]).pow(2).mean().sqrt())
+    errs = {k: float((g.double() - r.double()).pow(2).mean().sqrt()
+                     / max(float(r.double().pow(2).mean().sqrt()), STEP_GRAD_FLOOR * overall))
+            for k, g, r in zip(names, grads, ref_grads)}
+    worst = sorted(errs, key=errs.get, reverse=True)[:3]
+    bad = [k for k in names if not errs[k] <= STEP_GRAD_REL_RMS]
+    ok = abs(loss - ref_loss) <= STEP_LOSS_RTOL * abs(ref_loss) and not bad
+    print(f"{label} first step, card f32 vs CPU f32 on one batch: loss {loss:.7f} / {ref_loss:.7f} "
+          f"[rtol {STEP_LOSS_RTOL}]; {len(names)} leaves, worst gradients "
+          + ", ".join(f"{errs[k]:.2e} ({k})" for k in worst)
+          + f" [relative RMS <= {STEP_GRAD_REL_RMS}, floor {STEP_GRAD_FLOOR} of all] "
+          f"{'ok' if ok else 'FAIL ' + str(bad[:5])}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: first step off the CPU's")
+    return {k: float(r.abs().max()) for k, r in zip(names, ref_grads)}
+
+
+def train_harness(torch, card: str, label: str, host: dict, trainable, loss_fn, batches: list, per_step: dict,
+                  counts, kernels: tuple, tmp: str) -> dict:
+    """Phases 37-38 for one recipe, through the train module as the recipe
+    drives it: the first step against the CPU; a warm-up step whose launches
+    equal ``per_step`` (every other counter 0); TRAIN_TIMED steps timed on
+    the host clock (each ending in a synchronize) with the peak memory; the
+    trainable leaves moved (every one with a nonzero first gradient) and the
+    frozen int8 residents bit-unchanged; a checkpoint restored into a fresh
+    state bit-equal; and profiles of one step and of one forward (the
+    hand-written ``kernels``' device ms in each). Returns the readings."""
+    from vision_tpu_torch.core.quant import is_quant
+    from vision_tpu_torch.core.weights import params_from_numpy
+    from vision_tpu_torch.train import adam, create_train_state, make_train_step, restore_checkpoint
+    from vision_tpu_torch.train import save_checkpoint
+
+    held = torch.cuda.memory_allocated() / 2**20  # what the run holds before this recipe's state
+    state = create_train_state(params_from_numpy(host, TRAIN_DEVICE, torch.float32), adam(TRAIN_LR), trainable)
+    cpu = create_train_state(params_from_numpy(host, "cpu", torch.float32), adam(TRAIN_LR), trainable)
+    step = make_train_step(loss_fn)
+    first = first_step_check(torch, label, loss_fn, state.params, cpu.params, state.names, batches[0])
+    del cpu
+    gc.collect()
+    initial = {k: state.params[k].detach().clone() for k in state.names}
+    residents = {k: (v.q.clone(), v.scale.clone()) for k, v in state.params.items() if is_quant(v)}
+    zero_counts()
+    before = counts()
+    state, metrics = step(state, batches[0])
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in counts().items()}
+    want = {k: per_step.get(k, 0) for k in launches}
+    print(f"{label} one step: loss {float(metrics['loss']):.6f}, hand-written launches {launches} "
+          f"[{'ok' if launches == want else 'FAIL: want ' + str(want)}]", flush=True)
+    if launches != want or not np.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"{label}: a step launched {launches}, want {want}; loss {float(metrics['loss'])}")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(TRAIN_TIMED):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[(i + 1) % len(batches)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    moved = [k for k in state.names if not torch.equal(state.params[k], initial[k])]
+    still = [k for k in state.names if k not in moved and first[k] > 0]
+    frozen = all(torch.equal(state.params[k].q, q) and torch.equal(state.params[k].scale, s)
+                 for k, (q, s) in residents.items())
+    print(f"{label}: {len(moved)} of {len(state.names)} trainable leaves moved in {TRAIN_TIMED + 1} steps "
+          f"({len(state.names) - len(moved)} with a zero first gradient stay), {len(residents)} int8 residents "
+          f"{'bit-unchanged' if frozen else 'CHANGED'}; step ms {', '.join(f'{t:.3f}' for t in times)} "
+          f"(median {float(np.median(times)):.3f}), peak allocated {peak:.1f} MiB, {peak - held:.1f} MiB above the "
+          f"{held:.1f} MiB held before the recipe's state [{card}]", flush=True)
+    if still or not frozen or not moved:
+        raise AssertionError(f"{label}: leaves with a gradient did not move {still[:5]} or residents changed")
+    path = save_checkpoint(os.path.join(tmp, f"ckpt-{label.split()[0]}", f"step_{state.step}"), state)
+    fresh = create_train_state(params_from_numpy(host, TRAIN_DEVICE, torch.float32), adam(TRAIN_LR), trainable)
+    restore_checkpoint(path, fresh)
+    saved, back = state.optimizer.state_dict(), fresh.optimizer.state_dict()
+    equal = fresh.step == state.step and all(
+        torch.equal(v, fresh.params[k]) for k, v in state.params.items() if isinstance(v, torch.Tensor)) and all(
+        torch.equal(torch.as_tensor(v).cpu(), torch.as_tensor(back["state"][i][key]).cpu())
+        for i, st in saved["state"].items() for key, v in st.items())
+    print(f"{label}: checkpoint at step {state.step} ({os.path.getsize(os.path.join(path, 'state.pt')) / 2**20:.1f} "
+          f"MiB) restored into a fresh state {'bit-equal' if equal else 'DIFFERENT'}", flush=True)
+    if not equal:
+        raise AssertionError(f"{label}: the restored checkpoint differs from the state saved")
+    del fresh
+    gc.collect()
+    prof_step = profile_run(lambda: step(state, batches[0]), f"{label} train step", torch, card, kernels)
+    prof_fwd = profile_run(lambda: loss_fn(state.params, batches[0]), f"{label} forward (loss)", torch, card, kernels)
+    hand = sum(prof_step["named_ms"].values())
+    print(f"{label}: step busy {prof_step['busy_ms']:.3f} ms, forward busy {prof_fwd['busy_ms']:.3f} ms "
+          f"({prof_fwd['busy_ms'] / prof_step['busy_ms']:.2%} of the step; backward and update "
+          f"{1 - prof_fwd['busy_ms'] / prof_step['busy_ms']:.2%}); hand-written kernels {hand:.3f} ms, "
+          f"{hand / prof_step['busy_ms']:.2%} of the step's busy time and {hand / prof_fwd['busy_ms']:.2%} of the "
+          f"forward's [{card}]", flush=True)
+    result = {"step_ms": float(np.median(times)), "steps_ms": times, "peak_mib": peak - held, "launches": launches,
+              "step_busy_ms": prof_step["busy_ms"], "forward_busy_ms": prof_fwd["busy_ms"], "kernels_ms": hand,
+              "trainable_leaves": len(state.names)}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def recipe_run(torch, card: str, label: str, run, dst: str, per_step: dict, counts, serve, export=None) -> float:
+    """Phase 37: one recipe function end to end (TRAIN_STEPS steps, a
+    checkpoint, the export): its launches, TRAIN_STEPS times the harness's
+    step's plus ``export``'s (the QLoRA merge dequantizes each resident
+    once); a finite loss; the exported GGUF loaded with load_model on the
+    card and serving one request (``serve(model)`` -> its output). Returns
+    the wall seconds."""
+    from vision_tpu_torch.api import load_model
+    from vision_tpu_torch.core.device import backend_init
+
+    zero_counts()
+    before = counts()
+    t0 = time.perf_counter()
+    stats = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in counts().items()}
+    want = {k: per_step.get(k, 0) * TRAIN_STEPS + (export or {}).get(k, 0) for k in launches}
+    model = load_model(dst, backend_init())
+    out = np.asarray(serve(model), np.float32)
+    ok = (launches == want and stats["steps"] == TRAIN_STEPS and np.isfinite(stats["first_loss"])
+          and np.isfinite(stats["last_loss"]) and np.isfinite(out).all())
+    print(f"{label} recipe: {TRAIN_STEPS} steps in {wall:.2f} s wall (load, steps, checkpoint, export), loss "
+          f"{stats['first_loss']:.6f} -> {stats['last_loss']:.6f}, launches {launches}; {os.path.basename(dst)} "
+          f"({os.path.getsize(dst) / 1e6:.1f} MB) loaded with load_model and served one request "
+          f"({out.shape}) [{'ok' if ok else 'FAIL'}; {card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"{label} recipe: launches {launches} (want {want}), stats {stats}")
+    del model
+    return wall
+
+
+def training_phases(torch, card: str, fd: dict, tmp: str) -> dict:
+    """Phases 36-38: gradients against the plain versions, the three recipes
+    at full width, and their timings (see the module docstring)."""
+    from vision_tpu_torch import finetune as ft
+    from vision_tpu_torch.bulk import pair_masks
+    from vision_tpu_torch.core.device import backend_init
+    from vision_tpu_torch.core.gguf import GGUFFile
+    from vision_tpu_torch.core.params import Params
+    from vision_tpu_torch.core.quant import is_quant
+    from vision_tpu_torch.core.weights import load_weights, params_from_numpy
+    from vision_tpu_torch.image import Image, ImageFormat
+    from vision_tpu_torch.models.birefnet import birefnet_detect_params
+    from vision_tpu_torch.models.birefnet import fixup_weights as biref_fixup
+    from vision_tpu_torch.models.depth_anything import depthany_detect_params, depthany_predict
+    from vision_tpu_torch.models.depth_anything import fixup_weights as depth_fixup
+    from vision_tpu_torch.models.esrgan import esrgan_detect_params
+    from vision_tpu_torch.ops.cuda import dequant as dqm
+    from vision_tpu_torch.ops.cuda import window_attention as wa
+    from vision_tpu_torch.train import data_loader, prefetch_to_device
+
+    def counts():
+        return dict(fd["counts"](), dequant=dqm.launches, **{"window masked": wa.masked_launches})
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("36 gradients: each kernel's autograd function against autograd of its plain version on the card")
+    t0 = time.perf_counter()
+    worst = grad_cases(torch)
+    print(f"phase 36 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase(f"37-38 the three recipes at full width on {TRAIN_IMAGES} PNGs of {TRAIN_EXTENT[0]}x{TRAIN_EXTENT[1]}: "
+          f"first step vs the CPU, launches, leaves, checkpoint, timings; then the recipe functions and their exports")
+    images, masks = train_folder(tmp)
+    dev = backend_init()
+    rows = {}
+    probe = Image(np.random.default_rng(37).integers(0, 256, (TRAIN_EXTENT[1], TRAIN_EXTENT[0], 3), np.uint8),
+                  ImageFormat.rgb_u8)
+
+    # Real-ESRGAN: the full RRDBNet on 64^2 patches
+    t0 = time.perf_counter()
+    efile = GGUFFile(fd["paths"]["esrgan"])
+    b, patch = ESRGAN_TRAIN["batch"], ESRGAN_TRAIN["patch"]
+    epoch = data_loader(list(enumerate(images)), b, load=ft._patch_load(patch, 37), shuffle=True, seed=37)
+    batches = list(prefetch_to_device(epoch, device=TRAIN_DEVICE))
+    per = {"conv3x3": ESRGAN_CONVS}
+    rows["esrgan"] = train_harness(torch, card, "Real-ESRGAN", load_weights(efile, as_numpy=True), None,
+                                   ft.esrgan_loss(esrgan_detect_params(efile), patch), batches, per, counts,
+                                   ("conv3x3",), tmp)
+    rows["esrgan"]["recipe_s"] = recipe_run(
+        torch, card, "Real-ESRGAN", lambda: ft.finetune_esrgan(
+            efile, images, os.path.join(tmp, "esrgan-tuned.gguf"), steps=TRAIN_STEPS, lr=TRAIN_LR, batch=b,
+            patch=patch, ema_decay=0.999, device=dev, ckpt_dir=os.path.join(tmp, "ck-esrgan"),
+            ckpt_every=TRAIN_STEPS),
+        os.path.join(tmp, "esrgan-tuned.gguf"), per, counts, lambda m: m.compute(probe).data)
+    print(f"Real-ESRGAN phases 37-38 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # BiRefNet (SWIN-L) on (image, mask) pairs at 256^2, augmented
+    t0 = time.perf_counter()
+    bfile = GGUFFile(fd["paths"]["birefnet"])
+    b, size = BIREF_TRAIN["batch"], BIREF_TRAIN["size"]
+    pairs = pair_masks(images, masks)
+    seeds = np.random.default_rng(38)
+    epoch = data_loader(pairs, b, load=ft._mask_load(size), shuffle=True, seed=38)
+    batches = [(x, m, int(seeds.integers(2**62))) for x, m in prefetch_to_device(epoch, device=TRAIN_DEVICE)]
+    per = {"window": BIREF_WINDOWS, "window masked": BIREF_MASKED, "deform_conv": BIREF_DEFORMS}
+    rows["birefnet"] = train_harness(torch, card, "BiRefNet", biref_fixup(bfile, load_weights(bfile, as_numpy=True)),
+                                     None, ft.mask_loss(birefnet_detect_params(bfile), True), batches, per, counts,
+                                     ("window_attention", "deform_conv"), tmp)
+    rows["birefnet"]["recipe_s"] = recipe_run(
+        torch, card, "BiRefNet", lambda: ft.finetune_birefnet(
+            bfile, images, os.path.join(tmp, "birefnet-tuned.gguf"), masks=masks, steps=TRAIN_STEPS, lr=TRAIN_LR,
+            batch=b, size=size, device=dev, ckpt_dir=os.path.join(tmp, "ck-birefnet"), ckpt_every=TRAIN_STEPS),
+        os.path.join(tmp, "birefnet-tuned.gguf"), per, counts, lambda m: m.compute(probe).data)
+    print(f"BiRefNet phases 37-38 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # Depth-Anything-V2-Base -> V2-Small, rank-8 LoRA over an int8-resident base
+    t0 = time.perf_counter()
+    teacher = os.path.join(tmp, "depth-base.gguf")
+    write_depth_base_gguf(teacher)
+    tfile, sfile = GGUFFile(teacher), GGUFFile(fd["paths"]["depthany"])
+    b, size, rank = DISTILL_TRAIN["batch"], DISTILL_TRAIN["size"], DISTILL_TRAIN["lora_rank"]
+    host, trainable = ft._student_params(depth_fixup(sfile, load_weights(sfile, as_numpy=True)), None, rank, True,
+                                         0, "distill")
+    t_params = params_from_numpy(depth_fixup(tfile, load_weights(tfile, as_numpy=True)), TRAIN_DEVICE, torch.bfloat16)
+    tp, sp = depthany_detect_params(tfile), depthany_detect_params(sfile)
+    epoch = data_loader(images, b, load=ft._resize_load(size), shuffle=True, seed=39)
+    with torch.no_grad():
+        batches = [(x, depthany_predict(Params(t_params), x.to(torch.bfloat16), tp))
+                   for x in prefetch_to_device(epoch, device=TRAIN_DEVICE)]
+    del t_params
+    loss = ft.ssi_loss(sp)
+    probe_params = params_from_numpy(host, TRAIN_DEVICE, torch.float32)
+    before = dqm.launches
+    with torch.no_grad():
+        loss(probe_params, batches[0])
+    per = {"dequant": dqm.launches - before}  # one a resident lookup of the student's forward
+    del probe_params
+    if not per["dequant"]:
+        raise AssertionError("the QLoRA student's forward looked up no int8 resident")
+    rows["distill"] = train_harness(torch, card, "Depth-Anything distill (QLoRA)", host, trainable, loss, batches,
+                                    per, counts, ("dequant",), tmp)
+    rows["distill"]["recipe_s"] = recipe_run(
+        torch, card, "Depth-Anything distill (QLoRA)", lambda: ft.distill_depthany(
+            tfile, sfile, images, os.path.join(tmp, "depth-distilled.gguf"), steps=TRAIN_STEPS, lr=TRAIN_LR, batch=b,
+            size=size, lora_rank=rank, qlora=True, lora_out=os.path.join(tmp, "depth-adapters.gguf"), device=dev,
+            ckpt_dir=os.path.join(tmp, "ck-distill"), ckpt_every=TRAIN_STEPS),
+        os.path.join(tmp, "depth-distilled.gguf"), per, counts, lambda m: m.compute(probe).data,
+        export={"dequant": sum(is_quant(v) for v in host.values())})
+    print(f"Depth-Anything phases 37-38 in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, r in rows.items():
+        print(f"training {name}: {r['step_ms']:.3f} ms a step (median of {TRAIN_TIMED}), peak {r['peak_mib']:.1f} "
+              f"MiB above the run's earlier holdings, step busy {r['step_busy_ms']:.3f} ms, forward {r['forward_busy_ms']:.3f} ms, hand-written "
+              f"kernels {r['kernels_ms']:.3f} ms, {r['launches']} [{card}]", flush=True)
+    return {"worst": worst, "rows": rows}
+
+
 def parent_library(parent: str, build):
     """The kernel library of another checkout of the port at ``parent``,
     built from its vision_tpu_torch/csrc/ with this build's flags into
@@ -4497,6 +4986,7 @@ def main(argv=None) -> int:
         quant = residency_phase(torch, card, fd, fd_tmp)
         phase("35 the quantize verb as a subprocess")
         quantize_verb_phase(card, fd["paths"]["depthany"], quant["copies"][("depthany", "q8_0")], fd_tmp)
+        train = training_phases(torch, card, fd, fd_tmp)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4533,6 +5023,7 @@ def main(argv=None) -> int:
                              (f"({bh}, {(1008 // 14) ** 2}, 80) bf16", *rest)))
                for key, (bh, *rest) in zip(("at_sam3_global", "at_sam3_global_batch4"), s3["rows"])},
             "launches_sam3": s3["launches"],
+            "launches_train_step_distill": train["rows"]["distill"]["launches"]["flash"],
         },
         {
             "name": "window_attention",
@@ -4552,6 +5043,10 @@ def main(argv=None) -> int:
             "launches_birefnet_masked": bir_launches["window masked"],
             "birefnet_masked_stage1": dict(zip(("label", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
                                                mw_rows[0])),
+            "launches_train_step_birefnet": train["rows"]["birefnet"]["launches"]["window"],
+            "launches_train_step_birefnet_masked": train["rows"]["birefnet"]["launches"]["window masked"],
+            "backward": "WindowAttentionFn: PyTorch ops, the probabilities recomputed at the forward's rounding",
+            "grad_max_rel_rms": train["worst"]["window_attention"],
         },
         {
             "name": "conv3x3",
@@ -4583,6 +5078,9 @@ def main(argv=None) -> int:
                 "forward_batch8_busy_ms": ym["profile"]["busy_ms"],
                 "forward_batch8_conv3x3_ms": ym["profile"]["named_ms"]["conv3x3"],
             },
+            "launches_train_step_esrgan": train["rows"]["esrgan"]["launches"]["conv3x3"],
+            "backward": "Conv3x3Fn: PyTorch ops, F.conv2d recomputing the pre-activation and convolution_backward",
+            "grad_max_rel_rms": train["worst"]["conv3x3"],
         },
         {
             "name": "deform_conv",
@@ -4608,6 +5106,9 @@ def main(argv=None) -> int:
             "forward_1024x4_peak_mib": bir_profile["peak_mib"],
             "alloc_mib_k7_256": {"fused": d_rows[(256, 7)]["fused_alloc_mib"],
                                  "parent_route": d_rows[(256, 7)]["route_alloc_mib"]},
+            "launches_train_step_birefnet": train["rows"]["birefnet"]["launches"]["deform_conv"],
+            "backward": "DeformConvFn: autograd of deform_conv_plain, recomputed from the saved inputs",
+            "grad_max_rel_rms": train["worst"]["deform_conv"],
         },
         {
             "name": "deform_sample",
@@ -4624,6 +5125,7 @@ def main(argv=None) -> int:
             "timed_shape": f"the columns of one batch-4 1024x1024 BiRefNet forward's 20 deformable convs, summed: "
                            f"Cin {BIREF_CIN} bf16; the standalone column kernel, off every served path",
             "timing": DEVICE_TIMING,
+            "launches_train_step_birefnet": train["rows"]["birefnet"]["launches"]["deform_sample"],
         },
         {
             "name": "dequant",
@@ -4641,6 +5143,7 @@ def main(argv=None) -> int:
             "timed_shape": "one BiRefNet (SWIN-L, Q8_0) resident forward's dequants to bf16, replayed as one CUDA graph",
             "timing": "CUDA events around one graph replay, the median of 10",
             "cases_bit_equal": dq_cases,
+            "launches_train_step_distill": train["rows"]["distill"]["launches"]["dequant"],
             "per_forward": {f"{family} {ftype}": {
                 name: {"dequant_launches": r[name]["dequant_launches"], "ms_resident": r[name]["ms"][0],
                        "ms_expanded": r[name]["ms"][1],

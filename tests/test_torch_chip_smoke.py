@@ -110,9 +110,9 @@ def test_match_detections(chip_smoke):
 def test_the_phase_list_runs_to_32(chip_smoke):
     doc = chip_smoke.__doc__
     numbers = [int(ln.split(".")[0]) for ln in doc.splitlines() if ln[:4].strip().rstrip(".").isdigit()]
-    assert numbers == list(range(1, 36))
+    assert numbers == list(range(1, 39))
     for name in ("http_phase", "bulk_phase", "verbs_phase", "serve_verb", "dequant_cases", "residency_phase",
-                 "quantize_verb_phase"):
+                 "quantize_verb_phase", "grad_cases", "train_harness", "recipe_run", "training_phases"):
         assert callable(getattr(chip_smoke, name))
 
 

@@ -123,7 +123,10 @@ def test_input_rules(data, tmp_path, capsys):
     with pytest.raises(SystemExit):
         tcli.main(["quantize", "-i", "x"])
     assert "quantize requires -m" in capsys.readouterr().err
-    for verb in ("finetune", "distill", "bench", "export"):
+    # finetune and distill are verbs (tests/test_torch_finetune.py) that need their models
+    assert "Model file not found: RealESRGAN-x4.gguf" in _run(tcli, ["finetune", "-i", "x"], capsys)[2]
+    assert _run(tcli, ["distill", "-i", "x"], capsys)[2] == "Error: No model specified (-m)\n"
+    for verb in ("bench", "export"):
         with pytest.raises(SystemExit):
             tcli.main([verb, "-i", "x"])
     capsys.readouterr()

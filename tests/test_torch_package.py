@@ -25,6 +25,7 @@ SLICE_MODULES = [
     "vision_tpu_torch.ops.deform",
     "vision_tpu_torch.ops.preprocess",
     "vision_tpu_torch.ops.resize",
+    "vision_tpu_torch.ops.augment",
     "vision_tpu_torch.ops.cuda",
     "vision_tpu_torch.ops.cuda.build",
     "vision_tpu_torch.ops.cuda.flash_attention",
@@ -50,6 +51,9 @@ SLICE_MODULES = [
     "vision_tpu_torch.video",
     "vision_tpu_torch.evaluate",
     "vision_tpu_torch.api",
+    "vision_tpu_torch.lora",
+    "vision_tpu_torch.train",
+    "vision_tpu_torch.finetune",
     "vision_tpu_torch.cli",
     "vision_tpu_torch.convert",
     "vision_tpu_torch.convert.convert",

@@ -288,10 +288,12 @@ def test_serve_verb_rules_match_the_jax_cli(tmp_path, capsys):
     ):
         got, want = _run(tcli, args, capsys), _run(jcli, args, capsys)
         assert got[0] == want[0] == 1 and message in got[2] and message in want[2], (got, want)
-    for flag in (["--dp", "2"], ["--adapter", "a.gguf"]):  # wait for their modules
-        with pytest.raises(SystemExit):
-            tcli.main(["serve", "-m", str(depth), *flag])
+    with pytest.raises(SystemExit):  # --dp waits for the port's meshes
+        tcli.main(["serve", "-m", str(depth), "--dp", "2"])
     capsys.readouterr()
+    # --adapter merges a LoRA file into -m first (tests/test_torch_finetune.py), here a missing one
+    rc, _, err = _run(tcli, ["serve", "-m", depth, "--adapter", tmp_path / "a.gguf"], capsys)
+    assert rc == 1 and "Adapter file not found" in err
 
 
 def test_serve_verb_as_a_subprocess(tmp_path):

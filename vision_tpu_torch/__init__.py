@@ -18,7 +18,10 @@ any family's GGUF, and ``python -m vision_tpu_torch.cli`` runs the model
 verbs on an image, a directory (``bulk``) or a video (``video``), serves
 the families over HTTP (``serve_http``) and scores predictions
 (``evaluate``). On the card each model's ``forward_u8`` replays one CUDA graph per
-input shape (:class:`~vision_tpu_torch.core.graph.ForwardGraphs`).
+input shape (:class:`~vision_tpu_torch.core.graph.ForwardGraphs`). Training
+(``train``, ``lora``, ``finetune``, ``ops.augment``; the ``finetune`` and
+``distill`` verbs) runs the hand-written kernels through their autograd
+functions.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 """Command-line interface — the port of vision_tpu/cli.py for the verbs the
 port serves:
 
-    python -m vision_tpu_torch.cli <sam|birefnet|depthany|migan|esrgan|yolov9t|serve|quantize|info|compare|eval> [options]
+    python -m vision_tpu_torch.cli <sam|birefnet|depthany|migan|esrgan|yolov9t|serve|quantize|info|compare|eval|
+                                    finetune|distill> [options]
 
 with the reference's options (-i/-o/-m/-p, --composite, --tile, --conf,
 --iou), the model search paths (./models, $VISION_MODEL_DIR, XDG data dirs —
@@ -14,11 +15,15 @@ needs OpenCV; MI-GAN takes a video and one mask image). ``serve`` puts the
 ``eval`` scores a prediction directory against ground truth (evaluate.py),
 after running -m over the -i images when given a model; ``quantize``
 rewrites a GGUF at another float type (core/gguf.py requantize_gguf, no
-device), ``info`` inspects a GGUF and ``compare`` two images. ``-b`` takes
-``cpu`` or ``gpu``; without it the CLI takes the card and fails without one.
-The JAX CLI's other verbs (finetune, distill, bench, export) and its
-``--dp``, ``--adapter``, ``--dump`` and ``--profile`` flags wait for their
-modules.
+device), ``info`` inspects a GGUF and ``compare`` two images. ``finetune``
+runs a family's recipe on -m (finetune.py: Real-ESRGAN self-supervised,
+BiRefNet on ``--masks``) and ``distill`` trains a Depth-Anything
+``--student`` against the -m teacher (``--lora``, ``--lora-out``,
+``--qlora``); ``--adapter`` merges a LoRA adapter file into -m first
+(api.merge_adapter) on every verb that loads -m. ``-b`` takes ``cpu`` or
+``gpu``; without it the CLI takes the card and fails without one. The JAX
+CLI's other verbs (bench, export) and its ``--dp``, ``--dump`` and
+``--profile`` flags wait for their modules.
 """
 
 from __future__ import annotations
@@ -47,6 +52,9 @@ USAGE_COMMANDS = {
     "compare": "compare two images: RMS (reference image_difference_rms semantics), PSNR, SSIM",
     "eval": "score a prediction directory against ground truth (mask IoU/F1, depth AbsRel/delta1, PSNR/SSIM, "
             "detection mAP); with -m, run the model on -i first",
+    "finetune": "fine-tune a .gguf on your images: esrgan (self-supervised SR) or birefnet (supervised masks, "
+                "--masks DIR)",
+    "distill": "distill a depth-anything teacher .gguf (-m) into a smaller --student on unlabeled images",
 }
 
 # reference per-command default model files (cli.cpp:395-567,
@@ -58,6 +66,7 @@ DEFAULT_MODELS = {
     "migan": "MIGAN-512-places2-F16.gguf",
     "esrgan": "RealESRGAN-x4.gguf",
     "yolov9t": "yolov9t_converted-F16.gguf",
+    "finetune": "RealESRGAN-x4.gguf",
 }
 
 # family -> serve_forever's keyword for its model
@@ -115,6 +124,21 @@ def _composite(image, mask, output_path):
     fg = image_estimate_foreground(img_f, mask_f)
     image_save(image_f32_to_u8(fg, ImageFormat.rgba_u8), output_path)
     print(f"-> image composited and saved to {output_path}")
+
+
+def _model_path(args) -> str:
+    """-m (or the verb's default model) resolved through the search paths,
+    with ``--adapter`` merged into it (a temporary merged GGUF) when given."""
+    if not args.model and args.command not in DEFAULT_MODELS:
+        raise VispError("No model specified (-m)")
+    path = find_model(args.model or DEFAULT_MODELS[args.command])
+    if args.adapter:
+        if not Path(args.adapter).is_file():
+            raise VispError(f"Adapter file not found: {args.adapter}")
+        from .api import merge_adapter
+
+        path = merge_adapter(path, args.adapter)
+    return path
 
 
 def _device(args):
@@ -235,9 +259,7 @@ def _run_model(args) -> None:
     inference_yolov9t.cpp)."""
     from .image import ImageFormat, image_f32_to_u8, image_load, image_save
 
-    if not args.model and args.command not in DEFAULT_MODELS:
-        raise VispError("No model specified (-m)")
-    model_path = find_model(args.model or DEFAULT_MODELS[args.command])
+    model_path = _model_path(args)
     n_req, names = REQUIRED_INPUTS[args.command]
     if len(args.input) != n_req:
         raise VispError(f"Expected -i to be followed by {n_req} input(s): {names} - but found {len(args.input)}")
@@ -362,11 +384,9 @@ def _serve(args) -> None:
     from .core.gguf import model_load
     from .serve_http import serve_forever
 
-    if not args.model:
-        raise VispError("No model specified (-m)")
     # resolve EVERY served model path before device init: a typo'd
     # --extra-model must fail in milliseconds, as -m does
-    paths = [find_model(args.model)]
+    paths = [_model_path(args)]
     if args.esrgan_model:  # alias of --extra-model for an ESRGAN file
         paths.append(find_model(args.esrgan_model))
     paths += [find_model(m) for m in args.extra_model]
@@ -407,7 +427,7 @@ def _eval(args, parser) -> int:
             from .bulk import bulk_inputs, bulk_run, pair_masks
             from .core.gguf import model_load
 
-            model_path = find_model(args.model)
+            model_path = _model_path(args)
             family = model_detect_family(model_load(model_path)).value
             task = args.task or task_for_family(family)
             if not os.path.isdir(args.input[0]):
@@ -442,6 +462,67 @@ def _eval(args, parser) -> int:
     return 0
 
 
+# finetune's flags that only the BiRefNet recipe and distill take
+_NOT_ESRGAN = (("lora", "--lora"), ("lora_out", "--lora-out"), ("qlora", "--qlora"), ("masks", "--masks"))
+
+
+def _train(args) -> None:
+    """``finetune`` (the -m model's family recipe) or ``distill`` (the
+    --student against the -m teacher): every path and the image list are
+    checked before the device starts; the result is exported to -o."""
+    from .api import model_detect_family
+    from .core.gguf import model_load
+    from .finetune import list_images
+
+    model_path = _model_path(args)
+    images = list_images(args.input)
+    if args.steps < 1 or (args.batch is not None and args.batch < 1):
+        raise VispError(f"{args.command}: --steps and --batch must be >= 1")
+    batch = args.batch if args.batch is not None else 4
+    common = dict(steps=args.steps, lr=args.lr, batch=batch, trainable=args.train_filter, ckpt_dir=args.ckpt,
+                  ckpt_every=args.ckpt_every, log=print)
+    if args.command == "finetune":
+        from .finetune import finetune
+
+        family = model_detect_family(model_load(model_path)).value
+        if family == "birefnet":
+            if args.masks is not None:
+                # a missing or mismatched mask directory fails before the device starts
+                from .bulk import pair_masks
+
+                pair_masks(images, args.masks)
+            kw = dict(masks=args.masks, size=args.size or 256, augment=not args.no_augment, lora_rank=args.lora,
+                      lora_out=args.lora_out, qlora=args.qlora)
+        else:
+            given = [flag for name, flag in _NOT_ESRGAN if getattr(args, name) not in (None, False)]
+            if given and family == "esrgan":
+                raise VispError(f"finetune (esrgan): {', '.join(given)} apply to the birefnet recipe and distill "
+                                f"only")
+            kw = dict(patch=args.patch, ema_decay=args.ema)
+        dev = _device(args)
+        with _Timer("Fine-tuning"):
+            stats = finetune(model_path, images, args.output, device=dev, **common, **kw)
+    else:
+        from .finetune import distill_depthany
+
+        if not args.student:
+            raise VispError("distill: --student <gguf> is required (-m is the teacher)")
+        student = find_model(args.student)
+        dev = _device(args)
+        with _Timer("Distilling"):
+            stats = distill_depthany(model_path, student, images, args.output, size=args.size or 252,
+                                     lora_rank=args.lora, lora_out=args.lora_out, qlora=args.qlora, device=dev,
+                                     **common)
+    if stats["first_loss"] is not None:
+        print(f"loss {stats['first_loss']:.5f} -> {stats['last_loss']:.5f} over {stats['steps']} steps "
+              f"({len(images)} images)")
+    else:  # resumed at or past --steps: nothing left to train
+        print(f"already trained to step {stats['steps']} (resumed); exported as-is")
+    if stats.get("lora_out"):
+        print(f"-> {stats['lora_out']} (adapters)")
+    print(f"-> {stats['out']}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="vision-cli-torch", description="Vision model inference on an NVIDIA GPU")
     parser.add_argument("command", choices=list(USAGE_COMMANDS), help="model to run")
@@ -471,7 +552,7 @@ def main(argv=None) -> int:
                         help="serve: additionally load this ESRGAN gguf next to the -m model")
     parser.add_argument("--batch", type=int, default=None,
                         help="serve/bulk/video/eval: max batch size (default: each service's own - sam 6, "
-                        "esrgan/birefnet/depthany/migan 4, yolo 8)")
+                        "esrgan/birefnet/depthany/migan 4, yolo 8); finetune/distill: training batch size (default 4)")
     parser.add_argument("--warmup", action="store_true",
                         help="serve: run one batch of every service before listening")
     parser.add_argument("--extra-model", action="append", default=[], metavar="GGUF",
@@ -489,9 +570,47 @@ def main(argv=None) -> int:
                         "ground truth first")
     parser.add_argument("--pred-out", default=None, metavar="DIR",
                         help="eval with -m: keep the generated predictions here (default: a temporary directory)")
+    parser.add_argument("--adapter", default=None, metavar="GGUF",
+                        help="merge this LoRA adapter file (save_lora / --lora-out) into -m at load: one base model "
+                        "and small per-task adapters")
+    parser.add_argument("--steps", type=int, default=200, help="finetune/distill: optimizer steps")
+    parser.add_argument("--lr", type=float, default=1e-4, help="finetune/distill: Adam learning rate")
+    parser.add_argument("--patch", type=int, default=64,
+                        help="finetune (esrgan): HR patch size (must divide by the model scale)")
+    parser.add_argument("--ema", type=float, default=None, metavar="DECAY",
+                        help="finetune (esrgan): track and export EMA weights at this decay (e.g. 0.999)")
+    parser.add_argument("--ckpt", default=None, metavar="DIR",
+                        help="finetune/distill: checkpoint the training state here and resume a rerun from the "
+                        "newest step_* save")
+    parser.add_argument("--ckpt-every", type=int, default=50, metavar="N",
+                        help="finetune/distill: checkpoint every N optimizer steps (the final step always saves)")
+    parser.add_argument("--train-filter", default=None, metavar="REGEX",
+                        help="finetune/distill: train only params whose dotted name matches (default: every float "
+                        "param)")
+    parser.add_argument("--student", default=None, metavar="GGUF",
+                        help="distill: the student model to train (-m is the frozen teacher)")
+    parser.add_argument("--size", type=int, default=None,
+                        help="distill/finetune (birefnet): square training resolution (snapped to the model's grid; "
+                        "default 252 / 256)")
+    parser.add_argument("--masks", default=None, metavar="DIR",
+                        help="finetune (birefnet): directory of same-stem ground-truth masks (grayscale image or .npy "
+                        "in [0, 1]) for the -i images")
+    parser.add_argument("--no-augment", action="store_true",
+                        help="finetune (birefnet): no flip / color-jitter augmentation")
+    parser.add_argument("--lora", type=int, default=None, metavar="RANK",
+                        help="distill/finetune (birefnet): train LoRA adapters of this rank instead of the full "
+                        "params (merged into the exported file)")
+    parser.add_argument("--lora-out", default=None, metavar="GGUF",
+                        help="distill/finetune (birefnet): with --lora, also save the unmerged adapters as a GGUF "
+                        "adapter file")
+    parser.add_argument("--qlora", action="store_true",
+                        help="distill/finetune (birefnet), with --lora: keep the frozen base block-quantized "
+                        "(int8-resident) under the adapters")
     args = parser.parse_args(argv)
     if args.input is None and args.command not in ("serve", "quantize", "info"):
         parser.error("-i/--input is required")
+    if args.output is None and args.command in ("finetune", "distill"):
+        args.output = {"finetune": "finetuned.gguf", "distill": "distilled.gguf"}[args.command]
     if args.output is None and args.command in REQUIRED_INPUTS:
         # directory input = bulk mode (output is a directory); video
         # input = video mode (output is a video)
@@ -527,6 +646,8 @@ def main(argv=None) -> int:
     try:
         if args.command == "serve":
             _serve(args)
+        elif args.command in ("finetune", "distill"):
+            _train(args)
         else:
             _run_model(args)
     except VispError as e:

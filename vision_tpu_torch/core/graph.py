@@ -92,10 +92,17 @@ def device_cache(maxsize: int):
     (or a tuple of them) on a device from hashable arguments. A CUDA graph
     reads such a tensor at the address it had during capture, so while this
     thread captures one, every result the function returns is also kept by
-    the graph: an entry the cache evicts later is not freed under it."""
+    the graph: an entry the cache evicts later is not freed under it. The
+    function runs outside inference mode, so a constant first made by a
+    served forward (under ``torch.inference_mode``) can later be saved for
+    the backward of a training forward."""
 
     def wrap(fn):
-        cached = lru_cache(maxsize)(fn)
+        def build(*args):
+            with torch.inference_mode(False):
+                return fn(*args)
+
+        cached = lru_cache(maxsize)(build)
 
         @wraps(fn)
         def get(*args):

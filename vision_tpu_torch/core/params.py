@@ -17,6 +17,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Iterator, Mapping
 
+import torch
+
 from .errors import raise_error
 from .quant import QuantResident
 
@@ -65,6 +67,15 @@ class Params:
         for k in self.store:
             if k.startswith(p):
                 yield k[len(p):]
+
+    def records_grad(self, *inputs) -> bool:
+        """Whether autograd records a forward over this store: grad mode is
+        on and one of ``inputs`` or a tensor of the whole store requires
+        grad. Models take their autograd-safe forms then (no in-place
+        writes into shared buffers)."""
+        return torch.is_grad_enabled() and (
+            any(t.requires_grad for t in inputs)
+            or any(isinstance(t, torch.Tensor) and t.requires_grad for t in self.store.values()))
 
     def child_count(self, name: str) -> int:
         """Number of integer-indexed children under prefix.name

@@ -181,9 +181,19 @@ def aspp_module_deformable(p: Params, x: torch.Tensor, padding: int = 0, shift_b
 def aspp_deformable(p: Params, x: torch.Tensor, shift_bound: int | None = None) -> torch.Tensor:
     """(birefnet.cpp:116-137). The four deformable branches write their
     channels of one (B, H, W, 5 * C) buffer through the kernel's epilogue,
-    and the global-pool branch is copied into the last C: no concatenation."""
+    and the global-pool branch is copied into the last C: no concatenation.
+    When autograd records (training: ``Params.records_grad``) each branch
+    returns a fresh tensor and the five are concatenated instead (autograd
+    cannot differentiate writes into a shared buffer); the values are the
+    same."""
     kernel_sizes = (1, 3, 7)
     b, h, w, _ = x.shape
+    if p.records_grad(x):
+        branches = [aspp_module_deformable(p["aspp1"], x, 0, shift_bound)]
+        branches += [aspp_module_deformable(p["aspp_deforms"][i], x, kernel_sizes[i] // 2, shift_bound)
+                     for i in range(3)]
+        branches.append(_upscale_to(global_avg_pool(p["global_avg_pool"], x), (h, w)))
+        return relu(conv_2d(p["conv1"], torch.cat(branches, dim=-1)))
     c = p["aspp1"]["conv"].weight("conv.weight").shape[0]
     buf = torch.empty((b, h, w, 5 * c), dtype=x.dtype, device=x.device)
     aspp_module_deformable(p["aspp1"], x, 0, shift_bound, out=buf[..., :c])

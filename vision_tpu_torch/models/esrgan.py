@@ -19,6 +19,14 @@ conv, after the bias, after the leaky ReLU and after each residual sum: at
 f32 the two agree to the summation order, in bf16 the port is the more
 precise.
 
+When autograd records (training: grad mode on and x or a parameter that
+requires grad) every function here takes its autograd-safe form instead:
+each conv returns a fresh tensor and a dense block grows by ``torch.cat``,
+as the JAX package's esrgan.py:117 does (an in-place write into a buffer
+that autograd saved views of would void the backward). The two forms make
+the same calls on the same values, so they agree bit for bit at f32 and
+launch the same 351 convs.
+
 The port runs this plain form. The JAX package serves the same math
 regrouped by source (``esrgan_generate_packed``), which fills the TPU's
 128-lane products; the two agree to 2e-5 at f32. PyTorch runs eagerly, so
@@ -123,9 +131,28 @@ def _rrdb(p: Params, src: torch.Tensor, mid1: torch.Tensor, mid2: torch.Tensor, 
     _dense_block(p["RDB3"], mid2, nf, out, r2=src[..., :nf])
 
 
+def _dense_block_cat(p: Params, x: torch.Tensor, r2=None) -> torch.Tensor:
+    """:func:`_dense_block`'s autograd-safe form: conv1-4 each return their gc
+    channels, concatenated after the input (``torch.cat``); conv5 returns x
+    + 0.2 * (conv5 + bias), or r2 + 0.2 * that."""
+    feats = x
+    for k in range(1, 5):
+        feats = torch.cat([feats, conv_3x3_fused(p[f"conv{k}"][0], feats, slope=0.2)], dim=-1)
+    return conv_3x3_fused(p["conv5"][0], feats, r1=x, s1=0.2, r2=r2, s2=1.0 if r2 is None else 0.2)
+
+
+def _rrdb_cat(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """:func:`_rrdb`'s autograd-safe form."""
+    h = _dense_block_cat(p["RDB2"], _dense_block_cat(p["RDB1"], x))
+    return _dense_block_cat(p["RDB3"], h, r2=x)
+
+
 def residual_dense_block(p: Params, x: torch.Tensor) -> torch.Tensor:
     """5-conv dense block, 0.2 residual (reference esrgan.cpp:27-41):
-    :func:`_dense_block` on a buffer of its own."""
+    :func:`_dense_block` on a buffer of its own (its autograd-safe form
+    when autograd records)."""
+    if p.records_grad(x):
+        return _dense_block_cat(p, x)
     buf = _block_buffer(x, _growth(p))
     buf[..., : x.shape[-1]] = x
     out = torch.empty_like(x)
@@ -135,7 +162,10 @@ def residual_dense_block(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def rrdb(p: Params, x: torch.Tensor) -> torch.Tensor:
     """Residual-in-residual dense block (reference esrgan.cpp:43-51):
-    :func:`_rrdb` on three buffers of its own."""
+    :func:`_rrdb` on three buffers of its own (its autograd-safe form when
+    autograd records)."""
+    if p.records_grad(x):
+        return _rrdb_cat(p, x)
     src, mid1, mid2 = (_block_buffer(x, _growth(p["RDB1"])) for _ in range(3))
     src[..., : x.shape[-1]] = x
     out = torch.empty_like(x)
@@ -153,9 +183,18 @@ def _upsample(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def esrgan_generate(params: Params, x: torch.Tensor, p: EsrganParams) -> torch.Tensor:
     """RRDBNet forward, NHWC (reference esrgan_generate, esrgan.cpp:55-83).
-    x: (N, H, W, 3) in [0,1] -> (N, H*scale, W*scale, 3)."""
+    x: (N, H, W, 3) in [0,1] -> (N, H*scale, W*scale, 3). It runs on four
+    dense-block buffers, or in its autograd-safe form, with the same
+    results, when autograd records (``Params.records_grad``: grad mode on
+    and x or a parameter requiring grad)."""
     m = params["model"]
     block = m[1]["sub"]
+    if params.records_grad(x):
+        feat = conv_3x3_fused(m[0], x.contiguous())
+        h = feat
+        for i in range(p.n_blocks):
+            h = _rrdb_cat(block[i], h)
+        return _tail(m, conv_3x3_fused(block[p.n_blocks], h, r1=feat), p)
     nf = m[0].weight("weight").shape[0]
     c = nf + 4 * _growth(block[0]["RDB1"])
     # four dense-block buffers: the stem's output stays in s[..., :nf] for
@@ -171,6 +210,12 @@ def esrgan_generate(params: Params, x: torch.Tensor, p: EsrganParams) -> torch.T
     del a, b  # the dense-block buffers go before the upsampled tail needs the memory
     x = conv_3x3_fused(block[p.n_blocks], src[..., :nf], r1=feat)  # trunk conv + skip
     del s, d, feat, src
+    return _tail(m, x, p)
+
+
+def _tail(m: Params, x: torch.Tensor, p: EsrganParams) -> torch.Tensor:
+    """log2(scale) x (nearest 2x + conv + leaky ReLU), then the hr conv with
+    its leaky ReLU and the last conv (reference esrgan.cpp:73-82)."""
     seq = 2
     for _ in range(int(np.log2(p.scale))):
         x = _upsample(m[seq + 1], x)

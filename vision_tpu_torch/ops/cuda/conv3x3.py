@@ -31,6 +31,13 @@ pixel tiles 16 wide, the halo tile by TMA into an mbarrier ring that a
 producer warp fills, the weight staged in shared memory once per block;
 f32 (the CPU-parity type) runs as FMA loops. A CPU tensor goes to :func:`conv3x3_plain`; a CUDA tensor goes to
 the kernel or raises. ``launches`` counts kernel launches.
+
+Under autograd (grad mode on and an input that requires grad) the wrapper
+goes through :class:`Conv3x3Fn`: its forward is the same route (the kernel,
+one launch, or the plain version), its backward PyTorch ops, the
+counterpart of XLA's autodiff of the JAX package's plain ops (no Pallas
+kernel of the repo has a backward kernel). ``out`` is refused there: an
+in-place write into a buffer that autograd saved would void its backward.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ import torch.nn.functional as F
 
 from . import count_launch
 
-__all__ = ["conv3x3", "conv3x3_plain", "launches"]
+__all__ = ["Conv3x3Fn", "conv3x3", "conv3x3_plain", "launches"]
 
 launches = 0
 _count_lock = threading.Lock()
@@ -75,7 +82,7 @@ def conv3x3_plain(x, w, b=None, *, scale=None, shift=None, silu=False, slope=Non
     if b is not None:
         acc += b.float()
     if scale is not None:
-        acc *= scale.float()
+        acc = acc * scale.float()  # not in place: autograd of this version needs acc for scale's gradient
     if shift is not None:
         acc += shift.float()
     if r1 is not None:
@@ -190,6 +197,10 @@ def conv3x3(x, w, b=None, *, scale=None, shift=None, silu=False, slope=None, r1=
     slope), r1 and r2: (N, H, W, Cout) or None, out: (N, H, W, Cout) or None;
     x, r1, r2 and out may be channel views of wider buffers. Returns (N, H,
     W, Cout) in x's type: ``out`` when given, written in place."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, b, scale, shift, r1, r2)):
+        if out is not None:
+            raise ValueError("conv3x3: out cannot be written under autograd (an input requires grad)")
+        return Conv3x3Fn.apply(x, w, b, scale, shift, r1, r2, silu, slope, s1, s2)
     epilogue = dict(scale=scale, shift=shift, silu=silu, slope=slope, r1=r1, s1=s1, r2=r2, s2=s2, out=out)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return conv3x3_plain(x, w, b, **epilogue)
@@ -215,3 +226,85 @@ def conv3x3(x, w, b=None, *, scale=None, shift=None, silu=False, slope=None, r1=
         raise RuntimeError(f"conv3x3: kernel launch failed with cudaError {err}")
     count_launch(__name__, launches=1)
     return out
+
+
+def _nchw(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 3, 1, 2)
+
+
+def _nhwc(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 2, 3, 1)
+
+
+def _detached(*ts):
+    """The tensors detached (None stays None): an autograd function's
+    forward runs its route on them, as serving does (the plain versions'
+    CPU products take another path for a tensor that requires grad, which
+    moves the last bit)."""
+    return tuple(None if t is None else t.detach() for t in ts)
+
+
+class Conv3x3Fn(torch.autograd.Function):
+    """:func:`conv3x3` with gradients for x, w, b, scale, shift, r1 and r2.
+
+    Forward: the wrapper's route (the kernel on a CUDA tensor, one counted
+    launch; :func:`conv3x3_plain` on a CPU one). Backward, in f32 PyTorch
+    ops: with ``u = r1 + s1 * (scale * (acc + b) + shift)`` the epilogue's
+    derivative is elementwise (leaky ReLU ``where(u >= 0, 1, slope)``, SiLU
+    ``sig(u) * (1 + u * (1 - sig(u)))``, the residual scales s1 and s2); the
+    pre-activation is recomputed with ``F.conv2d`` in f32 where an
+    activation or scale's gradient needs it (nothing beyond the inputs is
+    saved); the conv's input and weight gradients come from one
+    ``convolution_backward`` on NCHW views. Each gradient is cast to its
+    input's type."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, scale, shift, r1, r2, silu, slope, s1, s2):
+        x_, w_, b_, scale_, shift_, r1_, r2_ = _detached(x, w, b, scale, shift, r1, r2)
+        out = conv3x3(x_, w_, b_, scale=scale_, shift=shift_, silu=silu, slope=slope, r1=r1_, s1=s1, r2=r2_, s2=s2)
+        ctx.save_for_backward(x, w, b, scale, shift, r1)
+        ctx.epilogue = (silu, slope, s1, r2 is not None, s2)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w, b, scale, shift, r1 = ctx.saved_tensors
+        silu, slope, s1, has_r2, s2 = ctx.epilogue
+        need = ctx.needs_input_grad
+        g = grad.float()
+        g_r2 = grad if has_r2 and need[6] else None
+        ga = g * s2 if has_r2 else g
+        act = silu or slope is not None
+        pre = None  # acc + b
+        if act or (scale is not None and need[3]):
+            pre = _nhwc(F.conv2d(_nchw(x.float()), w.float(), None, 1, 1))
+            if b is not None:
+                pre = pre + b.float()
+        if act:
+            v = pre if scale is None else pre * scale.float()
+            if shift is not None:
+                v = v + shift.float()
+            u = v if r1 is None else r1.float() + s1 * v
+            if slope is not None:
+                gu = torch.where(u >= 0, ga, ga * slope)
+            else:
+                sig = torch.sigmoid(u)
+                gu = ga * (sig * (1 + u * (1 - sig)))
+        else:
+            gu = ga
+        g_r1 = gu.to(r1.dtype) if r1 is not None and need[5] else None
+        gv = gu * s1 if r1 is not None else gu
+        dims = (0, 1, 2)
+        g_shift = gv.sum(dims).to(shift.dtype) if shift is not None and need[4] else None
+        g_scale = (gv * pre).sum(dims).to(scale.dtype) if scale is not None and need[3] else None
+        gacc = gv if scale is None else gv * scale.float()
+        g_b = gacc.sum(dims).to(b.dtype) if b is not None and need[2] else None
+        g_x = g_w = None
+        if need[0] or need[1]:
+            g_x, g_w, _ = torch.ops.aten.convolution_backward(
+                _nchw(gacc), _nchw(x.float()), w.float(), None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                [need[0], need[1], False],
+            )
+            g_x = _nhwc(g_x).to(x.dtype) if need[0] else None
+            g_w = g_w.to(w.dtype) if need[1] else None
+        return g_x, g_w, g_b, g_scale, g_shift, g_r1, g_r2, None, None, None, None

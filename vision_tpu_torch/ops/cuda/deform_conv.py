@@ -34,6 +34,12 @@ per forward, each with its branch's bias, BatchNorm and ReLU.
 
 A CPU tensor goes to :func:`deform_conv_plain`; a CUDA tensor goes to the
 kernel or raises. ``launches`` counts kernel launches.
+
+Under autograd (grad mode on and an input that requires grad) the wrapper
+goes through :class:`DeformConvFn`: the same forward route, with the
+weight laid out from the live weight at the call (a ``layout`` made
+earlier would be stale after an optimiser step, so one is refused there,
+as is ``out``), and a backward of PyTorch ops.
 """
 
 from __future__ import annotations
@@ -43,10 +49,10 @@ import threading
 import torch
 
 from . import count_launch
-from .conv3x3 import _pixel_stride
+from .conv3x3 import _detached, _pixel_stride
 from .deform_sample import deform_sample_plain
 
-__all__ = ["deform_conv", "deform_conv_plain", "launches", "weight_layout"]
+__all__ = ["DeformConvFn", "deform_conv", "deform_conv_plain", "launches", "weight_layout"]
 
 launches = 0
 _count_lock = threading.Lock()
@@ -79,12 +85,14 @@ def deform_conv_plain(x, weight, offset, mask, kh: int, kw: int, stride: int = 1
     acc = torch.matmul(cols.view(b * ho * wo, kh * kw * cin), wmat).view(b, ho, wo, cout)
     if bias is not None:
         acc += bias.float()
+    # not in place below: autograd of this version (DeformConvFn's backward)
+    # needs acc for scale's gradient and for the ReLU's
     if scale is not None:
-        acc *= scale.float()
+        acc = acc * scale.float()
     if shift is not None:
         acc += shift.float()
     if relu:
-        acc.clamp_(min=0.0)
+        acc = acc.clamp(min=0.0)
     if out is None:
         return acc.to(x.dtype)
     return out.copy_(acc)
@@ -177,6 +185,12 @@ def deform_conv(x, weight, offset, mask, kh: int, kw: int, stride: int = 1, pad:
     :func:`weight_layout` of the weight for x's type, or None to lay it out
     at this call (the plain version reads the weight). Returns (B, Ho, Wo,
     Cout) in x's type: ``out`` when given, written in place."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, weight, offset, mask, bias, scale, shift)):
+        if out is not None or layout is not None:
+            raise ValueError("deform_conv: out and layout cannot be given under autograd (an input requires grad): "
+                             "the output is a fresh tensor and the weight is laid out at the call")
+        return DeformConvFn.apply(x, weight, offset, mask, bias, scale, shift, kh, kw, stride, pad, bound, relu)
     tensors = [t for t in (x, weight, offset, mask, bias, scale, shift, out, layout) if t is not None]
     if all(t.device.type == "cpu" for t in tensors):
         return deform_conv_plain(x, weight, offset, mask, kh, kw, stride, pad, bound, bias=bias, scale=scale,
@@ -216,3 +230,40 @@ def deform_conv(x, weight, offset, mask, kh: int, kw: int, stride: int = 1, pad:
         raise RuntimeError(f"deform_conv: kernel launch failed with cudaError {err}")
     count_launch(__name__, launches=1)
     return out
+
+
+class DeformConvFn(torch.autograd.Function):
+    """:func:`deform_conv` with gradients for x, the weight, the offsets
+    (through the bilinear weights), the modulation mask, the bias, scale and
+    shift (BiRefNet's BatchNorm, fused at conversion into the float leaves
+    ``bn.weight`` and ``bn.bias``, trains through these two, as the JAX
+    package trains the same leaves).
+
+    Forward: the wrapper's route (the kernel on CUDA tensors, one counted
+    launch, the weight laid out from the live weight; the plain version on
+    CPU ones). Backward: :func:`deform_conv_plain` recomputed under autograd
+    from the saved inputs (f32 columns, the product, the epilogue) and
+    differentiated by PyTorch, the counterpart of XLA's autodiff of the JAX
+    package's gather form. The ReLU's mask is the recomputed f32 result's."""
+
+    @staticmethod
+    def forward(ctx, x, weight, offset, mask, bias, scale, shift, kh, kw, stride, pad, bound, relu):
+        x_, w_, o_, m_, b_, sc_, sh_ = _detached(x, weight, offset, mask, bias, scale, shift)
+        out = deform_conv(x_, w_, o_, m_, kh, kw, stride, pad, bound, bias=b_, scale=sc_, shift=sh_, relu=relu)
+        ctx.save_for_backward(x, weight, offset, mask, bias, scale, shift)
+        ctx.conv = (kh, kw, stride, pad, bound, relu)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        kh, kw, stride, pad, bound, relu = ctx.conv
+        want = [t is not None and need for t, need in zip(saved, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            x, weight, offset, mask, bias, scale, shift = (
+                None if t is None else t.detach().requires_grad_(w) for t, w in zip(saved, want))
+            y = deform_conv_plain(x, weight, offset, mask, kh, kw, stride, pad, bound, bias=bias, scale=scale,
+                                  shift=shift, relu=relu)
+            leaves = [t for t, w in zip((x, weight, offset, mask, bias, scale, shift), want) if w]
+            grads = iter(torch.autograd.grad(y, leaves, grad))
+        return (*(next(grads) if w else None for w in want), None, None, None, None, None, None)

@@ -86,7 +86,7 @@ def deform_sample_plain(x, offset, mask, kh: int, kw: int, stride: int = 1, pad:
         term = _gather(x_flat, y0 + cy, x0 + cx, h, w) * wt.reshape(b, -1, 1)
         s = term if s is None else s.add_(term)
     if mask is not None:
-        s.mul_(mask.float().reshape(b, -1, 1))
+        s = s * mask.float().reshape(b, -1, 1)  # not in place: autograd needs s for the mask's gradient
     return s.reshape(b, ho, wo, kk, cin).to(dtype or x.dtype)
 
 

@@ -44,6 +44,13 @@ per logit.
 A CPU tensor goes to :func:`window_attention_plain`; a CUDA tensor goes to
 the kernel or raises. ``launches`` counts kernel launches, ``masked_launches``
 those of them that carried a ``window_mask``.
+
+Under autograd (grad mode on and q, k, v or the bias requiring grad) the
+wrapper goes through :class:`WindowAttentionFn`: the forward is the same
+route, the backward PyTorch ops that recompute the probabilities at the
+forward's rounding. The bias gets its gradient (SWIN's relative-position
+table is a trainable leaf: the gather that builds the bias scatters it
+back); the window mask gets none.
 """
 
 from __future__ import annotations
@@ -54,8 +61,10 @@ from typing import NamedTuple
 import torch
 
 from . import count_launch
+from .conv3x3 import _detached
 
-__all__ = ["window_attention", "window_attention_plain", "window_plan", "WindowPlan", "launches", "masked_launches"]
+__all__ = ["WindowAttentionFn", "window_attention", "window_attention_plain", "window_plan", "WindowPlan", "launches",
+           "masked_launches"]
 
 launches = 0
 masked_launches = 0  # the launches of those that carried a window_mask
@@ -233,6 +242,8 @@ def window_attention(q, k, v, bias, n_heads: int, scale: float, window_mask=None
     (H, T, T), read in its own type and added in f32; window_mask: None or
     (nW, T, T) float32, window w taking mask w % nW, added in f32. Returns
     (NW, T, C) in q's type."""
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in (q, k, v, bias)):
+        return WindowAttentionFn.apply(q, k, v, bias, window_mask, n_heads, scale)
     if all(x.device.type == "cpu" for x in (q, k, v, bias, window_mask) if x is not None):
         return window_attention_plain(q, k, v, bias, n_heads, scale, window_mask)
     if bias is not None:
@@ -257,3 +268,52 @@ def window_attention(q, k, v, bias, n_heads: int, scale: float, window_mask=None
         raise RuntimeError(f"window_attention: kernel launch failed with cudaError {err}")
     count_launch(__name__, launches=1, masked_launches=int(window_mask is not None))
     return out
+
+
+class WindowAttentionFn(torch.autograd.Function):
+    """:func:`window_attention` with gradients for q, k, v and the bias.
+
+    Forward: the wrapper's route (the kernel on CUDA tensors, one counted
+    launch; :func:`window_attention_plain` on CPU ones). Backward, in f32
+    PyTorch ops: the probabilities are recomputed at the forward's rounding
+    (q scaled in f32 and rounded to its type, f32 logits plus the bias and
+    the mask, f32 softmax), ``dV = P^T dO`` with P rounded to v's type as
+    the forward multiplied it, and the softmax's ``dL = P * (dP - rowsum(dP
+    * P))``, whose -inf entries have P = 0 and so give 0, not NaN (no row is
+    all -inf). The bias's gradient is dL summed to the bias's shape; the
+    window mask gets none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, window_mask, n_heads, scale):
+        out = window_attention(*_detached(q, k, v, bias), n_heads, scale, window_mask)
+        ctx.save_for_backward(q, k, v, bias, window_mask)
+        ctx.n_heads, ctx.scale = n_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, bias, window_mask = ctx.saved_tensors
+        n_heads, scale = ctx.n_heads, ctx.scale
+        nw, t, c = q.shape
+        hd = c // n_heads
+        heads = lambda z: z.reshape(nw, t, n_heads, hd).transpose(1, 2).float()  # noqa: E731
+        merge = lambda z, like: z.transpose(1, 2).reshape(nw, t, c).to(like.dtype)  # noqa: E731
+        qs, kh = heads((q.float() * scale).to(q.dtype)), heads(k)
+        logits = torch.matmul(qs, kh.transpose(-1, -2))
+        if bias is not None:
+            logits = logits + bias.float()
+        if window_mask is not None:
+            n_masks = window_mask.shape[0]
+            logits = (logits.reshape(nw // n_masks, n_masks, n_heads, t, t)
+                      + window_mask.float()[None, :, None]).reshape(nw, n_heads, t, t)
+        p = torch.softmax(logits, dim=-1)
+        del logits
+        g = heads(grad)
+        g_v = merge(torch.matmul(p.to(v.dtype).float().transpose(-1, -2), g), v)
+        g_p = torch.matmul(g, heads(v).transpose(-1, -2))
+        g_l = p * (g_p - (g_p * p).sum(-1, keepdim=True))
+        del g_p, p
+        g_bias = g_l.sum_to_size(bias.shape).to(bias.dtype) if bias is not None and ctx.needs_input_grad[3] else None
+        g_q = merge(torch.matmul(g_l, kh) * scale, q)
+        g_k = merge(torch.matmul(g_l.transpose(-1, -2), qs), k)
+        return g_q, g_k, g_v, g_bias, None, None, None
