@@ -282,11 +282,46 @@ Phases, each raising on failure:
      (median of 3 after a warm-up), peak allocated memory above what the
      run held before the recipe's state, and profiles of
      one step and of one forward (device busy ms; the hand-written kernels'
-     ms and share; the backward and update's share of the step).
+     ms and share; the backward and update's share of the step);
+ 39. the kernels as vtt operators (ops/cuda/library.py): torch.library.opcheck
+     of each on the card at a served shape (Depth-Anything's flash attention,
+     TinyViT's and SWIN-L's masked window attention, Real-ESRGAN's conv1
+     fresh and into its buffer's view, BiRefNet's deformable conv fresh and
+     into its branch's view, the sampler, a Q8_0 dequant); the _out ops
+     equal to the fresh ones with the channels outside their view unchanged;
+     the dispatch cost a call (DISPATCH_CALLS host-timed calls of a small
+     conv through vtt::conv3x3 and straight to its launch); YOLOv9t's and
+     Real-ESRGAN's eager and replay ms of phase 27, through the operators;
+ 40. export (export.py): a bundle per family at full width and its server's
+     batch (EXPORT_CASES; BiRefNet and SAM3 program-only), a Q8_0
+     Depth-Anything and a YOLOv9t exported on the CPU, each traced in a
+     writer process of its own (EXPORT_WRITER), all at once, SAM3 in the
+     run's own process meanwhile; one subprocess
+     (EXPORT_LOADER) loads them all with load_bundle (the CPU one with
+     device="cuda"), calls each entry and prints the modules it holds: no
+     model module among them; each output bit-equal to the in-process
+     forward (or within E2E_REL_RMS, said so), the CPU export's within
+     EXPORT_CPU_F32_REL_RMS of the CPU's f32 forward; each call's launches a
+     forward's; export s, bundle MB, load s, first and steady call ms beside
+     phase 27's eager and replay ms;
+ 41. the C ABI (capi.py, native/c_api.cpp): the shim built with g++ where
+     this interpreter's Python.h is (else capi.py is driven in process and a
+     line says why), a C program (CAPI_PROGRAM, gcc at run time) through
+     visp_init, visp_device_init(2), detect, load and compute over the six
+     FAMILIES' GGUFs of phase 27, each output's bytes equal to
+     capi.model_compute in process (on the card's models of phase 40); the error codes and visp_get_last_error
+     for a bad path and a family mismatch;
+ 42. count_flops (utils/flops.py) of each family's forward at phase 40's
+     shapes on the card's route and on the CPU's (models loaded with the
+     card's flags): equal, and beside the forward's ms as TFLOP/s against
+     H100_BF16_TFLOPS; the yolov9t verb with --profile (a trace holding the
+     vtt ops and the conv kernel) and --dump on the card, its 22 maps against
+     the CPU's (--dump's function in process) by compare_dumps within
+     E2E_REL_RMS.
 
 The line before the last is a JSON object describing every kernel of the
-paths (with its launches a training step); the last line is {"ok": true,
-"device": {...}}.
+paths (its vtt ops, its launches a training step and in each exported
+call); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --parent DIR
 
@@ -1793,7 +1828,7 @@ def sam3_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
           f"{E2E_REL_RMS}, else the ratio <= {SAM3_PLAIN_RATIO}: {'ok' if full_ok else 'FAIL'}", flush=True)
     if not full_ok:
         raise AssertionError(f"SAM3 full-depth bf16 {full_rms} vs {plain_rms} with the plain global layers")
-    del f32_params, full_f32, full_bf16, plain_bf16, f32_two, bf16_two, cpu_two, cpu_s3model
+    del f32_params, full_f32, full_bf16, plain_bf16, f32_two, bf16_two, cpu_two
 
     phase(f"21 SAM3 timings on {card}")
     s3_rows = sam3_flash_timings(fa, torch, card)
@@ -1840,8 +1875,8 @@ def sam3_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
         t_text.append((time.perf_counter() - t0) * 1e3)
     print(f"Sam3Model.encode_text ({SAM3_TEXT['layers']} layers, {SAM3_TEXT['max_length']} tokens): p50 "
           f"{float(np.median(t_text[2:])):.3f} ms [{card}]", flush=True)
-    del s3model
-    return {"worst": worst80, "rows": s3_rows, "launches": sam3_launches}
+    # the card's and the CPU's models go on to phases 40 and 42
+    return {"worst": worst80, "rows": s3_rows, "launches": sam3_launches, "models": (s3model, cpu_s3model)}
 
 
 # YOLOv9t and MI-GAN (phases 22-26)
@@ -4439,6 +4474,641 @@ def compare_with_parent(parent: str, torch, card: str) -> None:
     print(f"A/B BiRefNet peak memory: this checkout allocates {saved:.1f} MiB less at peak [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 39-42: the kernels as vtt operators, export bundles, the C ABI,
+# flops, profiles and dumps
+
+# the vtt operators of each kernel, as the kernels line names them
+KERNEL_OPS = {"flash_attention": ["vtt::flash_attention"], "window_attention": ["vtt::window_attention"],
+              "conv3x3": ["vtt::conv3x3", "vtt::conv3x3_out"], "deform_conv": ["vtt::deform_conv", "vtt::deform_conv_out"],
+              "deform_sample": ["vtt::deform_sample"], "dequant": ["vtt::dequant"]}
+DISPATCH_CALLS = 2000  # host-timed calls of a small conv, through the operator and straight to its launch
+# phase 40's bundles: family -> (batch, extent or None); BiRefNet and SAM3 program-only
+EXPORT_CASES = {"depthany": (4, (518, 518)), "sam": (6, None), "birefnet": (4, (1024, 1024)),
+                "esrgan": (4, (256, 256)), "migan": (MIGAN_BATCH, None), "yolov9t": (YOLO_BATCH, None),
+                "sam3": (1, None)}
+EXPORT_PROGRAM_ONLY = ("birefnet", "sam3")
+EXPORT_STEADY_CALLS = 3
+# the CPU-exported bundle served on the card against the CPU's f32 forward:
+# the f32 kernel against the plain version, summation order only
+EXPORT_CPU_F32_REL_RMS = 1e-4
+H100_BF16_TFLOPS = 989.0  # dense bf16 peak of an H100 SXM at 700 W (NVIDIA's data sheet)
+CAPI_EXTENT = (320, 240)
+CAPI_ARGS = {"sam": [160, 120], "yolov9t": [250, 450]}  # SAM's point; YOLOv9t's thresholds in permille
+
+EXPORT_LOADER = r"""
+import json, sys, time
+import torch
+from vision_tpu_torch.export import load_bundle
+from vision_tpu_torch.ops.cuda import conv3x3, deform_conv, deform_sample, dequant, flash_attention, window_attention
+
+MODS = {"flash": flash_attention, "window": window_attention, "conv3x3": conv3x3, "deform_conv": deform_conv,
+        "deform_sample": deform_sample, "dequant": dequant}
+
+def counts():
+    return dict({k: m.launches for k, m in MODS.items()}, **{"window masked": window_attention.masked_launches})
+
+def zero():
+    for m in MODS.values():
+        m.launches = 0
+    window_attention.masked_launches = 0
+
+out = []
+bundles = {}
+for item in json.load(open(sys.argv[1])):
+    key = (item["bundle"], item["device"])
+    t0 = time.perf_counter()
+    if key not in bundles:
+        bundles[key] = load_bundle(item["bundle"], item["device"])
+    load_s = time.perf_counter() - t0
+    b = bundles[key]
+    args = [a.cuda() for a in torch.load(item["inputs"])]
+    if item["params"]:
+        args = [torch.load(item["params"], map_location="cuda")] + args
+    torch.cuda.synchronize()
+    zero()
+    t0 = time.perf_counter()
+    y = b.call(item["entry"], *args)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    times = []
+    for _ in range(item["steady"]):
+        t0 = time.perf_counter()
+        b.call(item["entry"], *args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.save(torch.utils._pytree.tree_map(lambda t: t.cpu(), y), item["out"])
+    out.append({"name": item["name"], "load_s": load_s, "first_ms": first_ms, "steady_ms": sorted(times)[len(times) // 2],
+                "launches": {k: v for k, v in launches.items() if v}})
+mods = sorted(m for m in sys.modules if m.split(".")[0] in ("vision_tpu_torch", "vision_tpu", "jax", "jaxlib"))
+print(json.dumps({"entries": out, "modules": mods}))
+"""
+
+EXPORT_WRITER = r"""
+import json, sys, time
+import torch
+from vision_tpu_torch.api import load_model
+from vision_tpu_torch.core.device import BuildFlag, backend_init
+from vision_tpu_torch.export import export_model
+
+job = json.loads(sys.argv[1])
+dev = backend_init(job["device"])
+flags = dev.flags | BuildFlag.flash_attention  # the card's routes, on the CPU too
+if job["keep_quantized"]:
+    flags |= BuildFlag.keep_quantized
+model = load_model(job["gguf"], dev.with_flags(flags))
+t0 = time.perf_counter()
+entries = export_model(model, job["dst"], extent=job["extent"] and tuple(job["extent"]), batch=job["batch"],
+                       embed_params=not job["program_only"])
+export_s = time.perf_counter() - t0
+if job["program_only"]:
+    torch.save({k: v.cpu() for k, v in model.params.items()}, job["params"])
+print(json.dumps({"entries": entries, "export_s": export_s}))
+"""
+
+CAPI_PROGRAM = r"""
+#include <stdio.h>
+#include <stdint.h>
+#include <stdlib.h>
+#include <string.h>
+typedef struct { int32_t width, height, stride, format; void* data; } view;
+extern const char* visp_get_last_error(void);
+extern int32_t visp_init(const char* dir);
+extern int32_t visp_device_init(int32_t type, void** out);
+extern int32_t visp_device_type(const void*);
+extern int32_t visp_model_detect_family(const char*, int32_t*);
+extern int32_t visp_model_load(const char*, const void*, int32_t, void**);
+extern int32_t visp_model_compute(void*, int32_t, const view*, int32_t, const int32_t*, int32_t, view*, void**);
+extern void visp_image_destroy(void*);
+extern void visp_model_destroy(void*, int32_t);
+extern void visp_device_destroy(void*);
+
+/* argv: repo, out dir, width, height, then (gguf, n args, args...) per model */
+int main(int argc, char** argv) {
+    if (!visp_init(argv[1])) { printf("init failed: %s\n", visp_get_last_error()); return 1; }
+    void* dev = 0;
+    if (!visp_device_init(2, &dev)) { printf("device failed: %s\n", visp_get_last_error()); return 1; }
+    printf("device type %d\n", visp_device_type(dev));
+    int w = atoi(argv[3]), h = atoi(argv[4]);
+    unsigned char* rgb = malloc((size_t)w * h * 3);
+    unsigned char* mask = malloc((size_t)w * h);
+    for (int y = 0; y < h; ++y)
+        for (int x = 0; x < w; ++x) {
+            unsigned char* p = rgb + ((size_t)y * w + x) * 3;
+            p[0] = (unsigned char)((x * 3 + y) % 256);
+            p[1] = (unsigned char)((y * 5) % 256);
+            p[2] = (unsigned char)((x * y / 7 + 11 * (x % 5)) % 256);
+            mask[(size_t)y * w + x] = (y > h / 4 && y < h / 2 && x > w / 3 && x < 2 * w / 3) ? 255 : 0;
+        }
+    void* model = 0;
+    if (visp_model_load("/does/not/exist.gguf", dev, -1, &model)) { printf("unexpected load\n"); return 1; }
+    printf("error bad path: %s\n", visp_get_last_error());
+    int i = 5;
+    while (i < argc) {
+        const char* path = argv[i];
+        int n = atoi(argv[i + 1]);
+        int32_t args[4] = {0, 0, 0, 0};
+        for (int k = 0; k < n; ++k) args[k] = atoi(argv[i + 2 + k]);
+        i += 2 + n;
+        int32_t fam = -1;
+        if (!visp_model_detect_family(path, &fam)) { printf("detect failed: %s\n", visp_get_last_error()); return 1; }
+        if (visp_model_load(path, dev, fam == 0 ? 4 : 0, &model)) { printf("unexpected mismatch load\n"); return 1; }
+        printf("error family mismatch %d: %s\n", fam, visp_get_last_error());
+        if (!visp_model_load(path, dev, fam, &model)) { printf("load failed: %s\n", visp_get_last_error()); return 1; }
+        view in[2] = {{w, h, w * 3, 3, rgb}, {w, h, w, 4, mask}};
+        view out;
+        void* img = 0;
+        if (!visp_model_compute(model, fam, in, fam == 3 ? 2 : 1, args, n, &out, &img)) {
+            printf("compute failed: %s\n", visp_get_last_error());
+            return 1;
+        }
+        char name[4096];
+        snprintf(name, sizeof name, "%s/%d.bin", argv[2], fam);
+        FILE* f = fopen(name, "wb");
+        fwrite(out.data, 1, (size_t)out.stride * out.height, f);
+        fclose(f);
+        printf("family %d out %d %d %d %d\n", fam, out.width, out.height, out.stride, out.format);
+        visp_image_destroy(img);
+        visp_model_destroy(model, fam);
+    }
+    visp_device_destroy(dev);
+    free(rgb);
+    free(mask);
+    printf("C-ABI-OK\n");
+    return 0;
+}
+"""
+
+
+def capi_inputs(family: str) -> tuple[list, list]:
+    """The images (the ABI's tuples) and args of CAPI_PROGRAM's request of
+    ``family``, made in numpy as the C program makes them."""
+    w, h = CAPI_EXTENT
+    y, x = np.mgrid[0:h, 0:w]
+    rgb = np.stack([(x * 3 + y) % 256, (y * 5) % 256, (x * y // 7 + 11 * (x % 5)) % 256], -1).astype(np.uint8)
+    mask = np.where((y > h // 4) & (y < h // 2) & (x > w // 3) & (x < 2 * w // 3), 255, 0).astype(np.uint8)
+    images = [(w, h, w * 3, 3, rgb.tobytes())]
+    if family == "migan":
+        images.append((w, h, w, 4, mask.tobytes()))
+    return images, CAPI_ARGS.get(family, [])
+
+
+def vtt_counts(torch) -> dict:
+    from vision_tpu_torch.ops.cuda import conv3x3, deform_conv, deform_sample, dequant, flash_attention
+    from vision_tpu_torch.ops.cuda import window_attention
+
+    c = {"flash": flash_attention.launches, "window": window_attention.launches, "conv3x3": conv3x3.launches,
+         "deform_conv": deform_conv.launches, "deform_sample": deform_sample.launches, "dequant": dequant.launches,
+         "window masked": window_attention.masked_launches}
+    return {k: v for k, v in c.items() if v}
+
+
+def op_samples(torch, gen) -> list:
+    """(op, args) for torch.library.opcheck at one served shape each, on
+    the card in bf16: Depth-Anything's flash attention at 518^2 batch 4;
+    TinyViT's first window stage at batch 6 and SWIN-L's first masked
+    stage at 1024^2; Real-ESRGAN's conv1 at 256^2 with its leaky ReLU, into
+    a fresh tensor and into its 32 channels of the dense block's buffer;
+    BiRefNet's k 3 deformable conv at 64^2 with its epilogue, fresh and
+    into its branch's view; the sampler at the same shape; a Q8_0 dequant
+    of a (384, 384, 3, 3) weight."""
+    bf16 = torch.bfloat16
+    vtt = torch.ops.vtt
+    t = depth_tokens((518, 518))
+    q, k, v = (torch.randn(4, 6, t, 64, device="cuda", generator=gen).to(bf16) for _ in range(3))
+    nw, tw, heads = SAM_STAGES[0]
+    wq, wk, wv = (torch.randn(6 * nw, tw, heads * 32, device="cuda", generator=gen).to(bf16) for _ in range(3))
+    wb = (torch.randn(heads, tw, tw, device="cuda", generator=gen) * 0.5).to(bf16)
+    sq, sk, sv, sb, smask = swin_windows(torch, gen, 256, 12, 6, 1, bf16)
+    x, w, b, kw, _ = conv_path_forms(torch, gen, 256, 64, 32)
+    dx, dw, doff, dmask, pad, dkw, _ = deform_conv_path_forms(torch, gen, 1, 64, 3, 2)
+    n = 384 * 384 * 9
+    qi = torch.randint(-127, 128, (n,), dtype=torch.int8, device="cuda", generator=gen)
+    qs = torch.rand(n // 32, device="cuda", generator=gen) * 0.01
+    epi = (dkw["bias"], dkw["scale"], dkw["shift"], True, dkw["layout"])
+    return [
+        (vtt.flash_attention.default, (q, k, v, 0.125)),
+        (vtt.window_attention.default, (wq, wk, wv, wb, heads, 32**-0.5, None)),
+        (vtt.window_attention.default, (sq, sk, sv, sb, 6, 32**-0.5, smask)),
+        (vtt.conv3x3.default, (x, w, b, None, None, False, 0.2, None, 1.0, None, 1.0)),
+        (vtt.conv3x3_out.default, (x, w, b, None, None, False, 0.2, None, 1.0, None, 1.0, kw["out"])),
+        (vtt.deform_conv.default, (dx, dw, doff, dmask, 3, 3, 1, pad, None, *epi[:3], epi[3], epi[4])),
+        (vtt.deform_conv_out.default, (dx, dw, doff, dmask, 3, 3, 1, pad, None, *epi[:3], epi[3], epi[4], dkw["out"])),
+        (vtt.deform_sample.default, (dx, doff, dmask, 3, 3, 1, pad, None)),
+        (vtt.dequant.default, (qi, qs, None, [384, 384, 3, 3], None, bf16)),
+    ]
+
+
+def ops_phase(torch, card: str, fd: dict) -> dict:
+    """Phase 39: opcheck of every vtt operator on the card; the _out forms
+    on channel views; the operator's dispatch cost per call; eager and
+    replay ms of YOLOv9t and Real-ESRGAN beside the graphs'."""
+    from vision_tpu_torch.ops.cuda import conv3x3 as cc
+
+    gen = torch.Generator(device="cuda").manual_seed(39)
+    samples = op_samples(torch, gen)
+    for op, args in samples:
+        res = torch.library.opcheck(op, args)
+        if any(v != "SUCCESS" for v in res.values()):
+            raise AssertionError(f"opcheck {op}: {res}")
+        print(f"opcheck {op.name()} at {[tuple(a.shape) for a in args if isinstance(a, torch.Tensor)][:2]}: "
+              f"{', '.join(res)} pass", flush=True)
+    # the _out forms write their view and nothing else, as the fresh form computes it
+    for op, fresh, args, out_at in (
+        ("conv3x3_out", "conv3x3", samples[4][1], 11),
+        ("deform_conv_out", "deform_conv", samples[6][1], 14),
+    ):
+        view = args[out_at]
+        buf = view._base
+        before = buf.clone()
+        getattr(torch.ops.vtt, op)(*args)
+        want = getattr(torch.ops.vtt, fresh)(*args[:out_at])
+        c0, c1 = view.storage_offset() % buf.shape[-1], view.storage_offset() % buf.shape[-1] + view.shape[-1]
+        kept = torch.equal(buf[..., :c0], before[..., :c0]) and torch.equal(buf[..., c1:], before[..., c1:])
+        if not (torch.equal(view, want) and kept):
+            raise AssertionError(f"{op}: view equal to {fresh} {torch.equal(view, want)}, other channels kept {kept}")
+        print(f"{op} into channels [{c0}, {c1}) of a {buf.shape[-1]}-channel buffer: equal to {fresh}, the other "
+              f"channels unchanged", flush=True)
+    # dispatch cost: the same small conv through the operator and straight to its launch
+    x = torch.randn(1, 8, 16, 16, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(16, 16, 3, 3, device="cuda", dtype=torch.bfloat16)
+    direct = lambda: cc.launch(x, w, None, None, None, False, None, None, 1.0, None, 1.0)  # noqa: E731
+    via_op = lambda: torch.ops.vtt.conv3x3(x, w, None, None, None, False, None, None, 1.0, None, 1.0)  # noqa: E731
+    host_us = {"op": [], "launch": []}
+    for label, fn in (("op", via_op), ("launch", direct), ("launch", direct), ("op", via_op)):  # in turns
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        host_us[label].append((time.perf_counter() - t0) / DISPATCH_CALLS * 1e6)
+    op_us, launch_us = min(host_us["op"]), min(host_us["launch"])
+    print(f"host per call of a (1, 8, 16, 16) bf16 conv3x3, {DISPATCH_CALLS} calls, best of 2: through vtt::conv3x3 "
+          f"{op_us:.2f} us, straight to its launch {launch_us:.2f} us: dispatch {op_us - launch_us:.2f} us a call "
+          f"[{card}]", flush=True)
+    eager = {}
+    for family, b in (("yolov9t", YOLO_BATCH), ("esrgan", 4)):
+        row = fd["graphs"][(family, b)]
+        eager[family] = {"eager_ms": row["eager_ms"], "replay_ms": row["replay_ms"]}
+        print(f"{family} batch {b}: eager _forward_u8 {row['eager_ms']:.3f} ms, graph replay {row['replay_ms']:.3f} ms "
+              f"(phase 27, through the vtt operators) [{card}]", flush=True)
+    return {"dispatch_us": op_us - launch_us, "op_us": op_us, "launch_us": launch_us, "eager": eager}
+
+
+def export_forwards(model, family: str):
+    """entry -> the in-process tensor forward the entry exports."""
+    if family == "sam":
+        return {"encode": model.encode_u8, "decode_point": lambda e, c: model._dec_point(e, c[None]),
+                "decode_box": lambda e, c: model._dec_box(e, c[None])}
+    if family == "sam3":
+        return {"encode_vision": model._encode_vision, "encode_text": model._encode_text}
+    return {("upscale" if family == "esrgan" else "forward"): model._forward_u8}
+
+
+def export_inputs(torch, rng, bundle, entry: str, model, family: str) -> list:
+    """The inputs of one call of ``entry``, as its input specs ask: u8
+    images (MI-GAN's mask a hole of 255), SAM's encode of the first image
+    and a point or box, SAM3's processed images and a tokenized prompt."""
+    specs = bundle.input_specs(entry)
+    if bundle.meta["params_embedded"] is False:
+        specs = specs[len(model.params):]
+    if family == "sam" and entry != "encode":
+        s = model.p.image_size
+        x = torch.from_numpy(rng.integers(0, 256, (1, s, s, 3), np.uint8))
+        coords = [[300.0, 400.0], [0.0, 0.0]] if entry == "decode_point" else [[100.0, 120.0], [700.0, 600.0]]
+        return [model.encode_u8(x).clone().cpu(), torch.tensor(coords)]
+    if family == "sam3":
+        if entry == "encode_text":
+            toks = model.tokenizer.tokenize(SAM3_PROMPTS[1], model.max_tokens)
+            return [torch.from_numpy(toks.token_ids[None].astype(np.int32)), torch.from_numpy(toks.attention_mask)]
+        (shape, _), = specs
+        return [torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(model.dtype)]
+    out = [torch.from_numpy(rng.integers(0, 256, shape, np.uint8)) for shape, _ in specs]
+    if family == "migan":
+        out[1] = (out[1] > 180).to(torch.uint8) * 255
+    return out
+
+
+def output_leaves(out) -> list:
+    """An output's tensors in a fixed order: NamedTuples as dicts, dicts by
+    key (a bundle returns a NamedTuple of the forward as a dict)."""
+    if hasattr(out, "_fields"):
+        out = out._asdict()
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in output_leaves(out[k])]
+    if isinstance(out, (list, tuple)):
+        return [t for v in out for t in output_leaves(v)]
+    return [out]
+
+
+def same_output(torch, got, want) -> tuple[bool, float]:
+    """Whether two outputs (tensors, or dicts and tuples of them) are
+    bit-equal, and the largest relative RMS between their leaves."""
+    g, w = output_leaves(got), output_leaves(want)
+    if len(g) != len(w) or any(a.shape != b.shape or a.dtype != b.dtype for a, b in zip(g, w)):
+        raise AssertionError(f"outputs differ in structure: {[tuple(a.shape) for a in g]} vs {[tuple(b.shape) for b in w]}")
+    equal = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(g, w))
+    return equal, max(rel_rms_t(a.float().cpu(), b.float().cpu()) for a, b in zip(g, w))
+
+
+def export_phase(torch, card: str, fd: dict, models: dict, cpu_models: dict, tmp: str) -> dict:
+    """Phase 40: one bundle per family at full width (BiRefNet and SAM3
+    program-only), a Q8_0 Depth-Anything and a CPU-exported YOLOv9t; one
+    subprocess loads them all with load_bundle, calls each entry and holds
+    no model module; each output against the in-process forward, each
+    call's launches against a forward's."""
+    from vision_tpu_torch.core.device import BuildFlag, backend_init
+    from vision_tpu_torch.api import load_model
+    from vision_tpu_torch.core.gguf import requantize_gguf
+    from vision_tpu_torch.export import export_model, load_bundle
+
+    rng = np.random.default_rng(40)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep))
+    d = os.path.join(tmp, "export")
+    os.makedirs(d, exist_ok=True)
+    q8 = os.path.join(d, "depthany-q8_0.gguf")
+    requantize_gguf(fd["paths"]["depthany"], q8, "q8_0")
+    gpu = backend_init("gpu")
+    # name -> (model in process, GGUF or None (SAM3: exported here), batch, extent, program-only, load device)
+    cases = {family: (models[family], fd["paths"].get(family), *EXPORT_CASES[family], family in EXPORT_PROGRAM_ONLY,
+                      None) for family in EXPORT_CASES}
+    cases["depthany_q8"] = (load_model(q8, gpu.with_flags(gpu.flags | BuildFlag.keep_quantized)), q8,
+                            *EXPORT_CASES["depthany"], False, None)
+    cases["yolov9t_cpu"] = (cpu_models["yolov9t"], fd["paths"]["yolov9t"], 1, None, False, "cuda")
+    # export is host work, one trace a family: a writer process each, all at once, and SAM3 here meanwhile
+    with open(os.path.join(d, "writer.py"), "w") as f:
+        f.write(EXPORT_WRITER)
+    t0 = time.perf_counter()
+    writers = {}
+    for name, (model, gguf, batch, extent, program_only, device) in cases.items():
+        if gguf is None:
+            continue
+        job = {"gguf": gguf, "dst": os.path.join(d, f"{name}.vxp"), "batch": batch, "extent": extent,
+               "program_only": program_only, "device": "cpu" if device else "gpu",
+               "keep_quantized": name == "depthany_q8", "params": os.path.join(d, f"{name}.params.pt")}
+        log = open(os.path.join(d, f"{name}.writer.log"), "w")
+        writers[name] = (subprocess.Popen([sys.executable, os.path.join(d, "writer.py"), json.dumps(job)], cwd=root,
+                                          env=env, stdout=log, stderr=subprocess.STDOUT), log)
+    rows = {}
+    for name, (model, gguf, batch, extent, program_only, device) in cases.items():
+        if gguf is None:
+            t1 = time.perf_counter()
+            entries = export_model(model, os.path.join(d, f"{name}.vxp"), extent=extent, batch=batch,
+                                   embed_params=not program_only)
+            torch.save({k: v.cpu() for k, v in model.params.items()}, os.path.join(d, f"{name}.params.pt"))
+            rows[name] = {"export_s": time.perf_counter() - t1, "entries": entries}
+    for name, (proc, log) in writers.items():
+        proc.wait(timeout=900)
+        log.close()
+        with open(log.name) as f:
+            text = f.read()
+        if proc.returncode != 0:
+            raise AssertionError(f"export writer {name} exited {proc.returncode}:\n{text[-6000:]}")
+        rows[name] = json.loads(text.strip().splitlines()[-1])
+    print(f"{len(cases)} bundles exported in {time.perf_counter() - t0:.1f} s ({len(writers)} writer processes at "
+          f"once and SAM3 in this one)", flush=True)
+    plan, expected = [], {}
+    for name, (model, gguf, batch, extent, program_only, device) in cases.items():
+        family = name.split("_")[0]
+        dst = os.path.join(d, f"{name}.vxp")
+        bundle = load_bundle(dst)
+        rows[name]["mb"] = os.path.getsize(dst) / 1e6
+        print(f"export {name}: {', '.join(rows[name]['entries'])} at batch {batch}"
+              f"{' ' + str(bundle.meta.get('extent')) if 'extent' in bundle.meta else ''}, "
+              f"{'program-only' if program_only else 'weights embedded'}, exported on the "
+              f"{'CPU' if device else 'card'}: {rows[name]['mb']:.2f} MB, {rows[name]['export_s']:.1f} s to export "
+              f"[{card}]", flush=True)
+        for entry in rows[name]["entries"]:
+            inputs = export_inputs(torch, rng, bundle, entry, model, family)
+            path = os.path.join(d, f"{name}.{entry}")
+            torch.save(inputs, path + ".in.pt")
+            forward = export_forwards(model, family)[entry]
+            torch.cuda.synchronize()
+            zero_counts()
+            want = forward(*[a.to("cpu" if device else "cuda") for a in inputs])
+            torch.cuda.synchronize()
+            expected[(name, entry)] = (want, vtt_counts(torch) if not device else None)
+            plan.append({"name": f"{name}.{entry}", "bundle": dst, "entry": entry, "device": device,
+                         "inputs": path + ".in.pt", "params": os.path.join(d, f"{name}.params.pt") if program_only
+                         else None, "out": path + ".out.pt", "steady": EXPORT_STEADY_CALLS})
+    with open(os.path.join(d, "plan.json"), "w") as f:
+        json.dump(plan, f)
+    with open(os.path.join(d, "loader.py"), "w") as f:
+        f.write(EXPORT_LOADER)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.join(d, "loader.py"), os.path.join(d, "plan.json")], cwd=root,
+                         env=env, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"bundle loader failed:\n{res.stdout[-4000:]}{res.stderr[-8000:]}")
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"one subprocess loaded {len(set(p['bundle'] for p in plan))} bundles and called {len(plan)} entries in "
+          f"{time.perf_counter() - t0:.1f} s; its modules of the port: {len(report['modules'])}", flush=True)
+    bad = [m for m in report["modules"] if m.startswith(("vision_tpu_torch.models", "vision_tpu.", "jax"))
+           or m in ("vision_tpu", "jax")]
+    if bad:
+        raise AssertionError(f"the bundle loader imported {bad}")
+    graphs = fd["graphs"]
+    for item, r in zip(plan, report["entries"]):
+        name, entry = item["name"].split(".", 1)
+        want, want_launches = expected[(name, entry)]
+        got = torch.load(item["out"])
+        family = name.split("_")[0]
+        if item["device"]:  # exported on the CPU, served on the card in f32: the kernels against the plain route
+            _, worst = same_output(torch, got, want)
+            want_launches = {"conv3x3": YOLO_CONVS}
+            if worst > EXPORT_CPU_F32_REL_RMS or r["launches"] != want_launches:
+                raise AssertionError(f"{item['name']} (CPU export on the card): rel RMS {worst:.3g}, launches "
+                                     f"{r['launches']} (expected {want_launches})")
+            verdict = f"rel RMS {worst:.3g} against the CPU's f32 forward"
+        else:
+            equal, worst = same_output(torch, got, want)
+            if not equal and worst > E2E_REL_RMS:
+                raise AssertionError(f"{item['name']}: rel RMS {worst:.3g} against the in-process forward")
+            if r["launches"] != want_launches:
+                raise AssertionError(f"{item['name']}: launches {r['launches']}, a forward's {want_launches}")
+            verdict = "bit-equal to the in-process forward" if equal else (
+                f"NOT bit-equal to the in-process forward: rel RMS {worst:.3g} (within E2E_REL_RMS)")
+        key = (family, EXPORT_CASES.get(family, (None,))[0])
+        beside = (f"; eager {graphs[key]['eager_ms']:.3f} ms, replay {graphs[key]['replay_ms']:.3f} ms (phase 27)"
+                  if key in graphs and name == family else "")
+        r["verdict"] = verdict
+        rows.setdefault(name, {})[entry] = r
+        print(f"{item['name']}: {verdict}; launches {r['launches']}; load {r['load_s']:.2f} s, first call "
+              f"{r['first_ms']:.1f} ms, steady {r['steady_ms']:.3f} ms{beside} [{card}]", flush=True)
+    return rows
+
+
+def capi_phase(torch, card: str, fd: dict, models: dict, tmp: str) -> dict:
+    """Phase 41: the C ABI built and driven from a C program on
+    visp_device_init(2) over the six families, each output against
+    capi.model_compute in process (on handles of the card's models, as
+    capi.model_load makes them); the error codes."""
+    import shutil
+    import sysconfig
+    import threading
+
+    from vision_tpu_torch import capi
+
+    include = sysconfig.get_paths()["include"]
+    families = list(capi.FAMILIES)
+    paths = {f: fd["paths"]["depthany" if f == "depth_anything" else f] for f in families}
+    if not os.path.isfile(os.path.join(include, "Python.h")):
+        print(f"the C ABI shim was not built: no Python.h in {include}; driving capi.py in process instead",
+              flush=True)
+        dev = capi.device_init(2)
+        for f in families:
+            capi.model_compute(capi.model_load(paths[f], dev, -1), *capi_inputs(f))
+        return {"built": False}
+    from vision_tpu_torch.native import build_capi
+
+    d = os.path.join(tmp, "capi")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    lib = build_capi()
+    build_s = time.perf_counter() - t0
+    src = os.path.join(d, "main.c")
+    with open(src, "w") as f:
+        f.write(CAPI_PROGRAM)
+    exe = os.path.join(d, "main")
+    subprocess.run([shutil.which("gcc") or "gcc", src, "-o", exe, str(lib), f"-Wl,-rpath,{lib.parent}"], check=True)
+    argv = [exe, os.path.dirname(os.path.abspath(__file__)), d, str(CAPI_EXTENT[0]), str(CAPI_EXTENT[1])]
+    for f in families:
+        a = capi_inputs(f)[1]
+        argv += [paths[f], str(len(a)), *map(str, a)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.dirname(os.path.abspath(__file__)), *sys.path[1:]]))
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, capture_output=True, text=True, env=env, timeout=600)
+    run_s = time.perf_counter() - t0
+    if r.returncode != 0 or "C-ABI-OK" not in r.stdout or "device type 2" not in r.stdout:
+        raise AssertionError(f"the C program failed:\n{r.stdout[-4000:]}{r.stderr[-4000:]}")
+    for line in r.stdout.splitlines():
+        if line.startswith("error "):
+            print("C program:", line, flush=True)
+    if "No such file" not in r.stdout and "exist.gguf" not in r.stdout:
+        raise AssertionError("the bad path's error does not name the file")
+    for i, f in enumerate(families):
+        handle = (models["depthany" if f == "depth_anything" else f], i, threading.Lock())
+        data, w, h, stride, fmt = capi.model_compute(handle, *capi_inputs(f))
+        got = np.fromfile(os.path.join(d, f"{i}.bin"), np.uint8)
+        meta = f"family {i} out {w} {h} {stride} {fmt}"
+        if meta not in r.stdout or not np.array_equal(got, np.asarray(data).reshape(-1)):
+            raise AssertionError(f"C ABI {f}: {meta} in the program's output {meta in r.stdout}, bytes equal "
+                                 f"{got.size == data.size and np.array_equal(got, np.asarray(data).reshape(-1))}")
+        print(f"C ABI {f}: {w}x{h} format {fmt}, bytes equal to capi.model_compute in process", flush=True)
+    print(f"C ABI shim {lib.name} built in {build_s:.2f} s; the C program (interpreter start, six loads and "
+          f"computes on visp_device_init(2)) ran in {run_s:.1f} s [{card}]", flush=True)
+    return {"built": True, "build_s": build_s, "run_s": run_s}
+
+
+def flops_phase(torch, card: str, fd: dict, models: dict, cpu_models: dict, tmp: str) -> dict:
+    """Phase 42: count_flops of each family's forward on the card's route
+    and on the CPU route at the same shapes, beside the forward's ms as
+    TFLOP/s; --profile on the yolov9t verb; yolov9t --dump on the card
+    against the CPU's dump."""
+    from vision_tpu_torch.utils import compare_dumps
+    from vision_tpu_torch.utils.flops import count_flops
+
+    rng = np.random.default_rng(42)
+    rows = {}
+    for family, (batch, extent) in EXPORT_CASES.items():
+        model, cpu = models[family], cpu_models[family]
+        if family == "sam3":
+            s = model.vp.image_size
+            shapes, fn = [(batch, s, s, 3)], "_encode_vision"
+        elif family == "sam":
+            shapes, fn = [(batch, 1024, 1024, 3)], "encode_u8"
+        else:
+            w, h = extent or {"migan": (MIGAN_RES, MIGAN_RES), "yolov9t": (640, 640)}[family]
+            shapes = [(batch, h, w, 3)] + ([(batch, h, w, 1)] if family == "migan" else [])
+            fn = "_forward_u8"
+        xs = [torch.from_numpy(rng.integers(0, 256, sh, np.uint8)) for sh in shapes]
+        if family == "sam3":
+            xs = [x.to(model.dtype) for x in xs]
+        card_flops = count_flops(getattr(model, fn), *[x.cuda() for x in xs])
+        cpu_flops = count_flops(getattr(cpu, fn), *[x.float() if family == "sam3" else x for x in xs])
+        if card_flops != cpu_flops or card_flops <= 0:
+            raise AssertionError(f"count_flops {family}: card route {card_flops:.6g}, CPU route {cpu_flops:.6g}")
+        key = (family, batch)
+        if key in fd["graphs"]:
+            ms, how = fd["graphs"][key]["replay_ms"], "graph replay (phase 27)"
+        else:
+            xc = [x.cuda() for x in xs]
+            ms, how = median_ms(lambda: getattr(model, fn)(*xc), 10), "eager, median of 10"
+        rows[family] = {"flops": card_flops, "ms": ms, "tflops": card_flops / ms / 1e9}
+        print(f"count_flops {family} {shapes[0]}: {card_flops:.6g} FLOP on the card's route = the CPU route's; "
+              f"{how} {ms:.3f} ms: {rows[family]['tflops']:.2f} TFLOP/s, {rows[family]['tflops'] / H100_BF16_TFLOPS:.2%} "
+              f"of {H100_BF16_TFLOPS:.0f} TFLOP/s bf16 dense [{card}]", flush=True)
+
+    # --profile and --dump on the yolov9t verb, as subprocesses on the card and the CPU
+    d = os.path.join(tmp, "tools")
+    os.makedirs(d, exist_ok=True)
+    w, h = CLI_EXTENT
+    img = front_images(rng, [(w, h)])[0]
+    from vision_tpu_torch.image import Image, ImageFormat, image_save
+
+    image_save(Image(img, ImageFormat.rgb_u8), os.path.join(d, "in.png"))
+    base = ["yolov9t", "-m", fd["paths"]["yolov9t"], "-i", os.path.join(d, "in.png")]
+    cli_run(base + ["-o", os.path.join(d, "gpu.png"), "--profile", os.path.join(d, "prof"), "--dump",
+                    os.path.join(d, "dump_gpu")], "yolov9t --profile --dump (card)")
+    from vision_tpu_torch.cli import _dump_yolov9t
+
+    _dump_yolov9t(cpu_models["yolov9t"], Image(img, ImageFormat.rgb_u8), os.path.join(d, "dump_cpu"))  # --dump's own
+    traces = [f for f in os.listdir(os.path.join(d, "prof")) if f.endswith(".json")]
+    if len(traces) != 1:
+        raise AssertionError(f"--profile wrote {traces}")
+    with open(os.path.join(d, "prof", traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    ops = {e["name"] for e in events if e.get("name", "").startswith("vtt::")}
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel" and "conv3x3" in e.get("name", "")}
+    if not {"vtt::conv3x3", "vtt::conv3x3_out"} <= ops or not kernels:
+        raise AssertionError(f"--profile trace: vtt ops {ops}, conv3x3 kernels {kernels}")
+    print(f"--profile: {traces[0]} holds {len(events)} events, the ops {sorted(ops)} and the kernels "
+          f"{sorted(kernels)[:3]}", flush=True)
+    gpu_files, cpu_files = sorted(os.listdir(os.path.join(d, "dump_gpu"))), sorted(os.listdir(os.path.join(d, "dump_cpu")))
+    if gpu_files != cpu_files or len(gpu_files) != 22:
+        raise AssertionError(f"--dump: {len(gpu_files)} files on the card, {len(cpu_files)} on the CPU")
+    report = compare_dumps(os.path.join(d, "dump_cpu"), os.path.join(d, "dump_gpu"))
+    worst = 0.0
+    for name, r in report.items():
+        ref = np.load(os.path.join(d, "dump_cpu", name))
+        rel = r["rms"] / max(float(np.sqrt(np.mean(ref.astype(np.float64) ** 2))), 1e-12)
+        worst = max(worst, rel)
+    if worst > E2E_REL_RMS:
+        raise AssertionError(f"--dump: the card's bf16 maps against the CPU's f32 at rel RMS {worst:.3g}")
+    print(f"--dump: 22 feature maps on the card and on the CPU; compare_dumps' worst rel RMS {worst:.3g} "
+          f"(bound {E2E_REL_RMS}); {sum(r['status'] == 'ok' for r in report.values())} of 22 within its allclose",
+          flush=True)
+    return {"flops": rows, "dump_worst": worst}
+
+
+def tooling_phases(torch, card: str, fd: dict, tmp: str, sam3_models: tuple) -> dict:
+    """Phases 39-42 over phase 27's GGUFs and the SAM3 models of phase 19."""
+    from vision_tpu_torch.api import load_model
+    from vision_tpu_torch.core.device import BuildFlag, backend_init
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("39 the kernels as vtt operators: opcheck on the card, _out views, dispatch cost, eager and replay ms")
+    ops = ops_phase(torch, card, fd)
+    gpu, cpu = backend_init("gpu"), backend_init("cpu")
+    cpu = cpu.with_flags(cpu.flags | BuildFlag.flash_attention)  # the CPU routed as the card routes
+    models = {f: load_model(fd["paths"][f], gpu) for f in EXPORT_CASES if f != "sam3"}
+    cpu_models = {f: load_model(fd["paths"][f], cpu) for f in EXPORT_CASES if f != "sam3"}
+    models["sam3"], cpu_models["sam3"] = sam3_models
+    cpu_models["sam3"].flash = True  # phase 19 loaded it with the CPU's flags
+    phase("40 export: a bundle per family at full width, loaded and called in one subprocess without model modules")
+    export = export_phase(torch, card, fd, models, cpu_models, tmp)
+    phase("41 the C ABI: a C program over the six families on visp_device_init(2)")
+    capi_row = capi_phase(torch, card, fd, models, tmp)
+    phase("42 count_flops on the card's and the CPU's routes, --profile and --dump")
+    flops = flops_phase(torch, card, fd, models, cpu_models, tmp)
+    return {"ops": ops, "export": export, "capi": capi_row, "flops": flops}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4987,6 +5657,7 @@ def main(argv=None) -> int:
         phase("35 the quantize verb as a subprocess")
         quantize_verb_phase(card, fd["paths"]["depthany"], quant["copies"][("depthany", "q8_0")], fd_tmp)
         train = training_phases(torch, card, fd, fd_tmp)
+        tools = tooling_phases(torch, card, fd, fd_tmp, s3.pop("models"))
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5001,11 +5672,18 @@ def main(argv=None) -> int:
     flash_bound, flash_by = bound_ms(4.0 * 24 * t_sq**2 * 64, 4 * 2.0 * 24 * t_sq * 64)
     wide_bound, wide_by = bound_ms(4.0 * 24 * t_wide**2 * 64, 4 * 2.0 * 24 * t_wide * 64)
     win_bound, win_by = bound_ms(4.0 * 6 * nw * h * t * t * 32, 4 * 2.0 * 6 * nw * t * h * 32 + 2.0 * h * t * t)
+    def export_launches(counter: str) -> dict:
+        """entry -> this kernel's launches in one call of the exported entry (phase 40)."""
+        return {f"{name}.{entry}": r["launches"][counter] for name, row in tools["export"].items()
+                for entry, r in row.items() if isinstance(r, dict) and counter in r.get("launches", {})}
+
     print(card)
     print(json.dumps({"kernels": [
         {
             "name": "flash_attention",
+            "ops": KERNEL_OPS["flash_attention"],
             "route": "cuda",
+            "launches_export": export_launches("flash"),
             "source": "vision_tpu_torch/csrc/flash_attention.cu",
             "replaces": "vision_tpu/ops/pallas/flash_attention.py:26",
             "launches": main_launches,
@@ -5023,11 +5701,14 @@ def main(argv=None) -> int:
                              (f"({bh}, {(1008 // 14) ** 2}, 80) bf16", *rest)))
                for key, (bh, *rest) in zip(("at_sam3_global", "at_sam3_global_batch4"), s3["rows"])},
             "launches_sam3": s3["launches"],
+            "op_dispatch_us": tools["ops"]["dispatch_us"],
             "launches_train_step_distill": train["rows"]["distill"]["launches"]["flash"],
         },
         {
             "name": "window_attention",
+            "ops": KERNEL_OPS["window_attention"],
             "route": "cuda",
+            "launches_export": export_launches("window"),
             "source": "vision_tpu_torch/csrc/window_attention.cu",
             "replaces": "scripts/exp_winattn2.py:19",
             "launches": sam_win_launches,
@@ -5050,7 +5731,9 @@ def main(argv=None) -> int:
         },
         {
             "name": "conv3x3",
+            "ops": KERNEL_OPS["conv3x3"],
             "route": "cuda",
+            "launches_export": export_launches("conv3x3"),
             "source": "vision_tpu_torch/csrc/conv3x3.cu",
             "replaces": "scripts/exp_pallas_conv.py:36",
             "launches": esr_conv_launches,
@@ -5084,7 +5767,9 @@ def main(argv=None) -> int:
         },
         {
             "name": "deform_conv",
+            "ops": KERNEL_OPS["deform_conv"],
             "route": "cuda",
+            "launches_export": export_launches("deform_conv"),
             "source": "vision_tpu_torch/csrc/deform_conv.cu",
             "replaces": "scripts/exp_deform_pallas.py:56",
             "launches": bir_launches["deform_conv"],
@@ -5112,7 +5797,9 @@ def main(argv=None) -> int:
         },
         {
             "name": "deform_sample",
+            "ops": KERNEL_OPS["deform_sample"],
             "route": "cuda",
+            "launches_export": export_launches("deform_sample"),
             "source": "vision_tpu_torch/csrc/deform_sample.cu",
             "replaces": "scripts/exp_deform_pallas.py:56",
             "launches": bir_launches["deform_sample"],
@@ -5129,7 +5816,9 @@ def main(argv=None) -> int:
         },
         {
             "name": "dequant",
+            "ops": KERNEL_OPS["dequant"],
             "route": "cuda",
+            "launches_export": export_launches("dequant"),
             "source": "vision_tpu_torch/csrc/dequant.cu",
             # no Pallas kernel: the JAX package's QuantResident.dequant, which XLA fuses into the consumer
             "replaces": "vision_tpu/core/quant.py:93",

@@ -110,10 +110,59 @@ def test_match_detections(chip_smoke):
 def test_the_phase_list_runs_to_32(chip_smoke):
     doc = chip_smoke.__doc__
     numbers = [int(ln.split(".")[0]) for ln in doc.splitlines() if ln[:4].strip().rstrip(".").isdigit()]
-    assert numbers == list(range(1, 39))
+    assert numbers == list(range(1, 43))
     for name in ("http_phase", "bulk_phase", "verbs_phase", "serve_verb", "dequant_cases", "residency_phase",
-                 "quantize_verb_phase", "grad_cases", "train_harness", "recipe_run", "training_phases"):
+                 "quantize_verb_phase", "grad_cases", "train_harness", "recipe_run", "training_phases", "ops_phase",
+                 "export_phase", "capi_phase", "flops_phase", "tooling_phases"):
         assert callable(getattr(chip_smoke, name))
+
+
+def test_the_kernels_line_names_every_vtt_op(chip_smoke):
+    from vision_tpu_torch.ops.cuda import library
+
+    named = [op for ops in chip_smoke.KERNEL_OPS.values() for op in ops]
+    assert sorted(named) == sorted(f"vtt::{op}" for op in library.OPS)
+    assert set(chip_smoke.EXPORT_CASES) == {"depthany", "sam", "birefnet", "esrgan", "migan", "yolov9t", "sam3"}
+
+
+def test_the_bundle_loader_imports_no_model_module(chip_smoke):
+    import ast
+
+    tree = ast.parse(chip_smoke.EXPORT_LOADER)
+    imported = {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
+    assert imported == {"vision_tpu_torch.export", "vision_tpu_torch.ops.cuda"}
+
+
+def test_output_leaves_order_a_forward_and_its_bundle_alike(chip_smoke):
+    import torch
+
+    from vision_tpu_torch.models.yolov9t import DetectOutput
+
+    boxes, scores = torch.zeros(1, 2, 4), torch.ones(1, 2, 3)
+    forward = DetectOutput(boxes, scores)
+    bundle = {"scores": scores.clone(), "boxes": boxes.clone()}
+    assert chip_smoke.same_output(torch, bundle, forward) == (True, 0.0)
+    assert [t.shape for t in chip_smoke.output_leaves(forward)] == [boxes.shape, scores.shape]
+
+
+def test_capi_inputs_follow_the_c_programs_pattern(chip_smoke, tmp_path):
+    """The C program draws its image and mask as capi_inputs does."""
+    import subprocess
+
+    import numpy as np
+
+    src = tmp_path / "pattern.c"
+    program = chip_smoke.CAPI_PROGRAM
+    body = program[program.index("    int w = atoi(argv[3])"):program.index("    void* model = 0;")]
+    src.write_text("#include <stdio.h>\n#include <stdlib.h>\nint main(int argc, char** argv) {\n" + body
+                   + "    fwrite(rgb, 1, (size_t)w * h * 3, stdout);\n    fwrite(mask, 1, (size_t)w * h, stdout);\n"
+                   "    return 0;\n}\n")
+    subprocess.run(["gcc", str(src), "-o", str(tmp_path / "pattern")], check=True)
+    w, h = chip_smoke.CAPI_EXTENT
+    out = subprocess.run([str(tmp_path / "pattern"), "", "", str(w), str(h)], capture_output=True, check=True).stdout
+    images, args = chip_smoke.capi_inputs("migan")
+    assert out == images[0][4] + images[1][4] and args == []
+    assert chip_smoke.capi_inputs("sam")[1] == chip_smoke.CAPI_ARGS["sam"]
 
 
 def test_http_requests_are_phase_30s_mix(chip_smoke):

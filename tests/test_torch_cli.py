@@ -1,8 +1,11 @@
 """The port's CLI against the JAX package's, both with ``-b cpu`` on the same
 small GGUFs and inputs: every model verb's output file within one u8 level
 of the JAX CLI's, on at most 0.1% of the values; yolov9t's detections
-printed alike; ``info`` and ``compare`` printing the same lines; and the
-CLI's own rules (no CPU fallback, arity, unknown verbs)."""
+printed alike; ``info`` and ``compare`` printing the same lines; ``export``
+writing the bundle the JAX CLI writes the entries of; ``--dump`` writing the
+JAX CLI's files within ``compare_dumps``' bounds; ``--profile`` writing a
+trace that names the ``vtt`` operators; and the CLI's own rules (no CPU
+fallback, arity, unknown verbs)."""
 
 import subprocess
 import sys
@@ -126,9 +129,10 @@ def test_input_rules(data, tmp_path, capsys):
     # finetune and distill are verbs (tests/test_torch_finetune.py) that need their models
     assert "Model file not found: RealESRGAN-x4.gguf" in _run(tcli, ["finetune", "-i", "x"], capsys)[2]
     assert _run(tcli, ["distill", "-i", "x"], capsys)[2] == "Error: No model specified (-m)\n"
-    for verb in ("bench", "export"):
-        with pytest.raises(SystemExit):
-            tcli.main([verb, "-i", "x"])
+    # export is a verb (tests/test_torch_export.py) that needs -m; bench waits for the benchmark
+    assert _run(tcli, ["export"], capsys)[2] == "Error: No model specified (-m)\n"
+    with pytest.raises(SystemExit):
+        tcli.main(["bench", "-i", "x"])
     capsys.readouterr()
 
 
@@ -136,3 +140,58 @@ def test_the_module_entry_point_runs(data):
     res = subprocess.run([sys.executable, "-m", "vision_tpu_torch.cli", "info", "-m", str(data / "esrgan.gguf")],
                          cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and "family: esrgan" in res.stdout, res.stderr
+
+
+@pytest.mark.parametrize("family,extra,entries", [
+    ("yolov9t", ["--batch", "2"], "forward"),
+    ("depthany", ["--extent", "60", "50", "--no-embed"], "forward"),
+    ("esrgan", ["--extent", "16", "12"], "upscale"),
+])
+def test_export_verb_writes_the_jax_clis_entries(family, extra, entries, data, tmp_path, capsys):
+    from vision_tpu_torch.export import load_bundle
+
+    dst = tmp_path / "m.vxp"
+    rc, out, err = _run(tcli, ["export", "-m", data / f"{family}.gguf", "-b", "cpu", "-o", dst, *extra], capsys)
+    assert rc == 0, err
+    assert out.splitlines()[-1].endswith(f"MB; entries: {entries})")
+    rc, jout, err = _run(jcli, ["export", "-m", data / f"{family}.gguf", "-b", "cpu", "-o", tmp_path / "j.vxp",
+                                *extra], capsys)
+    assert rc == 0, err
+    assert jout.splitlines()[-1].endswith(f"MB; entries: {entries})")
+    bundle = load_bundle(dst)
+    assert bundle.names == [entries] and bundle.meta["params_embedded"] == ("--no-embed" not in extra)
+    if family == "yolov9t":
+        assert bundle.input_specs("forward") == [[[2, 640, 640, 3], "uint8"]]
+    if family != "yolov9t":  # the extent snapped to the family's grid as the JAX CLI snaps it
+        from vision_tpu.export import load_bundle as jax_load_bundle
+
+        assert bundle.meta["extent"] == jax_load_bundle(tmp_path / "j.vxp").meta["extent"]
+    assert not (data / f"{family}.vxp").exists()
+
+
+def test_dump_writes_the_jax_clis_feature_maps(data, tmp_path, capsys):
+    from vision_tpu_torch.utils import compare_dumps
+
+    for name, cli in (("jax", jcli), ("torch", tcli)):
+        rc, out, err = _run(cli, ["yolov9t", "-m", data / "yolov9t.gguf", "-b", "cpu", "-i", data / "in.png", "-o",
+                                  tmp_path / f"{name}.png", "--dump", tmp_path / f"{name}_dump"], capsys)
+        assert rc == 0, err
+        assert "-> dumped 22 feature maps to" in out
+    report = compare_dumps(tmp_path / "jax_dump", tmp_path / "torch_dump")
+    assert len(report) == 22 and all(r["status"] == "ok" for r in report.values()), report
+
+
+@pytest.mark.parametrize("verb,inputs", [("yolov9t", ["{d}/in.png"]), ("esrgan", ["{d}/bulk"])])
+def test_profile_writes_a_trace_of_the_inference(verb, inputs, data, tmp_path, capsys):
+    import json
+
+    (data / "bulk").mkdir(exist_ok=True)
+    PILImage.fromarray(sample_image(24, 32)).save(data / "bulk" / "a.png")
+    args = [verb, "-m", data / f"{verb}.gguf", "-b", "cpu", "-i", *[a.format(d=data) for a in inputs], "-o",
+            tmp_path / ("out.png" if verb == "yolov9t" else "out"), "--profile", tmp_path / "prof"]
+    rc, _, err = _run(tcli, args, capsys)
+    assert rc == 0, err
+    (trace,) = (tmp_path / "prof").glob("*.json")
+    names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
+    if verb == "yolov9t":  # host-side op events are the calling thread's: bulk runs on a server thread
+        assert {"vtt::conv3x3", "vtt::conv3x3_out"} <= names

@@ -166,4 +166,5 @@ def test_package_exports_the_metrics():
     import vision_tpu_torch.utils as tu
 
     metric_names = [n for n in ju.__all__ if n not in ("Timer", "trace", "dump_captures", "compare_dumps")]
-    assert sorted(tu.__all__) == sorted(metric_names) == sorted(tm.__all__)
+    assert sorted(metric_names) == sorted(tm.__all__)
+    assert sorted(tu.__all__) == sorted(ju.__all__)  # the tools too, since the port has them

@@ -34,6 +34,8 @@ SLICE_MODULES = [
     "vision_tpu_torch.ops.cuda.deform_sample",
     "vision_tpu_torch.ops.cuda.deform_conv",
     "vision_tpu_torch.ops.cuda.dequant",
+    "vision_tpu_torch.ops.cuda.library",
+    "vision_tpu_torch.ops.debug",
     "vision_tpu_torch.models",
     "vision_tpu_torch.models.dino",
     "vision_tpu_torch.models.depth_anything",
@@ -60,6 +62,11 @@ SLICE_MODULES = [
     "vision_tpu_torch.native",
     "vision_tpu_torch.utils",
     "vision_tpu_torch.utils.metrics",
+    "vision_tpu_torch.utils.flops",
+    "vision_tpu_torch.utils.profiling",
+    "vision_tpu_torch.utils.dump",
+    "vision_tpu_torch.export",
+    "vision_tpu_torch.capi",
 ]
 
 

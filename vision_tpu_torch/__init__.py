@@ -21,7 +21,10 @@ the families over HTTP (``serve_http``) and scores predictions
 input shape (:class:`~vision_tpu_torch.core.graph.ForwardGraphs`). Training
 (``train``, ``lora``, ``finetune``, ``ops.augment``; the ``finetune`` and
 ``distill`` verbs) runs the hand-written kernels through their autograd
-functions.
+functions. The kernels are ``torch.library`` operators (``vtt::*``,
+``ops.cuda.library``): :func:`export_model` writes a model's tensor forwards
+as ``torch.export`` bundles that :func:`load_bundle` runs without the model
+code, and ``capi`` with ``native/c_api.cpp`` is the model-level C ABI.
 """
 
 __version__ = "0.1.0"
@@ -60,4 +63,21 @@ __all__ = [
     "model_load",
     "shape_bucket",
     "snap_to_multiple",
+    "export_model",
+    "load_bundle",
 ]
+
+
+def export_model(model, dst, **kwargs):
+    """Export a model's tensor forwards as a ``torch.export`` bundle
+    (weights embedded by default; see vision_tpu_torch.export)."""
+    from .export import export_model as _export
+
+    return _export(model, dst, **kwargs)
+
+
+def load_bundle(src, device=None):
+    """Open a bundle written by export_model / export_bundle."""
+    from .export import load_bundle as _load
+
+    return _load(src, device)

@@ -2,7 +2,7 @@
 port serves:
 
     python -m vision_tpu_torch.cli <sam|birefnet|depthany|migan|esrgan|yolov9t|serve|quantize|info|compare|eval|
-                                    finetune|distill> [options]
+                                    finetune|distill|export> [options]
 
 with the reference's options (-i/-o/-m/-p, --composite, --tile, --conf,
 --iou), the model search paths (./models, $VISION_MODEL_DIR, XDG data dirs —
@@ -20,10 +20,16 @@ runs a family's recipe on -m (finetune.py: Real-ESRGAN self-supervised,
 BiRefNet on ``--masks``) and ``distill`` trains a Depth-Anything
 ``--student`` against the -m teacher (``--lora``, ``--lora-out``,
 ``--qlora``); ``--adapter`` merges a LoRA adapter file into -m first
-(api.merge_adapter) on every verb that loads -m. ``-b`` takes ``cpu`` or
-``gpu``; without it the CLI takes the card and fails without one. The JAX
-CLI's other verbs (bench, export) and its ``--dp``, ``--dump`` and
-``--profile`` flags wait for their modules.
+(api.merge_adapter) on every verb that loads -m. ``export`` writes -m's
+tensor forwards as a deployment bundle (export.py: ``--extent``, ``--batch``,
+``--no-embed``; load it with ``export.load_bundle``). ``--profile DIR``
+records a ``torch.profiler`` trace of a model verb's inference phase (and of
+bulk, video and ``eval -m`` runs) into DIR (utils/profiling.py); ``--dump
+DIR`` (yolov9t) writes each layer's output of one eager forward as .npy
+files (ops/debug.py, utils/dump.py). ``-b`` takes ``cpu`` or ``gpu``;
+without it the CLI takes the card and fails without one. The JAX CLI's
+``bench`` verb and its ``--dp`` flag wait for their modules (the benchmark
+and the meshes).
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ USAGE_COMMANDS = {
     "finetune": "fine-tune a .gguf on your images: esrgan (self-supervised SR) or birefnet (supervised masks, "
                 "--masks DIR)",
     "distill": "distill a depth-anything teacher .gguf (-m) into a smaller --student on unlabeled images",
+    "export": "export -m's programs as a deployment bundle (torch.export; load with export.load_bundle)",
 }
 
 # reference per-command default model files (cli.cpp:395-567,
@@ -139,6 +146,18 @@ def _model_path(args) -> str:
 
         path = merge_adapter(path, args.adapter)
     return path
+
+
+def _profile(args):
+    """torch.profiler trace context for the inference phase (--profile DIR);
+    a no-op context when the flag is absent."""
+    import contextlib
+
+    if not args.profile:
+        return contextlib.nullcontext()
+    from .utils.profiling import trace
+
+    return trace(args.profile)
 
 
 def _device(args):
@@ -279,21 +298,22 @@ def _run_model(args) -> None:
         model = family_loader(VERB_FAMILIES[args.command])(model_path, dev)
     image = image_load(args.input[0])
     if args.command == "sam":
-        with _Timer("Encoding image"):
-            model.encode(image)
         prompt = args.prompt or [image.width // 2, image.height // 2]
-        with _Timer("Predicting mask"):
-            if len(prompt) >= 4:
-                mask = model.compute(box=((prompt[0], prompt[1]), (prompt[2], prompt[3])))
-            else:
-                mask = model.compute(point=(prompt[0], prompt[1]))
+        with _profile(args):
+            with _Timer("Encoding image"):
+                model.encode(image)
+            with _Timer("Predicting mask"):
+                if len(prompt) >= 4:
+                    mask = model.compute(box=((prompt[0], prompt[1]), (prompt[2], prompt[3])))
+                else:
+                    mask = model.compute(point=(prompt[0], prompt[1]))
         image_save(mask, args.output)
         print(f"-> mask saved to {args.output}")
         if args.composite:
             _composite(image, mask, args.composite)
 
     elif args.command == "birefnet":
-        with _Timer("Running inference"):
+        with _profile(args), _Timer("Running inference"):
             mask = model.compute(image)
         image_save(mask, args.output)
         print(f"-> mask saved to {args.output}")
@@ -301,14 +321,14 @@ def _run_model(args) -> None:
             _composite(image, mask, args.composite)
 
     elif args.command == "depthany":
-        with _Timer("Running inference"):
+        with _profile(args), _Timer("Running inference"):
             depth = model.compute(image)
         image_save(image_f32_to_u8(depth, ImageFormat.alpha_u8), args.output)
         print(f"-> depth map saved to {args.output}")
 
     elif args.command == "migan":
         mask = image_load(args.input[1])
-        with _Timer("Running inference"):
+        with _profile(args), _Timer("Running inference"):
             out = model.compute(image, mask)
         image_save(out, args.output)
         print(f"-> inpainted image saved to {args.output}")
@@ -316,7 +336,7 @@ def _run_model(args) -> None:
     elif args.command == "esrgan":
         # no --tile: compute's default tile size
         tile = args.tile if args.tile > 0 else None
-        with _Timer("Running inference"):
+        with _profile(args), _Timer("Running inference"):
             out = model.compute(image, tile_size=tile)
         image_save(out, args.output)
         print(f"-> upscaled image saved to {args.output}")
@@ -324,7 +344,9 @@ def _run_model(args) -> None:
     else:  # yolov9t
         from .models.yolov9t import COCO_CLASS_NAMES, draw_detections
 
-        with _Timer("Running inference"):
+        if args.dump:
+            _dump_yolov9t(model, image, args.dump)
+        with _profile(args), _Timer("Running inference"):
             dets = model.compute(image, args.conf, args.iou)
         print(f"Found {len(dets)} objects:")
         for d in dets:
@@ -332,6 +354,40 @@ def _run_model(args) -> None:
             print(f"  {name:>14s} {d.confidence:.2f} [{d.x1:.0f}, {d.y1:.0f}, {d.x2:.0f}, {d.y2:.0f}]")
         image_save(draw_detections(image, dets), args.output)
         print(f"-> annotated image saved to {args.output}")
+
+
+def _dump_yolov9t(model, image, out_dir: str) -> None:
+    """--dump: one eager forward of the letterboxed image under a capture
+    context (not the CUDA graph, where captures are refused), each layer's
+    output written as .npy (the reference's --dump-keys)."""
+    import torch
+
+    from .models.yolov9t import letterbox
+    from .ops.debug import capture_context
+    from .utils import dump_captures
+
+    arr, _, _, _ = letterbox(image, model.p.input_size)
+    with capture_context() as caps:
+        model._forward_u8(torch.from_numpy(arr[None]))
+    written = dump_captures(caps, out_dir)
+    print(f"-> dumped {len(written)} feature maps to {out_dir}")
+
+
+def _export(args) -> None:
+    """``export``: -m's tensor forwards as a bundle (export.py) at -o
+    (default: the model's path with the suffix .vxp)."""
+    from .api import load_model
+    from .export import export_model
+
+    model_path = _model_path(args)
+    dev = _device(args)
+    with _Timer("Loading model weights"):
+        model = load_model(model_path, dev)
+    dst = args.output or str(Path(model_path).with_suffix(".vxp"))
+    with _Timer("Exporting programs"):
+        names = export_model(model, dst, extent=tuple(args.extent) if args.extent else None,
+                             batch=args.batch if args.batch is not None else 1, embed_params=not args.no_embed)
+    print(f"-> {dst} ({Path(dst).stat().st_size / 1e6:.1f} MB; entries: {', '.join(names)})")
 
 
 def _run_many(args, model_path: str, dev) -> None:
@@ -353,8 +409,9 @@ def _run_many(args, model_path: str, dev) -> None:
         with _Timer("Loading model weights"):
             model = load(model_path, dev)
         print(f"Processing {args.input[0]} -> {args.output}")
-        dets = video_run(model, args.input[0], args.output, prompt=args.prompt, mask=mask, conf_thres=args.conf,
-                         iou_thres=args.iou, batch_size=args.batch)
+        with _profile(args):
+            dets = video_run(model, args.input[0], args.output, prompt=args.prompt, mask=mask,
+                             conf_thres=args.conf, iou_thres=args.iou, batch_size=args.batch)
         if dets is not None:
             dst = Path(args.output).with_suffix(".detections.json")
             dst.write_text(json.dumps(dets, indent=1))
@@ -372,8 +429,9 @@ def _run_many(args, model_path: str, dev) -> None:
     with _Timer("Loading model weights"):
         model = load(model_path, dev)
     print(f"Processing {len(inputs)} images -> {args.output}/")
-    outs = bulk_run(model, inputs, args.output, prompt=args.prompt, conf_thres=args.conf, iou_thres=args.iou,
-                    batch_size=args.batch)
+    with _profile(args):
+        outs = bulk_run(model, inputs, args.output, prompt=args.prompt, conf_thres=args.conf, iou_thres=args.iou,
+                        batch_size=args.batch)
     print(f"-> {len(outs)} files written to {args.output}/")
 
 
@@ -445,8 +503,9 @@ def _eval(args, parser) -> int:
                 with _Timer("Loading model weights"):
                     model = load_model(model_path, dev)
                 print(f"Predicting {len(inputs)} images" + (f" -> {pred_dir}/" if args.pred_out else ""))
-                bulk_run(model, inputs, pred_dir, prompt=args.prompt, conf_thres=args.conf, iou_thres=args.iou,
-                         batch_size=args.batch)
+                with _profile(args):
+                    bulk_run(model, inputs, pred_dir, prompt=args.prompt, conf_thres=args.conf,
+                             iou_thres=args.iou, batch_size=args.batch)
                 result = evaluate(task, pred_dir, args.gt, align_depth=not args.no_align)
         else:
             if not args.task:
@@ -536,6 +595,16 @@ def main(argv=None) -> int:
     parser.add_argument("--tile", type=int, default=-1, help="tile size for large images")
     parser.add_argument("--conf", type=float, default=0.25, help="yolo confidence threshold")
     parser.add_argument("--iou", type=float, default=0.45, help="yolo IoU threshold")
+    parser.add_argument("--dump", default=None, metavar="DIR",
+                        help="dump per-layer feature maps as .npy (yolov9t; reference --dump-keys)")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="record a torch.profiler trace (Chrome JSON) of the inference phase into DIR")
+    parser.add_argument("--extent", nargs=2, type=int, default=None, metavar=("W", "H"),
+                        help="export: input geometry for the extent-dynamic families (birefnet/depthany snap it to "
+                        "their grids, esrgan takes it verbatim); fixed-input families ignore it")
+    parser.add_argument("--no-embed", action="store_true",
+                        help="export: program-only bundle; call() then takes the param dict first instead of the "
+                        "weights riding along")
     from .core.gguf import REQUANTIZE_TYPES
 
     parser.add_argument("--type", "-t", default="q8_0", choices=list(REQUANTIZE_TYPES),
@@ -552,7 +621,8 @@ def main(argv=None) -> int:
                         help="serve: additionally load this ESRGAN gguf next to the -m model")
     parser.add_argument("--batch", type=int, default=None,
                         help="serve/bulk/video/eval: max batch size (default: each service's own - sam 6, "
-                        "esrgan/birefnet/depthany/migan 4, yolo 8); finetune/distill: training batch size (default 4)")
+                        "esrgan/birefnet/depthany/migan 4, yolo 8); finetune/distill: training batch size (default 4); "
+                        "export: the image entries' batch (default 1)")
     parser.add_argument("--warmup", action="store_true",
                         help="serve: run one batch of every service before listening")
     parser.add_argument("--extra-model", action="append", default=[], metavar="GGUF",
@@ -607,7 +677,7 @@ def main(argv=None) -> int:
                         help="distill/finetune (birefnet), with --lora: keep the frozen base block-quantized "
                         "(int8-resident) under the adapters")
     args = parser.parse_args(argv)
-    if args.input is None and args.command not in ("serve", "quantize", "info"):
+    if args.input is None and args.command not in ("serve", "quantize", "info", "export"):
         parser.error("-i/--input is required")
     if args.output is None and args.command in ("finetune", "distill"):
         args.output = {"finetune": "finetuned.gguf", "distill": "distilled.gguf"}[args.command]
@@ -648,6 +718,8 @@ def main(argv=None) -> int:
             _serve(args)
         elif args.command in ("finetune", "distill"):
             _train(args)
+        elif args.command == "export":
+            _export(args)
         else:
             _run_model(args)
     except VispError as e:

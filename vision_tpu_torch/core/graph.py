@@ -27,6 +27,7 @@ from functools import lru_cache, partial, wraps
 from typing import Callable, Hashable
 
 import torch
+from torch._guards import detect_fake_mode
 
 from .errors import raise_error
 
@@ -95,7 +96,9 @@ def device_cache(maxsize: int):
     the graph: an entry the cache evicts later is not freed under it. The
     function runs outside inference mode, so a constant first made by a
     served forward (under ``torch.inference_mode``) can later be saved for
-    the backward of a training forward."""
+    the backward of a training forward. Under a fake-tensor trace
+    (``torch.export``, ``utils/flops.py``) the function runs uncached, so no
+    fake tensor lands in the cache."""
 
     def wrap(fn):
         def build(*args):
@@ -106,6 +109,10 @@ def device_cache(maxsize: int):
 
         @wraps(fn)
         def get(*args):
+            if detect_fake_mode() is not None:
+                # a fake-tensor trace (torch.export, utils/flops.py): the
+                # result is built anew, a constant of the trace, never an entry
+                return build(*args)
             out = cached(*args)
             kept = getattr(_tls, "kept", None)
             if kept is not None:

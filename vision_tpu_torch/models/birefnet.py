@@ -284,6 +284,14 @@ def fixup_weights(file: GGUFFile, params: dict) -> dict:
     return out
 
 
+def deform_layouts(params: dict, dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    """The deformable convs' weights of ``params`` as the fused kernel reads
+    them for x of type ``dtype`` (``weight_layout``, from the dequantized
+    weight where it is int8-resident), under ``<weight name>_layout``."""
+    return {f"{k}_layout": weight_layout(v.dequant() if is_quant(v) else v, dtype)
+            for k, v in params.items() if _DEFORM_WEIGHT.search(k)}
+
+
 class BirefnetModel:
     """High-level handle (reference birefnet_model, vision.cpp:97-135).
 
@@ -300,8 +308,7 @@ class BirefnetModel:
         # the deformable convs' weights as the fused kernel reads them, made
         # here once instead of at each of a forward's 20 calls (from the
         # dequantized weight where it is int8-resident)
-        self.deform_layouts = {f"{k}_layout": weight_layout(v.dequant() if is_quant(v) else v, self.dtype)
-                               for k, v in self.params.items() if _DEFORM_WEIGHT.search(k)}
+        self.deform_layouts = deform_layouts(self.params, self.dtype)
         self.graphs = ForwardGraphs(self._forward_u8, device.torch_device)
 
     def forward_u8(self, x_u8: torch.Tensor) -> torch.Tensor:

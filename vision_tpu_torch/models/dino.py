@@ -18,6 +18,7 @@ import torch
 from ..core.gguf import GGUFFile
 from ..core.params import Params
 from ..ops import attention, gelu, layer_norm, linear, patch_embed, resize_nhwc
+from ..ops.debug import capture
 
 __all__ = ["DinoParams", "dino_detect_params", "dino_get_intermediate_layers", "prepare_tokens"]
 
@@ -126,5 +127,7 @@ def dino_get_intermediate_layers(p: Params, x: torch.Tensor, layers, dp: DinoPar
     for i in range(dp.n_layers):
         tokens = layer(enc[i], tokens, dp, flash)
         if i in want:
-            outputs.append(layer_norm(p["layernorm"], tokens, 1e-6))
+            out = layer_norm(p["layernorm"], tokens, 1e-6)
+            capture(f"dino_layer_{i}", out)
+            outputs.append(out)
     return outputs

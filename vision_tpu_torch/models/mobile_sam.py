@@ -552,11 +552,22 @@ class SamModel:
     def decode(self, embeds: torch.Tensor, coords: np.ndarray, kind: str) -> SamPrediction:
         """Prompt encode + mask decode. embeds: (1 or P, 64, 64, 256) on the
         device; coords: (P, 2, 2) processed prompts; kind: "point" or "box"."""
+        c = torch.from_numpy(np.asarray(coords, np.float32)).to(self.device.torch_device)
+        return (self._dec_point if kind == "point" else self._dec_box)(embeds, c)
+
+    def _dec_point(self, embeds: torch.Tensor, coords: torch.Tensor) -> SamPrediction:
+        """:meth:`decode` of point prompts with the coords a (P, 2, 2) f32
+        tensor on the device (the exported form, export.py)."""
         with torch.inference_mode():
             pp = Params(self.params)
-            c = torch.from_numpy(np.asarray(coords, np.float32)).to(self.device.torch_device)
-            embed = embed_points_batch if kind == "point" else embed_box_batch
-            return sam_predict_mask(pp, embeds, embed(pp["prompt_encoder"], c))
+            return sam_predict_mask(pp, embeds, embed_points_batch(pp["prompt_encoder"], coords))
+
+    def _dec_box(self, embeds: torch.Tensor, coords: torch.Tensor) -> SamPrediction:
+        """:meth:`decode` of box prompts with the coords a (P, 2, 2) f32
+        tensor on the device (the exported form, export.py)."""
+        with torch.inference_mode():
+            pp = Params(self.params)
+            return sam_predict_mask(pp, embeds, embed_box_batch(pp["prompt_encoder"], coords))
 
     def encode(self, image: Image) -> None:
         """Run the encoder; the embedding stays on the device (reference

@@ -40,6 +40,7 @@ import torch
 
 from ..core.device import BuildFlag, Device, backend_init
 from ..core.gguf import GGUFFile, model_load
+from ..core.graph import device_cache
 from ..core.params import Params
 from ..core.weights import cast_float_params, load_weights, params_from_numpy
 from ..image import Image, ImageFormat, image_scale, image_u8_to_f32, preprocess_scale_method
@@ -265,7 +266,7 @@ def _rope_tables_pos(px: np.ndarray, py: np.ndarray, head_dim: int):
     )
 
 
-@lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _rope_tensors(n_pos: int, n_rows: int, head_dim: int, scale: float, device: torch.device,
                   dtype: torch.dtype) -> tuple[torch.Tensor, ...]:
     """_rope_tables on ``device`` in ``dtype`` (cast from the f32 tables, as
@@ -411,7 +412,7 @@ def sine_position_embedding(width: int, height: int, n_pos_feats: int, normalize
     return out
 
 
-@lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _sine_position_tensor(width: int, height: int, n_pos_feats: int, device: torch.device) -> torch.Tensor:
     """sine_position_embedding as an f32 tensor on ``device``, uploaded once
     per extent (85 MB at the x4 level of a 1008 px image)."""
@@ -492,19 +493,28 @@ class Sam3Model:
         device."""
         toks = self.tokenizer.tokenize(text, self.max_tokens)
         dev = self.device.torch_device
+        ids = torch.from_numpy(toks.token_ids[None]).to(dev)
+        mask = torch.from_numpy(toks.attention_mask).to(dev)
+        return self._encode_text(ids, mask)
+
+    def _encode_text(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """:meth:`encode_text` of tokenized input: ``ids`` (1, t) int32 and
+        ``mask`` (t, t) f32 on the device (the exported form, export.py)."""
         with torch.inference_mode():
-            ids = torch.from_numpy(toks.token_ids[None]).to(dev)
-            mask = torch.from_numpy(toks.attention_mask).to(dev)
             return encode_text(Params(self.params)["det"], ids, mask, n_layers=self.n_text_layers)
 
     def encode_vision(self, image: Image) -> tuple[torch.Tensor, ...]:
         """One image at any extent -> the four FPN levels, (1, 4s, 4s, 256)
         down to (1, s/2, s/2, 256) for s = image_size / patch_size."""
         x = sam3_process_input(image, self.vp.image_size)
+        x = torch.from_numpy(x[None]).to(self.device.torch_device, self.dtype)
+        return self._encode_vision(x)
+
+    def _encode_vision(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """:meth:`encode_vision` of processed images: ``x`` (N, s, s, 3) in
+        the model's type on the device (the exported form, export.py)."""
         with torch.inference_mode():
-            x = torch.from_numpy(x[None]).to(self.device.torch_device, self.dtype)
-            out = encode_vision(Params(self.params)["det.ve"], x, self.vp, flash=self.flash)
-            return tuple(out.fpn_hidden_states)
+            return tuple(encode_vision(Params(self.params)["det.ve"], x, self.vp, flash=self.flash).fpn_hidden_states)
 
 
 def sam3_load_model(filepath: str, device: Device | None = None) -> Sam3Model:

@@ -46,6 +46,7 @@ from ..core.params import Params
 from ..core.weights import cast_float_params, load_weights
 from ..image import Image, ImageFormat, image_scale, preprocess_scale_method
 from ..ops import avg_pool_2d, batch_norm_2d, conv_2d, conv_3x3_fused, max_pool_2d, normalize_u8, resize_nhwc, silu
+from ..ops.debug import capture
 
 __all__ = [
     "Yolov9tParams",
@@ -244,6 +245,8 @@ def yolov9t_backbone(p: Params, x: torch.Tensor, n_csp: int = 3) -> dict[int, to
     f[19] = aconv(m[19], f[18])
     f[20] = torch.cat([f[19], f[9]], -1)
     f[21] = rep_ncspelan4(m[21], f[20], n_csp)
+    for i, v in f.items():
+        capture(f"model.{i}", v)
     return f
 
 

@@ -1,8 +1,17 @@
-"""The host-ops library: the port's copy of the JAX package's native box
-blur and erosion (``host_ops.cpp`` here, from vision_tpu/native/host_ops.cpp),
-bound with ``ctypes``.
+"""The native libraries of the port, each built with ``g++`` at first use:
 
-``host_ops.cpp`` is compiled with ``g++`` at the first call into
+* the host-ops library: the port's copy of the JAX package's native box
+  blur and erosion (``host_ops.cpp`` here, from
+  vision_tpu/native/host_ops.cpp), bound with ``ctypes``;
+* the model-level C ABI (``c_api.cpp``, the port's copy of
+  vision_tpu/native/c_api.cpp, importing ``vision_tpu_torch.capi``):
+  :func:`build_capi` returns its path, for a C program to link or a
+  ``ctypes`` caller to load. It compiles against this interpreter's
+  ``Python.h`` (``sysconfig`` include dir) and links its ``libpython``
+  (``LIBDIR``, ``LDVERSION``), as vision_tpu/native/Makefile does; a missing
+  header or library raises.
+
+Each source is compiled with ``g++`` at the first call into
 ``build/vision_tpu_torch/`` beside the package (gitignored), under a name
 that carries a hash of the source and flags. The compiler writes to a name
 of its own process and the file is renamed into place, so processes that
@@ -18,14 +27,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 from pathlib import Path
 
 import numpy as np
 
-__all__ = ["box_blur", "erosion_f32", "library_path", "load_library"]
+__all__ = ["box_blur", "build_capi", "capi_library_path", "erosion_f32", "library_path", "load_library"]
 
 SOURCE = Path(__file__).resolve().parent / "host_ops.cpp"
+CAPI_SOURCE = Path(__file__).resolve().parent / "c_api.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vision_tpu_torch"
 CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
 
@@ -38,16 +49,44 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvtt_host-{h.hexdigest()[:16]}.so"
 
 
-def _build(path: Path) -> None:
+def _build(path: Path, source: Path = SOURCE, extra: tuple = ()) -> None:
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("vision_tpu_torch: g++ not found; the host-ops library cannot be built")
+        raise RuntimeError(f"vision_tpu_torch: g++ not found; {source.name} cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    res = subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), "-o", tmp], capture_output=True, text=True)
+    res = subprocess.run([cxx, *CXX_FLAGS, str(source), "-o", tmp, *extra], capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"vision_tpu_torch: host-ops build failed:\n{res.stdout}{res.stderr}")
+        raise RuntimeError(f"vision_tpu_torch: {source.name} build failed:\n{res.stdout}{res.stderr}")
     os.replace(tmp, path)
+
+
+def _python_flags() -> tuple[str, ...]:
+    """The include and link flags of this interpreter's C API; raises when
+    its ``Python.h`` or ``libpython`` is missing."""
+    include = sysconfig.get_paths()["include"]
+    libdir, ldversion = sysconfig.get_config_var("LIBDIR"), sysconfig.get_config_var("LDVERSION")
+    if not (Path(include) / "Python.h").is_file():
+        raise RuntimeError(f"vision_tpu_torch: Python.h not found in {include}; the C ABI cannot be built")
+    if not libdir or not any(Path(libdir).glob(f"libpython{ldversion}.*")):
+        raise RuntimeError(f"vision_tpu_torch: libpython{ldversion} not found in {libdir}; the C ABI cannot be "
+                           f"built")
+    return (f"-I{include}", f"-L{libdir}", f"-Wl,-rpath,{libdir}", f"-lpython{ldversion}")
+
+
+def capi_library_path() -> Path:
+    h = hashlib.sha256(" ".join((*CXX_FLAGS, *_python_flags())).encode() + CAPI_SOURCE.read_bytes())
+    return BUILD_DIR / f"libvtt_capi-{h.hexdigest()[:16]}.so"
+
+
+def build_capi() -> Path:
+    """The C ABI's shared library (``visp_*`` symbols), built on first use;
+    returns its path."""
+    with _lock:
+        path = capi_library_path()
+        if not path.exists():
+            _build(path, CAPI_SOURCE, _python_flags())
+        return path
 
 
 def load_library() -> ctypes.CDLL:

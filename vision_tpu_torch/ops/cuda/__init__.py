@@ -3,7 +3,9 @@ wrappers, one module each, each with module-level launch counts
 (``launches``; the window kernel's ``masked_launches`` too) that count the
 kernel's launches on the card, CUDA-graph replays included (see
 :func:`count_launch`). Importing builds nothing: the kernel library is
-compiled with nvcc at its first launch (cuda/build.py)."""
+compiled with nvcc at its first launch (cuda/build.py). Each wrapper calls
+its kernel's ``vtt`` operator (library.py, imported here so that importing
+any wrapper registers them all)."""
 
 from __future__ import annotations
 
@@ -47,3 +49,6 @@ def capture_tally():
         yield tally
     finally:
         _capture.tally = None
+
+
+from . import library  # noqa: E402,F401  (registers the vtt operators; the wrappers import count_launch above)

@@ -29,8 +29,11 @@ through ops/nn.py ``conv_3x3_fused``:
 The bf16 kernel (csrc/conv3x3.cu) is a persistent implicit GEMM on wgmma:
 pixel tiles 16 wide, the halo tile by TMA into an mbarrier ring that a
 producer warp fills, the weight staged in shared memory once per block;
-f32 (the CPU-parity type) runs as FMA loops. A CPU tensor goes to :func:`conv3x3_plain`; a CUDA tensor goes to
-the kernel or raises. ``launches`` counts kernel launches.
+f32 (the CPU-parity type) runs as FMA loops. The wrapper calls the operator
+``vtt::conv3x3`` (``vtt::conv3x3_out`` with ``out``; ops/cuda/library.py): on
+CPU tensors its implementation is :func:`conv3x3_plain`, on CUDA tensors
+:func:`launch`, which runs the kernel or raises. ``launches`` counts kernel
+launches.
 
 Under autograd (grad mode on and an input that requires grad) the wrapper
 goes through :class:`Conv3x3Fn`: its forward is the same route (the kernel,
@@ -196,15 +199,25 @@ def conv3x3(x, w, b=None, *, scale=None, shift=None, silu=False, slope=None, r1=
     leaky ReLU's slope or None, silu: SiLU as the activation (not with a
     slope), r1 and r2: (N, H, W, Cout) or None, out: (N, H, W, Cout) or None;
     x, r1, r2 and out may be channel views of wider buffers. Returns (N, H,
-    W, Cout) in x's type: ``out`` when given, written in place."""
+    W, Cout) in x's type: ``out`` when given, written in place. Runs the
+    operator ``vtt::conv3x3``, or ``vtt::conv3x3_out`` with ``out``
+    (ops/cuda/library.py)."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, b, scale, shift, r1, r2)):
         if out is not None:
             raise ValueError("conv3x3: out cannot be written under autograd (an input requires grad)")
         return Conv3x3Fn.apply(x, w, b, scale, shift, r1, r2, silu, slope, s1, s2)
-    epilogue = dict(scale=scale, shift=shift, silu=silu, slope=slope, r1=r1, s1=s1, r2=r2, s2=s2, out=out)
-    if x.device.type == "cpu" and w.device.type == "cpu":
-        return conv3x3_plain(x, w, b, **epilogue)
-    _check(x, w, b, **epilogue)
+    args = (x, w, b, scale, shift, silu, None if slope is None else float(slope), r1, float(s1), r2, float(s2))
+    if out is None:
+        return torch.ops.vtt.conv3x3(*args)
+    torch.ops.vtt.conv3x3_out(*args, out)
+    return out
+
+
+def launch(x, w, b, scale, shift, silu, slope, r1, s1, r2, s2, out=None) -> torch.Tensor:
+    """The kernel on CUDA tensors (the CUDA implementation of both operators):
+    check, launch on the current stream into ``out`` or a fresh tensor,
+    count; returns the output."""
+    _check(x, w, b, scale=scale, shift=shift, silu=silu, slope=slope, r1=r1, s1=s1, r2=r2, s2=s2, out=out)
     from .build import load_library
 
     lib = load_library()

@@ -32,7 +32,9 @@ form's f32 product does. f32 runs as FMA loops. Its consumer on the port's path 
 BiRefNet's decoder (models/birefnet.py through ops/deform.py): 20 launches
 per forward, each with its branch's bias, BatchNorm and ReLU.
 
-A CPU tensor goes to :func:`deform_conv_plain`; a CUDA tensor goes to the
+The wrapper calls the operator ``vtt::deform_conv`` (``vtt::deform_conv_out``
+with ``out``; ops/cuda/library.py): on CPU tensors its implementation is
+:func:`deform_conv_plain`, on CUDA tensors :func:`launch`, which runs the
 kernel or raises. ``launches`` counts kernel launches.
 
 Under autograd (grad mode on and an input that requires grad) the wrapper
@@ -184,17 +186,28 @@ def deform_conv(x, weight, offset, mask, kh: int, kw: int, stride: int = 1, pad:
     ``bound``: None for the exact form, else the offsets' clamp; ``layout``:
     :func:`weight_layout` of the weight for x's type, or None to lay it out
     at this call (the plain version reads the weight). Returns (B, Ho, Wo,
-    Cout) in x's type: ``out`` when given, written in place."""
+    Cout) in x's type: ``out`` when given, written in place. Runs the
+    operator ``vtt::deform_conv``, or ``vtt::deform_conv_out`` with ``out``
+    (ops/cuda/library.py)."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in (x, weight, offset, mask, bias, scale, shift)):
         if out is not None or layout is not None:
             raise ValueError("deform_conv: out and layout cannot be given under autograd (an input requires grad): "
                              "the output is a fresh tensor and the weight is laid out at the call")
         return DeformConvFn.apply(x, weight, offset, mask, bias, scale, shift, kh, kw, stride, pad, bound, relu)
-    tensors = [t for t in (x, weight, offset, mask, bias, scale, shift, out, layout) if t is not None]
-    if all(t.device.type == "cpu" for t in tensors):
-        return deform_conv_plain(x, weight, offset, mask, kh, kw, stride, pad, bound, bias=bias, scale=scale,
-                                 shift=shift, relu=relu, out=out)
+    args = (x, weight, offset, mask, int(kh), int(kw), int(stride), int(pad), None if bound is None else float(bound),
+            bias, scale, shift, bool(relu), layout)
+    if out is None:
+        return torch.ops.vtt.deform_conv(*args)
+    torch.ops.vtt.deform_conv_out(*args, out)
+    return out
+
+
+def launch(x, weight, offset, mask, kh, kw, stride, pad, bound, bias, scale, shift, relu, layout,
+           out=None) -> torch.Tensor:
+    """The kernel on CUDA tensors (the CUDA implementation of both
+    operators): check, launch on the current stream into ``out`` or a fresh
+    tensor, count; returns the output."""
     # any other float type is read as f32
     offset = offset if offset.dtype in _DTYPES else offset.float()
     if mask is not None and mask.dtype not in _DTYPES:

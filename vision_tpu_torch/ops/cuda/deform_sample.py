@@ -27,9 +27,11 @@ BiRefNet's deformable convs take the fused kernel (ops/cuda/deform_conv.py),
 which never writes the columns; its plain version gives that kernel's plain
 version its f32 columns.
 
-A CPU tensor goes to :func:`deform_sample_plain` (the 4-corner gather of
-the JAX package's ``_gather_pixels``, vision_tpu/ops/deform.py:30-42); a
-CUDA tensor goes to the kernel or raises. ``launches`` counts kernel
+The wrapper calls the operator ``vtt::deform_sample`` (ops/cuda/library.py):
+on CPU tensors its implementation is :func:`deform_sample_plain` (the
+4-corner gather of the JAX package's ``_gather_pixels``,
+vision_tpu/ops/deform.py:30-42), on CUDA tensors :func:`launch`, which runs
+the kernel or raises. ``launches`` counts kernel
 launches.
 """
 
@@ -125,9 +127,15 @@ def _check(x, offset, mask, kh: int, kw: int, stride: int, pad: int) -> None:
 
 def deform_sample(x, offset, mask, kh: int, kw: int, stride: int = 1, pad: int = 0, bound=None) -> torch.Tensor:
     """The modulated deformable-conv columns (B, Ho, Wo, kh * kw, Cin) in x's
-    type; ``bound``: None for the exact form, else the offsets' clamp."""
-    if all(t.device.type == "cpu" for t in (x, offset, mask) if t is not None):
-        return deform_sample_plain(x, offset, mask, kh, kw, stride, pad, bound)
+    type; ``bound``: None for the exact form, else the offsets' clamp.
+    Runs the operator ``vtt::deform_sample`` (ops/cuda/library.py)."""
+    return torch.ops.vtt.deform_sample(x, offset, mask, int(kh), int(kw), int(stride), int(pad),
+                                       None if bound is None else float(bound))
+
+
+def launch(x, offset, mask, kh: int, kw: int, stride: int, pad: int, bound) -> torch.Tensor:
+    """The kernel on CUDA tensors (the operator's CUDA implementation):
+    check, launch on the current stream, count."""
     # any other float type is read as f32
     offset = offset if offset.dtype in _DTYPES else offset.float()
     if mask is not None and mask.dtype not in _DTYPES:

@@ -13,8 +13,9 @@ kernel behind it. The plain form takes five passes over f32 intermediates
 bound by bytes: 1.125 bytes an element read (1.25 with minimums), 2 (bf16)
 or 4 (f32) written.
 
-A CPU tensor goes to :func:`dequant_plain`; a CUDA tensor goes to the
-kernel or raises. The result is always a fresh contiguous tensor (the conv
+The wrapper calls the operator ``vtt::dequant`` (ops/cuda/library.py): on
+CPU tensors its implementation is :func:`dequant_plain`, on CUDA tensors
+:func:`launch`, which runs the kernel or raises. The result is always a fresh contiguous tensor (the conv
 and deformable-conv kernels take only contiguous weights). ``launches``
 counts kernel launches.
 """
@@ -104,9 +105,15 @@ def dequant(q: torch.Tensor, scale: torch.Tensor, minv: torch.Tensor | None, fil
     None, ``file_shape`` the file's C-order shape (at most 4 dims),
     ``permute`` the transpose to the canonical layout or None; returns a
     fresh contiguous tensor of the canonical shape in ``dtype`` (float32 or
-    bfloat16 on the card), on q's device."""
-    if all(t is None or t.device.type == "cpu" for t in (q, scale, minv)):
-        return dequant_plain(q, scale, minv, file_shape, permute, dtype)
+    bfloat16 on the card), on q's device, through the operator
+    ``vtt::dequant`` (ops/cuda/library.py)."""
+    return torch.ops.vtt.dequant(q, scale, minv, [int(d) for d in file_shape],
+                                 None if permute is None else [int(d) for d in permute], dtype)
+
+
+def launch(q, scale, minv, file_shape, permute, dtype) -> torch.Tensor:
+    """The kernel on CUDA tensors (the operator's CUDA implementation):
+    check, launch on the current stream, count."""
     n = _check(q, scale, minv, file_shape, permute, dtype)
     from .build import load_library
 

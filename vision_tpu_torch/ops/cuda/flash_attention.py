@@ -22,8 +22,10 @@ head dim 80 each tile is five 16-column boxes at 32-byte swizzle: one k16
 step of Q K^T a box, and P V one wgmma of N 80. f32 (the CPU-parity type)
 runs as FMA loops.
 
-A CPU tensor goes to :func:`flash_attention_plain`; a CUDA tensor goes to
-the kernel or raises. ``launches`` counts kernel launches.
+The wrapper calls the operator ``vtt::flash_attention`` (ops/cuda/library.py):
+on CPU tensors its implementation is :func:`flash_attention_plain`, on CUDA
+tensors :func:`launch`, which runs the kernel or raises. ``launches`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -81,7 +83,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention(q, k, v, scale: float | None = None, mask=None) -> torch.Tensor:
     """Fused softmax(q k^T * scale) v. q: (B, H, Tq, D), k, v: (B, H, Tk, D);
-    returns (B, H, Tq, D) in q's dtype.
+    returns (B, H, Tq, D) in q's dtype, through the operator
+    ``vtt::flash_attention`` (ops/cuda/library.py).
 
     The kernel supports NO mask (its consumers are mask-free global
     attentions; attention_core routes masked shapes elsewhere), so a mask
@@ -93,8 +96,12 @@ def flash_attention(q, k, v, scale: float | None = None, mask=None) -> torch.Ten
         )
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale)
+    return torch.ops.vtt.flash_attention(q, k, v, float(scale))
+
+
+def launch(q, k, v, scale: float) -> torch.Tensor:
+    """The kernel on CUDA tensors (the operator's CUDA implementation):
+    check, launch on the current stream, count."""
     _check(q, k, v)
     from .build import load_library
 

@@ -41,7 +41,9 @@ covering every (window, head) once and filling two waves of the card. It
 replaces the one-block-per-(window, head) kernel that read the bias and mask
 per logit.
 
-A CPU tensor goes to :func:`window_attention_plain`; a CUDA tensor goes to
+The wrapper calls the operator ``vtt::window_attention``
+(ops/cuda/library.py): on CPU tensors its implementation is
+:func:`window_attention_plain`, on CUDA tensors :func:`launch`, which runs
 the kernel or raises. ``launches`` counts kernel launches, ``masked_launches``
 those of them that carried a ``window_mask``.
 
@@ -241,11 +243,16 @@ def window_attention(q, k, v, bias, n_heads: int, scale: float, window_mask=None
     """Windowed attention, q, k, v: (NW, T, C); bias: None, (1, H, T, T) or
     (H, T, T), read in its own type and added in f32; window_mask: None or
     (nW, T, T) float32, window w taking mask w % nW, added in f32. Returns
-    (NW, T, C) in q's type."""
+    (NW, T, C) in q's type, through the operator ``vtt::window_attention``
+    (ops/cuda/library.py)."""
     if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in (q, k, v, bias)):
         return WindowAttentionFn.apply(q, k, v, bias, window_mask, n_heads, scale)
-    if all(x.device.type == "cpu" for x in (q, k, v, bias, window_mask) if x is not None):
-        return window_attention_plain(q, k, v, bias, n_heads, scale, window_mask)
+    return torch.ops.vtt.window_attention(q, k, v, bias, int(n_heads), float(scale), window_mask)
+
+
+def launch(q, k, v, bias, n_heads: int, scale: float, window_mask=None) -> torch.Tensor:
+    """The kernel on CUDA tensors (the operator's CUDA implementation):
+    check, launch on the current stream, count."""
     if bias is not None:
         bias = _shared_bias(bias, n_heads, q.shape[1])
     if window_mask is not None:

@@ -166,10 +166,15 @@ def resize_nhwc(
     wy = _device_weights(h, h_out, method, align_corners, x.device)
     wx = _device_weights(w, w_out, method, align_corners, x.device)
     xf = x.float()
-    # contract H: (h_out,h) x (n,h,w,c) -> (n,h_out,w,c)
-    out = torch.einsum("oh,nhwc->nowc", wy, xf)
-    # contract W: (o,w) x (n,h_out,w,c) -> (n,h_out,o,c)
-    out = torch.einsum("ow,nhwc->nhoc", wx, out)
+    # contract H: (h_out,h) x (n,h,w,c) -> (n,h_out,w,c); then W: (o,w) x
+    # (n,h_out,w,c) -> (n,h_out,o,c). einsum makes a length-1 contraction a
+    # broadcast product, which utils/flops.py cannot count as the JAX
+    # package's einsum counts it, so that one is a matmul (the same products)
+    if h > 1:
+        out = torch.einsum("oh,nhwc->nowc", wy, xf)
+    else:
+        out = torch.matmul(wy, xf.reshape(n, 1, w * c)).reshape(n, h_out, w, c)
+    out = torch.einsum("ow,nhwc->nhoc", wx, out) if w > 1 else torch.matmul(wx, out)
     out = out.to(dt)
     return out[0] if squeeze else out
 

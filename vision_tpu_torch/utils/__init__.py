@@ -1,5 +1,8 @@
-"""Utilities of the port: the evaluation metrics (metrics.py)."""
+"""Utilities of the port: timing and tracing (profiling.py), golden-tensor
+dumps (dump.py), FLOP counting (flops.py) and the evaluation metrics
+(metrics.py)."""
 
+from .dump import compare_dumps, dump_captures
 from .metrics import (
     average_precision,
     box_iou_matrix,
@@ -10,8 +13,13 @@ from .metrics import (
     psnr,
     ssim,
 )
+from .profiling import Timer, trace
 
 __all__ = [
+    "Timer",
+    "trace",
+    "dump_captures",
+    "compare_dumps",
     "average_precision",
     "box_iou_matrix",
     "depth_metrics",
