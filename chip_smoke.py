@@ -319,6 +319,29 @@ Phases, each raising on failure:
      the CPU's (--dump's function in process) by compare_dumps within
      E2E_REL_RMS.
 
+ 43. meshes at one NCCL rank (parallel/): make_mesh(1) makes a world of one
+     (NCCL for the card's tensors; one all_reduce on the card checks it);
+     the six families of phase 27 are loaded through their loaders with
+     mesh= and served through their servers (MESH_SERVED: one full batch
+     each, the bucket captured first), each result bit-equal to the same
+     weights' unmeshed model's and the launches of a served batch
+     (MESH_KERNELS) equal to the unmeshed ones; SAM3's meshed model (phase
+     19's weights) encodes an image (4 flash launches) and a prompt,
+     bit-equal; the mesh's own ms a call (meshed against unmeshed
+     forward_u8 at the server's batch); then the CLI's ``depthany -i DIR
+     --dp 1`` in process (files byte-equal to bulk_run of the unmeshed
+     model) and ``serve --dp 1`` as a subprocess (one request, SIGINT,
+     exit 0);
+ 44. the flash, window (masked and unmasked) and deformable conv kernels
+     against their plain versions at the shapes a shard gives them
+     (MESH_FLASH: Depth-Anything's and SAM3's heads at tp 2 and 4;
+     MESH_WINDOW: TinyViT's and SWIN-L's at tp 2; BiRefNet's 20 deformable
+     convs at batch 2, a dp 2 shard), bf16, one launch each, timed by the
+     card's own time beside the plain version;
+ 45. dryrun_multichip over 2 and 4 cards, each in a subprocess, where the
+     machine has them; otherwise a line says which world sizes did not run.
+     The world sizes that ran are printed.
+
 The line before the last is a JSON object describing every kernel of the
 paths (its vtt ops, its launches a training step and in each exported
 call); the last line is {"ok": true, "device": {...}}.
@@ -427,8 +450,13 @@ MIGAN_EXTENTS = ((512, 512),) * 4 + ((1024, 768),) * 2 + ((640, 480),) * 2
 MIGAN_F32_REL_RMS = 1e-4  # f32 card forward (TF32 off) vs f32 CPU: summation order only
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """A phase's heading, with the seconds since the script started (the
+    run's time limit is the budget the phases share)."""
+    print(f"== {name} [at {time.perf_counter() - _START:.1f} s]", flush=True)
 
 
 def zero_counts() -> None:
@@ -5109,6 +5137,372 @@ def tooling_phases(torch, card: str, fd: dict, tmp: str, sam3_models: tuple) -> 
     return {"ops": ops, "export": export, "capi": capi_row, "flops": flops}
 
 
+# meshes (phases 43-45): the serving families at one NCCL rank, the kernels
+# at the shapes a tensor-parallel shard gives them, and more ranks where the
+# machine has the cards
+MESH_SERVED = {  # family -> (server, batch, request extents (w, h)), each request in one bucket
+    "depthany": ("ImageServer", 4, ((518, 518),) * 4),
+    "birefnet": ("ImageServer", 4, ((1024, 1024),) * 4),
+    "esrgan": ("EsrganServer", 4, ((256, 256),) * 4),
+    "migan": ("ImageServer", MIGAN_BATCH, ((MIGAN_RES, MIGAN_RES),) * MIGAN_BATCH),
+    "yolov9t": ("YoloServer", YOLO_BATCH, ((640, 480),) * YOLO_BATCH),
+    "sam": ("SamServer", 6, ((1024, 1024),) * 6),
+}
+MESH_KERNELS = dict(GRAPH_KERNELS, sam={"window": 10})  # launches a served batch
+# phase 44: each attention output at a shard shape (flash and window, bf16)
+# against its plain version's f32, relative RMS, beside BF16_MAX_ABS: the
+# max-abs bound alone is ~0.7x a typical output at T 1370 and ~0.2x at the
+# windows' T 144, too loose to see a dropped key tile; the D-80 limit, as
+# bf16 rounding of p and o gives ~2-3e-3 at every one of these shapes
+SHARD_BF16_REL_RMS = FLASH_D80_BF16_REL_RMS
+# (label, B*H, T, D): Depth-Anything's 6 heads at tp 2 (batch 4), SAM3's 16 at tp 2 and 4
+MESH_FLASH = (("Depth-Anything tp 2: 3 of 6 heads, batch 4", 12, 1370, 64),
+              ("SAM3 tp 2: 8 of 16 heads", 8, 5184, 80), ("SAM3 tp 4: 4 of 16 heads", 4, 5184, 80))
+# (label, windows, T, heads, side and window of a SWIN mask or None): TinyViT's stages 1 and 3 at tp 2 (stage 2's
+# 5 heads stay whole), SWIN-L's four stages at tp 2, shifted (masked) and not, at batch 2 (a dp 2 shard of 4)
+MESH_WINDOW = tuple(
+    [(f"TinyViT stage {i + 1} tp 2: {h // 2} of {h} heads, batch 3", nw * 3, t, h // 2, None)
+     for i, (nw, t, h) in enumerate(SAM_STAGES) if h % 2 == 0]
+    + [(f"SWIN-L stage {i + 1} tp 2{m}: {h // 2} of {h} heads, batch 2", None, 144, h // 2, (side, masked))
+       for i, (side, h) in enumerate(SWIN_L_STAGES) for masked, m in ((True, " masked"), (False, ""))])
+MESH_DP_CLI_IMAGES = 4
+
+
+def mesh_serve(torch, family: str, model, reqs: list, counts):
+    """``reqs`` through ``family``'s server on ``model`` (one group; its
+    bucket warmed first): the results as arrays and the hand-written
+    launches (``counts()``) of the served batch."""
+    from vision_tpu_torch import serve
+
+    kind, batch, _ = MESH_SERVED[family]
+    with getattr(serve, kind)(model, batch_size=batch, max_delay_ms=10_000) as srv:
+        def run():
+            if family == "sam":
+                futs = [srv.submit(img, point=(img.width // 3, img.height // 2)) for img in reqs]
+            else:
+                futs = [srv.submit(r) for r in reqs]
+            return [f.result(timeout=600) for f in futs]
+
+        run()  # the bucket's graph captured (its warm-up launches the kernels too)
+        torch.cuda.synchronize()
+        zero_counts()
+        out = run()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in counts().items() if v}
+    if family == "yolov9t":
+        arrays = [np.array([[d.x1, d.y1, d.x2, d.y2, d.confidence, d.class_id] for d in dets], np.float64)
+                  for dets in out]
+    else:
+        arrays = [r.data for r in out]
+    return arrays, launches
+
+
+def mesh_requests(rng, family: str) -> list:
+    from vision_tpu_torch.image import Image, ImageFormat
+
+    _, _, extents = MESH_SERVED[family]
+    if family == "migan":
+        return [(Image(px[..., :3].copy(), ImageFormat.rgb_u8), Image(px[..., 3:].copy(), ImageFormat.alpha_u8))
+                for px in front_images(rng, extents, channels=4)]
+    return [Image(px, ImageFormat.rgb_u8) for px in front_images(rng, extents)]
+
+
+def mesh_one_rank(torch, card: str, fd: dict, sam3_models: tuple, tmp: str) -> dict:
+    """Phase 43: a world of one NCCL rank, joined through init_distributed
+    (a file store) as every rank of an N-card world joins, then
+    make_mesh(1); each family
+    loaded through its loader with ``mesh=`` and served through its server,
+    against the same weights without a mesh: every result bit-equal, the
+    same launches, those a served batch makes; SAM3's encoders on the
+    meshed model; then ``depthany -i DIR --dp 1`` and ``serve --dp 1``
+    (mesh_dp1_cli)."""
+    import torch.distributed as dist
+
+    from vision_tpu_torch.api import family_loader, model_detect_family
+    from vision_tpu_torch.core.device import backend_init
+    from vision_tpu_torch.models.sam3 import Sam3Model
+    from vision_tpu_torch.ops.cuda import dequant, window_attention
+    from vision_tpu_torch.parallel import init_distributed, make_mesh
+    from vision_tpu_torch.parallel.sharding import mesh_shape
+
+    def counts():
+        return {**fd["counts"](), "window masked": window_attention.masked_launches, "dequant": dequant.launches}
+
+    dev = backend_init()
+    if dist.is_initialized():
+        raise AssertionError("phase 43: a process group exists before init_distributed")
+    init_distributed("file://" + os.path.join(tmp, "mesh_store"), 1, 0)
+    mesh = make_mesh(1)
+    group = mesh.get_group("tp")
+    probe = torch.arange(4.0, device="cuda")
+    dist.all_reduce(probe, group=group)  # NCCL's own collective on the card, a world of one
+    torch.cuda.synchronize()
+    if not torch.equal(probe, torch.arange(4.0, device="cuda")):
+        raise AssertionError(f"one-rank all_reduce changed its input: {probe}")
+    print(f"mesh world size {dist.get_world_size()} (init_distributed, a file store): {mesh_shape(mesh)}, backend "
+          f"{dist.get_backend(group)}, TORCH_NCCL_BLOCKING_WAIT {os.environ.get('TORCH_NCCL_BLOCKING_WAIT')} [{card}]",
+          flush=True)
+    rng = np.random.default_rng(43)
+    rows = {}
+    for family in MESH_SERVED:
+        t0 = time.perf_counter()
+        meshed = family_loader(model_detect_family(fd["paths"][family]))(fd["paths"][family], dev, mesh=mesh)
+        load_s = time.perf_counter() - t0
+        plain = type(meshed)(meshed.params, meshed.p, dev)  # the same weights, no mesh
+        reqs = mesh_requests(rng, family)
+        t1 = time.perf_counter()
+        got, got_n = mesh_serve(torch, family, meshed, reqs, counts)
+        mesh_s = time.perf_counter() - t1
+        want, want_n = mesh_serve(torch, family, plain, reqs, counts)
+        same = all(np.array_equal(a, b) for a, b in zip(got, want)) and len(got) == len(want)
+        expect = {k: v for k, v in MESH_KERNELS[family].items() if v}
+        if family == "birefnet":
+            expect["window masked"] = BIREF_WINDOWS // 2
+        print(f"mesh {family} at one rank through {MESH_SERVED[family][0]} (batch {MESH_SERVED[family][1]}): "
+              f"{len(reqs)} results {'bit-equal' if same else 'DIFFER'} to the unmeshed model's; launches "
+              f"{got_n} meshed, {want_n} unmeshed, {expect} expected; load {load_s:.2f} s, serve (with capture) "
+              f"{mesh_s:.2f} s [{card}]", flush=True)
+        if not same or got_n != want_n or got_n != expect:
+            raise AssertionError(f"mesh {family}: results equal {same}, launches {got_n} / {want_n} / {expect}")
+        rows[family] = got_n
+        case = next((c for c in GRAPH_CASES if c[0] == family), None)
+        if case is not None:  # the mesh's own cost a call at one rank: header, scatter, gather
+            _, (batch, _), shapes, flags = case
+            xs = [torch.from_numpy(rng.integers(0, 256, (batch, *sh), np.uint8)) for sh in shapes]
+            ms = {label: median_ms(lambda m=m: m.forward_u8(*xs, **flags), 10)
+                  for label, m in (("meshed", meshed), ("unmeshed", plain))}
+            rows[f"{family}_ms"] = ms
+            print(f"mesh {family} forward_u8 batch {batch} at one rank: {ms['meshed']:.3f} ms meshed, "
+                  f"{ms['unmeshed']:.3f} ms unmeshed ({ms['meshed'] - ms['unmeshed']:+.3f} ms: the header "
+                  f"broadcast, the scatter, the tally of errors and the gather) [{card}]", flush=True)
+        del meshed, plain
+    card_s3 = sam3_models[0]
+    meshed3 = Sam3Model(card_s3.params, card_s3.tokenizer, card_s3.max_tokens, dev, vp=card_s3.vp, mesh=mesh)
+    from vision_tpu_torch.image import Image, ImageFormat
+
+    img = Image(front_images(rng, ((1008, 1008),))[0], ImageFormat.rgb_u8)
+    zero_counts()
+    a = meshed3.encode_vision(img)
+    torch.cuda.synchronize()
+    n3 = counts()["flash"]
+    b = card_s3.encode_vision(img)
+    ta, tb = meshed3.encode_text(SAM3_PROMPTS[0]), card_s3.encode_text(SAM3_PROMPTS[0])
+    same3 = all(torch.equal(x, y) for x, y in zip(a, b)) and torch.equal(ta, tb)
+    print(f"mesh SAM3 at one rank: encode_vision (four FPN levels) and encode_text "
+          f"{'bit-equal' if same3 else 'DIFFER'} to the unmeshed model's; {n3} flash launches a meshed encode_vision "
+          f"[{card}]", flush=True)
+    if not same3 or n3 != 4:
+        raise AssertionError(f"mesh SAM3: equal {same3}, {n3} flash launches")
+    rows["sam3"] = {"flash": n3}
+    del meshed3
+    rows["cli"] = mesh_dp1_cli(card, fd, tmp)
+    dist.destroy_process_group()  # before tmp and its store go: the group's threads read the store
+    return rows
+
+
+def mesh_dp1_cli(card: str, fd: dict, tmp: str) -> dict:
+    """The CLI's ``depthany -i DIR --dp 1`` in this process (its ``main``:
+    this process's world of one is its mesh) against bulk_run of the
+    unmeshed model (the verb's own path: files byte-equal), and ``serve --dp
+    1`` as a subprocess (a world of its own; one request answered, then
+    SIGINT, exit 0 within SERVE_EXIT_S)."""
+    import queue
+    import signal
+    import threading
+
+    from vision_tpu_torch.image import Image, ImageFormat, image_save
+    from vision_tpu_torch.image.png import encode_png, read_png
+
+    src = os.path.join(tmp, "mesh_in")
+    os.makedirs(src, exist_ok=True)
+    for i, px in enumerate(front_images(np.random.default_rng(44), ((700, 500), (518, 518)) * 2)):
+        image_save(Image(px, ImageFormat.rgb_u8), os.path.join(src, f"m{i}.png"))
+    from vision_tpu_torch import cli, load_model
+    from vision_tpu_torch.bulk import bulk_inputs, bulk_run
+
+    walls = {}
+    t0 = time.perf_counter()
+    rc = cli.main(["depthany", "-m", fd["paths"]["depthany"], "-i", src, "-o", os.path.join(tmp, "mesh_out_dp1"),
+                   "--dp", "1"])
+    walls["dp1"] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"depthany -i DIR --dp 1 exited {rc}")
+    t0 = time.perf_counter()
+    bulk_run(load_model(fd["paths"]["depthany"]), bulk_inputs(src), os.path.join(tmp, "mesh_out_plain"))
+    walls["plain"] = time.perf_counter() - t0
+    names = sorted(os.listdir(os.path.join(tmp, "mesh_out_plain")))
+    same = len(names) == MESH_DP_CLI_IMAGES and all(
+        open(os.path.join(tmp, "mesh_out_dp1", n), "rb").read() == open(os.path.join(tmp, "mesh_out_plain", n),
+                                                                         "rb").read() for n in names)
+    print(f"depthany -i DIR --dp 1 (cli.main here): {len(names)} files {'byte-equal' if same else 'DIFFER'} to "
+          f"bulk_run of the unmeshed model; {walls['dp1']:.2f} s (bulk_run {walls['plain']:.2f} s) [{card}]",
+          flush=True)
+    if not same:
+        raise AssertionError("depthany --dp 1 wrote other files")
+    root = os.path.dirname(os.path.abspath(__file__))
+    err_path = os.path.join(tmp, "serve_dp1_stderr.txt")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "vision_tpu_torch.cli", "serve", "-m", fd["paths"]["depthany"],
+                                 "--port", "0", "--dp", "1"], cwd=root, stdout=subprocess.PIPE, stderr=err, text=True)
+    try:
+        lines: queue.Queue = queue.Queue()
+        threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout] + [lines.put(None)], daemon=True).start()
+        port, seen = None, []
+        while port is None:
+            line = lines.get(timeout=600)
+            if line is None:
+                raise AssertionError(f"serve --dp 1 exited {proc.wait()}:\n{''.join(seen)}{open(err_path).read()}")
+            seen.append(line)
+            if line.startswith("serving on port "):
+                port = int(line.split()[3].rstrip(":"))
+        body = encode_png(front_images(np.random.default_rng(45), ((700, 500),))[0])
+        status, resp, _ = http_call(port, "POST", HTTP_ROUTES["depthany"], body)
+        depth = read_png(resp) if status == 200 else None
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=SERVE_EXIT_S)
+        exit_s = time.perf_counter() - t1
+        ok = status == 200 and depth is not None and depth.shape[:2] == (500, 700) and rc == 0
+        print(f"serve --dp 1 subprocess: {''.join(s for s in seen if s.startswith('dp mesh')).strip()}; "
+              f"/v1/depthany HTTP {status} {None if depth is None else depth.shape}; exit {rc} {exit_s:.2f} s after "
+              f"SIGINT [{card}]", flush=True)
+        if not ok:
+            raise AssertionError(f"serve --dp 1: HTTP {status}, exit {rc}:\n{open(err_path).read()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return {"dir_s": walls["dp1"], "plain_dir_s": walls["plain"]}
+
+
+def mesh_shard_kernels(torch, card: str, fa, wa, dcm) -> dict:
+    """Phase 44: the flash, window (masked and unmasked) and deformable conv
+    kernels against their plain versions at the shapes a tp (or dp) shard
+    gives them (MESH_FLASH, MESH_WINDOW; BiRefNet's 20 deformable convs at
+    batch 2, the dp 2 shard of a batch of 4, whose weights no tp rule
+    shards), bf16, each one launch, and each timed by the card's own time
+    beside its plain version. The attention outputs are also held to
+    SHARD_BF16_REL_RMS of the plain version's f32 (shard_rel_rms)."""
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    bf16 = torch.bfloat16
+    rows, worst, worst_rms = [], 0.0, {}
+    for label, bh, t, d in MESH_FLASH:
+        q, k, v = (torch.randn(1, bh, t, d, device="cuda", generator=gen).to(bf16) for _ in range(3))
+        before = fa.launches
+        out = fa.flash_attention(q, k, v, scale=d**-0.5)
+        torch.cuda.synchronize()
+        if fa.launches != before + 1:
+            raise AssertionError(f"flash {label}: {fa.launches - before} launches")
+        ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), d**-0.5)
+        name = f"flash_attention shard {label} ({bh}, {t}, {d})"
+        worst = max(worst, check_close(name, out, ref, bf16, torch))
+        worst_rms["flash_attention"] = max(worst_rms.get("flash_attention", 0.0), shard_rel_rms(name, out, ref))
+        ms = device_ms(lambda: fa.flash_attention(q, k, v, scale=d**-0.5))
+        plain = device_ms(lambda: fa.flash_attention_plain(q, k, v, d**-0.5))
+        rows.append(("flash_attention", label, ms, plain))
+        del q, k, v, out, ref
+    for label, nw, t, h, swin in MESH_WINDOW:
+        mask = None
+        if swin is None:
+            q, k, v = (torch.randn(nw, t, h * 32, device="cuda", generator=gen).to(bf16) for _ in range(3))
+            bias = (torch.randn(h, t, t, device="cuda", generator=gen) * 0.5).to(bf16)
+        else:
+            q, k, v, bias, mask = swin_windows(torch, gen, swin[0], 12, h, 2, bf16)
+            mask = mask if swin[1] else None
+        before = wa.launches
+        out = wa.window_attention(q, k, v, bias, h, 32**-0.5, mask)
+        torch.cuda.synchronize()
+        if wa.launches != before + 1:
+            raise AssertionError(f"window {label}: {wa.launches - before} launches")
+        ref = wa.window_attention_plain(q, k, v, bias, h, 32**-0.5, mask).float()
+        name = f"window_attention shard {label} (NW={q.shape[0]}, T={t}, H={h})"
+        worst = max(worst, check_close(name, out, ref, bf16, torch))
+        ref32 = wa.window_attention_plain(q.float(), k.float(), v.float(), bias.float(), h, 32**-0.5, mask)
+        worst_rms["window_attention"] = max(worst_rms.get("window_attention", 0.0), shard_rel_rms(name, out, ref32))
+        ms = device_ms(lambda: wa.window_attention(q, k, v, bias, h, 32**-0.5, mask))
+        plain = device_ms(lambda: wa.window_attention_plain(q, k, v, bias, h, 32**-0.5, mask))
+        rows.append(("window_attention", label, ms, plain))
+        del q, k, v, out, ref, ref32
+    for hw in BIREF_BLOCK_HW:
+        for branch, k in enumerate(BIREF_DEFORM_KS):
+            x, w, off, mask, pad, kw, buf = deform_conv_path_forms(torch, gen, 2, hw, k, branch)
+            before = dcm.launches
+            out = dcm.deform_conv(x, w, off, mask, k, k, 1, pad, **kw)
+            torch.cuda.synchronize()
+            if dcm.launches != before + 1:
+                raise AssertionError(f"deform_conv shard ({hw}, k {k}): {dcm.launches - before} launches")
+            epi = {n: v.float() for n, v in kw.items() if n in ("bias", "scale", "shift")}
+            ref = dcm.deform_conv_plain(x.float(), w.float(), off, mask, k, k, 1, pad, relu=True, **epi)
+            worst = max(worst, check_close(f"deform_conv shard (2, {hw}, {hw}, {BIREF_CIN}) k={k} -> {BIREF_COUT}",
+                                           out, ref, bf16, torch))
+            if hw == 256 and k == 7:
+                ms = device_ms(lambda: dcm.deform_conv(x, w, off, mask, k, k, 1, pad, **kw))
+                plain = device_ms(lambda: dcm.deform_conv_plain(x, w, off, mask, k, k, 1, pad, relu=True, **epi),
+                                  calls=3, reps=1)
+                rows.append(("deform_conv", f"BiRefNet dp 2 shard: (2, 256, 256, {BIREF_CIN}) k 7", ms, plain))
+            del x, w, off, mask, kw, buf, out, ref
+    for name, label, ms, plain in rows:
+        print(f"{name} at a shard shape, {label}: {ms:.4f} ms, plain {plain:.4f} ms, by the card's own time "
+              f"[{card}]", flush=True)
+    return {"worst": worst, "worst_rel_rms": worst_rms, "rows": rows}
+
+
+def shard_rel_rms(name: str, out, ref) -> float:
+    """Phase 44: a bf16 attention output's relative RMS against its plain
+    version's f32 ``ref``; raises past SHARD_BF16_REL_RMS."""
+    rms = rel_rms_t(out.float(), ref)
+    ok = rms <= SHARD_BF16_REL_RMS
+    print(f"kernel {name}: relative RMS {rms:.3e} (output RMS {float(ref.pow(2).mean().sqrt()):.3e}) "
+          f"[<= {SHARD_BF16_REL_RMS}] {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: relative RMS {rms}")
+    return rms
+
+
+def mesh_more_ranks(card: str) -> list:
+    """Phase 45: dryrun_multichip over 2 cards (dp 2) where the machine has
+    them and over 4 (dp 2 x tp 2 for MobileSAM, BiRefNet and SAM3) where it
+    has 4, each in a subprocess of its own (one rank a card); the world
+    sizes that ran are printed, and where there are too few cards a line
+    says so."""
+    import torch
+
+    n = torch.cuda.device_count()
+    ran = [1]
+    for size in (2, 4):
+        if n < size:
+            print(f"mesh world size {size}: not run, this machine has {n} card(s) "
+                  f"(torch.cuda.device_count() = {n}) [{card}]", flush=True)
+            continue
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", f"from vision_tpu_torch.parallel import dryrun_multichip; "
+                              f"dryrun_multichip({size})"], cwd=os.path.dirname(os.path.abspath(__file__)),
+                             capture_output=True, text=True, timeout=900)
+        print(res.stdout, end="", flush=True)
+        if res.returncode != 0:
+            raise AssertionError(f"dryrun_multichip({size}) exited {res.returncode}:\n{res.stderr[-4000:]}")
+        print(f"mesh world size {size}: dryrun_multichip ran in {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+        ran.append(size)
+    print(f"mesh world sizes run: {ran}", flush=True)
+    return ran
+
+
+def mesh_phases(torch, card: str, fd: dict, tmp: str, sam3_models: tuple, fa, wa, dcm) -> dict:
+    """Phases 43-45 (the meshes of parallel/)."""
+    phase("43 meshes at one NCCL rank: each family's meshed loader and server against its unmeshed model, --dp 1")
+    t0 = time.perf_counter()
+    served = mesh_one_rank(torch, card, fd, sam3_models, tmp)
+    t1 = time.perf_counter()
+    phase("44 the kernels at the shapes a tensor- or data-parallel shard gives them")
+    shards = mesh_shard_kernels(torch, card, fa, wa, dcm)
+    t2 = time.perf_counter()
+    phase("45 more ranks where the machine has the cards")
+    ran = mesh_more_ranks(card)
+    print(f"mesh phases: 43 {t1 - t0:.1f} s, 44 {t2 - t1:.1f} s, 45 {time.perf_counter() - t2:.1f} s [{card}]",
+          flush=True)
+    return {"served": served, "shards": shards, "world_sizes": ran}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5657,7 +6051,10 @@ def main(argv=None) -> int:
         phase("35 the quantize verb as a subprocess")
         quantize_verb_phase(card, fd["paths"]["depthany"], quant["copies"][("depthany", "q8_0")], fd_tmp)
         train = training_phases(torch, card, fd, fd_tmp)
-        tools = tooling_phases(torch, card, fd, fd_tmp, s3.pop("models"))
+        s3_models = s3.pop("models")
+        tools = tooling_phases(torch, card, fd, fd_tmp, s3_models)
+        mesh = mesh_phases(torch, card, fd, fd_tmp, s3_models, fa, wa, dcm)
+        del s3_models
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5672,6 +6069,16 @@ def main(argv=None) -> int:
     flash_bound, flash_by = bound_ms(4.0 * 24 * t_sq**2 * 64, 4 * 2.0 * 24 * t_sq * 64)
     wide_bound, wide_by = bound_ms(4.0 * 24 * t_wide**2 * 64, 4 * 2.0 * 24 * t_wide * 64)
     win_bound, win_by = bound_ms(4.0 * 6 * nw * h * t * t * 32, 4 * 2.0 * 6 * nw * t * h * 32 + 2.0 * h * t * t)
+    def shard_rows(name: str) -> list:
+        """phase 44's shard shapes of kernel ``name``: label, ms, plain ms."""
+        return [{"shape": label, "ms": ms, "plain_ms": plain} for n, label, ms, plain in mesh["shards"]["rows"]
+                if n == name]
+
+    def mesh_launches(counter: str) -> dict:
+        """family -> this kernel's launches in a served batch of the meshed model at one rank (phase 43)."""
+        return {f: r[counter] for f, r in mesh["served"].items()
+                if isinstance(r, dict) and counter in r and not f.endswith("_ms")}
+
     def export_launches(counter: str) -> dict:
         """entry -> this kernel's launches in one call of the exported entry (phase 40)."""
         return {f"{name}.{entry}": r["launches"][counter] for name, row in tools["export"].items()
@@ -5703,6 +6110,10 @@ def main(argv=None) -> int:
             "launches_sam3": s3["launches"],
             "op_dispatch_us": tools["ops"]["dispatch_us"],
             "launches_train_step_distill": train["rows"]["distill"]["launches"]["flash"],
+            "launches_mesh_one_rank": mesh_launches("flash"),
+            "mesh_shards": shard_rows("flash_attention"),
+            "mesh_shard_max_abs_err": mesh["shards"]["worst"],
+            "mesh_shard_rel_rms": mesh["shards"]["worst_rel_rms"]["flash_attention"],
         },
         {
             "name": "window_attention",
@@ -5728,6 +6139,9 @@ def main(argv=None) -> int:
             "launches_train_step_birefnet_masked": train["rows"]["birefnet"]["launches"]["window masked"],
             "backward": "WindowAttentionFn: PyTorch ops, the probabilities recomputed at the forward's rounding",
             "grad_max_rel_rms": train["worst"]["window_attention"],
+            "launches_mesh_one_rank": mesh_launches("window"),
+            "mesh_shards": shard_rows("window_attention"),
+            "mesh_shard_rel_rms": mesh["shards"]["worst_rel_rms"]["window_attention"],
         },
         {
             "name": "conv3x3",
@@ -5764,6 +6178,7 @@ def main(argv=None) -> int:
             "launches_train_step_esrgan": train["rows"]["esrgan"]["launches"]["conv3x3"],
             "backward": "Conv3x3Fn: PyTorch ops, F.conv2d recomputing the pre-activation and convolution_backward",
             "grad_max_rel_rms": train["worst"]["conv3x3"],
+            "launches_mesh_one_rank": mesh_launches("conv3x3"),
         },
         {
             "name": "deform_conv",
@@ -5794,6 +6209,8 @@ def main(argv=None) -> int:
             "launches_train_step_birefnet": train["rows"]["birefnet"]["launches"]["deform_conv"],
             "backward": "DeformConvFn: autograd of deform_conv_plain, recomputed from the saved inputs",
             "grad_max_rel_rms": train["worst"]["deform_conv"],
+            "launches_mesh_one_rank": mesh_launches("deform_conv"),
+            "mesh_shards": shard_rows("deform_conv"),
         },
         {
             "name": "deform_sample",

@@ -110,11 +110,30 @@ def test_match_detections(chip_smoke):
 def test_the_phase_list_runs_to_32(chip_smoke):
     doc = chip_smoke.__doc__
     numbers = [int(ln.split(".")[0]) for ln in doc.splitlines() if ln[:4].strip().rstrip(".").isdigit()]
-    assert numbers == list(range(1, 43))
+    assert numbers == list(range(1, 46))
     for name in ("http_phase", "bulk_phase", "verbs_phase", "serve_verb", "dequant_cases", "residency_phase",
                  "quantize_verb_phase", "grad_cases", "train_harness", "recipe_run", "training_phases", "ops_phase",
-                 "export_phase", "capi_phase", "flops_phase", "tooling_phases"):
+                 "export_phase", "capi_phase", "flops_phase", "tooling_phases", "mesh_one_rank", "mesh_dp1_cli",
+                 "mesh_shard_kernels", "mesh_more_ranks", "mesh_phases"):
         assert callable(getattr(chip_smoke, name))
+
+
+def test_mesh_shards_are_the_tp_heads(chip_smoke):
+    """Phase 44's shard shapes: the heads each tp rank holds (whole heads
+    only: TinyViT's 5-head stage stays whole, so it has no shard case) and
+    phase 43's served batches at each server's per-card default."""
+    from vision_tpu_torch.models.mobile_sam import TinyVitParams
+
+    heads = [lp.num_heads for lp in TinyVitParams().layers[1:]]
+    tiny = [row for row in chip_smoke.MESH_WINDOW if row[0].startswith("TinyViT")]
+    assert [row[3] * 2 for row in tiny] == [h for h in heads if h % 2 == 0]
+    swin = [row for row in chip_smoke.MESH_WINDOW if row[0].startswith("SWIN-L")]
+    assert sorted(row[3] * 2 for row in swin) == sorted(h for _, h in chip_smoke.SWIN_L_STAGES for _ in range(2))
+    assert [row[1] for row in chip_smoke.MESH_FLASH] == [3 * 4, 16 // 2, 16 // 4]
+    defaults = {"depthany": 4, "birefnet": 4, "esrgan": 4, "migan": 4, "yolov9t": 8, "sam": 6}
+    for family, (_, batch, extents) in chip_smoke.MESH_SERVED.items():
+        assert batch == defaults[family] == len(extents)
+    assert set(chip_smoke.MESH_KERNELS) == set(chip_smoke.MESH_SERVED)
 
 
 def test_the_kernels_line_names_every_vtt_op(chip_smoke):
@@ -292,3 +311,17 @@ def test_depth_faults_drop_keys_at_every_eval_extent(chip_smoke, extent):
     first = keys[chip_smoke.DEPTH_FAULTS["first 64-key tile dropped"](t)]
     assert t % 64 and len(tail) == t // 64 * 64 and tail[0] == 0
     assert len(first) == t - 64 and first[0] == 64 and first[-1] == t - 1
+
+
+def test_shard_outputs_are_held_to_a_relative_rms(chip_smoke):
+    """Phase 44's attention shard outputs pass within SHARD_BF16_REL_RMS of
+    the plain version's f32 and fail past it (a dropped key tile moves a
+    T-1370 output by ~0.2 of its RMS, far past the bound; bf16 rounding
+    ~2-3e-3 stays under it)."""
+    import torch
+
+    ref = torch.linspace(-1.0, 1.0, 64).reshape(4, 16)
+    assert chip_smoke.SHARD_BF16_REL_RMS == 1e-2
+    assert chip_smoke.shard_rel_rms("rounded", ref * (1 + 3e-3), ref) == pytest.approx(3e-3, rel=1e-4)
+    with pytest.raises(AssertionError, match="relative RMS"):
+        chip_smoke.shard_rel_rms("a dropped tile", ref * 1.2, ref)

@@ -67,6 +67,12 @@ SLICE_MODULES = [
     "vision_tpu_torch.utils.dump",
     "vision_tpu_torch.export",
     "vision_tpu_torch.capi",
+    "vision_tpu_torch.parallel",
+    "vision_tpu_torch.parallel.sharding",
+    "vision_tpu_torch.parallel.pipeline",
+    "vision_tpu_torch.parallel.tp",
+    "vision_tpu_torch.parallel.runner",
+    "vision_tpu_torch.parallel.dryrun",
 ]
 
 

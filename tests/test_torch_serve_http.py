@@ -288,9 +288,9 @@ def test_serve_verb_rules_match_the_jax_cli(tmp_path, capsys):
     ):
         got, want = _run(tcli, args, capsys), _run(jcli, args, capsys)
         assert got[0] == want[0] == 1 and message in got[2] and message in want[2], (got, want)
-    with pytest.raises(SystemExit):  # --dp waits for the port's meshes
-        tcli.main(["serve", "-m", str(depth), "--dp", "2"])
-    capsys.readouterr()
+    # --dp: a bad N as the JAX CLI refuses it (the meshed serve itself: tests/test_torch_parallel.py)
+    got, want = (_run(cli, ["serve", "-m", depth, "--dp", "-1", "-b", "cpu"], capsys) for cli in (tcli, jcli))
+    assert got[0] == want[0] == 1 and "--dp must be >= 1, got -1" in got[2] and "--dp must be >= 1, got -1" in want[2]
     # --adapter merges a LoRA file into -m first (tests/test_torch_finetune.py), here a missing one
     rc, _, err = _run(tcli, ["serve", "-m", depth, "--adapter", tmp_path / "a.gguf"], capsys)
     assert rc == 1 and "Adapter file not found" in err

@@ -27,9 +27,12 @@ records a ``torch.profiler`` trace of a model verb's inference phase (and of
 bulk, video and ``eval -m`` runs) into DIR (utils/profiling.py); ``--dump
 DIR`` (yolov9t) writes each layer's output of one eager forward as .npy
 files (ops/debug.py, utils/dump.py). ``-b`` takes ``cpu`` or ``gpu``;
-without it the CLI takes the card and fails without one. The JAX CLI's
-``bench`` verb and its ``--dp`` flag wait for their modules (the benchmark
-and the meshes).
+without it the CLI takes the card and fails without one. ``--dp N`` serves
+``serve`` and a model verb's directory or video input over N ranks, one
+card each (parallel/): under torchrun the ranks are its world; otherwise
+the CLI starts ranks 1..N-1 itself (``torch.multiprocessing``, spawn). Rank
+0 serves, the others follow. ``finetune --dp`` waits for the training
+meshes, and the JAX CLI's ``bench`` verb for the benchmark.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import sys
 import time
 from pathlib import Path
@@ -273,6 +277,99 @@ def _quantize(args, parser) -> int:
     return 0
 
 
+def _dp_worker(rank: int, n: int, address: str, argv: list) -> None:
+    """A rank the CLI started: run the same command as rank ``rank`` of the
+    world at ``address`` (it follows rank 0 once its models are loaded).
+    Ctrl-C reaches rank 0 alone: rank 0 stops this rank when it exits."""
+    import signal
+
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    os.environ["VISP_DP_WORLD"] = f"{address}|{n}|{rank}"
+    code = main(argv)
+    if code:
+        sys.exit(code)
+
+
+class _DpWorld:
+    """``--dp N``: the process group and the mesh of a serving command, and
+    the ranks the CLI started (stopped and joined on exit)."""
+
+    def __init__(self, args):
+        self.mesh, self.procs, self.store, self.joined = None, [], None, False
+        n = args.dp
+        if not n:
+            return
+        if n < 1:
+            raise VispError(f"--dp must be >= 1, got {n}")
+        if args.batch is not None and args.batch % n:
+            raise VispError(f"--batch {args.batch} must be divisible by --dp {n}")
+        from .parallel.sharding import cards_available, init_distributed, make_mesh
+
+        device = "cpu" if args.backend == "cpu" else "cuda"
+        t0 = time.perf_counter()
+        if n > cards_available(device):  # before any rank starts: two ranks never share a card
+            make_mesh(n, device=device)
+        import torch.distributed as dist
+
+        started = os.environ.get("VISP_DP_WORLD")
+        self.joined = not dist.is_initialized()  # a world this command makes it also ends
+        if not self.joined:
+            pass  # the process's own world (a caller that made one)
+        elif started:
+            address, size, rank = started.split("|")
+            init_distributed(address, int(size), int(rank), device=device)
+        elif "WORLD_SIZE" in os.environ:
+            init_distributed(device=device)
+        else:  # --dp 1 too: one rank's world is made as N ranks' is
+            import tempfile
+
+            import torch.multiprocessing as mp
+
+            self.store = tempfile.mkdtemp(prefix="visp-dp-")
+            address = "file://" + os.path.join(self.store, "store")
+            ctx = mp.get_context("spawn")
+            for rank in range(1, n):
+                p = ctx.Process(target=_dp_worker, args=(rank, n, address, args._argv), daemon=True)
+                p.start()
+                self.procs.append(p)
+            init_distributed(address, n, 0, device=device)
+        self.mesh = make_mesh(n, device=device)
+        if self.mesh.get_coordinate() is not None:
+            from .parallel.runner import world_rank
+
+            print(f"dp mesh: {n} rank(s) on {device}, this rank {world_rank()} ({time.perf_counter() - t0:.2f} s)")
+
+    def follow(self) -> bool:
+        """On a following rank, serve rank 0's calls until it stops; True there."""
+        from .parallel.runner import follow, is_worker
+
+        if self.mesh is None or not is_worker():
+            return False
+        follow()
+        return True
+
+    def close(self) -> None:
+        if self.mesh is None:
+            return
+        from .parallel.runner import stop_workers
+
+        try:
+            stop_workers()
+        except Exception as e:  # noqa: BLE001 — a rank already failed; end the ones left
+            print(f"dp: stopping the ranks failed ({e}); terminating them", file=sys.stderr)
+        for p in self.procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+        if self.joined:
+            import torch.distributed as dist
+
+            # before its store goes: the group's own threads read the store until it ends
+            dist.destroy_process_group()
+        if self.store is not None:
+            shutil.rmtree(self.store, ignore_errors=True)
+
+
 def _run_model(args) -> None:
     """One model verb: load, infer, save (reference cli.cpp run_* and
     inference_yolov9t.cpp)."""
@@ -287,12 +384,18 @@ def _run_model(args) -> None:
             raise VispError(f"Input file not found: {inp}")
     if args.command == "sam" and args.prompt and len(args.prompt) not in (2, 4):
         raise VispError(f"Expected 2 (point) or 4 (box) numbers for -p, got {len(args.prompt)}")
-    dev = _device(args)
     from .video import is_video
 
     if os.path.isdir(args.input[0]) or is_video(args.input[0]):
-        _run_many(args, model_path, dev)
+        world = _DpWorld(args)
+        try:
+            _run_many(args, model_path, _device(args), world)
+        finally:
+            world.close()
         return
+    if args.dp:
+        raise VispError("--dp applies to serve and to directory and video inputs")
+    dev = _device(args)
 
     with _Timer("Loading model weights"):
         model = family_loader(VERB_FAMILIES[args.command])(model_path, dev)
@@ -390,13 +493,18 @@ def _export(args) -> None:
     print(f"-> {dst} ({Path(dst).stat().st_size / 1e6:.1f} MB; entries: {', '.join(names)})")
 
 
-def _run_many(args, model_path: str, dev) -> None:
+def _run_many(args, model_path: str, dev, world: _DpWorld) -> None:
     """A model verb over a directory of images (bulk.py: one batched forward
     per same-extent group, an output per input stem) or over a video's
-    frames (video.py: the results re-encoded at the source frame rate)."""
+    frames (video.py: the results re-encoded at the source frame rate).
+    With ``--dp`` each group splits over the ranks of ``world``."""
+    from functools import partial
+
     from .video import is_video
 
     load = family_loader(VERB_FAMILIES[args.command])
+    if world.mesh is not None:
+        load = partial(load, mesh=world.mesh)
     if not os.path.isdir(args.input[0]) and is_video(args.input[0]):
         from .video import video_run
 
@@ -408,6 +516,8 @@ def _run_many(args, model_path: str, dev) -> None:
             mask = args.input[1]
         with _Timer("Loading model weights"):
             model = load(model_path, dev)
+        if world.follow():
+            return
         print(f"Processing {args.input[0]} -> {args.output}")
         with _profile(args):
             dets = video_run(model, args.input[0], args.output, prompt=args.prompt, mask=mask,
@@ -428,6 +538,8 @@ def _run_many(args, model_path: str, dev) -> None:
         inputs = pair_masks(inputs, args.input[1])
     with _Timer("Loading model weights"):
         model = load(model_path, dev)
+    if world.follow():
+        return
     print(f"Processing {len(inputs)} images -> {args.output}/")
     with _profile(args):
         outs = bulk_run(model, inputs, args.output, prompt=args.prompt, conf_thres=args.conf, iou_thres=args.iou,
@@ -437,8 +549,9 @@ def _run_many(args, model_path: str, dev) -> None:
 
 def _serve(args) -> None:
     """The HTTP front end over the -m model and each --extra-model (their
-    families detected from the files), until interrupted."""
-    from .api import load_model, model_detect_family
+    families detected from the files), until interrupted; with ``--dp`` over
+    the ranks of a mesh (rank 0 serves HTTP, the others follow)."""
+    from .api import model_detect_family
     from .core.gguf import model_load
     from .serve_http import serve_forever
 
@@ -451,19 +564,24 @@ def _serve(args) -> None:
     for inp in args.input or []:
         if not Path(inp).exists():
             raise VispError(f"Input file not found: {inp}")
-    dev = _device(args)
-    models = {}
-    with _Timer("Loading model weights"):
-        for path in paths:
-            file = model_load(path)
-            family = model_detect_family(file).value
-            if family not in SERVE_MODELS:
-                raise VispError(f"serve does not support {family} models")
-            key = SERVE_MODELS[family]
-            if key in models:
-                raise VispError(f"two models of one family given ({key})")
-            models[key] = load_model(file, dev)
-    serve_forever(batch_size=args.batch, host=args.host, port=args.port, warmup=args.warmup, **models)
+    world = _DpWorld(args)
+    try:
+        dev = _device(args)
+        models = {}
+        with _Timer("Loading model weights"):
+            for path in paths:
+                file = model_load(path)
+                family = model_detect_family(file)
+                if family.value not in SERVE_MODELS:
+                    raise VispError(f"serve does not support {family.value} models")
+                key = SERVE_MODELS[family.value]
+                if key in models:
+                    raise VispError(f"two models of one family given ({key})")
+                models[key] = family_loader(family)(file, dev, mesh=world.mesh)
+        if not world.follow():
+            serve_forever(batch_size=args.batch, host=args.host, port=args.port, warmup=args.warmup, **models)
+    finally:
+        world.close()
 
 
 def _eval(args, parser) -> int:
@@ -533,6 +651,9 @@ def _train(args) -> None:
     from .core.gguf import model_load
     from .finetune import list_images
 
+    if args.dp:
+        raise VispError(f"{args.command} --dp: the training meshes (create_train_state / make_train_step over a "
+                        "mesh) wait for their queue item; train on one card without --dp")
     model_path = _model_path(args)
     images = list_images(args.input)
     if args.steps < 1 or (args.batch is not None and args.batch < 1):
@@ -676,7 +797,12 @@ def main(argv=None) -> int:
     parser.add_argument("--qlora", action="store_true",
                         help="distill/finetune (birefnet), with --lora: keep the frozen base block-quantized "
                         "(int8-resident) under the adapters")
+    parser.add_argument("--dp", type=int, default=0, metavar="N",
+                        help="serve / directory / video -i: split each batch over N ranks, one card each (rank 0 "
+                        "serves; under torchrun its world, else the CLI starts ranks 1..N-1); --batch must divide "
+                        "by N")
     args = parser.parse_args(argv)
+    args._argv = list(sys.argv[1:] if argv is None else argv)
     if args.input is None and args.command not in ("serve", "quantize", "info", "export"):
         parser.error("-i/--input is required")
     if args.output is None and args.command in ("finetune", "distill"):

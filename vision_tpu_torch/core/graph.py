@@ -208,7 +208,9 @@ class ForwardGraphs:
     free (they never run at once); on the CPU the eager forward.
 
     Calls are serialized by a lock: a replay's static input and output are
-    shared by every caller at its key."""
+    shared by every caller at its key. On a mesh (parallel/) every rank
+    keeps its own graphs, keyed on its shard's shapes; the scatter and the
+    gather stay outside the replay, and a tp > 1 model runs eagerly."""
 
     def __init__(self, forward: Callable, device: torch.device, max_entries: int = 8):
         self.forward = forward

@@ -33,7 +33,9 @@ Geometry is static (a program is traced at one shape): pick ``extent`` and
 serving layer's bucketing does. An exported program runs op by op, as the
 eager forward does; it is not a CUDA graph. Kept differences from the JAX
 package: no per-backend lowering list (``platforms=``; a program moves with
-``load_bundle(device=)`` instead), and no meshed export (``call_sharded``).
+``load_bundle(device=)`` instead). The meshed export (``meta["mesh"]``,
+``make_mesh`` / ``call_sharded`` of a bundle) waits for its queue item: a
+model built on a mesh (parallel/) is refused.
 An int8-resident model (``keep_quantized``) exports with its weights: its
 residents become constants and each lookup a ``vtt::dequant`` node.
 """
@@ -229,6 +231,9 @@ def export_model(model, dst: str | os.PathLike, extent: tuple[int, int] | None =
     if batch < 1:
         raise_error("export_model: batch must be >= 1, got {}", batch)
     kind = type(model).__name__
+    if getattr(model, "mesh", None) is not None:
+        raise_error("export_model: a meshed {} does not export yet (the meshed export and call_sharded wait for "
+                    "their queue item); export the model built without a mesh", kind)
     if not embed_params and any(is_quant(v) for v in model.params.values()):
         raise_error("export_model: an int8-resident {} exports with its weights (its residents are no tensors of "
                     "the param dict); drop embed_params=False", kind)

@@ -24,8 +24,9 @@ bounded deformable conv is used only under ``BuildFlag.deform_shift``
 (off by default; core/device.py says why). Weight names follow the
 reference converter's renames. Int8-resident weights (``keep_quantized``,
 core/quant.py) dequantize at each use, SWIN-L's once for each of the two
-scales. Meshes wait for their queue item; PyTorch runs eagerly, so there
-is no per-extent program cache.
+scales. With a ``mesh`` (parallel/) the batch splits over dp and the SWIN
+attentions and MLPs over tp; PyTorch runs eagerly, so there is no
+per-extent program cache.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ from ..core.graph import ForwardGraphs, shape_bucket
 from ..core.params import Params
 from ..core.quant import is_quant
 from ..core.weights import cast_float_params, load_weights, params_from_numpy, unpermute_cwhn
+from ..parallel.runner import mesh_entries
+from ..parallel.sharding import mesh_params, mesh_tp
 from ..image import (
     Image,
     ImageFormat,
@@ -292,24 +295,51 @@ def deform_layouts(params: dict, dtype: torch.dtype) -> dict[str, torch.Tensor]:
             for k, v in params.items() if _DEFORM_WEIGHT.search(k)}
 
 
+def swin_heads(sp: SwinParams):
+    """``shard_params``' ``heads``: the head count of a SWIN attention
+    weight (``bb.layers.{stage}...attn.*``), None for any other."""
+
+    def heads(name: str) -> int | None:
+        parts = name.split(".")
+        if len(parts) > 3 and parts[0] == "bb" and parts[1] == "layers" and ".attn." in name:
+            return sp.layers[int(parts[2])].n_heads
+        return None
+
+    return heads
+
+
 class BirefnetModel:
     """High-level handle (reference birefnet_model, vision.cpp:97-135).
 
     ``params``: torch tensors under the GGUF names; floats are cast to the
     device's float policy here (they are moved nowhere: pass them on the
-    device, as :func:`birefnet_load_model` does)."""
+    device, as :func:`birefnet_load_model` does).
 
-    def __init__(self, params: dict[str, torch.Tensor], p: BirefnetParams, device: Device):
+    ``mesh``: a (dp, tp) mesh of parallel/ (every rank builds the model from
+    its own copy of the weights): SWIN's qkv / proj / fc1 / fc2 are
+    tp-sharded where the stage's heads divide (DEFAULT_TP_RULES, qkv rows
+    regrouped by head); ``forward_u8`` splits its batch over dp (rank 0
+    calls, the other ranks follow, parallel/runner.py), each rank replaying
+    its own CUDA graph per shard shape (eagerly where tp > 1)."""
+
+    def __init__(self, params: dict[str, torch.Tensor], p: BirefnetParams, device: Device, mesh=None):
         self.p = p
         self.device = device
         self.dtype = device.preferred_float_type
         self.deform_bound = DEFORM_SHIFT_BOUND if device.flags & BuildFlag.deform_shift else None
+        self.mesh = mesh
         self.params = cast_float_params(params, self.dtype)
+        if mesh is not None:
+            self.params = mesh_params(self.params, mesh, device, heads=swin_heads(p.encoder))
         # the deformable convs' weights as the fused kernel reads them, made
         # here once instead of at each of a forward's 20 calls (from the
         # dequantized weight where it is int8-resident)
         self.deform_layouts = deform_layouts(self.params, self.dtype)
         self.graphs = ForwardGraphs(self._forward_u8, device.torch_device)
+        # tp > 1 runs eagerly: an all-reduce inside a capture needs every
+        # tp rank to capture the same key together
+        local = self.graphs if mesh_tp(mesh) == 1 else self._forward_u8
+        self._calls = mesh_entries(self, mesh, forward_u8=local)
 
     def forward_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) uint8 at a processed extent -> (N, H, W, 1) mask in the
@@ -319,7 +349,7 @@ class BirefnetModel:
         from their own worker thread. On the card each input shape runs as one
         CUDA graph, captured at its first call and replayed after
         (core/graph.py); the result is a copy that the caller keeps."""
-        return self.graphs(x_u8)
+        return self._calls["forward_u8"](x_u8)
 
     def _forward_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
         """The eager forward that :meth:`forward_u8` captures (the reference of its tests)."""
@@ -370,18 +400,21 @@ def birefnet_process_output(mask: np.ndarray, target_extent: tuple[int, int]) ->
     return image_f32_to_u8(out, ImageFormat.alpha_u8)
 
 
-def birefnet_load_model(filepath: str, device: Device | None = None, dynamic_extent=(0, 0)) -> BirefnetModel:
+def birefnet_load_model(filepath: str, device: Device | None = None, dynamic_extent=(0, 0), mesh=None) -> BirefnetModel:
     """Load a BiRefNet GGUF onto ``device`` (default: the CUDA device;
     without one, backend_init raises). With the device's ``keep_quantized``
     flag (``VISP_KEEP_QUANT``) block-quantized tensors stay int8-resident and
-    dequantize at each use (core/quant.py); without it they expand at load."""
+    dequantize at each use (core/quant.py); without it they expand at load.
+    ``mesh``: place the weights on a mesh of parallel/ for multi-card
+    serving (quantized residency is single-card only; a mesh forces
+    dequant)."""
     device = device or backend_init()
     file = model_load(filepath)
     p = birefnet_detect_params(file, dynamic_extent, device.max_alloc)
-    keep_q = bool(device.flags & BuildFlag.keep_quantized)
+    keep_q = bool(device.flags & BuildFlag.keep_quantized) and mesh is None
     params = fixup_weights(file, load_weights(file, as_numpy=True, keep_quantized=keep_q))
     params = params_from_numpy(params, device.torch_device, device.preferred_float_type)
-    return BirefnetModel(params, p, device)
+    return BirefnetModel(params, p, device, mesh=mesh)
 
 
 def birefnet_compute(model: BirefnetModel, image: Image) -> Image:

@@ -11,7 +11,8 @@ depth-anything.cpp:112-117); output is min-max normalized and resized back.
 PyTorch runs eagerly, so :class:`DepthAnythingModel` needs no per-extent
 program cache: ``forward_u8`` is one batched forward at whatever extent it is
 given; int8-resident weights (``keep_quantized``, core/quant.py) dequantize
-at each use. Meshes wait for their queue item.
+at each use. With a ``mesh`` (parallel/) the batch splits over dp and the
+DINOv2 attentions and MLPs over tp.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ from ..core.graph import ForwardGraphs, shape_bucket, snap_to_multiple
 from ..core.params import Params
 from ..core.quant import is_quant
 from ..core.weights import cast_float_params, load_weights, params_from_numpy, unpermute_cwhn
+from ..parallel.runner import mesh_entries
+from ..parallel.sharding import mesh_params, mesh_tp
 from ..image import (
     Image,
     ImageFormat,
@@ -176,15 +179,29 @@ class DepthAnythingModel:
 
     ``params``: torch tensors under the GGUF names; floats are cast to the
     device's float policy here (they are moved nowhere: pass them on the
-    device, as :func:`depthany_load_model` does)."""
+    device, as :func:`depthany_load_model` does).
 
-    def __init__(self, params: dict[str, torch.Tensor], p: DepthAnythingParams, device: Device):
+    ``mesh``: a (dp, tp) mesh of parallel/ (every rank builds the model from
+    its own copy of the weights): DINOv2's q / k / v / output.dense and fc1 / fc2 are tp-sharded
+    (DEFAULT_TP_RULES, whole heads a rank); ``forward_u8`` splits its batch over dp
+    (rank 0 calls, the other ranks follow, parallel/runner.py), each rank
+    replaying its own CUDA graph per shard shape (eagerly where tp > 1)."""
+
+    def __init__(self, params: dict[str, torch.Tensor], p: DepthAnythingParams, device: Device, mesh=None):
         self.p = p
         self.device = device
         self.dtype = device.preferred_float_type
         self.flash = bool(device.flags & BuildFlag.flash_attention)
+        self.mesh = mesh
         self.params = cast_float_params(params, self.dtype)
+        if mesh is not None:
+            heads = lambda name: p.dino.n_heads if ".attention." in name else None  # noqa: E731
+            self.params = mesh_params(self.params, mesh, device, heads=heads)
         self.graphs = ForwardGraphs(self._forward_u8, device.torch_device)
+        # tp > 1 runs eagerly: an all-reduce inside a capture needs every
+        # tp rank to capture the same key together
+        local = self.graphs if mesh_tp(mesh) == 1 else self._forward_u8
+        self._calls = mesh_entries(self, mesh, forward_u8=local)
 
     def forward_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) uint8 at a snapped extent -> (N, H, W, 1) raw depth in
@@ -194,7 +211,7 @@ class DepthAnythingModel:
         input shape runs as one CUDA graph, captured at its first call and
         replayed after (core/graph.py); the result is a copy that the caller
         keeps."""
-        return self.graphs(x_u8)
+        return self._calls["forward_u8"](x_u8)
 
     def _forward_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
         """The eager forward that :meth:`forward_u8` captures (the reference of its tests)."""
@@ -223,18 +240,20 @@ def depthany_process_output(depth: np.ndarray, target_extent: tuple[int, int]) -
     return out
 
 
-def depthany_load_model(filepath: str, device: Device | None = None) -> DepthAnythingModel:
+def depthany_load_model(filepath: str, device: Device | None = None, mesh=None) -> DepthAnythingModel:
     """Load a Depth-Anything V2 GGUF onto ``device`` (default: the CUDA
     device; without one, backend_init raises). With the device's
     ``keep_quantized`` flag (``VISP_KEEP_QUANT``) block-quantized tensors
-    stay int8-resident and dequantize at each use (core/quant.py)."""
+    stay int8-resident and dequantize at each use (core/quant.py). ``mesh``:
+    place the weights on a mesh of parallel/ for multi-card serving
+    (quantized residency is single-card only; a mesh forces dequant)."""
     device = device or backend_init()
-    keep_q = bool(device.flags & BuildFlag.keep_quantized)
+    keep_q = bool(device.flags & BuildFlag.keep_quantized) and mesh is None
     file = model_load(filepath)
     p = depthany_detect_params(file)
     params = fixup_weights(file, load_weights(file, as_numpy=True, keep_quantized=keep_q))
     params = params_from_numpy(params, device.torch_device, device.preferred_float_type)
-    return DepthAnythingModel(params, p, device)
+    return DepthAnythingModel(params, p, device, mesh=mesh)
 
 
 def depthany_compute(model: DepthAnythingModel, image: Image) -> Image:

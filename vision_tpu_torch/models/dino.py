@@ -19,6 +19,7 @@ from ..core.gguf import GGUFFile
 from ..core.params import Params
 from ..ops import attention, gelu, layer_norm, linear, patch_embed, resize_nhwc
 from ..ops.debug import capture
+from ..parallel.tp import local_heads
 
 __all__ = ["DinoParams", "dino_detect_params", "dino_get_intermediate_layers", "prepare_tokens"]
 
@@ -87,6 +88,9 @@ def self_attention(p: Params, x: torch.Tensor, n_heads: int, flash: bool = False
     b, t, c = x.shape
     hd = c // n_heads
     scale = 1.0 / math.sqrt(hd)
+    # with tp-sharded q/k/v this rank attends over its own heads; the
+    # row-parallel output.dense sums the heads over the tp group
+    n_heads = local_heads(p["attention.query"], n_heads)
 
     if flash:
         def project(pp):
@@ -103,7 +107,7 @@ def self_attention(p: Params, x: torch.Tensor, n_heads: int, flash: bool = False
     v = proj(p["attention.value"])
     attn = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
-    o = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, t, c)
+    o = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, t, n_heads * hd)
     return linear(p["output.dense"], o)
 
 

@@ -30,7 +30,8 @@ launch the same 351 convs.
 The port runs this plain form. The JAX package serves the same math
 regrouped by source (``esrgan_generate_packed``), which fills the TPU's
 128-lane products; the two agree to 2e-5 at f32. PyTorch runs eagerly, so
-there is no per-extent program cache; meshes wait for their queue item.
+there is no per-extent program cache. With a ``mesh`` (parallel/) the
+batch, and the tiled path's tile batch, split over dp.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from ..core.gguf import GGUFFile, model_load
 from ..core.graph import ForwardGraphs
 from ..core.params import Params
 from ..core.weights import cast_float_params, load_weights
+from ..parallel.runner import mesh_entries
 from ..image import (
     Image,
     ImageFormat,
@@ -230,14 +232,22 @@ class EsrganModel:
 
     ``params``: torch tensors under the GGUF names; floats are cast to the
     device's float policy here (they are moved nowhere: pass them on the
-    device, as :func:`esrgan_load_model` does)."""
+    device, as :func:`esrgan_load_model` does).
 
-    def __init__(self, params: dict[str, torch.Tensor], p: EsrganParams, device: Device):
+    ``mesh``: a dp mesh of parallel/ (every rank builds the model from its
+    own copy of the weights; no weight matches a tp rule, so they are
+    replicated, as in the JAX package): ``forward_u8`` splits its batch
+    over dp (rank 0 calls, the other ranks follow, parallel/runner.py),
+    each rank replaying its own CUDA graph per shard shape."""
+
+    def __init__(self, params: dict[str, torch.Tensor], p: EsrganParams, device: Device, mesh=None):
         self.p = p
         self.device = device
         self.dtype = device.preferred_float_type
+        self.mesh = mesh
         self.params = cast_float_params(params, self.dtype)
         self.graphs = ForwardGraphs(self._forward_u8, device.torch_device)
+        self._calls = mesh_entries(self, mesh, forward_u8=self.graphs)
 
     def forward_u8(self, x_u8: torch.Tensor, to_u8: bool = True) -> torch.Tensor:
         """(N, H, W, 3) uint8 -> (N, H*scale, W*scale, 3) on the model's
@@ -249,7 +259,7 @@ class EsrganModel:
         ``to_u8`` runs as one CUDA graph, captured at its first call and
         replayed after (core/graph.py); the result is a copy that the caller
         keeps."""
-        return self.graphs(x_u8, to_u8=to_u8)
+        return self._calls["forward_u8"](x_u8, to_u8=to_u8)
 
     def _forward_u8(self, x_u8: torch.Tensor, to_u8: bool = True) -> torch.Tensor:
         """The eager forward that :meth:`forward_u8` captures (the reference of its tests)."""
@@ -273,7 +283,13 @@ class EsrganModel:
         by default. An image whose longer side fits in a tile runs whole;
         a larger one is cut into overlapping tiles (replicate padding at
         the border), run ``batch`` tiles at a time (the last chunk padded
-        with zero tiles) and blended on the host."""
+        with zero tiles) and blended on the host. With a mesh, ``batch``
+        must divide by its dp extent: each rank runs batch / dp tiles a
+        call."""
+        if self.mesh is not None:
+            dp = self.mesh.size(0)
+            if batch % dp:
+                raise ValueError(f"tile batch {batch} not divisible by mesh dp={dp}")
         if tile_size is None:
             tile_size = ESRGAN_DEFAULT_TILE_SIZE
         if max(image.extent) <= tile_size:
@@ -310,14 +326,15 @@ class EsrganModel:
         return image_f32_to_u8(out, ImageFormat.rgba_u8)
 
 
-def esrgan_load_model(filepath: str, device: Device | None = None) -> EsrganModel:
+def esrgan_load_model(filepath: str, device: Device | None = None, mesh=None) -> EsrganModel:
     """Load a Real-ESRGAN GGUF onto ``device`` (default: the CUDA device;
     without one, backend_init raises). Block-quantized tensors expand at
-    load: there is no ``keep_quantized`` path, as in the JAX package."""
+    load: there is no ``keep_quantized`` path, as in the JAX package.
+    ``mesh``: replicate the weights over a dp mesh of parallel/."""
     device = device or backend_init()
     file = model_load(filepath)
     p = esrgan_detect_params(file)
-    return EsrganModel(load_weights(file, device), p, device)
+    return EsrganModel(load_weights(file, device), p, device, mesh=mesh)
 
 
 def esrgan_compute(model: EsrganModel, image: Image) -> Image:

@@ -22,7 +22,8 @@ pass, in PyTorch, as the JAX package leaves them to XLA: no Pallas kernel
 fits this model, so its path launches no hand-written kernel. Weight names
 match the original MI-GAN checkpoints (convert.py:482-497); int8-resident
 weights (``keep_quantized``, core/quant.py) dequantize at each use, one
-dequant kernel a weight on the card. Meshes wait for their queue item.
+dequant kernel a weight on the card. With a ``mesh`` (parallel/) the
+(image, mask) batch splits over dp.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from ..core.gguf import GGUFFile, model_load
 from ..core.graph import ForwardGraphs
 from ..core.params import Params
 from ..core.weights import cast_float_params, load_weights
+from ..parallel.runner import mesh_entries
 from ..image import (
     Image,
     ImageFormat,
@@ -223,14 +225,22 @@ class MiganModel:
 
     ``params``: torch tensors under the GGUF names; floats are cast to the
     device's float policy here (they are moved nowhere: pass them on the
-    device, as :func:`migan_load_model` does)."""
+    device, as :func:`migan_load_model` does).
 
-    def __init__(self, params: dict[str, torch.Tensor], p: MiganParams, device: Device):
+    ``mesh``: a dp mesh of parallel/ (every rank builds the model from its
+    own copy of the weights; no weight matches a tp rule, so they are
+    replicated, as in the JAX package): ``forward_u8`` splits its batch
+    over dp (rank 0 calls, the other ranks follow, parallel/runner.py),
+    each rank replaying its own CUDA graph per shard shape."""
+
+    def __init__(self, params: dict[str, torch.Tensor], p: MiganParams, device: Device, mesh=None):
         self.p = p
         self.device = device
         self.dtype = device.preferred_float_type
+        self.mesh = mesh
         self.params = cast_float_params(params, self.dtype)
         self.graphs = ForwardGraphs(self._forward_u8, device.torch_device)
+        self._calls = mesh_entries(self, mesh, forward_u8=self.graphs)
 
     def forward_u8(self, image_u8: torch.Tensor, mask_u8: torch.Tensor) -> torch.Tensor:
         """(N, res, res, 3) uint8 image and (N, res, res, 1) uint8 mask -> the
@@ -243,7 +253,7 @@ class MiganModel:
         input shape pair runs as one CUDA graph, captured at its first call and
         replayed after (core/graph.py); the result is a copy that the caller
         keeps."""
-        return self.graphs(image_u8, mask_u8)
+        return self._calls["forward_u8"](image_u8, mask_u8)
 
     def _forward_u8(self, image_u8: torch.Tensor, mask_u8: torch.Tensor) -> torch.Tensor:
         """The eager forward that :meth:`forward_u8` captures (the reference of its tests)."""
@@ -264,16 +274,19 @@ class MiganModel:
         return migan_process_output(y[0].float().cpu().numpy(), image, mask)
 
 
-def migan_load_model(filepath: str, device: Device | None = None) -> MiganModel:
+def migan_load_model(filepath: str, device: Device | None = None, mesh=None) -> MiganModel:
     """Load an MI-GAN GGUF onto ``device`` (default: the CUDA device; without
     one, backend_init raises). With the device's ``keep_quantized`` flag
     (``VISP_KEEP_QUANT``) block-quantized tensors stay int8-resident and
-    dequantize at each use (core/quant.py); without it they expand at load."""
+    dequantize at each use (core/quant.py); without it they expand at load.
+    ``mesh``: replicate the weights over a dp mesh of parallel/ (quantized
+    residency is single-card only; a mesh forces dequant)."""
     device = device or backend_init()
     file = model_load(filepath)
     p = replace(migan_detect_params(file), invert_mask=True)
-    params = load_weights(file, device, keep_quantized=bool(device.flags & BuildFlag.keep_quantized))
-    return MiganModel(params, p, device)
+    keep_q = bool(device.flags & BuildFlag.keep_quantized) and mesh is None
+    params = load_weights(file, device, keep_quantized=keep_q)
+    return MiganModel(params, p, device, mesh=mesh)
 
 
 def migan_compute(model: MiganModel, image: Image, mask: Image) -> Image:

@@ -21,7 +21,9 @@ follow the JAX package: the prompts are f32 (the positional encoding computes
 in f32) while the weights and the image embedding are in the device type, so
 on the card the decoder's queries stay f32 and its keys bf16, and masks and
 IoU come out f32. Int8-resident weights (``keep_quantized``, core/quant.py)
-dequantize at each use, in ``decode`` too. Meshes wait for their queue item.
+dequantize at each use, in ``decode`` too. With a ``mesh`` (parallel/) the
+batch splits over dp and the TinyViT attentions and MLPs and the decoder's
+MLPs over tp, each rank on whole heads (:func:`tiny_vit_heads`).
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ from ..core.gguf import GGUFFile, model_load
 from ..core.params import Params
 from ..core.quant import is_quant
 from ..core.weights import cast_float_params, load_weights, params_from_numpy, unpermute_cwhn
+from ..parallel.runner import mesh_entries
+from ..parallel.sharding import mesh_params
 from ..image import (
     Image,
     ImageFormat,
@@ -238,6 +242,19 @@ def tiny_vit(p: Params, x, tp: TinyVitParams = TinyVitParams(), flash: bool = Fa
     x = layer_norm(p["neck"][1], x)
     x = conv_2d(p["neck"][2], x, 1, 1)
     return layer_norm(p["neck"][3], x)
+
+
+def tiny_vit_heads(tp: TinyVitParams = TinyVitParams()):
+    """``shard_params``' ``heads``: the head count of a TinyViT attention
+    weight (``enc.layers.{stage}...attn.*``), None for any other."""
+
+    def heads(name: str) -> int | None:
+        parts = name.split(".")
+        if len(parts) > 3 and parts[0] == "enc" and parts[1] == "layers" and ".attn." in name:
+            return tp.layers[int(parts[2])].num_heads
+        return None
+
+    return heads
 
 
 def sam_encode_image(params: Params, image, p: SamParams = SamParams(), flash: bool = False,
@@ -526,24 +543,40 @@ class SamModel:
     device's float policy here, positional tables included (the JAX package's
     ``SamModel.__init__`` casts them too), and moved nowhere: pass them on
     the device, as :func:`sam_load_model` does. ``tiny_vit``: encoder
-    geometry; only the production 1024 default feeds the 64x64 decoder."""
+    geometry; only the production 1024 default feeds the 64x64 decoder.
+
+    ``mesh``: a (dp, tp) mesh of parallel/ (every rank builds the model
+    from its own copy of the weights): the TinyViT qkv / proj / fc1 / fc2
+    and the decoder's lin1 / lin2 are tp-sharded where their heads divide
+    (DEFAULT_TP_RULES), and ``encode_u8``, ``decode`` and
+    :meth:`serve_masks` split their batch over dp (rank 0 calls, the other
+    ranks follow, parallel/runner.py)."""
 
     def __init__(self, params: dict[str, torch.Tensor], p: SamParams, device: Device,
-                 tiny_vit: TinyVitParams = TinyVitParams()):
+                 tiny_vit: TinyVitParams = TinyVitParams(), mesh=None):
         self.p = p
         self.device = device
         self.tiny_vit = tiny_vit
         self.dtype = device.preferred_float_type
         self.flash = bool(device.flags & BuildFlag.flash_attention)
+        self.mesh = mesh
         self.params = cast_float_params(params, self.dtype)
+        if mesh is not None:
+            self.params = mesh_params(self.params, mesh, device, heads=tiny_vit_heads(tiny_vit), qkv_layout="per_head")
         self.image_extent: tuple[int, int] | None = None
         self.embed: torch.Tensor | None = None
+        self._calls = mesh_entries(self, mesh, encode_u8=self._encode_u8, dec_point=self._dec_point,
+                                   dec_box=self._dec_box, serve_masks=self._serve_masks)
 
     def encode_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
         """(N, 1024, 1024, 3) uint8 -> (N, 64, 64, 256) embeddings in the
         model dtype, on the model's device. Runs under
         ``torch.inference_mode``, entered here because the mode is
         thread-local and servers call this from their own worker thread."""
+        return self._calls["encode_u8"](x_u8)
+
+    def _encode_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
+        """:meth:`encode_u8` on this rank's shard (the whole batch unmeshed)."""
         with torch.inference_mode():
             x = x_u8.to(self.device.torch_device, non_blocking=True)
             x = normalize_u8(x, IMAGENET_MEAN, IMAGENET_STD, self.dtype)
@@ -553,7 +586,20 @@ class SamModel:
         """Prompt encode + mask decode. embeds: (1 or P, 64, 64, 256) on the
         device; coords: (P, 2, 2) processed prompts; kind: "point" or "box"."""
         c = torch.from_numpy(np.asarray(coords, np.float32)).to(self.device.torch_device)
-        return (self._dec_point if kind == "point" else self._dec_box)(embeds, c)
+        return self._calls["dec_point" if kind == "point" else "dec_box"](embeds, c)
+
+    def serve_masks(self, x_u8: torch.Tensor, coords: np.ndarray, kind: str) -> torch.Tensor:
+        """A server's group: encode (N, 1024, 1024, 3) uint8 images, decode
+        one prompt each (coords (N, 2, 2), ``kind`` "point" or "box") and
+        pick each best mask: (N, 256, 256) f32 on the device. With a mesh
+        the group splits over dp as one call."""
+        c = torch.from_numpy(np.asarray(coords, np.float32))
+        return self._calls["serve_masks"](x_u8, c, kind=kind)
+
+    def _serve_masks(self, x_u8: torch.Tensor, coords: torch.Tensor, kind: str) -> torch.Tensor:
+        embeds = self._encode_u8(x_u8)
+        c = coords.to(self.device.torch_device)
+        return best_masks((self._dec_point if kind == "point" else self._dec_box)(embeds, c))
 
     def _dec_point(self, embeds: torch.Tensor, coords: torch.Tensor) -> SamPrediction:
         """:meth:`decode` of point prompts with the coords a (P, 2, 2) f32
@@ -612,7 +658,8 @@ class SamModel:
         return self._masks(coords, "box")
 
 
-def sam_load_model(filepath: str, device: Device | None = None, keep_quantized: bool | None = None) -> SamModel:
+def sam_load_model(filepath: str, device: Device | None = None, keep_quantized: bool | None = None,
+                   mesh=None) -> SamModel:
     """Load a MobileSAM GGUF onto ``device`` (default: the CUDA device;
     without one, backend_init raises). Every float, the positional tables
     included, lands in the device's float type, which is where the JAX
@@ -623,12 +670,17 @@ def sam_load_model(filepath: str, device: Device | None = None, keep_quantized: 
     device and dequantize at each use (core/quant.py) — defaults to the
     device's ``keep_quantized`` build flag (``VISP_KEEP_QUANT``). Positional
     tables dequantize at load and stay full precision, as in the JAX
-    package."""
+    package.
+
+    ``mesh``: place the weights on a mesh of parallel/ for multi-card
+    serving (quantized residency is single-card only; a mesh forces
+    dequant, as in the JAX package)."""
     device = device or backend_init()
     if keep_quantized is None:
         keep_quantized = bool(device.flags & BuildFlag.keep_quantized)
+    keep_quantized = keep_quantized and mesh is None
     file = model_load(filepath)
     params = fixup_weights(file, load_weights(file, as_numpy=True, keep_quantized=keep_quantized))
     params = {k: v.dequant().numpy() if is_quant(v) and "positional" in k else v for k, v in params.items()}
     params = params_from_numpy(params, device.torch_device, device.preferred_float_type)
-    return SamModel(params, SamParams(), device)
+    return SamModel(params, SamParams(), device, mesh=mesh)

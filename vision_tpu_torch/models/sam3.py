@@ -22,9 +22,12 @@ Reference: src/visp/arch/sam3.h.
   * FPN neck: 4 scale branches (x4 / x2 / x1 / x0.5) with 1x1 + 3x3
     projections and host-computed sine position embeddings (sam3.h:517-613).
 
-The JAX package's window-major scan trunk (``vision_transformer_scan`` and
-its weight packing), its sharded and pipelined forms and ``mesh`` wait for
-their queue items: ``encode_vision`` runs the spatial trunk.
+With a ``mesh`` (parallel/) both encoders run tensor-parallel
+(SAM3_TP_RULES, as the JAX package's ``sam3_shard_vision``). The JAX
+package's window-major scan trunk (``vision_transformer_scan`` and its
+weight packing) and the sequence- and pipeline-parallel trunks that need it
+(mesh ``sp`` / ``pp`` > 1) wait for their queue item: ``encode_vision``
+runs the spatial trunk.
 """
 
 from __future__ import annotations
@@ -43,8 +46,12 @@ from ..core.gguf import GGUFFile, model_load
 from ..core.graph import device_cache
 from ..core.params import Params
 from ..core.weights import cast_float_params, load_weights, params_from_numpy
+from ..core.errors import raise_error
+from ..parallel.runner import mesh_entries
+from ..parallel.sharding import SAM3_TP_RULES, mesh_params, mesh_shape
 from ..image import Image, ImageFormat, image_scale, image_u8_to_f32, preprocess_scale_method
-from ..ops import attention, conv_2d, conv_transpose_2d, gelu, layer_norm, linear, max_pool_2d
+from ..ops import attention, attention_core, conv_2d, conv_transpose_2d, gelu, layer_norm, linear, max_pool_2d
+from ..parallel.tp import gather_for, local_heads
 from .mobile_sam import window_partition, window_reverse
 
 __all__ = [
@@ -172,14 +179,18 @@ def clip_text_embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
 
 
 def clip_attention(p: Params, x: torch.Tensor, mask: torch.Tensor, n_heads: int = 16) -> torch.Tensor:
+    """With tp-sharded q/k/v (SAM3_TP_RULES) this rank attends over its own
+    heads, and the heads are gathered before the replicated out_proj."""
     b, t, c = x.shape
     hd = c // n_heads
+    n_heads = local_heads(p["q_proj"], n_heads)
 
     def proj(pp):
         return linear(pp, x).reshape(b, t, n_heads, hd).permute(0, 2, 1, 3)
 
     q, k, v = proj(p["q_proj"]), proj(p["k_proj"]), proj(p["v_proj"])
-    return attention(p["out_proj"], q, k, v, mask, 1.0 / math.sqrt(hd))
+    o = attention_core(q, k, v, mask, 1.0 / math.sqrt(hd)).permute(0, 2, 1, 3).reshape(b, t, n_heads * hd)
+    return linear(p["out_proj"], gather_for(o, p["q_proj"], p["out_proj"]))
 
 
 def clip_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -315,6 +326,9 @@ def rope_attention(p: Params, x: torch.Tensor, n_heads: int, n_rows: int, scale:
     is the flash kernel on a CUDA tensor."""
     b, t, c = x.shape
     hd = c // n_heads
+    # with tp-sharded q/k/v this rank attends over its own heads; the
+    # row-parallel o_proj sums the heads over the tp group
+    n_heads = local_heads(p["q_proj"], n_heads)
 
     if flash:
         def proj(pp):
@@ -335,7 +349,7 @@ def rope_attention(p: Params, x: torch.Tensor, n_heads: int, n_rows: int, scale:
     s = torch.tensor(1.0 / math.sqrt(hd), dtype=x.dtype).item()
     attn = torch.einsum("bqhd,bkhd->bhqk", q, k) * s
     attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
-    o = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, t, c)
+    o = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, t, n_heads * hd)
     return linear(p["o_proj"], o)
 
 
@@ -462,6 +476,19 @@ def sam3_process_input(img: Image, image_size: int = 1008) -> np.ndarray:
     return out.data
 
 
+def sam3_heads(vp: Sam3VitParams, text_heads: int = 16):
+    """``shard_params``' ``heads``: the head count of a SAM3 attention
+    weight (vision ``.attention.``, text ``.self_attn.``), None for any
+    other."""
+
+    def heads(name: str) -> int | None:
+        if ".attention." in name:
+            return vp.n_heads
+        return text_heads if ".self_attn." in name else None
+
+    return heads
+
+
 class Sam3Model:
     """High-level handle for the work-in-progress SAM3 scope: tokenizer,
     text encoder, vision encoder and neck (no mask decoder yet, matching
@@ -471,10 +498,17 @@ class Sam3Model:
     ``det.te.*``) on ``device``; floats are cast to the device's float
     policy here, once. The text depth is counted from the weights, the
     flash route read from ``device.flags``, and both encoders run on
-    ``device``."""
+    ``device``.
+
+    ``mesh``: a (dp, tp) mesh of parallel/ (every rank builds the model from
+    its own copy of the weights): the vision and text attentions and MLPs
+    are tp-sharded (SAM3_TP_RULES, whole heads a rank), and every rank of
+    the mesh runs each encode (rank 0 calls, the other ranks follow,
+    parallel/runner.py). ``sp`` or ``pp`` > 1 raises: they need the scan
+    trunk."""
 
     def __init__(self, params: dict[str, torch.Tensor], tokenizer: ClipTokenizer, max_tokens: int, device: Device,
-                 vp: Sam3VitParams | None = None):
+                 vp: Sam3VitParams | None = None, mesh=None):
         self.params = cast_float_params(params, device.preferred_float_type)
         self.tokenizer = tokenizer
         self.max_tokens = max_tokens
@@ -482,11 +516,22 @@ class Sam3Model:
         self.dtype = device.preferred_float_type
         self.flash = bool(device.flags & BuildFlag.flash_attention)
         self.vp = vp or Sam3VitParams()
+        self.mesh = mesh
         # the text depth from the weights, not hardcoded (reduced checkpoints)
         n_text = 0
         while any(k.startswith(f"det.te.text_model.encoder.layers.{n_text}.") for k in params):
             n_text += 1
         self.n_text_layers = n_text
+        if mesh is not None:
+            shape = mesh_shape(mesh)
+            if shape["sp"] > 1 or shape["pp"] > 1:
+                raise_error(
+                    "SAM3 sequence / pipeline parallelism (mesh sp {} / pp {}) needs the window-major scan "
+                    "trunk (vision_transformer_scan), which the port has not taken yet",
+                    shape["sp"], shape["pp"],
+                )
+            self.params = mesh_params(self.params, mesh, device, SAM3_TP_RULES, heads=sam3_heads(self.vp))
+        self._calls = mesh_entries(self, mesh, encode_text=self._encode_text, encode_vision=self._encode_vision)
 
     def encode_text(self, text: str) -> torch.Tensor:
         """One prompt -> (1, max_tokens, C) in the model's type, on its
@@ -495,7 +540,7 @@ class Sam3Model:
         dev = self.device.torch_device
         ids = torch.from_numpy(toks.token_ids[None]).to(dev)
         mask = torch.from_numpy(toks.attention_mask).to(dev)
-        return self._encode_text(ids, mask)
+        return self._calls["encode_text"](ids, mask)
 
     def _encode_text(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """:meth:`encode_text` of tokenized input: ``ids`` (1, t) int32 and
@@ -508,7 +553,7 @@ class Sam3Model:
         down to (1, s/2, s/2, 256) for s = image_size / patch_size."""
         x = sam3_process_input(image, self.vp.image_size)
         x = torch.from_numpy(x[None]).to(self.device.torch_device, self.dtype)
-        return self._encode_vision(x)
+        return self._calls["encode_vision"](x)
 
     def _encode_vision(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
         """:meth:`encode_vision` of processed images: ``x`` (N, s, s, 3) in
@@ -517,13 +562,14 @@ class Sam3Model:
             return tuple(encode_vision(Params(self.params)["det.ve"], x, self.vp, flash=self.flash).fpn_hidden_states)
 
 
-def sam3_load_model(filepath: str, device: Device | None = None) -> Sam3Model:
+def sam3_load_model(filepath: str, device: Device | None = None, mesh=None) -> Sam3Model:
     """Load a SAM3 GGUF onto ``device`` (default: the CUDA device; without
     one, backend_init raises). Quantized tensors expand to floats at load:
-    there is no ``keep_quantized`` path, as in the JAX package."""
+    there is no ``keep_quantized`` path, as in the JAX package. ``mesh``:
+    tp-shard the weights over a mesh of parallel/ (SAM3_TP_RULES)."""
     device = device or backend_init()
     file = model_load(filepath)
     tokenizer = clip_tokenizer_init(file)
     max_tokens = file.get_int("sam3.tokenizer.max_length", 32)
     params = params_from_numpy(load_weights(file, as_numpy=True), device.torch_device, device.preferred_float_type)
-    return Sam3Model(params, tokenizer, max_tokens, device)
+    return Sam3Model(params, tokenizer, max_tokens, device, mesh=mesh)

@@ -28,7 +28,8 @@ NMS runs on the host, as in the JAX package, but through a vectorised numpy
 greedy loop of this module (:func:`non_max_suppression`) with the native
 library's arithmetic (``visp_nms``, vision_tpu/native/host_ops.cpp), not a
 ctypes library. Int8-resident weights (``keep_quantized``, core/quant.py)
-dequantize at each use. Meshes wait for their queue item.
+dequantize at each use. With a ``mesh`` (parallel/) the batch splits over
+dp.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from ..core.gguf import GGUFFile, model_load
 from ..core.graph import ForwardGraphs, device_cache
 from ..core.params import Params
 from ..core.weights import cast_float_params, load_weights
+from ..parallel.runner import mesh_entries
 from ..image import Image, ImageFormat, image_scale, preprocess_scale_method
 from ..ops import avg_pool_2d, batch_norm_2d, conv_2d, conv_3x3_fused, max_pool_2d, normalize_u8, resize_nhwc, silu
 from ..ops.debug import capture
@@ -446,14 +448,22 @@ class Yolov9tModel:
 
     ``params``: torch tensors under the GGUF names; floats are cast to the
     device's float policy here (they are moved nowhere: pass them on the
-    device, as :func:`yolov9t_load_model` does)."""
+    device, as :func:`yolov9t_load_model` does).
 
-    def __init__(self, params: dict[str, torch.Tensor], p: Yolov9tParams, device: Device):
+    ``mesh``: a dp mesh of parallel/ (every rank builds the model from its
+    own copy of the weights; no weight matches a tp rule, so they are
+    replicated, as in the JAX package): ``forward_u8`` splits its batch
+    over dp (rank 0 calls, the other ranks follow, parallel/runner.py),
+    each rank replaying its own CUDA graph per shard shape."""
+
+    def __init__(self, params: dict[str, torch.Tensor], p: Yolov9tParams, device: Device, mesh=None):
         self.p = p
         self.device = device
         self.dtype = device.preferred_float_type
+        self.mesh = mesh
         self.params = cast_float_params(params, self.dtype)
         self.graphs = ForwardGraphs(self._forward_u8, device.torch_device)
+        self._calls = mesh_entries(self, mesh, forward_u8=self.graphs)
 
     def forward_u8(self, x_u8: torch.Tensor) -> DetectOutput:
         """(B, H, W, 3) uint8 -> the forward's boxes and scores (f32) on the
@@ -463,7 +473,7 @@ class Yolov9tModel:
         worker thread. On the card each input shape runs as one CUDA graph,
         captured at its first call and replayed after (core/graph.py); the
         result is a copy that the caller keeps."""
-        return self.graphs(x_u8)
+        return self._calls["forward_u8"](x_u8)
 
     def _forward_u8(self, x_u8: torch.Tensor) -> DetectOutput:
         """The eager forward that :meth:`forward_u8` captures (the reference of its tests)."""
@@ -480,15 +490,18 @@ class Yolov9tModel:
         return scale_boxes(dets, image.extent, gain, dw, dh)
 
 
-def yolov9t_load_model(filepath: str, device: Device | None = None) -> Yolov9tModel:
+def yolov9t_load_model(filepath: str, device: Device | None = None, mesh=None) -> Yolov9tModel:
     """Load a YOLOv9t GGUF onto ``device`` (default: the CUDA device; without
     one, backend_init raises). With the device's ``keep_quantized`` flag
     (``VISP_KEEP_QUANT``) block-quantized tensors stay int8-resident and
-    dequantize at each use (core/quant.py); without it they expand at load."""
+    dequantize at each use (core/quant.py); without it they expand at load.
+    ``mesh``: replicate the weights over a dp mesh of parallel/ (quantized
+    residency is single-card only; a mesh forces dequant)."""
     device = device or backend_init()
     file = model_load(filepath)
-    params = load_weights(file, device, keep_quantized=bool(device.flags & BuildFlag.keep_quantized))
-    return Yolov9tModel(params, yolov9t_detect_params(file), device)
+    keep_q = bool(device.flags & BuildFlag.keep_quantized) and mesh is None
+    params = load_weights(file, device, keep_quantized=keep_q)
+    return Yolov9tModel(params, yolov9t_detect_params(file), device, mesh=mesh)
 
 
 def get_class_color(class_id: int) -> tuple[int, int, int]:

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from ..core.errors import raise_error
 from ..core.params import Params
+from ..parallel import tp as _tp
 
 __all__ = [
     "linear",
@@ -105,6 +106,8 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     the cast (the JAX package keeps the base's f32 sum; at f32 the two are
     the same)."""
     w = p.weight("weight")
+    if type(w) is not torch.Tensor and _tp.is_dtensor(w):
+        return _tp.linear(p, x)
     dt = _promoted(x, w)
     y = F.linear(x.to(dt), w.to(dt))
     a = p.find("lora_a")
@@ -370,25 +373,32 @@ def attention_windows(
 
     c = x.shape[-1]
     hd = c // n_heads
-    w = p["qkv"].weight("weight")
-    bb = p["qkv"].weight("bias")
+    # with a tp-sharded qkv this rank holds the rows of its own heads, in
+    # the same layout (regrouped at placement), and attends over them alone
+    heads = _tp.head_slice(p["qkv"], n_heads)
+    nh = heads.stop - heads.start
+    cl = nh * hd
+    w = _tp.local(p["qkv"].weight("weight"))
+    bb = _tp.local(p["qkv"].weight("bias"))
     if split_dim == 1:  # per-head [q|k|v] interleaving (TinyViT style)
-        w3 = w.reshape(n_heads, 3, hd, c)
-        b3 = bb.reshape(n_heads, 3, hd)
-        wi = lambda i: w3[:, i].reshape(c, c)
-        bi = lambda i: b3[:, i].reshape(c)
+        w3 = w.reshape(nh, 3, hd, c)
+        b3 = bb.reshape(nh, 3, hd)
+        wi = lambda i: w3[:, i].reshape(cl, c)
+        bi = lambda i: b3[:, i].reshape(cl)
     elif split_dim == 2:  # global [q..|k..|v..] ordering (torch style)
-        wi = lambda i: w.reshape(3, c, c)[i]
-        bi = lambda i: bb.reshape(3, c)[i]
+        wi = lambda i: w.reshape(3, cl, c)[i]
+        bi = lambda i: bb.reshape(3, cl)[i]
     else:
         raise ValueError("Unsupported split_dim")
+    if mask is not None and nh != n_heads:
+        mask = mask[..., heads, :, :].contiguous()
     # the bias joins the f32 accumulation before the one rounding to x's
     # type, as in the JAX package's split projections
     q, k, v = (F.linear(x, wi(i).to(x.dtype), bi(i).to(x.dtype)) for i in range(3))
     if window_mask is not None:
         window_mask = window_mask.float().contiguous()
-    o = window_attention(q, k, v, mask, n_heads, scale, window_mask)
-    return linear(p["proj"], o)
+    o = window_attention(q, k, v, mask, nh, scale, window_mask)
+    return linear(p["proj"], _tp.gather_for(o, p["qkv"], p["proj"]))
 
 
 def attention(p_out: Params, q, k, v, mask=None, scale: float | None = None, flash: bool = False):

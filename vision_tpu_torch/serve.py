@@ -1,4 +1,5 @@
-"""Batched request serving on one card — a port of vision_tpu/serve.py.
+"""Batched request serving on one card or a dp mesh — a port of
+vision_tpu/serve.py.
 
 The reference engine is strictly single-request: one image in, one result
 out per call (``src/visp/vision.cpp:36-95``). As in the JAX package, request
@@ -29,8 +30,12 @@ Two layers:
   group is one forward with the top-K candidate extraction on the card, NMS
   on the host per request.
 
-Meshes (the JAX package's ``_run_sharded``) wait for the port's parallel
-work.
+With a model built on a mesh (parallel/), the grouped batch additionally
+splits over cards through the model's entry points: rank 0 runs the
+server and scatters each group over the mesh's dp axis, the other ranks
+follow (parallel/runner.py), so N cards serve N times the batch in one
+call. Batch sizes then default to the per-card default times dp, and
+groups always pad to the full batch, so every shard is even.
 """
 
 from __future__ import annotations
@@ -328,13 +333,18 @@ def _dummy_image(extent=(64, 64)):
     return Image(np.zeros((h, w, 4), np.uint8), ImageFormat.rgba_u8)
 
 
-def _resolve_batch(batch_size: int | None, per_chip_default: int) -> int:
-    """A server's batch size: None takes the family's per-chip default, as
-    in the JAX package's ``_resolve_batch`` (one card, so no mesh scaling)."""
+def _resolve_batch(batch_size: int | None, per_chip_default: int, mesh=None) -> int:
+    """A server's batch size: None takes the family's per-card default,
+    scaled by the mesh's dp extent so every card keeps its shard; an
+    explicit value must divide evenly over the dp axis (the JAX package's
+    ``_resolve_batch``)."""
+    dp = mesh.size(0) if mesh is not None else 1
     if batch_size is None:
-        return per_chip_default
+        return per_chip_default * dp
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    if batch_size % dp:
+        raise ValueError(f"batch_size {batch_size} not divisible by mesh dp={dp}")
     return batch_size
 
 
@@ -369,7 +379,7 @@ class ImageServer:
         kind = type(model).__name__
         if kind not in _IMAGE_FAMILIES:
             raise TypeError(f"ImageServer does not support {kind}")
-        batch_size = _resolve_batch(batch_size, 4)
+        batch_size = _resolve_batch(batch_size, 4, getattr(model, "mesh", None))
         self.model = model
         self.kind = kind
         self.batch_size = batch_size
@@ -503,7 +513,7 @@ class SamServer:
     ):
         if type(model).__name__ != "SamModel":
             raise TypeError(f"SamServer serves a SamModel, got {type(model).__name__}")
-        batch_size = _resolve_batch(batch_size, 6)
+        batch_size = _resolve_batch(batch_size, 6, getattr(model, "mesh", None))
         self.model = model
         self.batch_size = batch_size
         self._server = BatchServer(
@@ -528,15 +538,14 @@ class SamServer:
         return (x, kind, coords, image.extent)
 
     def _run_group(self, items: list):
-        from .models.mobile_sam import best_masks, sam_process_mask
+        from .models.mobile_sam import sam_process_mask
 
         kind = items[0][1]
         n = len(items)
         padded = items + [items[0]] * (self.batch_size - n)
         x = torch.from_numpy(np.stack([it[0] for it in padded]))
         coords = np.stack([it[2] for it in padded])
-        embeds = self.model.encode_u8(x)
-        masks = best_masks(self.model.decode(embeds, coords, kind))[:n].cpu().numpy()  # (n, 256, 256)
+        masks = self.model.serve_masks(x, coords, kind)[:n].cpu().numpy()  # (n, 256, 256)
         return [sam_process_mask(masks[i][None], 0, it[3], self.model.p) for i, it in enumerate(items)]
 
     def warmup(self, kinds=("point", "box")) -> None:
@@ -600,7 +609,7 @@ class EsrganServer:
     ):
         if type(model).__name__ != "EsrganModel":
             raise TypeError(f"EsrganServer serves an EsrganModel, got {type(model).__name__}")
-        batch_size = _resolve_batch(batch_size, 4)
+        batch_size = _resolve_batch(batch_size, 4, getattr(model, "mesh", None))
         self.model = model
         self.batch_size = batch_size
         self.max_pixels = max_pixels
@@ -686,7 +695,7 @@ class YoloServer:
             raise TypeError(f"YoloServer serves a Yolov9tModel, got {type(model).__name__}")
         # 8: YOLOv9t at 640 is small enough that deeper batches amortize the
         # launches without memory pressure (the JAX package's default)
-        batch_size = _resolve_batch(batch_size, 8)
+        batch_size = _resolve_batch(batch_size, 8, getattr(model, "mesh", None))
         self.model = model
         self.batch_size = batch_size
         self.conf_thres = conf_thres

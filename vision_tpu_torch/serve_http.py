@@ -36,7 +36,9 @@ from __future__ import annotations
 
 import io
 import json
+import socket
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
@@ -254,6 +256,23 @@ def _make_handler(server: VisionHTTPServer):
                     return
                 n -= len(chunk)
 
+        def _linger(self, seconds: float = 2.0):
+            """Close after an answer that leaves a declared body unread: stop
+            writing, then drop what the client still sends (for up to
+            ``seconds``) before the close. Closing with bytes unread resets
+            the connection, and the reset can reach the client before it
+            has read the answer."""
+            self.close_connection = True
+            try:
+                self.wfile.flush()
+                self.connection.shutdown(socket.SHUT_WR)
+                self.connection.settimeout(seconds)
+                deadline = time.monotonic() + seconds
+                while time.monotonic() < deadline and self.connection.recv(1 << 16):
+                    pass
+            except OSError:
+                pass
+
         def do_POST(self):
             self._responded = False
             url = urlparse(self.path)
@@ -281,7 +300,8 @@ def _make_handler(server: VisionHTTPServer):
                     # reject BEFORE buffering: a client-declared multi-GB
                     # Content-Length must not drive a host allocation (the
                     # image/pixel caps only run after the body is read)
-                    return self._json(413, {"error": f"body exceeds {MAX_BODY_BYTES} bytes"})
+                    self._json(413, {"error": f"body exceeds {MAX_BODY_BYTES} bytes"})
+                    return self._linger()
 
                 try:
                     try:

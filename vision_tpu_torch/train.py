@@ -1,6 +1,8 @@
 """Training / fine-tuning with checkpoint/resume — a port of
-vision_tpu/train.py for one device (meshes wait for the port's parallel
-work).
+vision_tpu/train.py for one device. The training meshes
+(``create_train_state(mesh, fsdp)``, ``make_train_step(mesh)``,
+``prefetch_to_device(mesh)``) wait for their queue item; parallel/ serves
+over meshes, and its ``training_step`` is the JAX package's SGD check.
 
 The JAX package jits one state-donating step (``value_and_grad`` + an optax
 update); here the step runs eagerly: ``torch.autograd.grad`` over the
