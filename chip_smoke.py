@@ -181,11 +181,13 @@ Phases, each raising on failure:
      its eager peak), the median ms of eager and replay, and a profile of
      one replay (device busy, idle share of the replay median, launches per
      hand-written kernel, which must equal what the counters added);
- 28. the CLI: python -m vision_tpu_torch.cli as a subprocess for depthany,
-     birefnet --composite, esrgan --tile 224, migan, yolov9t and sam on a
-     640x480 PNG (and a mask), each output PNG equal to the in-process
-     model.compute on the card (the composite and yolov9t's detection count
-     too), then info and compare; each verb's wall seconds; then
+ 28. the CLI: python -m vision_tpu_torch.cli as a subprocess for depthany
+     (CLI_SUBPROCESS_VERB, the entry point's one interpreter start), and
+     cli.main in process for birefnet --composite, esrgan --tile 224,
+     migan, yolov9t and sam on a 640x480 PNG (and a mask), each output PNG
+     equal to the in-process model.compute on the card (the composite and
+     yolov9t's detection count too), then info and compare; each verb's
+     wall seconds; then
      --composite's foreground estimate at 1024x1024, radius 30, through the
      host-ops library and through its numpy forms, timed on the host;
  29. the served phases' p50s (their forwards now graph replays) and the
@@ -208,7 +210,7 @@ Phases, each raising on failure:
      truncated PNG gets 400, an unknown route 404, a Content-Length past
      MAX_BODY_BYTES 413; the host codec's ms (decode of each body extent,
      encode of each response); then each endpoint alone gets a stream of
-     200 requests (its bodies, cycled), 8 in flight at a time, over HTTP and
+     HTTP_STREAM (64) requests (its bodies, cycled), 8 in flight at a time, over HTTP and
      then straight to its service: p50, p99 and req/s of each, and the
      service's own p50 and p99 of the HTTP requests;
  31. bulk (bulk.py): bulk_run on the card over a directory of 12 PNGs at
@@ -217,7 +219,8 @@ Phases, each raising on failure:
      annotations may move a box edge by a pixel; its JSON within its
      roundings), the launches equal to the per-forward count times the
      forwards the server called; img/s and occupancy;
- 32. the verbs as subprocesses: ``eval -m`` Depth-Anything over phase 31's
+ 32. the verbs, ``serve`` as a subprocess and the others through cli.main
+     in process: ``eval -m`` Depth-Anything over phase 31's
      images against the port's CPU f32 depth (AbsRel within EVAL_ABSREL)
      and YOLOv9t against the CPU's detections.json (mAP printed, not gated);
      ``serve`` with Depth-Anything and YOLOv9t on port 0 (each route
@@ -296,10 +299,12 @@ Phases, each raising on failure:
      batch (EXPORT_CASES; BiRefNet and SAM3 program-only), a Q8_0
      Depth-Anything and a YOLOv9t exported on the CPU, each traced in a
      writer process of its own (EXPORT_WRITER), all at once, SAM3 in the
-     run's own process meanwhile; one subprocess
-     (EXPORT_LOADER) loads them all with load_bundle (the CPU one with
-     device="cuda"), calls each entry and prints the modules it holds: no
-     model module among them; each output bit-equal to the in-process
+     run's own process meanwhile; a loader subprocess a bundle
+     (EXPORT_LOADER), all at once, loads it with load_bundle (the CPU one
+     with device="cuda"), calls each entry (first calls overlapping, the
+     steady calls after every loader's first calls, one loader at a time)
+     and prints the modules it holds:
+     no model module among them; each output bit-equal to the in-process
      forward (or within E2E_REL_RMS, said so), the CPU export's within
      EXPORT_CPU_F32_REL_RMS of the CPU's f32 forward; each call's launches a
      forward's; export s, bundle MB, load s, first and steady call ms beside
@@ -341,10 +346,25 @@ Phases, each raising on failure:
  45. dryrun_multichip over 2 and 4 cards, each in a subprocess, where the
      machine has them; otherwise a line says which world sizes did not run.
      The world sizes that ran are printed.
+ 46. the training meshes at one NCCL rank (a world of one made through
+     init_distributed): each of phase 37's recipe steps (Real-ESRGAN,
+     BiRefNet, the QLoRA distillation) on create_train_state(mesh=) /
+     make_train_step(mesh=) against the same start unmeshed (and a second
+     unmeshed run, the control), TRAIN_MESH_STEPS steps over the same
+     batches under PyTorch's deterministic algorithms (deterministic: the
+     backward's atomics otherwise vary the last bits run to run): losses and
+     parameters bit-equal, each step's launches a forward's (351 conv3x3;
+     48 window, 24 masked, and 20 deform_conv; 105 dequant) on both, ms a
+     step of each; ``finetune --dp 1`` (Real-ESRGAN) and ``distill --dp 1
+     --qlora`` through cli.main (deterministic too), their GGUFs and
+     adapters byte-equal to the runs without --dp; the dry
+     run's step 5 (train_step_check) at world 1; a meshed MobileSAM exported
+     with embed_params=False (meta["mesh"] dp 1) whose call_sharded is
+     bit-equal to the in-process encode_u8, with its launches.
 
 The line before the last is a JSON object describing every kernel of the
-paths (its vtt ops, its launches a training step and in each exported
-call); the last line is {"ok": true, "device": {...}}.
+paths (its vtt ops, its launches a training step, meshed and not, and in
+each exported call); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --parent DIR
 
@@ -358,6 +378,7 @@ in turns.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -2409,7 +2430,7 @@ HTTP_CLIENTS = 8
 # phase 30's latency: each endpoint alone gets a stream of HTTP_STREAM requests
 # (its bodies of HTTP_EXTENTS, cycled), HTTP_CLIENTS in flight at a time, over
 # HTTP and then straight to its service
-HTTP_STREAM = 200
+HTTP_STREAM = 64
 HTTP_ROUTES = {"sam": "/v1/sam/mask", "esrgan": "/v1/esrgan", "birefnet": "/v1/birefnet", "depthany": "/v1/depthany",
                "migan": "/v1/migan", "yolo": "/v1/yolo"}
 SERVICE_FAMILIES = {"sam": "sam", "esrgan": "esrgan", "birefnet": "birefnet", "depthany": "depthany",
@@ -2433,7 +2454,8 @@ DEPTH_FAULTS = {"ragged last key tile dropped": lambda t: slice(0, t // 64 * 64)
                 "first 64-key tile dropped": lambda t: slice(64, t)}
 VIDEO_FRAMES = 16
 SERVE_EXIT_S = 30  # the serve verb must exit 0 this soon after SIGINT
-CLI_EXTENT = (640, 480)  # the CLI phase's input image (w, h): ESRGAN cuts it into 224-pixel tiles
+CLI_EXTENT = (640, 480)  # the CLI phase's input image (w, h)
+CLI_SUBPROCESS_VERB = "depthany"  # phase 28's one start of python -m vision_tpu_torch.cli: ESRGAN cuts it into 224-pixel tiles
 HOST_OPS_CASE = ((1024, 1024), 30)  # --composite's foreground estimate: BiRefNet's extent, the CLI's radius
 
 
@@ -2599,6 +2621,26 @@ def cli_run(args: list, label: str) -> tuple[float, str]:
     return wall_s, res.stdout
 
 
+def cli_main(args: list, label: str) -> tuple[float, str]:
+    """``vision_tpu_torch.cli.main(args)`` in this process, its standard
+    output captured; raises unless it returns 0. Returns its wall seconds
+    and output (no interpreter start: cli_run drives the module entry point
+    once a phase)."""
+    import contextlib
+    import io
+
+    from vision_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(args))
+    wall_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"CLI {label} (in process) returned {rc}:\n{buf.getvalue()}")
+    return wall_s, buf.getvalue()
+
+
 def front_door_phases(torch, card: str, fa, wa, cc, dsm, dcm, tmp: str) -> dict:
     """Phases 27-28: every graphed forward_u8 of the five models, eager
     against replay (GRAPH_CASES); then the CLI as a subprocess, each model
@@ -2668,7 +2710,9 @@ def front_door_phases(torch, card: str, fa, wa, cc, dsm, dcm, tmp: str) -> dict:
     }
     cli_s = {}
     for verb, extra in verbs.items():
-        cli_s[verb], stdout = cli_run([verb, "-m", paths[verb], "-o", out(verb), *extra], verb)
+        # the module entry point once, as a subprocess; the other verbs through cli.main in this process
+        run = cli_run if verb == CLI_SUBPROCESS_VERB else cli_main
+        cli_s[verb], stdout = run([verb, "-m", paths[verb], "-o", out(verb), *extra], verb)
         got = image_load(out(verb))
         if verb not in models:  # SAM: phase 30 serves it too
             models[verb] = load_model(paths[verb], gpu)
@@ -2696,21 +2740,24 @@ def front_door_phases(torch, card: str, fa, wa, cc, dsm, dcm, tmp: str) -> dict:
         same = got.format == want.format and np.array_equal(got.data, want.data)
         off = float((got.data != want.data).mean()) if got.data.shape == want.data.shape else 1.0
         phases_line = " | ".join(ln for ln in stdout.splitlines() if "done (" in ln)
-        print(f"CLI {verb}: exit 0 in {cli_s[verb]:.2f} s wall ({phases_line}); {got.extent} {got.format.value}, "
+        how = "a subprocess" if verb == CLI_SUBPROCESS_VERB else "cli.main in process"
+        print(f"CLI {verb} ({how}): exit 0 in {cli_s[verb]:.2f} s wall ({phases_line}); {got.extent} "
+              f"{got.format.value}, "
               f"{'equal to' if same else f'{off:.4%} of values differ from'} the in-process model.compute "
               f"[{card}]", flush=True)
         if not same:
             raise AssertionError(f"CLI {verb}: output differs from the in-process model.compute")
-    cli_s["info"], stdout = cli_run(["info", "-m", paths["birefnet"]], "info")
+    cli_s["info"], stdout = cli_main(["info", "-m", paths["birefnet"]], "info")
     if "family: birefnet" not in stdout:
         raise AssertionError(f"CLI info printed {stdout[:300]!r}")
     matte = image_load(out("birefnet"))
     image_save(matte, out("birefnet_copy"))
-    cli_s["compare"], stdout = cli_run(["compare", "-i", out("birefnet"), out("birefnet_copy"), "--max-rms", "0"],
-                                       "compare")
+    cli_s["compare"], stdout = cli_main(["compare", "-i", out("birefnet"), out("birefnet_copy"), "--max-rms", "0"],
+                                        "compare")
     if not stdout.startswith("rms  0.000000") or image_difference_rms(matte, image_load(out("birefnet_copy"))):
         raise AssertionError(f"CLI compare printed {stdout!r}")
-    print(f"CLI info {cli_s['info']:.2f} s, compare {cli_s['compare']:.2f} s wall: exit 0 [{card}]", flush=True)
+    print(f"CLI info {cli_s['info']:.2f} s, compare {cli_s['compare']:.2f} s wall (cli.main in process): exit 0 "
+          f"[{card}]", flush=True)
     host_ops = host_ops_timing(card)
     from vision_tpu_torch.ops.cuda import dequant as dqm
 
@@ -3251,7 +3298,8 @@ def serve_verb(card: str, fd: dict, tmp: str) -> None:
 
 
 def verbs_phase(torch, card: str, fd: dict, tmp: str, bulk: dict) -> None:
-    """Phase 32: the CLI's new verbs as subprocesses on the card. ``eval -m``
+    """Phase 32: the CLI's new verbs on the card, ``serve`` as a subprocess
+    (its SIGINT exit), the others through cli.main in process. ``eval -m``
     for Depth-Anything over phase 31's 12 images, its ground truth the
     port's CPU f32 depth of the same images shifted into [1, 2] (.npy):
     AbsRel within EVAL_ABSREL. ``eval -m`` for YOLOv9t, its ground truth the
@@ -3266,7 +3314,7 @@ def verbs_phase(torch, card: str, fd: dict, tmp: str, bulk: dict) -> None:
     from vision_tpu_torch.core.device import backend_init
     from vision_tpu_torch.image import image_load
 
-    phase("32 the verbs as subprocesses: eval -m, serve, a directory -i, a video")
+    phase("32 the verbs: eval -m, serve (a subprocess), a directory -i, a video (cli.main in process)")
     paths = fd["paths"]
     cpu = backend_init("cpu")
     t0 = time.perf_counter()
@@ -3284,8 +3332,8 @@ def verbs_phase(torch, card: str, fd: dict, tmp: str, bulk: dict) -> None:
     scores = {}
     for family, gt in (("depthany", gt_depth), ("yolov9t", os.path.join(gt_yolo, "detections.json"))):
         result = os.path.join(tmp, f"eval_{family}.json")
-        wall, stdout = cli_run(["eval", "-m", paths[family], "-i", bulk["dirs"][family], "--gt", gt, "-o", result],
-                               f"eval -m {family}")
+        wall, stdout = cli_main(["eval", "-m", paths[family], "-i", bulk["dirs"][family], "--gt", gt, "-o", result],
+                                f"eval -m {family}")
         r = json.load(open(result))
         report = "\n".join(ln for ln in stdout[stdout.index("task "):].splitlines() if not ln.startswith("-> "))
         print(f"CLI eval -m {family}: exit 0 in {wall:.2f} s wall; " + " | ".join(report.splitlines()) + f" [{card}]",
@@ -3304,8 +3352,8 @@ def verbs_phase(torch, card: str, fd: dict, tmp: str, bulk: dict) -> None:
     serve_verb(card, fd, tmp)
 
     dst = os.path.join(tmp, "cli_bulk_depthany")
-    wall, stdout = cli_run(["depthany", "-m", paths["depthany"], "-i", bulk["dirs"]["depthany"], "-o", dst],
-                           "depthany -i <dir>")
+    wall, stdout = cli_main(["depthany", "-m", paths["depthany"], "-i", bulk["dirs"]["depthany"], "-o", dst],
+                            "depthany -i <dir>")
     worst, equal = (0, 0.0), 0
     for name in sorted(os.listdir(bulk["outs"]["depthany"])):
         got, want = image_load(os.path.join(dst, name)).data, image_load(os.path.join(bulk["outs"]["depthany"],
@@ -3342,7 +3390,7 @@ def video_verb(card: str, fd: dict, tmp: str) -> None:
     with VideoWriter(clip, 12.0, (640, 480)) as w:
         for px in front_images(np.random.default_rng(33), ((640, 480),) * VIDEO_FRAMES):
             w.write(px)
-    wall, _ = cli_run(["depthany", "-m", paths["depthany"], "-i", clip, "-o", clip_out], "depthany -i <video>")
+    wall, _ = cli_main(["depthany", "-m", paths["depthany"], "-i", clip, "-o", clip_out], "depthany -i <video>")
     with VideoReader(clip_out) as r:
         n, extent = sum(1 for _ in r), r.extent
     print(f"CLI depthany -i <video>: exit 0 in {wall:.2f} s wall; {n} frames of {extent} written for "
@@ -3431,6 +3479,10 @@ RESIDENT_GRAPHS = {"depthany": (4, ((518, 518, 3),)), "birefnet": (4, ((1024, 10
 LOOKUP_SHAPES = {"depthany": ((1, 126, 126, 3),), "birefnet": ((1, 128, 128, 3),),
                  "migan": ((1, MIGAN_RES, MIGAN_RES, 3), (1, MIGAN_RES, MIGAN_RES, 1)), "yolov9t": ((1, 64, 64, 3),)}
 DEPTH_QUANT_EXTRA = ("q4_1", "iq4_nl")  # Depth-Anything's other copies
+# the Q8_0 copies' dequant launches a full-width forward (one a weight's use),
+# held as numbers: the CPU's count of lookups moves with the code it counts
+RESIDENT_LAUNCHES = {"depthany": {"forward": 74}, "sam": {"encode": 40}, "birefnet": {"forward": 198}}
+DISTILL_DEQUANTS = 105  # the QLoRA student's forward in the distillation step (phase 37)
 
 
 def dequant_inputs(torch, rng, name: str, file_shape: tuple):
@@ -3644,6 +3696,9 @@ def residency_case(torch, card: str, family: str, label: str, path: str, lookups
         hand_res = {k: v for k, v in launched[res].items() if k != "dequant" and v}
         hand_exp = {k: v for k, v in launched[exp].items() if k != "dequant" and v}
         want = len(lookups[name])
+        fixed = RESIDENT_LAUNCHES.get(family, {}).get(name) if label.endswith("q8_0") else None
+        if fixed is not None and want != fixed:
+            raise AssertionError(f"{label} {name}: the CPU's forward looks up {want} residents, not {fixed}")
         if hand_res != hand_exp or launched[exp].get("dequant", 0) != 0 or launched[res].get("dequant", 0) != want:
             raise AssertionError(f"{label} {name}: resident launches {launched[res]}, expanded {launched[exp]}; "
                                  f"expected the same hand-written launches and {want} dequant launches (the CPU "
@@ -4047,8 +4102,9 @@ def train_harness(torch, card: str, label: str, host: dict, trainable, loss_fn, 
     from vision_tpu_torch.train import save_checkpoint
 
     held = torch.cuda.memory_allocated() / 2**20  # what the run holds before this recipe's state
-    state = create_train_state(params_from_numpy(host, TRAIN_DEVICE, torch.float32), adam(TRAIN_LR), trainable)
-    cpu = create_train_state(params_from_numpy(host, "cpu", torch.float32), adam(TRAIN_LR), trainable)
+    state = create_train_state(params_from_numpy(host, TRAIN_DEVICE, torch.float32), adam(TRAIN_LR),
+                               trainable=trainable)
+    cpu = create_train_state(params_from_numpy(host, "cpu", torch.float32), adam(TRAIN_LR), trainable=trainable)
     step = make_train_step(loss_fn)
     first = first_step_check(torch, label, loss_fn, state.params, cpu.params, state.names, batches[0])
     del cpu
@@ -4085,7 +4141,8 @@ def train_harness(torch, card: str, label: str, host: dict, trainable, loss_fn, 
     if still or not frozen or not moved:
         raise AssertionError(f"{label}: leaves with a gradient did not move {still[:5]} or residents changed")
     path = save_checkpoint(os.path.join(tmp, f"ckpt-{label.split()[0]}", f"step_{state.step}"), state)
-    fresh = create_train_state(params_from_numpy(host, TRAIN_DEVICE, torch.float32), adam(TRAIN_LR), trainable)
+    fresh = create_train_state(params_from_numpy(host, TRAIN_DEVICE, torch.float32), adam(TRAIN_LR),
+                               trainable=trainable)
     restore_checkpoint(path, fresh)
     saved, back = state.optimizer.state_dict(), fresh.optimizer.state_dict()
     equal = fresh.step == state.step and all(
@@ -4192,9 +4249,9 @@ def training_phases(torch, card: str, fd: dict, tmp: str) -> dict:
     epoch = data_loader(list(enumerate(images)), b, load=ft._patch_load(patch, 37), shuffle=True, seed=37)
     batches = list(prefetch_to_device(epoch, device=TRAIN_DEVICE))
     per = {"conv3x3": ESRGAN_CONVS}
-    rows["esrgan"] = train_harness(torch, card, "Real-ESRGAN", load_weights(efile, as_numpy=True), None,
-                                   ft.esrgan_loss(esrgan_detect_params(efile), patch), batches, per, counts,
-                                   ("conv3x3",), tmp)
+    cases = {"esrgan": (load_weights(efile, as_numpy=True), None, ft.esrgan_loss(esrgan_detect_params(efile), patch),
+                        batches, per)}
+    rows["esrgan"] = train_harness(torch, card, "Real-ESRGAN", *cases["esrgan"][:4], per, counts, ("conv3x3",), tmp)
     rows["esrgan"]["recipe_s"] = recipe_run(
         torch, card, "Real-ESRGAN", lambda: ft.finetune_esrgan(
             efile, images, os.path.join(tmp, "esrgan-tuned.gguf"), steps=TRAIN_STEPS, lr=TRAIN_LR, batch=b,
@@ -4212,8 +4269,9 @@ def training_phases(torch, card: str, fd: dict, tmp: str) -> dict:
     epoch = data_loader(pairs, b, load=ft._mask_load(size), shuffle=True, seed=38)
     batches = [(x, m, int(seeds.integers(2**62))) for x, m in prefetch_to_device(epoch, device=TRAIN_DEVICE)]
     per = {"window": BIREF_WINDOWS, "window masked": BIREF_MASKED, "deform_conv": BIREF_DEFORMS}
-    rows["birefnet"] = train_harness(torch, card, "BiRefNet", biref_fixup(bfile, load_weights(bfile, as_numpy=True)),
-                                     None, ft.mask_loss(birefnet_detect_params(bfile), True), batches, per, counts,
+    cases["birefnet"] = (biref_fixup(bfile, load_weights(bfile, as_numpy=True)), None,
+                         ft.mask_loss(birefnet_detect_params(bfile), True), batches, per)
+    rows["birefnet"] = train_harness(torch, card, "BiRefNet", *cases["birefnet"][:4], per, counts,
                                      ("window_attention", "deform_conv"), tmp)
     rows["birefnet"]["recipe_s"] = recipe_run(
         torch, card, "BiRefNet", lambda: ft.finetune_birefnet(
@@ -4244,8 +4302,9 @@ def training_phases(torch, card: str, fd: dict, tmp: str) -> dict:
         loss(probe_params, batches[0])
     per = {"dequant": dqm.launches - before}  # one a resident lookup of the student's forward
     del probe_params
-    if not per["dequant"]:
-        raise AssertionError("the QLoRA student's forward looked up no int8 resident")
+    if per["dequant"] != DISTILL_DEQUANTS:
+        raise AssertionError(f"the QLoRA student's forward launched {per['dequant']} dequants, not {DISTILL_DEQUANTS}")
+    cases["distill"] = (host, trainable, loss, batches, per)
     rows["distill"] = train_harness(torch, card, "Depth-Anything distill (QLoRA)", host, trainable, loss, batches,
                                     per, counts, ("dequant",), tmp)
     rows["distill"]["recipe_s"] = recipe_run(
@@ -4260,7 +4319,7 @@ def training_phases(torch, card: str, fd: dict, tmp: str) -> dict:
         print(f"training {name}: {r['step_ms']:.3f} ms a step (median of {TRAIN_TIMED}), peak {r['peak_mib']:.1f} "
               f"MiB above the run's earlier holdings, step busy {r['step_busy_ms']:.3f} ms, forward {r['forward_busy_ms']:.3f} ms, hand-written "
               f"kernels {r['kernels_ms']:.3f} ms, {r['launches']} [{card}]", flush=True)
-    return {"worst": worst, "rows": rows}
+    return {"worst": worst, "rows": rows, "cases": cases, "images": images, "teacher": teacher}
 
 
 def parent_library(parent: str, build):
@@ -4525,7 +4584,7 @@ CAPI_EXTENT = (320, 240)
 CAPI_ARGS = {"sam": [160, 120], "yolov9t": [250, 450]}  # SAM's point; YOLOv9t's thresholds in permille
 
 EXPORT_LOADER = r"""
-import json, sys, time
+import fcntl, json, os, sys, time
 import torch
 from vision_tpu_torch.export import load_bundle
 from vision_tpu_torch.ops.cuda import conv3x3, deform_conv, deform_sample, dequant, flash_attention, window_attention
@@ -4543,6 +4602,7 @@ def zero():
 
 out = []
 bundles = {}
+calls = []
 for item in json.load(open(sys.argv[1])):
     key = (item["bundle"], item["device"])
     t0 = time.perf_counter()
@@ -4560,15 +4620,27 @@ for item in json.load(open(sys.argv[1])):
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = counts()
-    times = []
-    for _ in range(item["steady"]):
-        t0 = time.perf_counter()
-        b.call(item["entry"], *args)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
     torch.save(torch.utils._pytree.tree_map(lambda t: t.cpu(), y), item["out"])
-    out.append({"name": item["name"], "load_s": load_s, "first_ms": first_ms, "steady_ms": sorted(times)[len(times) // 2],
+    calls.append((b, item, args))
+    out.append({"name": item["name"], "load_s": load_s, "first_ms": first_ms,
                 "launches": {k: v for k, v in launches.items() if v}})
+# the steady calls once every loader's first calls are done (a ready file each), then one loader at a time
+# (a lock file): the card is not shared while they are timed
+open(sys.argv[1] + ".ready", "w").close()
+others, deadline = sys.argv[3].split(","), time.time() + 600  # a loader that failed never gets ready
+while sum(os.path.exists(p + ".ready") for p in others) < len(others) and time.time() < deadline:
+    time.sleep(0.05)
+with open(sys.argv[2], "a") as lock:
+    fcntl.flock(lock, fcntl.LOCK_EX)
+    for (b, item, args), row in zip(calls, out):
+        times = []
+        for _ in range(item["steady"]):
+            t0 = time.perf_counter()
+            b.call(item["entry"], *args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        row["steady_ms"] = sorted(times)[len(times) // 2]
+    fcntl.flock(lock, fcntl.LOCK_UN)
 mods = sorted(m for m in sys.modules if m.split(".")[0] in ("vision_tpu_torch", "vision_tpu", "jax", "jaxlib"))
 print(json.dumps({"entries": out, "modules": mods}))
 """
@@ -4923,22 +4995,39 @@ def export_phase(torch, card: str, fd: dict, models: dict, cpu_models: dict, tmp
             plan.append({"name": f"{name}.{entry}", "bundle": dst, "entry": entry, "device": device,
                          "inputs": path + ".in.pt", "params": os.path.join(d, f"{name}.params.pt") if program_only
                          else None, "out": path + ".out.pt", "steady": EXPORT_STEADY_CALLS})
-    with open(os.path.join(d, "plan.json"), "w") as f:
-        json.dump(plan, f)
     with open(os.path.join(d, "loader.py"), "w") as f:
         f.write(EXPORT_LOADER)
+    # a loader process a bundle, all at once: their loads and first calls are host work and overlap;
+    # their steady calls take turns (a lock file)
+    groups: dict = {}
+    for item in plan:
+        groups.setdefault(item["bundle"], []).append(item)
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, os.path.join(d, "loader.py"), os.path.join(d, "plan.json")], cwd=root,
-                         env=env, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise AssertionError(f"bundle loader failed:\n{res.stdout[-4000:]}{res.stderr[-8000:]}")
-    report = json.loads(res.stdout.strip().splitlines()[-1])
-    print(f"one subprocess loaded {len(set(p['bundle'] for p in plan))} bundles and called {len(plan)} entries in "
-          f"{time.perf_counter() - t0:.1f} s; its modules of the port: {len(report['modules'])}", flush=True)
+    loaders = []
+    plans = [os.path.join(d, f"plan{i}.json") for i in range(len(groups))]
+    for path, items in zip(plans, groups.values()):
+        with open(path, "w") as f:
+            json.dump(items, f)
+    for path in plans:
+        loaders.append(subprocess.Popen([sys.executable, os.path.join(d, "loader.py"), path,
+                                         os.path.join(d, "steady.lock"), ",".join(plans)], cwd=root, env=env,
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    by_name, modules = {}, set()
+    for proc in loaders:
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"bundle loader failed:\n{stdout[-4000:]}{stderr[-8000:]}")
+        part = json.loads(stdout.strip().splitlines()[-1])
+        by_name.update({e["name"]: e for e in part["entries"]})
+        modules.update(part["modules"])
+    report = {"entries": [by_name[item["name"]] for item in plan], "modules": sorted(modules)}
+    print(f"{len(loaders)} loader subprocesses at once (one a bundle) loaded {len(groups)} bundles and called "
+          f"{len(plan)} entries in {time.perf_counter() - t0:.1f} s (first calls overlapping, steady calls after all "
+          f"first calls, one loader at a time); their modules of the port: {len(report['modules'])}", flush=True)
     bad = [m for m in report["modules"] if m.startswith(("vision_tpu_torch.models", "vision_tpu.", "jax"))
            or m in ("vision_tpu", "jax")]
     if bad:
-        raise AssertionError(f"the bundle loader imported {bad}")
+        raise AssertionError(f"a bundle loader imported {bad}")
     graphs = fd["graphs"]
     for item, r in zip(plan, report["entries"]):
         name, entry = item["name"].split(".", 1)
@@ -5128,7 +5217,8 @@ def tooling_phases(torch, card: str, fd: dict, tmp: str, sam3_models: tuple) -> 
     cpu_models = {f: load_model(fd["paths"][f], cpu) for f in EXPORT_CASES if f != "sam3"}
     models["sam3"], cpu_models["sam3"] = sam3_models
     cpu_models["sam3"].flash = True  # phase 19 loaded it with the CPU's flags
-    phase("40 export: a bundle per family at full width, loaded and called in one subprocess without model modules")
+    phase("40 export: a bundle per family at full width, loaded and called in loader subprocesses without model "
+          "modules")
     export = export_phase(torch, card, fd, models, cpu_models, tmp)
     phase("41 the C ABI: a C program over the six families on visp_device_init(2)")
     capi_row = capi_phase(torch, card, fd, models, tmp)
@@ -5485,6 +5575,188 @@ def mesh_more_ranks(card: str) -> list:
         ran.append(size)
     print(f"mesh world sizes run: {ran}", flush=True)
     return ran
+
+
+# phase 46: the training meshes at one NCCL rank
+TRAIN_MESH_STEPS = 2  # steps compared, meshed against unmeshed, from one start
+TRAIN_MESH_TIMED = 5  # steps timed of each, in turns (host-bound steps: more than phase 38's TRAIN_TIMED)
+TRAIN_MESH_COUNTERS = {"esrgan": "conv3x3", "birefnet": "window", "distill": "dequant"}
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """PyTorch's deterministic algorithms (cuDNN's, index_add's and
+    index_put's sorted forms; a warning where an op has none) while the
+    block runs: a training step's backward otherwise sums with atomics in
+    an order that varies from run to run, so two runs of one step differ in
+    their last bits, mesh or not."""
+    before = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+              torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before[2], before[3]
+
+
+def train_mesh_recipe(torch, card: str, label: str, case: tuple, mesh, counts) -> dict:
+    """Phase 46 for one recipe's step: the same start on the card on
+    ``mesh`` (create_train_state / make_train_step with mesh=) and twice
+    unmeshed, TRAIN_MESH_STEPS steps each over the same batches under
+    deterministic(): the two unmeshed runs bit-equal to each other (the
+    step reproduces), the meshed losses and, after the steps, its parameters
+    (gathered) bit-equal to the unmeshed ones, the hand-written launches of
+    each step equal and a forward's; then TRAIN_MESH_TIMED steps meshed and
+    unmeshed, in turns, timed on the host clock (deterministic() off)."""
+    from vision_tpu_torch.core.weights import params_from_numpy
+    from vision_tpu_torch.train import adam, create_train_state, full_params, make_train_step
+
+    host, trainable, loss_fn, batches, per = case
+    runs = {"meshed": mesh, "unmeshed": None, "again": None}
+    states = {r: create_train_state(params_from_numpy(host, TRAIN_DEVICE, torch.float32), adam(TRAIN_LR), mesh=m,
+                                    trainable=trainable) for r, m in runs.items()}
+    steps = {r: make_train_step(loss_fn, mesh=m) for r, m in runs.items()}
+    losses, launches = {r: [] for r in runs}, {r: [] for r in runs}
+    with deterministic(torch):
+        for i in range(TRAIN_MESH_STEPS):
+            for r in runs:
+                torch.cuda.synchronize()
+                zero_counts()
+                states[r], metrics = steps[r](states[r], batches[i % len(batches)])
+                torch.cuda.synchronize()
+                launches[r].append({k: v for k, v in counts().items() if v})
+                losses[r].append(metrics["loss"].detach().clone())
+    want = {k: v for k, v in per.items() if v}
+    whole = {r: full_params(st.params) for r, st in states.items()}
+
+    def same(a: str, b: str) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(losses[a], losses[b])) and all(
+            torch.equal(v, whole[b][k]) for k, v in whole[a].items() if isinstance(v, torch.Tensor))
+
+    reproduces, meshed_same = same("again", "unmeshed"), same("meshed", "unmeshed")
+    ok_launches = all(x == want for r in runs for x in launches[r])
+    del states["again"]
+    times = {"meshed": [], "unmeshed": []}
+    for i in range(TRAIN_MESH_TIMED):
+        for r in times:
+            t0 = time.perf_counter()
+            states[r], _ = steps[r](states[r], batches[(i + 1) % len(batches)])
+            torch.cuda.synchronize()
+            times[r].append((time.perf_counter() - t0) * 1e3)
+    ms = {r: float(np.median(t)) for r, t in times.items()}
+    print(f"train mesh {label} at one rank: {TRAIN_MESH_STEPS} steps under deterministic algorithms, losses "
+          f"({', '.join(f'{float(v):.6f}' for v in losses['meshed'])}) and parameters "
+          f"{'bit-equal' if meshed_same else 'DIFFER'} meshed against unmeshed (two unmeshed runs "
+          f"{'bit-equal' if reproduces else 'DIFFER'}); launches a step {launches['meshed'][0]} meshed, "
+          f"{launches['unmeshed'][0]} unmeshed, {want} expected; ms a step (median of {TRAIN_MESH_TIMED}, "
+          f"deterministic algorithms off) {ms['meshed']:.3f} meshed, {ms['unmeshed']:.3f} unmeshed "
+          f"({ms['meshed'] - ms['unmeshed']:+.3f} ms) [{card}]", flush=True)
+    if not (reproduces and meshed_same and ok_launches):
+        raise AssertionError(f"train mesh {label}: unmeshed runs equal {reproduces}, meshed equal {meshed_same}, "
+                             f"launches {launches} (want {want})")
+    del states, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches["meshed"][0], "ms": ms}
+
+
+def train_mesh_phase(torch, card: str, fd: dict, tmp: str, train: dict) -> dict:
+    """Phase 46: the training meshes at one NCCL rank (a world of one joined
+    through init_distributed and a file store, then make_mesh(1)): each of
+    phase 37's recipe steps meshed against unmeshed (train_mesh_recipe); the
+    CLI's ``finetune --dp 1`` (Real-ESRGAN) and ``distill --dp 1 --qlora``
+    through cli.main, their GGUFs (and the adapters) byte-equal to the runs
+    without --dp; the dry run's step 5 at world 1; a dp-1 meshed SAM bundle
+    (export_model of a meshed SamModel, embed_params=False) whose
+    call_sharded is bit-equal to the in-process encode, with its launches."""
+    import torch.distributed as dist
+
+    from vision_tpu_torch.core.device import backend_init
+    from vision_tpu_torch.export import export_model, load_bundle
+    from vision_tpu_torch.models.mobile_sam import SamModel, SamParams, sam_load_model
+    from vision_tpu_torch.ops.cuda import dequant, window_attention
+    from vision_tpu_torch.parallel import init_distributed, make_mesh
+    from vision_tpu_torch.parallel.dryrun import train_step_check
+
+    def counts():
+        return {**fd["counts"](), "window masked": window_attention.masked_launches, "dequant": dequant.launches}
+
+    phase("46 training meshes at one NCCL rank: each recipe's step meshed against unmeshed, finetune / distill "
+          "--dp 1, the dry run's step 5, a meshed SAM bundle's call_sharded")
+    kind = "cpu" if TRAIN_DEVICE == "cpu" else "cuda"  # a CPU rehearsal sets TRAIN_DEVICE
+    dev = backend_init("cpu" if kind == "cpu" else "gpu")
+    init_distributed("file://" + os.path.join(tmp, "train_mesh_store"), 1, 0, device=kind)
+    mesh = make_mesh(1, device=kind)
+    rows = {"launches": {}, "ms": {}}
+    labels = {"esrgan": "Real-ESRGAN", "birefnet": "BiRefNet", "distill": "Depth-Anything distill (QLoRA)"}
+    for name, case in train["cases"].items():
+        r = train_mesh_recipe(torch, card, labels[name], case, mesh, counts)
+        rows["launches"][name], rows["ms"][name] = r["launches"], r["ms"]
+
+    d = os.path.join(tmp, "train_mesh_cli")
+    os.makedirs(d, exist_ok=True)
+    b, patch = ESRGAN_TRAIN["batch"], ESRGAN_TRAIN["patch"]
+    common = ["-i", *train["images"], "--steps", str(TRAIN_STEPS), "--batch", str(b), "--lr", str(TRAIN_LR)]
+    runs = {
+        "finetune": ["finetune", "-m", fd["paths"]["esrgan"], *common, "--patch", str(patch)],
+        "distill": ["distill", "-m", train["teacher"], "--student", fd["paths"]["depthany"], *common, "--size",
+                    str(DISTILL_TRAIN["size"]), "--lora", str(DISTILL_TRAIN["lora_rank"]), "--qlora"],
+    }
+    rows["cli_s"] = {}
+    for verb, args in runs.items():  # under deterministic(): each run two steps, compared bit for bit
+        outs = {}
+        for dp in (["--dp", "1"], []):
+            tag = "dp1" if dp else "none"
+            out = os.path.join(d, f"{verb}-{tag}.gguf")
+            extra = ["--lora-out", os.path.join(d, f"{verb}-{tag}-adapters.gguf")] if verb == "distill" else []
+            backend = ["-b", "cpu"] if kind == "cpu" else []
+            with deterministic(torch):
+                rows["cli_s"][(verb, tag)], stdout = cli_main(args + ["-o", out, *extra, *dp, *backend],
+                                                              f"{verb} {' '.join(dp)}")
+            if dp and f"dp mesh: 1 rank(s) on {kind}" not in stdout:
+                raise AssertionError(f"{verb} --dp 1 made no mesh:\n{stdout}")
+            outs[tag] = [out] + [e for e in extra if e.endswith(".gguf")]
+        same = all(open(a, "rb").read() == open(b_, "rb").read() for a, b_ in zip(outs["dp1"], outs["none"]))
+        print(f"CLI {verb} --dp 1 (cli.main, this process's world of one): {rows['cli_s'][(verb, 'dp1')]:.2f} s, "
+              f"without --dp {rows['cli_s'][(verb, 'none')]:.2f} s; its {len(outs['dp1'])} GGUF(s) "
+              f"{'byte-equal' if same else 'DIFFER'} [{card}]", flush=True)
+        if not same:
+            raise AssertionError(f"{verb} --dp 1 wrote other bytes than the run without --dp")
+
+    t0 = time.perf_counter()
+    train_step_check(1, 1, dev, kind)
+    print(f"the dry run's step 5 at world 1 in {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+    meshed = sam_load_model(fd["paths"]["sam"], dev, mesh=mesh)
+    plain = SamModel(meshed.params, SamParams(), dev)
+    dst = os.path.join(d, "sam_dp1.vxp")
+    t0 = time.perf_counter()
+    names = export_model(meshed, dst, batch=1, embed_params=False, entries=("encode",))
+    export_s = time.perf_counter() - t0
+    bundle = load_bundle(dst)
+    x = torch.from_numpy(np.random.default_rng(46).integers(0, 256, (1, 1024, 1024, 3), np.uint8)).to(dev.torch_device)
+    zero_counts()
+    want = plain.encode_u8(x)
+    torch.cuda.synchronize()
+    want_n = {k: v for k, v in counts().items() if v}
+    bundle.call_sharded("encode", plain.params, x)  # the first call loads the program
+    torch.cuda.synchronize()
+    zero_counts()
+    got = bundle.call_sharded("encode", plain.params, x)
+    torch.cuda.synchronize()
+    got_n = {k: v for k, v in counts().items() if v}
+    same = torch.equal(got, want)
+    print(f"meshed SAM bundle {names} (meta mesh {bundle.meta['mesh']}, exported in {export_s:.1f} s): call_sharded "
+          f"{'bit-equal to' if same else 'DIFFERS from'} the in-process encode_u8; launches {got_n}, in process "
+          f"{want_n} [{card}]", flush=True)
+    if not same or got_n != want_n or bundle.meta["mesh"]["dp"] != 1:
+        raise AssertionError(f"meshed SAM bundle: equal {same}, launches {got_n} / {want_n}")
+    rows["sam_bundle"] = got_n
+    del meshed, plain, bundle
+    dist.destroy_process_group()  # before tmp and its store go
+    return rows
 
 
 def mesh_phases(torch, card: str, fd: dict, tmp: str, sam3_models: tuple, fa, wa, dcm) -> dict:
@@ -6055,6 +6327,8 @@ def main(argv=None) -> int:
         tools = tooling_phases(torch, card, fd, fd_tmp, s3_models)
         mesh = mesh_phases(torch, card, fd, fd_tmp, s3_models, fa, wa, dcm)
         del s3_models
+        train_mesh = train_mesh_phase(torch, card, fd, fd_tmp, train)
+        del train["cases"]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6078,6 +6352,10 @@ def main(argv=None) -> int:
         """family -> this kernel's launches in a served batch of the meshed model at one rank (phase 43)."""
         return {f: r[counter] for f, r in mesh["served"].items()
                 if isinstance(r, dict) and counter in r and not f.endswith("_ms")}
+
+    def train_mesh_launches(counter: str) -> dict:
+        """recipe -> this kernel's launches in one meshed training step at one rank (phase 46)."""
+        return {r: n.get(counter, 0) for r, n in train_mesh["launches"].items()}
 
     def export_launches(counter: str) -> dict:
         """entry -> this kernel's launches in one call of the exported entry (phase 40)."""
@@ -6111,6 +6389,7 @@ def main(argv=None) -> int:
             "op_dispatch_us": tools["ops"]["dispatch_us"],
             "launches_train_step_distill": train["rows"]["distill"]["launches"]["flash"],
             "launches_mesh_one_rank": mesh_launches("flash"),
+            "launches_train_mesh_one_rank": train_mesh_launches("flash"),
             "mesh_shards": shard_rows("flash_attention"),
             "mesh_shard_max_abs_err": mesh["shards"]["worst"],
             "mesh_shard_rel_rms": mesh["shards"]["worst_rel_rms"]["flash_attention"],
@@ -6140,6 +6419,7 @@ def main(argv=None) -> int:
             "backward": "WindowAttentionFn: PyTorch ops, the probabilities recomputed at the forward's rounding",
             "grad_max_rel_rms": train["worst"]["window_attention"],
             "launches_mesh_one_rank": mesh_launches("window"),
+            "launches_train_mesh_one_rank": train_mesh_launches("window"),
             "mesh_shards": shard_rows("window_attention"),
             "mesh_shard_rel_rms": mesh["shards"]["worst_rel_rms"]["window_attention"],
         },
@@ -6179,6 +6459,7 @@ def main(argv=None) -> int:
             "backward": "Conv3x3Fn: PyTorch ops, F.conv2d recomputing the pre-activation and convolution_backward",
             "grad_max_rel_rms": train["worst"]["conv3x3"],
             "launches_mesh_one_rank": mesh_launches("conv3x3"),
+            "launches_train_mesh_one_rank": train_mesh_launches("conv3x3"),
         },
         {
             "name": "deform_conv",
@@ -6210,6 +6491,7 @@ def main(argv=None) -> int:
             "backward": "DeformConvFn: autograd of deform_conv_plain, recomputed from the saved inputs",
             "grad_max_rel_rms": train["worst"]["deform_conv"],
             "launches_mesh_one_rank": mesh_launches("deform_conv"),
+            "launches_train_mesh_one_rank": train_mesh_launches("deform_conv"),
             "mesh_shards": shard_rows("deform_conv"),
         },
         {
@@ -6230,6 +6512,7 @@ def main(argv=None) -> int:
                            f"Cin {BIREF_CIN} bf16; the standalone column kernel, off every served path",
             "timing": DEVICE_TIMING,
             "launches_train_step_birefnet": train["rows"]["birefnet"]["launches"]["deform_sample"],
+            "launches_train_mesh_one_rank": train_mesh_launches("deform_sample"),
         },
         {
             "name": "dequant",
@@ -6250,6 +6533,7 @@ def main(argv=None) -> int:
             "timing": "CUDA events around one graph replay, the median of 10",
             "cases_bit_equal": dq_cases,
             "launches_train_step_distill": train["rows"]["distill"]["launches"]["dequant"],
+            "launches_train_mesh_one_rank": train_mesh_launches("dequant"),
             "per_forward": {f"{family} {ftype}": {
                 name: {"dequant_launches": r[name]["dequant_launches"], "ms_resident": r[name]["ms"][0],
                        "ms_expanded": r[name]["ms"][1],

@@ -1,5 +1,19 @@
 """When does a meshed model's CUDA-graph capture break on one card?
 
+The finding: Python's cyclic garbage collector, when a collection falls
+inside a capture, frees an earlier model that only it reaches (a model and
+its ForwardGraphs hold each other: the dry run's unmeshed SamModel and
+EsrganModel, with their CUDA graphs and tensors, per ``saveall``), and that
+breaks the capture (``cudaErrorStreamCaptureInvalidated`` at the next
+cuBLAS product or kernel launch). An early ``import torch._dynamo``
+(thousands of objects) and the meshes' DTensors move the collector's
+counters so that a collection lands in the dry run's Real-ESRGAN or
+BiRefNet capture; without a process group none did. core/graph.py's
+``capture_forward`` now collects first and keeps the collector off
+through the warm-up and the capture; the ``gcon`` token takes that out
+again, to show the fault, and ``saveall`` lists what such a collection
+would free.
+
 Each variant runs in a process of its own, in a one-rank NCCL world made by
 ``init_distributed`` (a file store), and prints one line: ``ok`` or
 ``FAILED`` with the error the forward raised inside the capture. A variant
@@ -9,9 +23,10 @@ is a name made of tokens joined by ``_``:
              every meshed model built, then the SAM, Real-ESRGAN, BiRefNet
              and server checks); without it, one BiRefNet (SWIN-T, 64^2)
              forward_u8
-  loader     a tp-1 mesh hands each model the loader's own tensors (no
-             DTensor placement); views: views of them (no DTensor);
-             unmeshed: no mesh (single model only); else the port as it is
+  loader     a tp-1 mesh hands each model the loader's own tensors (as
+             parallel/sharding.py ``mesh_params`` now does itself); views:
+             views of them; unmeshed: no mesh (single model only); placed:
+             the port as it is
   dynamo     ``import torch._dynamo`` before any model is built; dtensor:
              ``import torch.distributed.tensor``
   watch      every capture under a dispatch mode that reads the capture
@@ -23,6 +38,22 @@ is a name made of tokens joined by ``_``:
   sleep / sync / nccl_warm / bir_only / bir_first   (dry) 10 s after the
              build; a synchronize before each check; a collective on every
              group first; only, or first, the BiRefNet check
+  nopg       (dry) no process group at all: no init_distributed, every
+             model built without a mesh (NCCL and DTensors out), SAM3's tp
+             check skipped
+  gcoff      Python's garbage collector collected, then off, around each
+             warm-up and capture (as core/graph.py capture_forward now
+             keeps it itself)
+  gcon       the collector left on inside capture_forward (its state
+             before the repair)
+  saveall    (with gcon) gc.DEBUG_SAVEALL through each capture: what a
+             collection there finds unreachable is kept, not freed, and its
+             types are printed
+  threads    print the process's threads (Python's, and the native count)
+             at each capture
+  cudafirst  the card initialized (torch.cuda.init and one product) before
+             ``dynamo``'s import; the import prints what it queued for the
+             card's lazy initialization (torch.cuda._queued_calls) either way
 
     python3 scripts/torch_mesh_capture_probe.py            # DEFAULT_VARIANTS
     python3 scripts/torch_mesh_capture_probe.py V1 V2 ...  # each in a process
@@ -30,6 +61,8 @@ is a name made of tokens joined by ``_``:
 Needs one CUDA card; writes each variant's whole output to
 chiprun_out/capture_probe_<variant>.log.
 """
+import collections
+import contextlib
 import ctypes
 import importlib
 import os
@@ -39,16 +72,24 @@ import tempfile
 import time
 import traceback
 
-DEFAULT_VARIANTS = ("dry_loader", "dry_placed", "dry_loader_dynamo", "dry_placed_dynamo", "dry_loader_watch",
-                    "dry_placed_watch", "dry_views", "dry_placed_dynamo_nobcast", "dry_placed_dynamo_settle",
-                    "loader_dynamo", "unmeshed_dynamo")
+DEFAULT_VARIANTS = ("dry_placed", "dry_placed_dynamo", "dry_loader_dynamo", "dry_placed_dynamo_nobcast",
+                    "dry_placed_dynamo_settle", "dry_loader_watch", "dry_placed_dynamo_gcon",
+                    "dry_placed_dynamo_gcon_saveall", "dry_nopg_dynamo_gcon")
 
 
-def watch_captures(watch: bool) -> None:
+def watch_captures(watch: bool, gcoff: bool = False, threads: bool = False, gcon: bool = False,
+                   saveall: bool = False) -> None:
     """Wrap core/graph.py's capture_forward: print the error a forward
     raises inside a capture (a failed capture otherwise reports only
     cudaErrorStreamCaptureInvalidated at its end), and with ``watch`` the
-    first op after which the capture stream is no longer capturing."""
+    first op after which the capture stream is no longer capturing; with
+    ``gcoff`` the garbage collector is off around the warm-up and the
+    capture; with ``threads`` the threads are printed at each capture; with
+    ``gcon`` capture_forward leaves the collector as it is; with ``saveall``
+    what a collection in a capture finds is kept and its types printed."""
+    import gc
+    import threading
+
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -71,6 +112,8 @@ def watch_captures(watch: bool) -> None:
             return out
 
     orig = graph.capture_forward
+    if gcon:
+        graph._no_collection = contextlib.nullcontext
 
     def capture_forward(fn, args, device, pool, stream):
         def run(*a):
@@ -89,7 +132,27 @@ def watch_captures(watch: bool) -> None:
                 if watch:
                     print(f"  watch: first op leaving the capture inactive {Watch.first} of {Watch.n}", flush=True)
 
-        return orig(run, args, device, pool, stream)
+        if threads:
+            native = len(os.listdir("/proc/self/task")) if os.path.isdir("/proc/self/task") else -1
+            print(f"  threads at a capture: {[t.name for t in threading.enumerate()]}, {native} native", flush=True)
+        if saveall:
+            gc.set_debug(gc.DEBUG_SAVEALL)
+            try:
+                return orig(run, args, device, pool, stream)
+            finally:
+                gc.set_debug(0)
+                kinds = collections.Counter(f"{type(o).__module__}.{type(o).__qualname__}" for o in gc.garbage)
+                print(f"  saveall: {len(gc.garbage)} objects a collection in the capture found unreachable, "
+                      f"{kinds.most_common(10)}", flush=True)
+                gc.garbage.clear()
+        if not gcoff:
+            return orig(run, args, device, pool, stream)
+        gc.collect()
+        gc.disable()
+        try:
+            return orig(run, args, device, pool, stream)
+        finally:
+            gc.enable()
 
     graph.capture_forward = capture_forward
 
@@ -112,6 +175,18 @@ def hand_over(views: bool) -> None:
             mod.mesh_params = mesh_params
 
 
+def no_process_group() -> None:
+    """The dry run's models without a mesh and without a process group:
+    make_mesh gives None (each model then builds unmeshed), a None mesh
+    reads as dp 1, and the dry run prints without asking for a rank."""
+    from vision_tpu_torch.parallel import dryrun, sharding
+
+    shape = sharding.mesh_shape
+    sharding.make_mesh = lambda *a, **k: None
+    sharding.mesh_shape = lambda mesh: {"dp": 1, "pp": 1, "sp": 1, "tp": 1} if mesh is None else shape(mesh)
+    dryrun._say = lambda msg: print(msg, flush=True)
+
+
 def run(variant: str) -> str:
     import numpy as np
     import torch
@@ -122,10 +197,24 @@ def run(variant: str) -> str:
     from vision_tpu_torch.parallel.runner import MeshEntry, stop_workers
 
     tokens = set(variant.split("_"))
-    init_distributed("file://" + os.path.join(tempfile.mkdtemp(), "store"), 1, 0)
-    watch_captures("watch" in tokens)
+    if "nopg" in tokens:
+        no_process_group()
+    else:
+        init_distributed("file://" + os.path.join(tempfile.mkdtemp(), "store"), 1, 0)
+    watch_captures("watch" in tokens, "gcoff" in tokens, "threads" in tokens, "gcon" in tokens, "saveall" in tokens)
+    if "cudafirst" in tokens:
+        torch.cuda.init()
+        torch.ones(8, 8, device="cuda") @ torch.ones(8, 8, device="cuda")
+        torch.cuda.synchronize()
     if "dynamo" in tokens:
+        queued = len(torch.cuda._queued_calls)
         import torch._dynamo  # noqa: F401
+
+        added = [f"{getattr(fn, '__module__', '?')}.{getattr(fn, '__qualname__', fn)} "
+                 f"({tb[-2].strip().splitlines()[0] if len(tb) > 1 else ''})"
+                 for fn, tb in torch.cuda._queued_calls[queued:]]
+        print(f"  queued: the card initialized before the import: {torch.cuda.is_initialized()}; the import queued "
+              f"{len(added)} call(s) for its lazy initialization: {added[:8]}", flush=True)
     if "dtensor" in tokens:
         import torch.distributed.tensor  # noqa: F401
     if "loader" in tokens or "views" in tokens:
@@ -151,7 +240,8 @@ def run(variant: str) -> str:
                 checks = [d._check_birefnet]
             elif "first" in tokens:
                 checks = [d._check_birefnet] + [c for c in checks if c is not d._check_birefnet]
-            d._sam3_tp(1, 1, dev, "cuda")
+            if "nopg" not in tokens:
+                d._sam3_tp(1, 1, dev, "cuda")
             built = d._build(1, 1, dev, "cuda")
             if "sleep" in tokens:
                 time.sleep(10)
@@ -179,7 +269,8 @@ def run(variant: str) -> str:
         result = "ok"
     except Exception as e:  # noqa: BLE001 — the outcome is the result
         result = f"FAILED {type(e).__name__}: {str(e).splitlines()[0][:120]}"
-    return f"{variant}: {result} (torch._dynamo imported by the end: {'torch._dynamo' in sys.modules})"
+    return (f"{variant}: {result} (torch._dynamo imported by the end: {'torch._dynamo' in sys.modules}; a process "
+            f"group: {dist.is_initialized()})")
 
 
 def main(argv) -> int:
@@ -187,13 +278,15 @@ def main(argv) -> int:
         print(run(argv[1]), flush=True)
         return 0
     os.makedirs("chiprun_out", exist_ok=True)
+    print(__doc__.split("\n\n")[1], flush=True)  # the finding
     for v in argv or DEFAULT_VARIANTS:
         t0 = time.time()
         res = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", v], capture_output=True, text=True,
                              timeout=600, env=dict(os.environ, PYTHONPATH=os.getcwd()))
         with open(os.path.join("chiprun_out", f"capture_probe_{v}.log"), "w") as f:
             f.write(res.stdout + "\n---- stderr\n" + res.stderr)
-        lines = [ln for ln in res.stdout.splitlines() if ln.startswith(v + ":") or ln.startswith("  watch")]
+        lines = [ln for ln in res.stdout.splitlines() if ln.startswith(v + ":") or ln.startswith("  watch")
+                 or ln.startswith("  threads") or ln.startswith("  queued") or ln.startswith("  saveall")][:6]
         print("\n".join(lines) or f"{v}: no result, rc {res.returncode}\n{res.stderr[-1500:]}",
               f"[{time.time() - t0:.1f} s]", flush=True)
     return 0

@@ -110,11 +110,12 @@ def test_match_detections(chip_smoke):
 def test_the_phase_list_runs_to_32(chip_smoke):
     doc = chip_smoke.__doc__
     numbers = [int(ln.split(".")[0]) for ln in doc.splitlines() if ln[:4].strip().rstrip(".").isdigit()]
-    assert numbers == list(range(1, 46))
+    assert numbers == list(range(1, 47))
     for name in ("http_phase", "bulk_phase", "verbs_phase", "serve_verb", "dequant_cases", "residency_phase",
                  "quantize_verb_phase", "grad_cases", "train_harness", "recipe_run", "training_phases", "ops_phase",
                  "export_phase", "capi_phase", "flops_phase", "tooling_phases", "mesh_one_rank", "mesh_dp1_cli",
-                 "mesh_shard_kernels", "mesh_more_ranks", "mesh_phases"):
+                 "mesh_shard_kernels", "mesh_more_ranks", "mesh_phases", "cli_main", "train_mesh_recipe",
+                 "train_mesh_phase"):
         assert callable(getattr(chip_smoke, name))
 
 
@@ -272,12 +273,13 @@ def test_response_pixels_follow_the_endpoint(chip_smoke):
 
 
 def test_stream_plan_cycles_each_endpoints_bodies(chip_smoke):
-    """Phase 30's latency streams: HTTP_STREAM requests an endpoint, only
-    its own bodies, each used as often as the others within one."""
+    """Phase 30's latency streams: HTTP_STREAM requests an endpoint (64 or
+    more, eight times the requests in flight), only its own bodies, each
+    used as often as the others within one."""
     import numpy as np
 
     reqs = chip_smoke.http_requests(np.random.default_rng(30))
-    assert chip_smoke.HTTP_STREAM >= 200
+    assert chip_smoke.HTTP_STREAM >= 64
     for service, extents in chip_smoke.HTTP_EXTENTS.items():
         plan = chip_smoke.stream_plan(reqs, service, chip_smoke.HTTP_STREAM)
         assert len(plan) == chip_smoke.HTTP_STREAM and {reqs[i][0] for i in plan} == {service}

@@ -210,13 +210,15 @@ def test_make_mesh_errors(r):
 def test_what_the_serving_meshes_refuse(r):
     """SAM3's sp / pp need the scan trunk (the JAX package raises without it
     too, vision_tpu/models/sam3.py:843-845); a served model takes dp and tp
-    only; a CUDA model on a CPU mesh and a meshed export are refused."""
+    only; a CUDA model on a CPU mesh is refused, and so is a meshed export
+    of any family but SAM, with the JAX package's reason."""
     e = r["refusals"]
     for key in ("sam3 sp", "sam3 pp"):
         assert e[key].startswith("VispError: SAM3 sequence / pipeline parallelism") and "scan trunk" in e[key]
     assert e["served sp"] == "VispError: serving meshes take dp and tp axes only, got {'dp': 2, 'pp': 1, 'sp': 2, 'tp': 1}"
     assert e["cuda model"] == "VispError: a cpu mesh needs a cpu model, got cuda"
-    assert e["export"].startswith("VispError: export_model: a meshed DepthAnythingModel does not export yet")
+    assert e["export"] == ("VispError: export_model: meshed DepthAnythingModel doesn't export — dp-sharded export is "
+                           "supported for SamModel only; construct without a mesh and shard at the call site")
 
 
 def test_single_process_world_and_idempotent_init(world, r):
@@ -325,11 +327,12 @@ def test_training_step_matches_jax(r, jax_side):
 
 
 def test_dryrun_multichip_on_four_cpu_ranks(world, r):
-    """The port of __graft_entry__.dryrun_multichip steps 1-4 on 4 CPU ranks."""
+    """The port of __graft_entry__.dryrun_multichip steps 1-5 on 4 CPU ranks."""
     out, _ = world["dryrun"].communicate(timeout=300)
     assert world["dryrun"].returncode == 0, out[-4000:]
-    for step in ("SAM3 tp-sharded vision", "sharded SAM encode", "sharded ESRGAN tiled", "sharded BiRefNet",
-                 "MI-GAN dp-served", "Depth-Anything dp x tp-served", "YOLOv9t dp-served", "4 ranks ok"):
+    for step in ("SAM3 tp-sharded vision", "dp x tp fsdp train step", "sharded SAM encode", "sharded ESRGAN tiled",
+                 "sharded BiRefNet", "MI-GAN dp-served", "Depth-Anything dp x tp-served", "YOLOv9t dp-served",
+                 "4 ranks ok"):
         assert f"dryrun {step}" in out, step
 
 
@@ -351,8 +354,9 @@ def test_cli_dp_directory_matches_one_rank(world, r):
 @pytest.mark.parametrize("cards", [0, 1])
 def test_cli_dp_refuses_a_cuda_mesh_with_too_few_cards(world, cards, monkeypatch, capsys):
     """``--dp 2`` on the card (no -b) with no card or one: make_mesh's
-    message, before any rank starts; ``finetune --dp`` names the training
-    meshes; ``--dp`` on a single image names the inputs it applies to."""
+    message, before any rank starts; ``finetune --dp`` with a batch that
+    does not divide by it is refused before any device starts; ``--dp`` on
+    a single image names the inputs it applies to."""
     import vision_tpu_torch.cli as tcli
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
@@ -361,8 +365,9 @@ def test_cli_dp_refuses_a_cuda_mesh_with_too_few_cards(world, cards, monkeypatch
     assert f"make_mesh: need 2 devices, have {cards}" in capsys.readouterr().err
     assert tcli.main(["serve", *args[:2], "--dp", "2"]) == 1
     assert f"make_mesh: need 2 devices, have {cards}" in capsys.readouterr().err
-    assert tcli.main(["finetune", "-m", world["gguf"], "-i", str(world["src"]), "--dp", "2", "-b", "cpu"]) == 1
-    assert "training meshes" in capsys.readouterr().err
+    assert tcli.main(["finetune", "-m", world["gguf"], "-i", str(world["src"]), "--dp", "2", "--batch", "3", "-b",
+                      "cpu"]) == 1
+    assert "--batch 3 must be divisible by --dp 2" in capsys.readouterr().err
     one = str(world["src"] / "im0.png")
     assert tcli.main(["depthany", "-m", world["gguf"], "-i", one, "--dp", "2", "-b", "cpu"]) == 1
     assert "--dp applies to serve and to directory and video inputs" in capsys.readouterr().err

@@ -425,3 +425,27 @@ def test_resident_family_matches_the_jax_resident_load(family, tmp_path, chip_sm
     want = _compute(jmodel, family, JaxImage(px, JaxImageFormat.rgb_u8), JaxImage(m, JaxImageFormat.alpha_u8))
     assert got.shape == want.shape and np.abs(np.asarray(got, np.float64)).sum() > 0
     assert _rel_rms(got, want) <= 1e-4  # tests/test_torch_api.py REL_RMS
+
+
+# dequants a forward of the resident test twins: one a weight's use. A helper
+# that only reads a weight's placement (parallel/tp.py) must not add any.
+RESIDENT_LOOKUPS = {"depthany": 52, "sam": 40, "birefnet": 102}
+
+
+@pytest.mark.parametrize("family", sorted(RESIDENT_LOOKUPS))
+def test_resident_forward_dequantizes_each_weight_once_per_use(family, tmp_path, chip_smoke, monkeypatch):
+    """The lookups of one resident forward (a MobileSAM encode for SAM),
+    counted on ``QuantResident.dequant``, are the family's fixed count."""
+    path = _q8_file(family, tmp_path, chip_smoke)
+    dev = backend_init("cpu")
+    model = api.load_model(path, dev.with_flags(dev.flags | BuildFlag.keep_quantized))
+    calls = []
+    dequant = QuantResident.dequant
+    monkeypatch.setattr(QuantResident, "dequant", lambda self, *a, **k: calls.append(1) or dequant(self, *a, **k))
+    rng = np.random.default_rng(11)
+    if family == "sam":
+        model.encode_u8(torch.from_numpy(rng.integers(0, 256, (1, 1024, 1024, 3), dtype=np.uint8)))
+    else:
+        side = {"depthany": 126, "birefnet": 64}[family]
+        model._forward_u8(torch.from_numpy(rng.integers(0, 256, (1, side, side, 3), dtype=np.uint8)))
+    assert len(calls) == RESIDENT_LOOKUPS[family]

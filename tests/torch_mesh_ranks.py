@@ -4,7 +4,7 @@ one gloo world of CPU ranks, each a process of its own that imports no JAX.
     python tests/torch_mesh_ranks.py SUITE RANK N ADDRESS OUT
 
 Every rank joins the world at ADDRESS (a ``file://`` store), runs SUITE
-(``parallel``, ``models`` or ``serving``) and rank 0 pickles its numpy
+(``parallel``, ``models``, ``serving`` or ``train``) and rank 0 pickles its numpy
 results to OUT, which the test module's fixture reads and holds against
 the JAX package in the pytest process. :class:`World` starts the ranks;
 its ``results()`` waits for them.
@@ -144,11 +144,59 @@ def esrgan_case():
             np.random.default_rng(3).integers(0, 256, (40, 56, 3)).astype(np.uint8))
 
 
-def ungroup_qkv(t, tp: int):
-    """The inverse of parallel/tp.py's ``regroup_qkv``: a fused qkv shard
-    put back together, its rows back in [q..|k..|v..] order."""
-    s = t.shape
-    return t.reshape(tp, 3, s[0] // (3 * tp), *s[1:]).transpose(0, 1).reshape(s)
+# -- the training meshes' problems (tests/test_train.py, test_lora.py) --
+
+TRAIN_LR = 5e-2  # tests/test_torch_train.py LR
+RECIPE_LR = 1e-3
+RECIPE_STEPS = 2
+RECIPE_BATCH = 4  # one row a rank of the recipes' dp-4 mesh
+SAM_EXPORT_SIZE = 512  # tests/test_export.py:248-265's TinyViT geometry
+
+
+def train_problem(seed: int = 0):
+    """tests/test_train.py:28-37: a linear head and an int buffer."""
+    rng = np.random.default_rng(seed)
+    params = {
+        "head.w.weight": (rng.normal(size=(4, 8)) * 0.1).astype(np.float32),
+        "head.w.bias": np.zeros(4, np.float32),
+        "buf.count": np.array([1, 2, 3], np.int32),
+    }
+    w_true = rng.normal(size=(4, 8)).astype(np.float32)
+    x = rng.normal(size=(16, 8)).astype(np.float32)
+    return params, (x, x @ w_true.T)
+
+
+def fsdp_problem():
+    """tests/test_train.py:155-163: a (512, 130) table fsdp shards and a head."""
+    rng = np.random.default_rng(0)
+    params = {
+        "big.table": (rng.normal(size=(512, 130)) * 0.02).astype(np.float32),
+        "head.w.weight": (rng.normal(size=(4, 8)) * 0.1).astype(np.float32),
+    }
+    return params, (rng.normal(size=(16, 8)).astype(np.float32), rng.normal(size=(16, 4)).astype(np.float32))
+
+
+def lora_problem():
+    """tests/test_lora.py:32-41 and :274-277."""
+    rng = np.random.default_rng(0)
+    base = {
+        "enc.fc1.weight": (rng.normal(size=(24, 16)) * 0.2).astype(np.float32),
+        "enc.fc1.bias": (rng.normal(size=(24,)) * 0.1).astype(np.float32),
+        "enc.fc2.weight": (rng.normal(size=(8, 24)) * 0.2).astype(np.float32),
+        "enc.norm.weight": np.ones(16, np.float32),
+        "enc.conv.weight": rng.normal(size=(4, 3, 3, 3)).astype(np.float32),
+        "buf.idx": np.arange(3, dtype=np.int32),
+    }
+    rng = np.random.default_rng(8)
+    return base, (rng.normal(size=(16, 16)).astype(np.float32), rng.normal(size=(16, 8)).astype(np.float32))
+
+
+def dino_train_batch() -> np.ndarray:
+    """The dry run's step-5 batch (__graft_entry__.py:142), 4 rows."""
+    return np.random.default_rng(1).random((4, 56, 56, 3)).astype(np.float32)
+
+
+DINO_LOSS_CHANNELS = 16  # the first features of the last layer: a loss the final layer norm does not make constant
 
 
 # -- the suites (every rank runs them; rank 0's dict is the result) --
@@ -186,7 +234,7 @@ def suite_parallel(rank: int, n: int) -> dict:
         training_step,
     )
     from vision_tpu_torch.parallel.sharding import mesh_shape
-    from vision_tpu_torch.parallel.tp import tp_dim
+    from vision_tpu_torch.parallel.tp import tp_dim, ungroup_qkv
     from vision_tpu_torch.serve import _resolve_batch
 
     r: dict = {}
@@ -510,7 +558,226 @@ def suite_serving(rank: int, n: int) -> dict:
     return _models(rank, build, drive)
 
 
-SUITES = {"parallel": suite_parallel, "models": suite_models, "serving": suite_serving}
+def _train_losses():
+    import torch
+
+    def linear_loss(p, batch):  # tests/test_train.py:40-43
+        x, y = batch
+        return torch.mean((x @ p["head.w.weight"].T + p["head.w.bias"] - y) ** 2)
+
+    def fsdp_loss(p, batch):  # tests/test_train.py:165-169, through Params (the fsdp gather)
+        from vision_tpu_torch.core.params import Params
+
+        pp, (x, y) = Params(p), batch
+        return torch.mean((x @ pp.weight("head.w.weight").T - y) ** 2) + 1e-3 * torch.mean(pp.weight("big.table") ** 2)
+
+    def lora_loss(p, batch):  # tests/test_lora.py:44-47, 279-281
+        from vision_tpu_torch.core.params import Params
+        from vision_tpu_torch.ops.nn import linear
+
+        x, y = batch
+        h = torch.relu(linear(Params(p)["enc"]["fc1"], x))
+        return torch.mean((linear(Params(p)["enc"]["fc2"], h) - y) ** 2)
+
+    return linear_loss, fsdp_loss, lora_loss
+
+
+def _copy(params: dict) -> dict:
+    """A store the state may take over (create_train_state updates what it
+    is given in place)."""
+    return {k: v.clone() if hasattr(v, "clone") else np.array(v) for k, v in params.items()}
+
+
+def _np_params(params) -> dict:
+    from vision_tpu_torch import train
+
+    return {k: v.detach().float().numpy() for k, v in train.full_params(params).items() if hasattr(v, "detach")}
+
+
+def suite_train(rank: int, n: int) -> dict:
+    """The training meshes on dp 4 x tp 2 (every rank in lock step): the
+    fsdp step, mesh parity and a sharded restore, prefetch placements and
+    the accumulated step, LoRA on dp 8, a DINOv2 SGD step over dp x tp;
+    then the three recipes on a dp-4 mesh (ranks 0-3) against each run on
+    one rank alone (ranks 4-6, meanwhile), and the meshed SAM export on a
+    dp-2 mesh (ranks 0-1)."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+
+    from vision_tpu_torch import train
+    from vision_tpu_torch.core.device import backend_init
+    from vision_tpu_torch.parallel import make_mesh
+    from vision_tpu_torch.parallel.dryrun import TRAIN_RULES_EXTRA, train_case
+    from vision_tpu_torch.parallel.sharding import DEFAULT_TP_RULES
+
+    linear_loss, fsdp_loss, lora_loss = _train_losses()
+    r: dict = {}
+    t = lambda batch: tuple(torch.from_numpy(np.array(b)) for b in batch)  # noqa: E731
+    mesh = make_mesh(8, tp=2, device="cpu")
+    mesh_dp8 = make_mesh(8, device="cpu")
+    mesh_dp4 = make_mesh(4, device="cpu")
+    mesh_dp2 = make_mesh(2, device="cpu")
+
+    # the fsdp step (tests/test_train.py:149)
+    params, batch = fsdp_problem()
+    st = train.create_train_state(_copy(params), train.adam(1e-2), mesh=mesh, fsdp=True, fsdp_min_size=1024)
+    ref = train.create_train_state(_copy(params), train.adam(1e-2))
+    step, ref_step = train.make_train_step(fsdp_loss, mesh=mesh), train.make_train_step(fsdp_loss)
+    r["fsdp_loss"] = []
+    for _ in range(2):
+        st, m = step(st, t(batch))
+        ref, rm = ref_step(ref, t(batch))
+        r["fsdp_loss"].append((float(m["loss"]), float(rm["loss"])))
+    r["fsdp_placements"] = {k: [str(p) for p in v.placements] for k, v in st.params.items()}
+    r["fsdp_local"] = tuple(st.params["big.table"].to_local().shape)
+    slots = st.optimizer.state_dict()["state"].values()
+    r["fsdp_slots"] = {k: tuple(s["exp_avg"].shape) for k, s in zip(st.names, slots)}
+    r["fsdp_params"], r["fsdp_ref"] = _np_params(st.params), _np_params(ref.params)
+
+    # mesh parity and a sharded restore (tests/test_train.py:378)
+    params, batch = train_problem()
+    ms = train.create_train_state(_copy(params), train.adam(TRAIN_LR), mesh=mesh)
+    mstep = train.make_train_step(linear_loss, mesh=mesh)
+    r["parity_loss"] = []
+    for _ in range(2):
+        ms, mm = mstep(ms, t(batch))
+        r["parity_loss"].append(float(mm["loss"]))
+    r["parity_params"] = _np_params(ms.params)
+    path = train.save_checkpoint(os.path.join(os.getcwd(), "ck", "step_2"), ms)
+    fresh = train.create_train_state(_copy(params), train.adam(TRAIN_LR), mesh=mesh)
+    restored = train.restore_checkpoint(path, fresh)
+    r["restore_placements"] = all(restored.params[k].placements == ms.params[k].placements for k in ms.names)
+    r["restore_equal"] = all(torch.equal(restored.params[k].to_local(), ms.params[k].to_local()) for k in ms.names)
+    a, b = ms.optimizer.state_dict()["state"], restored.optimizer.state_dict()["state"]
+    r["restore_slots_equal"] = all(torch.equal(a[i][key], b[i][key]) for i in a for key in a[i])
+    r["restore_buffer"] = restored.params["buf.count"].to_local().tolist()
+    stepped, _ = mstep(restored, t(batch))
+    r["restore_step"] = stepped.step
+
+    # prefetch placements and the accumulated mesh step (tests/test_train.py:289, 305)
+    out = list(train.prefetch_to_device(iter([(np.zeros((8, 2), np.float32),)] * 3), size=2, mesh=mesh))
+    r["prefetch"] = (len(out), [str(p) for p in out[0][0].placements], tuple(out[0][0].to_local().shape))
+    out = list(train.prefetch_to_device(iter([(np.zeros((3, 4, 8), np.float32),)] * 2), mesh=mesh, accum=3))
+    r["prefetch_accum"] = ([str(p) for p in out[0][0].placements], tuple(out[0][0].to_local().shape))
+    r["prefetch_bad"] = _error(lambda: next(train.prefetch_to_device(iter([(np.zeros((3, 4, 8)),)]), mesh=mesh,
+                                                                    accum=0)))
+    params, (x, y) = train_problem()
+    sgd = functools.partial(torch.optim.SGD, lr=0.1)
+    full = train.make_train_step(linear_loss, mesh=mesh)
+    acc = train.make_train_step(linear_loss, mesh=mesh, accum=4)
+    s_full = train.create_train_state(_copy(params), sgd, mesh=mesh)
+    s_acc = train.create_train_state(_copy(params), sgd, mesh=mesh)
+    (bx, by), = list(train.prefetch_to_device(iter([(x, y)]), mesh=mesh))
+    s_full, mf = full(s_full, (bx, by))
+    (ax, ay), = list(train.prefetch_to_device(iter([(x.reshape(4, 4, 8), y.reshape(4, 4, 4))]), mesh=mesh, accum=4))
+    s_acc, ma = acc(s_acc, (ax, ay))
+    r["accum"] = (float(mf["loss"]), float(ma["loss"]), _np_params(s_full.params), _np_params(s_acc.params))
+
+    # LoRA on a dp mesh (tests/test_lora.py:270)
+    from vision_tpu_torch.lora import LORA_TRAINABLE, add_lora
+
+    base, batch = lora_problem()
+    adapted = add_lora(base, rank=4, seed=3)
+    single = train.create_train_state(_copy(adapted), train.adam(1e-2),
+                                      trainable=LORA_TRAINABLE)
+    meshed = train.create_train_state(_copy(adapted), train.adam(1e-2), mesh=mesh_dp8, trainable=LORA_TRAINABLE)
+    sstep = train.make_train_step(lora_loss, trainable=LORA_TRAINABLE)
+    mstep = train.make_train_step(lora_loss, mesh=mesh_dp8, trainable=LORA_TRAINABLE)
+    r["lora_loss"] = []
+    for _ in range(3):
+        single, sm = sstep(single, t(batch))
+        meshed, mm = mstep(meshed, t(batch))
+        r["lora_loss"].append((float(mm["loss"]), float(sm["loss"])))
+    r["lora_params"], r["lora_single"] = _np_params(meshed.params), _np_params(single.params)
+
+    # a DINOv2 SGD step over dp x tp with fsdp: Megatron's operators carry the gradients
+    from vision_tpu_torch.core.params import Params
+    from vision_tpu_torch.models.dino import dino_get_intermediate_layers
+
+    dparams, dp = train_case()
+
+    def dino_loss(weights, x):
+        feats = dino_get_intermediate_layers(Params(weights), x, [dp.n_layers - 1], dp)
+        return torch.mean(feats[-1][..., :DINO_LOSS_CHANNELS].float() ** 2)
+
+    sgd1 = functools.partial(torch.optim.SGD, lr=1.0)
+    st = train.create_train_state(_copy(dparams), sgd1, mesh=mesh, rules=DEFAULT_TP_RULES + TRAIN_RULES_EXTRA,
+                                  fsdp=True, fsdp_min_size=1024)
+    st, m = train.make_train_step(dino_loss, mesh=mesh)(st, torch.from_numpy(dino_train_batch()))
+    r["dino_loss"] = float(m["loss"])
+    r["dino_params"] = _np_params(st.params)
+    r["dino_placements"] = {k: [str(p) for p in v.placements] for k, v in st.params.items()}
+
+    # the recipes on a dp-4 mesh (ranks 0-3), then one rank alone
+    from vision_tpu_torch import finetune as ft
+
+    dev = backend_init("cpu")
+    images = ft.list_images(["imgs"])
+    kw = dict(steps=RECIPE_STEPS, lr=RECIPE_LR, batch=RECIPE_BATCH, device=dev, workers=1)
+    runs = {
+        "esrgan": lambda out, m: ft.finetune_esrgan("esrgan.gguf", images, out, patch=8, ema_decay=0.5, mesh=m, **kw),
+        "birefnet": lambda out, m: ft.finetune_birefnet("birefnet.gguf", images, out, masks="masks", size=64, mesh=m,
+                                                        **kw),
+        "distill": lambda out, m: ft.distill_depthany("depthany.gguf", "depthany.gguf", images, out, size=28,
+                                                      lora_rank=2, qlora=True, mesh=m, **kw),
+    }
+    # ranks 0-3 run the three on the mesh while ranks 4-6 run one each alone
+    alone = {4: "esrgan", 5: "birefnet", 6: "distill"}
+    meshed = {name: run(f"{name}-dp4.gguf", mesh_dp4) for name, run in runs.items()} if rank < 4 else {}
+    if rank in alone:
+        single = runs[alone[rank]](f"{alone[rank]}-one.gguf", None)
+        with open(f"{alone[rank]}-one.pkl", "wb") as f:
+            pickle.dump((single["first_loss"], single["last_loss"]), f)
+    dist.barrier()
+    if rank == 0:
+        r["recipes"] = {}
+        for name, m in meshed.items():
+            with open(f"{name}-one.pkl", "rb") as f:
+                r["recipes"][name] = (m["first_loss"], m["last_loss"], *pickle.load(f))
+        r["recipe_bad_batch"] = _error(lambda: ft.finetune_esrgan("esrgan.gguf", images, "never.gguf", patch=8,
+                                                                  mesh=mesh_dp4, **{**kw, "batch": 3}))
+
+    # the meshed SAM export (tests/test_export.py:238-300) on dp 2, and its refusals
+    from vision_tpu_torch import export
+    from vision_tpu_torch.image import image_load_array
+    from vision_tpu_torch.models.migan import MiganModel, MiganParams
+    from vision_tpu_torch.models.mobile_sam import SamModel, SamParams, TinyVitLayer, TinyVitParams
+    from vision_tpu_torch.models.random_weights import random_migan_params, random_mobile_sam_params
+
+    tv = TinyVitParams(img_size=SAM_EXPORT_SIZE, layers=(
+        TinyVitLayer(128, 64, 2, 2, 7, True), TinyVitLayer(64, 128, 2, 4, 7, True),
+        TinyVitLayer(32, 160, 6, 5, 14, True), TinyVitLayer(32, 320, 2, 10, 7, False)))
+    store = _put(random_mobile_sam_params(seed=0))
+    sp = SamParams(image_size=SAM_EXPORT_SIZE)
+    sam_tp = SamModel(store, sp, dev, mesh=mesh, tiny_vit=tv)
+    r["export_refusals"] = {
+        "tp": _error(lambda: export.export_model(sam_tp, "x.vxp", batch=4, embed_params=False, entries=("encode",))),
+        "embed": _error(lambda: export.export_model(sam_tp, "x.vxp")),
+    }
+    mg = MiganModel(_put(random_migan_params(64)), MiganParams(resolution=64), dev, mesh=mesh_dp2)
+    r["export_refusals"]["migan"] = _error(lambda: export.export_model(mg, "x.vxp", embed_params=False))
+    if rank < 2:
+        sam = SamModel(store, sp, dev, mesh=mesh_dp2, tiny_vit=tv)
+        r["export_refusals"]["batch"] = _error(lambda: export.export_model(sam, "x.vxp", batch=3, embed_params=False))
+        names = export.export_model(sam, f"sam_dp2_{rank}.vxp", batch=2, embed_params=False, entries=("encode",))
+        bundle = export.load_bundle(f"sam_dp2_{rank}.vxp")
+        rng = np.random.default_rng(11)
+        frames = np.stack([rng.integers(0, 256, (SAM_EXPORT_SIZE,) * 2 + (3,)).astype(np.uint8) for _ in range(2)])
+        got = bundle.call_sharded("encode", store, torch.from_numpy(frames))
+        if rank == 0:
+            one = SamModel(store, sp, dev, tiny_vit=tv)
+            want = one.encode_batch([image_load_array(f) for f in frames])
+            r["export"] = (names, bundle.meta["mesh"], bundle.meta["entries"]["encode"], got.float().numpy(),
+                           want.float().numpy())
+            r["export_unknown"] = _error(lambda: export.export_model(sam, "y.vxp", batch=2, embed_params=False,
+                                                                     entries=("nope",)))
+    dist.barrier()
+    return r
+
+
+SUITES = {"parallel": suite_parallel, "models": suite_models, "serving": suite_serving, "train": suite_train}
 
 
 class World:

@@ -31,8 +31,10 @@ without it the CLI takes the card and fails without one. ``--dp N`` serves
 ``serve`` and a model verb's directory or video input over N ranks, one
 card each (parallel/): under torchrun the ranks are its world; otherwise
 the CLI starts ranks 1..N-1 itself (``torch.multiprocessing``, spawn). Rank
-0 serves, the others follow. ``finetune --dp`` waits for the training
-meshes, and the JAX CLI's ``bench`` verb for the benchmark.
+0 serves, the others follow. ``finetune --dp N`` and ``distill --dp N``
+train over the same ranks: every rank runs the recipe on its dp rows of
+each batch (finetune.py, train.py), rank 0 writes the output; ``--batch``
+must divide by N. The JAX CLI's ``bench`` verb waits for the benchmark.
 """
 
 from __future__ import annotations
@@ -290,19 +292,26 @@ def _dp_worker(rank: int, n: int, address: str, argv: list) -> None:
         sys.exit(code)
 
 
-class _DpWorld:
-    """``--dp N``: the process group and the mesh of a serving command, and
-    the ranks the CLI started (stopped and joined on exit)."""
+def check_dp(n: int, batch: int | None) -> None:
+    """``--dp N``'s own checks, made before any rank or device starts."""
+    if n < 1:
+        raise VispError(f"--dp must be >= 1, got {n}")
+    if batch is not None and batch % n:
+        raise VispError(f"--batch {batch} must be divisible by --dp {n}")
 
-    def __init__(self, args):
-        self.mesh, self.procs, self.store, self.joined = None, [], None, False
+
+class _DpWorld:
+    """``--dp N``: the process group and the mesh of a command, and the
+    ranks the CLI started (stopped and joined on exit). ``follows``: the
+    other ranks follow rank 0's calls (serving); otherwise every rank runs
+    the command itself (training)."""
+
+    def __init__(self, args, follows: bool = True, batch: int | None = None):
+        self.mesh, self.procs, self.store, self.joined, self.follows = None, [], None, False, follows
         n = args.dp
         if not n:
             return
-        if n < 1:
-            raise VispError(f"--dp must be >= 1, got {n}")
-        if args.batch is not None and args.batch % n:
-            raise VispError(f"--batch {args.batch} must be divisible by --dp {n}")
+        check_dp(n, args.batch if batch is None else batch)
         from .parallel.sharding import cards_available, init_distributed, make_mesh
 
         device = "cpu" if args.backend == "cpu" else "cuda"
@@ -354,7 +363,8 @@ class _DpWorld:
         from .parallel.runner import stop_workers
 
         try:
-            stop_workers()
+            if self.follows:
+                stop_workers()
         except Exception as e:  # noqa: BLE001 — a rank already failed; end the ones left
             print(f"dp: stopping the ranks failed ({e}); terminating them", file=sys.stderr)
         for p in self.procs:
@@ -645,24 +655,25 @@ _NOT_ESRGAN = (("lora", "--lora"), ("lora_out", "--lora-out"), ("qlora", "--qlor
 
 def _train(args) -> None:
     """``finetune`` (the -m model's family recipe) or ``distill`` (the
-    --student against the -m teacher): every path and the image list are
-    checked before the device starts; the result is exported to -o."""
+    --student against the -m teacher): every path, the image list and
+    ``--dp``'s batch are checked before the device starts; the result is
+    exported to -o. With ``--dp N`` every rank trains on its rows of each
+    batch and rank 0 writes and reports."""
     from .api import model_detect_family
     from .core.gguf import model_load
     from .finetune import list_images
 
-    if args.dp:
-        raise VispError(f"{args.command} --dp: the training meshes (create_train_state / make_train_step over a "
-                        "mesh) wait for their queue item; train on one card without --dp")
     model_path = _model_path(args)
     images = list_images(args.input)
     if args.steps < 1 or (args.batch is not None and args.batch < 1):
         raise VispError(f"{args.command}: --steps and --batch must be >= 1")
     batch = args.batch if args.batch is not None else 4
+    if args.dp:
+        check_dp(args.dp, batch)
     common = dict(steps=args.steps, lr=args.lr, batch=batch, trainable=args.train_filter, ckpt_dir=args.ckpt,
                   ckpt_every=args.ckpt_every, log=print)
     if args.command == "finetune":
-        from .finetune import finetune
+        from .finetune import finetune as run
 
         family = model_detect_family(model_load(model_path)).value
         if family == "birefnet":
@@ -679,20 +690,28 @@ def _train(args) -> None:
                 raise VispError(f"finetune (esrgan): {', '.join(given)} apply to the birefnet recipe and distill "
                                 f"only")
             kw = dict(patch=args.patch, ema_decay=args.ema)
-        dev = _device(args)
-        with _Timer("Fine-tuning"):
-            stats = finetune(model_path, images, args.output, device=dev, **common, **kw)
+        args_of = (model_path, images, args.output)
+        label = "Fine-tuning"
     else:
-        from .finetune import distill_depthany
+        from .finetune import distill_depthany as run
 
         if not args.student:
             raise VispError("distill: --student <gguf> is required (-m is the teacher)")
-        student = find_model(args.student)
+        args_of = (model_path, find_model(args.student), images, args.output)
+        kw = dict(size=args.size or 252, lora_rank=args.lora, lora_out=args.lora_out, qlora=args.qlora)
+        label = "Distilling"
+    from .parallel.runner import is_worker
+
+    world = _DpWorld(args, follows=False, batch=batch)
+    try:
         dev = _device(args)
-        with _Timer("Distilling"):
-            stats = distill_depthany(model_path, student, images, args.output, size=args.size or 252,
-                                     lora_rank=args.lora, lora_out=args.lora_out, qlora=args.qlora, device=dev,
-                                     **common)
+        with _Timer(label):
+            stats = run(*args_of, device=dev, mesh=world.mesh, **common, **kw)
+        lead = world.mesh is None or not is_worker()
+    finally:
+        world.close()
+    if not lead:
+        return
     if stats["first_loss"] is not None:
         print(f"loss {stats['first_loss']:.5f} -> {stats['last_loss']:.5f} over {stats['steps']} steps "
               f"({len(images)} images)")
@@ -799,8 +818,9 @@ def main(argv=None) -> int:
                         "(int8-resident) under the adapters")
     parser.add_argument("--dp", type=int, default=0, metavar="N",
                         help="serve / directory / video -i: split each batch over N ranks, one card each (rank 0 "
-                        "serves; under torchrun its world, else the CLI starts ranks 1..N-1); --batch must divide "
-                        "by N")
+                        "serves; under torchrun its world, else the CLI starts ranks 1..N-1); finetune / distill: "
+                        "train over N ranks, each on its rows of every batch (rank 0 writes -o); --batch must "
+                        "divide by N")
     args = parser.parse_args(argv)
     args._argv = list(sys.argv[1:] if argv is None else argv)
     if args.input is None and args.command not in ("serve", "quantize", "info", "export"):

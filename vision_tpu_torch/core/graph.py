@@ -21,6 +21,7 @@ On the CPU there is no graph, and the forward runs eagerly.
 
 from __future__ import annotations
 
+import gc
 import threading
 from contextlib import contextmanager
 from functools import lru_cache, partial, wraps
@@ -164,6 +165,20 @@ class _Replay:
         return _clone(self.static_out)
 
 
+@contextmanager
+def _no_collection():
+    """Python's garbage collector collected, then off until the block ends
+    (on again only if it was on)."""
+    was = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 def capture_forward(fn: Callable, args: tuple, device: torch.device, pool, stream) -> _Replay:
     """Capture ``fn(*args)`` on the card into a CUDA graph in memory pool
     ``pool`` and return its replay: a callable that takes tensors of the
@@ -181,8 +196,14 @@ def capture_forward(fn: Callable, args: tuple, device: torch.device, pool, strea
     only when every one of them is captured on the same stream. Its error
     mode is ``thread_local``: servers call the forward from a worker thread
     while other threads of the process may use the card, and only this
-    thread's calls can break this capture."""
-    with torch.cuda.device(device):
+    thread's calls can break this capture. Python's cyclic garbage collector
+    is collected first and kept off through the warm-up and the capture: a
+    collection inside a capture can free an earlier model that only the
+    collector reaches (a model and its ForwardGraphs hold each other), its
+    CUDA graphs and their memory with it, and that breaks the capture
+    (``cudaErrorStreamCaptureInvalidated`` at the next cuBLAS product or
+    kernel launch)."""
+    with torch.cuda.device(device), _no_collection():
         static_in = [torch.empty(a.shape, dtype=a.dtype, device=device) for a in args]
         for s, a in zip(static_in, args):
             s.copy_(a)

@@ -43,12 +43,24 @@ class Params:
         Quantized-resident tensors (core/quant.QuantResident) dequantize
         transparently here — on the card one dequant kernel a lookup, which a
         captured forward records into its graph — so model code sees ordinary
-        tensors either way."""
+        tensors either way. A weight that training sharded over dp (fsdp,
+        train.create_train_state) is all-gathered here the same way, at
+        each lookup (parallel/tp.py ``gather_fsdp``)."""
         full = f"{self.prefix}.{name}" if self.prefix else name
         t = self.store.get(full)
-        if t is not None and isinstance(t, QuantResident):
+        if t is None or type(t) is torch.Tensor:
+            return t
+        if isinstance(t, QuantResident):
             return t.dequant()
-        return t
+        from ..parallel.tp import gather_fsdp, is_fsdp
+
+        return gather_fsdp(t) if is_fsdp(t) else t
+
+    def stored(self, name: str):
+        """The entry as it is stored, or None: a quantized resident stays a
+        resident (no dequant), a DTensor keeps its placement. For code that
+        only reads a weight's shape or placement (parallel/tp.py)."""
+        return self.store.get(f"{self.prefix}.{name}" if self.prefix else name)
 
     def weight(self, name: str):
         """Lookup; raises if absent (reference model_ref::weights)."""

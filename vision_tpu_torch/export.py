@@ -33,9 +33,19 @@ Geometry is static (a program is traced at one shape): pick ``extent`` and
 serving layer's bucketing does. An exported program runs op by op, as the
 eager forward does; it is not a CUDA graph. Kept differences from the JAX
 package: no per-backend lowering list (``platforms=``; a program moves with
-``load_bundle(device=)`` instead). The meshed export (``meta["mesh"]``,
-``make_mesh`` / ``call_sharded`` of a bundle) waits for its queue item: a
-model built on a mesh (parallel/) is refused.
+``load_bundle(device=)`` instead).
+
+A meshed export fits one deployment, the dp-split serving batch, as in the
+JAX package: a ``SamModel`` built on a dp-only mesh (parallel/) exports with
+``embed_params=False`` and a ``batch`` that divides over dp. Its ``encode``
+entry is the program of one rank, traced at ``batch / dp`` images, and
+``meta["mesh"]`` records the mesh's axes. ``load_bundle(...).make_mesh()``
+rebuilds that mesh from the process group it runs in (every rank of it
+calls), and ``call_sharded(name, params, *args)`` places ``params`` as
+``shard_params`` does, runs each rank's dp rows of the args and gathers the
+outputs, so every rank returns the global result. Other meshed families,
+meshes with a tp / sp / pp axis and ``embed_params=True`` are refused with
+the JAX package's reasons.
 An int8-resident model (``keep_quantized``) exports with its weights: its
 residents become constants and each lookup a ``vtt::dequant`` node.
 """
@@ -48,6 +58,7 @@ import os
 import zipfile
 from typing import Any, Callable, Mapping, Sequence
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
@@ -94,7 +105,7 @@ class _Program(torch.nn.Module):
 
 
 def export_bundle(dst: str | os.PathLike, entries: Mapping[str, tuple[Callable, Sequence]],
-                  meta: Mapping[str, Any] | None = None) -> str:
+                  meta: Mapping[str, Any] | None = None, entry_meta: Mapping[str, dict] | None = None) -> str:
     """Export named functions into one bundle file.
 
     ``entries``: ``{name: (fn, example_args)}``, ``example_args`` real
@@ -119,7 +130,8 @@ def export_bundle(dst: str | os.PathLike, entries: Mapping[str, tuple[Callable, 
         buf = io.BytesIO()
         torch.export.save(program, buf)
         blobs[name] = buf.getvalue()
-        meta_out["entries"][name] = {"inputs": _leaf_specs(args), "device": _device_of(args)}
+        meta_out["entries"][name] = {"inputs": _leaf_specs(args), "device": _device_of(args),
+                                     **(entry_meta or {}).get(name, {})}
     meta_out.setdefault("device", next(iter(meta_out["entries"].values()))["device"])
     with zipfile.ZipFile(os.fspath(dst), "w", zipfile.ZIP_DEFLATED) as z:
         z.writestr("meta.json", json.dumps(meta_out, indent=1))
@@ -171,6 +183,40 @@ class ExportedBundle:
         from meta.json; does not load the program)."""
         self._check(name)
         return self.meta["entries"][name]["inputs"]
+
+    def make_mesh(self):
+        """The export-time mesh rebuilt over the ranks of this process's
+        group (a meshed bundle only; every rank of the mesh calls this).
+        Raises when the world has too few ranks."""
+        from .parallel.sharding import cards_available, make_mesh
+
+        axes = self.meta.get("mesh")
+        if not axes:
+            raise_error("bundle '{}' is not a meshed export (no meta['mesh'])", self.path)
+        import torch.distributed as dist
+
+        n = int(np.prod(list(axes.values())))
+        device = (self.device or torch.device(self.meta["device"])).type
+        have = min(dist.get_world_size() if dist.is_initialized() else 1, cards_available(device))
+        if have < n:
+            raise_error("bundle '{}' was exported for a {}-device mesh {}; this process has {} device(s)", self.path,
+                        n, dict(axes), have)
+        return make_mesh(n, tp=axes["tp"], sp=axes["sp"], pp=axes["pp"], device=device)
+
+    def call_sharded(self, name: str, params, *args):
+        """Meshed-bundle call: every rank of the mesh calls it with the same
+        ``params`` (the param dict the model's loader placed, e.g. an
+        unmeshed model's ``params``) and the same global batch-leading
+        ``args``. ``params`` are placed as ``parallel.shard_params`` places
+        them, each rank runs the entry on its dp rows of ``args``, and the
+        outputs are all-gathered over dp: every rank returns the global
+        output."""
+        from .parallel.sharding import _dp_gather, _dp_slice, local_params, shard_params
+
+        mesh = self.make_mesh()
+        placed = local_params(shard_params(params, mesh))
+        out = self.call(name, placed, *(_dp_slice(a, mesh) for a in args))
+        return pytree.tree_map(lambda y: _dp_gather(y, mesh), out)
 
 
 def load_bundle(src: str | os.PathLike, device: torch.device | str | None = None) -> ExportedBundle:
@@ -231,15 +277,35 @@ def export_model(model, dst: str | os.PathLike, extent: tuple[int, int] | None =
     if batch < 1:
         raise_error("export_model: batch must be >= 1, got {}", batch)
     kind = type(model).__name__
-    if getattr(model, "mesh", None) is not None:
-        raise_error("export_model: a meshed {} does not export yet (the meshed export and call_sharded wait for "
-                    "their queue item); export the model built without a mesh", kind)
+    mesh = getattr(model, "mesh", None)
+    dp = 1
+    if mesh is not None:
+        # the JAX package's refusals (vision_tpu/export.py:272-321), in its order
+        if kind != "SamModel":
+            raise_error("export_model: meshed {} doesn't export — dp-sharded export is supported for SamModel only; "
+                        "construct without a mesh and shard at the call site", kind)
+        if embed_params:
+            raise_error("export_model: a meshed export takes the param dict at call time (call_sharded places it on "
+                        "the mesh); pass embed_params=False")
+        from .parallel.sharding import mesh_shape
+
+        axes = mesh_shape(mesh)
+        dp = axes["dp"]
+        if batch % dp:
+            raise_error("export_model: batch {} must divide over the mesh dp axis ({})", batch, dp)
+        if any(v > 1 for k, v in axes.items() if k != "dp"):
+            raise_error("export_model: meshed SAM export supports dp-only meshes (got {}) — tp/sp placements are not "
+                        "reproducible from the GGUF param dict at load time", axes)
     if not embed_params and any(is_quant(v) for v in model.params.values()):
         raise_error("export_model: an int8-resident {} exports with its weights (its residents are no tensors of "
                     "the param dict); drop embed_params=False", kind)
     dev = model.device.torch_device
     params = model.params
     meta: dict = {"family": kind, "batch": batch, "params_embedded": embed_params}
+    entry_meta: dict = {}
+    if mesh is not None:
+        meta["mesh"] = axes
+        entry_meta["encode"] = {"nr_devices": dp}
     programs: dict[str, tuple[Callable, tuple]] = {}
     derive = None
 
@@ -256,9 +322,10 @@ def export_model(model, dst: str | os.PathLike, extent: tuple[int, int] | None =
         s = model.p.image_size
         # the decode entries' example embedding: one encoder forward (a copy
         # made outside inference mode, as the trace's inputs must be)
-        embed = model.encode_u8(u8(1, s, s, 3)).clone()
+        # one rank's forwards (a meshed model's entry points split over dp)
+        embed = model._encode_u8(u8(1, s, s, 3)).clone()
         coords = torch.zeros((2, 2), dtype=torch.float32, device=dev)
-        add("encode", model.encode_u8, u8(batch, s, s, 3))
+        add("encode", model._encode_u8, u8(batch // dp, s, s, 3))
         add("decode_point", lambda e, c: model._dec_point(e, c[None]), embed, coords)
         add("decode_box", lambda e, c: model._dec_box(e, c[None]), embed, coords)
         meta["image_size"] = s
@@ -309,5 +376,5 @@ def export_model(model, dst: str | os.PathLike, extent: tuple[int, int] | None =
         programs = {k: v for k, v in programs.items() if k in set(entries)}
         if not programs:
             raise_error("export_model: entries selected nothing to export")
-    export_bundle(dst, programs, meta=meta)
+    export_bundle(dst, programs, meta=meta, entry_meta=entry_meta)
     return sorted(programs)

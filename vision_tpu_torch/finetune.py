@@ -20,6 +20,13 @@ distillation's student takes none, its dequant kernel aside under
 ``qlora``), the backward PyTorch ops. Each augmentation draws from a
 ``torch.Generator`` seeded from the recipe's numpy generator, so a run
 reproduces from its seed (with other draws than the JAX package's).
+
+Each recipe takes a ``mesh`` of parallel/ (dp, or dp x tp): every rank
+runs the same loop over the same global batches (each loads them whole),
+the state is placed by ``create_train_state(mesh=)`` and each rank steps
+on its dp rows (train.py). The augmentation draws for the global batch and
+each rank applies its rows' draws, so a dp-N step is the one-device step.
+The first rank alone logs, writes the checkpoints' file and the outputs.
 """
 
 from __future__ import annotations
@@ -105,9 +112,31 @@ def _items(items: list, batch: int) -> list:
     return list(items) if len(items) >= batch else [items[i % len(items)] for i in range(batch)]
 
 
-def _check_steps(steps: int, batch: int, verb: str = "finetune") -> None:
+def _check_steps(steps: int, batch: int, verb: str = "finetune", mesh=None) -> None:
     if steps < 1 or batch < 1:
         raise_error("{}: steps and batch must be >= 1, got {} / {}", verb, steps, batch)
+    if mesh is not None:
+        from .parallel.sharding import mesh_shape
+
+        dp = mesh_shape(mesh)["dp"]
+        if batch % dp:
+            raise_error("{}: batch {} must be divisible by the mesh's dp {}", verb, batch, dp)
+
+
+def _first_rank(mesh) -> bool:
+    """Whether this process logs and writes: always without a mesh, the
+    mesh's first rank with one."""
+    return mesh is None or all(c == 0 for c in mesh.get_coordinate())
+
+
+def _write_out(params: dict, mesh, write: Callable[[dict], dict]) -> dict:
+    """``write(params)`` on the first rank, with a meshed state's params
+    gathered whole first (every rank takes part in the gather)."""
+    if mesh is not None:
+        from .train import full_params
+
+        params = full_params(params)
+    return write(params) if _first_rank(mesh) else {}
 
 
 def esrgan_loss(p, patch: int) -> Callable:
@@ -155,8 +184,8 @@ def _train_loop(state, step, tree_of, epochs, ckpt_dir, ckpt_every, steps, done,
 
 def finetune_esrgan(model, images: Sequence[str], dst: str | os.PathLike, steps: int = 200, lr: float = 1e-4,
                     batch: int = 4, patch: int = 64, ema_decay: float | None = None, trainable=None, seed: int = 0,
-                    device=None, workers: int = 4, ckpt_dir: str | os.PathLike | None = None, ckpt_every: int = 50,
-                    log: Callable[[str], None] | None = None) -> dict:
+                    device=None, mesh=None, workers: int = 4, ckpt_dir: str | os.PathLike | None = None,
+                    ckpt_every: int = 50, log: Callable[[str], None] | None = None) -> dict:
     """Self-supervised SR fine-tune of an ESRGAN GGUF on a folder of images.
 
     Each step takes ``batch`` random ``patch``-sized HR crops and one Adam
@@ -166,7 +195,8 @@ def finetune_esrgan(model, images: Sequence[str], dst: str | os.PathLike, steps:
     source's KVs) and returns ``{"out", "steps", "first_loss",
     "last_loss"}``. ``ckpt_dir`` checkpoints the (state, EMA) pair every
     ``ckpt_every`` steps, and a rerun resumes from the newest save (the data
-    order restarts from ``seed``)."""
+    order restarts from ``seed``). ``mesh``: train over it (module
+    docstring); the EMA is kept over the placed params, shard by shard."""
     from .core.device import backend_init
     from .core.gguf import GGUFFile
     from .core.weights import load_weights
@@ -178,11 +208,12 @@ def finetune_esrgan(model, images: Sequence[str], dst: str | os.PathLike, steps:
     p = esrgan_detect_params(file)
     if patch % p.scale:
         raise_error("finetune: patch size {} must be divisible by the model scale {}", patch, p.scale)
-    _check_steps(steps, batch)
+    _check_steps(steps, batch, mesh=mesh)
     device = device or backend_init()
+    log = log if _first_rank(mesh) else None
     params = load_weights(file, device, float_dtype=torch.float32)
-    state = create_train_state(params, adam(lr), trainable=trainable)
-    step = make_train_step(esrgan_loss(p, patch), trainable=trainable)
+    state = create_train_state(params, adam(lr), mesh=mesh, trainable=trainable)
+    step = make_train_step(esrgan_loss(p, patch), mesh=mesh, trainable=trainable)
     ema = {k: v.detach().clone() for k, v in state.params.items()} if ema_decay is not None else None
     tree, done = _ckpt_resume((state, ema) if ema is not None else state, ckpt_dir, log)
     state, ema = tree if ema is not None else (tree, None)
@@ -193,7 +224,7 @@ def finetune_esrgan(model, images: Sequence[str], dst: str | os.PathLike, steps:
         ep_seed = int(rng.integers(2**31))
         epoch = data_loader(list(enumerate(items)), batch, load=_patch_load(patch, ep_seed), workers=workers,
                             shuffle=True, seed=ep_seed)
-        return prefetch_to_device(epoch, device=device.torch_device)
+        return prefetch_to_device(epoch, device=device.torch_device, mesh=mesh)
 
     def track(st):
         nonlocal ema
@@ -202,7 +233,7 @@ def finetune_esrgan(model, images: Sequence[str], dst: str | os.PathLike, steps:
 
     state, first, last = _train_loop(state, step, lambda st: (st, ema) if ema is not None else st, epochs, ckpt_dir,
                                      ckpt_every, steps, done, log, on_step=track)
-    export_gguf(ema if ema is not None else state.params, dst, source=file)
+    _write_out(ema if ema is not None else state.params, mesh, lambda out: export_gguf(out, dst, source=file))
     return {"out": os.fspath(dst), "steps": state.step, "first_loss": first, "last_loss": last}
 
 
@@ -270,26 +301,31 @@ def _student_params(s_np: dict, trainable, lora_rank, qlora: bool, seed: int, ve
     return add_lora(s_np, rank=lora_rank, seed=seed), LORA_TRAINABLE
 
 
-def _export(params: dict, dst, source, lora_rank, lora_out) -> dict:
-    """Save the adapters (``lora_out``), merge them, and export."""
+def _export(params: dict, dst, source, lora_rank, lora_out, mesh=None) -> dict:
+    """Save the adapters (``lora_out``), merge them, and export (on the
+    first rank of a mesh, from the params gathered whole)."""
     from .train import export_gguf
 
-    result = {"out": os.fspath(dst)}
-    if lora_rank is not None:
-        from .lora import merge_lora, save_lora
+    def write(params):
+        if lora_rank is not None:
+            from .lora import merge_lora, save_lora
 
-        if lora_out is not None:
-            save_lora(params, lora_out, arch=source.arch)
-            result["lora_out"] = os.fspath(lora_out)
-        params = merge_lora(params)
-    export_gguf(params, dst, source=source)
+            if lora_out is not None:
+                save_lora(params, lora_out, arch=source.arch)
+            params = merge_lora(params)
+        export_gguf(params, dst, source=source)
+
+    _write_out(params, mesh, write)
+    result = {"out": os.fspath(dst)}
+    if lora_rank is not None and lora_out is not None:
+        result["lora_out"] = os.fspath(lora_out)
     return result
 
 
 def distill_depthany(teacher, student, images: Sequence[str], dst: str | os.PathLike, steps: int = 200,
                      lr: float = 1e-4, batch: int = 4, size: int = 252, trainable=None, lora_rank: int | None = None,
                      lora_out: str | os.PathLike | None = None, qlora: bool = False, seed: int = 0, device=None,
-                     workers: int = 4, ckpt_dir: str | os.PathLike | None = None, ckpt_every: int = 50,
+                     mesh=None, workers: int = 4, ckpt_dir: str | os.PathLike | None = None, ckpt_every: int = 50,
                      log: Callable[[str], None] | None = None) -> dict:
     """Knowledge distillation for Depth-Anything: train a small student GGUF
     against a larger teacher's depth on unlabeled images.
@@ -302,12 +338,17 @@ def distill_depthany(teacher, student, images: Sequence[str], dst: str | os.Path
     unmerged adapter file); ``qlora`` keeps the student's base
     int8-resident and frozen under them. Writes the student to ``dst`` (f32,
     the student's KVs) and returns ``{"out", "steps", "first_loss",
-    "last_loss"}`` (and ``"lora_out"``)."""
+    "last_loss"}`` (and ``"lora_out"``). ``mesh``: train over it (module
+    docstring); the teacher is placed by ``shard_params`` and runs on each
+    rank's dp rows, whose targets are all that rank's loss needs. Under
+    ``qlora`` the int8 residents stay whole on every rank, as the JAX
+    package's ``shard_params`` places them (replicated)."""
     from .core.device import backend_init
     from .core.gguf import GGUFFile
     from .core.params import Params
     from .core.weights import load_weights, params_from_numpy
     from .models.depth_anything import depthany_detect_params, depthany_predict, fixup_weights
+    from .parallel.tp import is_dtensor
     from .train import adam, create_train_state, data_loader, make_train_step, prefetch_to_device
 
     tfile = teacher if isinstance(teacher, GGUFFile) else GGUFFile(os.fspath(teacher))
@@ -316,20 +357,30 @@ def distill_depthany(teacher, student, images: Sequence[str], dst: str | os.Path
     mult = max(tp.image_multiple, sp.image_multiple)
     if size % mult or size < mult:
         raise_error("distill: size {} must be a positive multiple of the patch size {}", size, mult)
-    _check_steps(steps, batch, "distill")
+    _check_steps(steps, batch, "distill", mesh)
     device = device or backend_init()
+    log = log if _first_rank(mesh) else None
     t_np = fixup_weights(tfile, load_weights(tfile, as_numpy=True))
     s_np, trainable = _student_params(fixup_weights(sfile, load_weights(sfile, as_numpy=True)), trainable,
                                       lora_rank, qlora, seed, "distill")
     s_params = params_from_numpy(s_np, device.torch_device, torch.float32)
     t_params = params_from_numpy(t_np, device.torch_device, device.preferred_float_type)
+    if mesh is not None:
+        from .parallel.sharding import mesh_params
+
+        t_params = mesh_params(t_params, mesh, device)
 
     @torch.no_grad()
     def teacher_fwd(x):
-        return depthany_predict(Params(t_params), x.to(device.preferred_float_type), tp)
+        if not is_dtensor(x):
+            return depthany_predict(Params(t_params), x.to(device.preferred_float_type), tp)
+        from torch.distributed.tensor import DTensor
 
-    state = create_train_state(s_params, adam(lr), trainable=trainable)
-    step = make_train_step(ssi_loss(sp), trainable=trainable)
+        rows = depthany_predict(Params(t_params), x.to_local().to(device.preferred_float_type), tp)
+        return DTensor.from_local(rows, x.device_mesh, x.placements, run_check=False)
+
+    state = create_train_state(s_params, adam(lr), mesh=mesh, trainable=trainable)
+    step = make_train_step(ssi_loss(sp), mesh=mesh, trainable=trainable)
     state, done = _ckpt_resume(state, ckpt_dir, log)
     rng = np.random.default_rng(seed)
     items = _items(list(images), batch)
@@ -337,11 +388,11 @@ def distill_depthany(teacher, student, images: Sequence[str], dst: str | os.Path
     def epochs():
         epoch = data_loader(items, batch, load=_resize_load(size), workers=workers, shuffle=True,
                             seed=int(rng.integers(2**31)))
-        return ((x, teacher_fwd(x)) for x in prefetch_to_device(epoch, device=device.torch_device))
+        return ((x, teacher_fwd(x)) for x in prefetch_to_device(epoch, device=device.torch_device, mesh=mesh))
 
     state, first, last = _train_loop(state, step, lambda st: st, epochs, ckpt_dir, ckpt_every, steps, done, log,
                                      verb="distill")
-    result = _export(state.params, dst, sfile, lora_rank, lora_out)
+    result = _export(state.params, dst, sfile, lora_rank, lora_out, mesh)
     return {**result, "steps": state.step, "first_loss": first, "last_loss": last}
 
 
@@ -365,25 +416,44 @@ def _mask_load(size: int) -> Callable[[tuple], tuple]:
     return load
 
 
+def _augment(seed: int, x: torch.Tensor, m: torch.Tensor, total: int, rows: torch.Tensor | None):
+    """``ops.augment``'s ``random_flip`` of image and mask together, then
+    ``color_jitter`` (0.2 brightness, contrast and saturation) of the image,
+    drawn from a ``torch.Generator`` seeded with ``seed`` for a batch of
+    ``total`` samples; ``rows`` picks the draws of the rows at hand (None:
+    all). The draws are ``random_flip``'s and ``color_jitter``'s, in their
+    order, so a whole batch is augmented as those ops do it."""
+    from .ops.augment import _flip_apply, _jitter_apply, _uniform
+
+    gen = torch.Generator().manual_seed(int(seed))
+    draws = [torch.rand(total, generator=gen, device=gen.device) < 0.5]
+    draws += [_uniform(gen, (total, 1, 1, 1), 0.8, 1.2) for _ in range(3)]
+    if rows is not None:
+        draws = [d[rows.to(d.device)] for d in draws]
+    flip, fb, fc, fs = draws
+    both = _flip_apply(torch.cat([x, m], dim=-1), flip)
+    return _jitter_apply(both[..., :3], fb, fc, fs), both[..., 3:]
+
+
 def mask_loss(bp, augment: bool = True) -> Callable:
-    """BiRefNet's supervised loss on a batch ``(x [0, 1], mask, seed)``:
-    with ``augment``, a consistent horizontal flip of image and mask and a
-    color jitter of the image (0.2 brightness, contrast and saturation),
-    drawn from a ``torch.Generator`` seeded with ``seed``; ImageNet
-    normalization; BCE + (1 - soft IoU) of ``birefnet_predict`` against the
-    mask."""
+    """BiRefNet's supervised loss on a batch ``(x [0, 1], mask, seed)``, or
+    ``(x, mask, (seed, total), rows)`` for rows ``rows`` (int64) of a batch
+    of ``total``: with ``augment``, a consistent horizontal flip of image and
+    mask and a color jitter of the image (0.2 brightness, contrast and
+    saturation), drawn for the whole batch from a ``torch.Generator`` seeded
+    with ``seed`` (:func:`_augment`), each row taking its own draws;
+    ImageNet normalization; BCE + (1 - soft IoU) of ``birefnet_predict``
+    against the mask. The IoU term is a mean over the rows, so the loss of
+    a batch is the mean of its rows' losses over any equal split."""
     from .core.params import Params
     from .models.birefnet import birefnet_predict
-    from .ops.augment import color_jitter, random_flip
     from .ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
 
     def loss_fn(params, batch):
-        x, m, seed = batch
+        x, m, seed = batch[:3]
         if augment:
-            gen = torch.Generator().manual_seed(int(seed))
-            both = random_flip(gen, torch.cat([x, m], dim=-1))
-            x, m = both[..., :3], both[..., 3:]
-            x = color_jitter(gen, x, brightness=0.2, contrast=0.2, saturation=0.2)
+            total, rows = (seed[1], batch[3]) if isinstance(seed, tuple) else (x.shape[0], None)
+            x, m = _augment(seed[0] if isinstance(seed, tuple) else seed, x, m, total, rows)
         mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
         std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
         pm = birefnet_predict(Params(params), (x - mean) / std, bp)
@@ -399,7 +469,7 @@ def mask_loss(bp, augment: bool = True) -> Callable:
 def finetune_birefnet(model, images: Sequence[str], dst: str | os.PathLike, masks: str | None = None,
                       steps: int = 200, lr: float = 1e-4, batch: int = 4, size: int = 256, augment: bool = True,
                       trainable=None, lora_rank: int | None = None, lora_out: str | os.PathLike | None = None,
-                      qlora: bool = False, seed: int = 0, device=None, workers: int = 4,
+                      qlora: bool = False, seed: int = 0, device=None, mesh=None, workers: int = 4,
                       ckpt_dir: str | os.PathLike | None = None, ckpt_every: int = 50,
                       log: Callable[[str], None] | None = None) -> dict:
     """Supervised mask fine-tune of a BiRefNet GGUF on (image, mask) pairs
@@ -412,7 +482,10 @@ def finetune_birefnet(model, images: Sequence[str], dst: str | os.PathLike, mask
     trains only LoRA adapters (SWIN's linears outside the window qkv, the
     decoder's 1x1 convs) and merges them into the export; ``lora_out`` also
     saves the adapter file. Writes the tuned model to ``dst`` (f32, source
-    KVs) and returns ``{"out", "steps", "first_loss", "last_loss"}``."""
+    KVs) and returns ``{"out", "steps", "first_loss", "last_loss"}``.
+    ``mesh``: train over it (module docstring); each batch carries its
+    augmentation seed, the batch size and the row indices, which the step
+    splits over dp with the images."""
     from .bulk import pair_masks
     from .core.device import backend_init
     from .core.gguf import GGUFFile
@@ -425,7 +498,8 @@ def finetune_birefnet(model, images: Sequence[str], dst: str | os.PathLike, mask
     bp = birefnet_detect_params(file)
     if masks is None:
         raise_error("finetune(birefnet): pass masks=<dir of same-stem ground-truth masks>")
-    _check_steps(steps, batch)
+    _check_steps(steps, batch, mesh=mesh)
+    log = log if _first_rank(mesh) else None
     s = snap_to_multiple(max(int(size), bp.image_multiple), bp.image_multiple)
     if s != size and log is not None:
         log(f"size {size} -> {s} (model grid: multiples of {bp.image_multiple})")
@@ -434,20 +508,23 @@ def finetune_birefnet(model, images: Sequence[str], dst: str | os.PathLike, mask
     s_np, trainable = _student_params(fixup_weights(file, load_weights(file, as_numpy=True)), trainable,
                                       lora_rank, qlora, seed, "finetune")
     params = params_from_numpy(s_np, device.torch_device, torch.float32)
-    state = create_train_state(params, adam(lr), trainable=trainable)
-    step = make_train_step(mask_loss(bp, augment), trainable=trainable)
+    state = create_train_state(params, adam(lr), mesh=mesh, trainable=trainable)
+    step = make_train_step(mask_loss(bp, augment), mesh=mesh, trainable=trainable)
     state, done = _ckpt_resume(state, ckpt_dir, log)
     rng = np.random.default_rng(seed)
     items = _items(pairs, batch)
+    rows = torch.arange(batch)
 
     def epochs():
         epoch = data_loader(items, batch, load=_mask_load(s), workers=workers, shuffle=True,
                             seed=int(rng.integers(2**31)))
-        # one augmentation seed a batch, kept on the host
-        return ((x, m, int(rng.integers(2**62))) for x, m in prefetch_to_device(epoch, device=device.torch_device))
+        # one augmentation seed a batch, kept on the host with the batch size; the row
+        # indices (host) split over dp with the images
+        return ((x, m, (int(rng.integers(2**62)), batch), rows)
+                for x, m in prefetch_to_device(epoch, device=device.torch_device, mesh=mesh))
 
     state, first, last = _train_loop(state, step, lambda st: st, epochs, ckpt_dir, ckpt_every, steps, done, log)
-    result = _export(state.params, dst, file, lora_rank, lora_out)
+    result = _export(state.params, dst, file, lora_rank, lora_out, mesh)
     return {**result, "steps": state.step, "first_loss": first, "last_loss": last}
 
 

@@ -378,7 +378,8 @@ def attention_windows(
     heads = _tp.head_slice(p["qkv"], n_heads)
     nh = heads.stop - heads.start
     cl = nh * hd
-    w = _tp.local(p["qkv"].weight("weight"))
+    wq = p["qkv"].weight("weight")  # the one lookup of the weight (a dequant when it is resident)
+    w = _tp.local(wq)
     bb = _tp.local(p["qkv"].weight("bias"))
     if split_dim == 1:  # per-head [q|k|v] interleaving (TinyViT style)
         w3 = w.reshape(nh, 3, hd, c)
@@ -391,7 +392,7 @@ def attention_windows(
     else:
         raise ValueError("Unsupported split_dim")
     if mask is not None and nh != n_heads:
-        mask = mask[..., heads, :, :].contiguous()
+        mask = _tp.scatter_to(mask, -3, wq).contiguous()
     # the bias joins the f32 accumulation before the one rounding to x's
     # type, as in the JAX package's split projections
     q, k, v = (F.linear(x, wi(i).to(x.dtype), bi(i).to(x.dtype)) for i in range(3))

@@ -1,17 +1,21 @@
-"""The multi-card dry run — a port of ``__graft_entry__.dryrun_multichip``
-steps 1-4: every model family through its production loader path and
-server on an n-rank mesh, each held against the same model on one rank.
+"""The multi-card dry run — a port of ``__graft_entry__.dryrun_multichip``:
+every model family through its production loader path and server on an
+n-rank mesh, each held against the same model on one rank, and a meshed
+training step.
 
   1. MobileSAM's encoder over a dp x tp mesh (``SamModel.encode_batch``);
   2. Real-ESRGAN's tiled ``compute`` with the tile batch split over dp;
   3. SAM3's tensor-parallel vision encoder, and BiRefNet's dp x tp
      ``compute_batch``;
   4. Depth-Anything (dp x tp) and MI-GAN (dp) through ``ImageServer`` and
-     YOLOv9t (dp) through ``YoloServer``, one full batch each.
+     YOLOv9t (dp) through ``YoloServer``, one full batch each;
+  5. a dp x tp Adam step of a small DINOv2 through
+     ``create_train_state(..., fsdp=True, fsdp_min_size=1024)`` and
+     ``make_train_step(mesh)`` (every rank in lock step), against the same
+     step on one rank.
 
-tp is 2 where n is even and at least 4, as in the JAX package. Step 5 (a
-dp x tp training step) and SAM3's sequence- and pipeline-parallel trunks
-wait for the training meshes and the scan trunk. Run it on n cards
+tp is 2 where n is even and at least 4, as in the JAX package. SAM3's
+sequence- and pipeline-parallel trunks wait for the scan trunk. Run it on n cards
 (``device="cuda"``) or n CPU processes (``"cpu"``, gloo); under torchrun
 every rank calls it, elsewhere it starts the n ranks itself.
 """
@@ -82,6 +86,7 @@ def _run(n: int, device: str) -> None:
     dev = backend_init("cpu" if device == "cpu" else "gpu")
     tp = 2 if n % 2 == 0 and n >= 4 else 1
     _sam3_tp(n, tp, dev, device)
+    train_step_check(n, tp, dev, device)
     built = _build(n, tp, dev, device)
     if dist.get_rank() != 0:
         follow()
@@ -91,8 +96,8 @@ def _run(n: int, device: str) -> None:
             check(built, dev)
     finally:
         stop_workers()
-    _say(f"dryrun {n} ranks ok ({device}); mesh dp x tp = {mesh_shape(built['mesh_tp'])}; step 5 (training) "
-         "waits for the training meshes, SAM3 sp / pp for the scan trunk")
+    _say(f"dryrun {n} ranks ok ({device}); mesh dp x tp = {mesh_shape(built['mesh_tp'])}; SAM3 sp / pp wait for "
+         "the scan trunk")
 
 
 def _sam3_tp(n: int, tp: int, dev, device: str) -> None:
@@ -121,6 +126,91 @@ def _sam3_tp(n: int, tp: int, dev, device: str) -> None:
     assert delta < 2e-5, f"sharded SAM3 vision parity max|delta|={delta}"
     _say(f"dryrun SAM3 tp-sharded vision parity ok: mesh={mesh_shape(mesh)} fpn_scales={len(got)} "
          f"max|delta|={delta:.2e}")
+
+
+def train_case(dim: int = 64, heads: int = 4, layers: int = 3, grid: int = 4, seed: int = 0):
+    """Step 5's small DINOv2 (patch 14, ``grid``² patches): its numpy
+    weights and DinoParams (__graft_entry__.py:86-121)."""
+    from ..models.dino import DinoParams
+
+    rng = np.random.default_rng(seed)
+    p: dict = {}
+
+    def lin(name, ci, co):
+        p[f"{name}.weight"] = (rng.standard_normal((co, ci)) * ci**-0.5).astype(np.float32)
+        p[f"{name}.bias"] = np.zeros(co, np.float32)
+
+    def ln(name, c):
+        p[f"{name}.weight"] = np.ones(c, np.float32)
+        p[f"{name}.bias"] = np.zeros(c, np.float32)
+
+    p["embeddings.cls_token"] = np.zeros((1, 1, dim), np.float32)
+    p["embeddings.position_embeddings"] = (rng.standard_normal((1, grid * grid + 1, dim)) * 0.02).astype(np.float32)
+    p["embeddings.patch_embeddings.projection.weight"] = (rng.standard_normal((dim, 3, 14, 14)) * 0.02).astype(
+        np.float32)
+    p["embeddings.patch_embeddings.projection.bias"] = np.zeros(dim, np.float32)
+    for i in range(layers):
+        base = f"encoder.layer.{i}"
+        ln(f"{base}.norm1", dim)
+        ln(f"{base}.norm2", dim)
+        for qkv in ("query", "key", "value"):
+            lin(f"{base}.attention.attention.{qkv}", dim, dim)
+        lin(f"{base}.attention.output.dense", dim, dim)
+        p[f"{base}.layer_scale1.lambda1"] = np.full(dim, 0.1, np.float32)
+        p[f"{base}.layer_scale2.lambda1"] = np.full(dim, 0.1, np.float32)
+        lin(f"{base}.mlp.fc1", dim, dim * 4)
+        lin(f"{base}.mlp.fc2", dim * 4, dim)
+    ln("layernorm", dim)
+    return p, DinoParams(patch_size=14, embed_dim=dim, n_heads=heads, n_layers=layers)
+
+
+# step 5's rules: the defaults and the JAX dry run's extra q/k/v / output.dense patterns
+TRAIN_RULES_EXTRA = ((r".*\b(query|key|value)\.weight$", 0), (r".*\b(query|key|value)\.bias$", 0),
+                     (r".*\boutput\.dense\.weight$", 1))
+
+
+def train_loss(dp):
+    """Step 5's loss: the mean square of the last layer's features."""
+    from ..core.params import Params
+    from ..models.dino import dino_get_intermediate_layers
+
+    def loss_fn(weights, batch):
+        feats = dino_get_intermediate_layers(Params(weights), batch, [dp.n_layers - 1], dp)
+        return torch.mean(feats[-1].float() ** 2)
+
+    return loss_fn
+
+
+def train_step_check(n: int, tp: int, dev, device: str) -> None:
+    """Step 5, on every rank in lock step: one adam step of the small DINOv2
+    over dp x tp with fsdp (the patch embedding's 37632 elements pass
+    ``fsdp_min_size`` 1024, and at tp 1 the MLP's too), against the step
+    on this rank alone."""
+    from ..train import adam, create_train_state, full_params, make_train_step
+    from .sharding import DEFAULT_TP_RULES, make_mesh, mesh_shape
+
+    p, dp = train_case()
+    mesh = make_mesh(n, tp=tp, device=device)
+    # each state takes its own copy (the optimizer updates what it is given in place)
+    state = create_train_state({k: v.copy() for k, v in p.items()}, adam(1e-3), mesh=mesh,
+                               rules=DEFAULT_TP_RULES + TRAIN_RULES_EXTRA, fsdp=True, fsdp_min_size=1024)
+    step = make_train_step(train_loss(dp), mesh=mesh)
+    batch = torch.from_numpy(np.random.default_rng(1).random((max(n, 2), 56, 56, 3)).astype(np.float32))
+    batch = batch.to(dev.torch_device)
+    state, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    assert np.isfinite(loss), f"non-finite loss {loss}"
+    name = "encoder.layer.0.mlp.fc1.weight"
+    moved = full_params({name: state.params[name]})[name]
+    delta = float((moved.float().cpu() - torch.from_numpy(p[name])).abs().max())
+    assert delta > 0, "the meshed step left the fc1 weight where it was"
+    assert state.step == 1, state.step
+    one = create_train_state({k: torch.from_numpy(v.copy()).to(dev.torch_device) for k, v in p.items()}, adam(1e-3))
+    one, ref = make_train_step(train_loss(dp))(one, batch)
+    gap = abs(loss - float(ref["loss"])) / abs(float(ref["loss"]))
+    assert gap <= 1e-5, f"meshed step loss {loss} vs one rank's {float(ref['loss'])}"
+    _say(f"dryrun dp x tp fsdp train step ok: mesh={mesh_shape(mesh)} loss={loss:.6f} (one rank: "
+         f"{float(ref['loss']):.6f}) fc1 max|update|={delta:.2e} step={state.step}")
 
 
 def _build(n: int, tp: int, dev, device: str) -> dict:

@@ -18,9 +18,13 @@ Design:
   * ``shard_params`` — name-pattern rules map dotted GGUF names to
     placements; everything else is replicated. Fused q/k/v rows are
     regrouped so that each tp rank holds whole heads (parallel/tp.py).
+  * ``fsdp_params`` — training's ZeRO-3 placement: float weights the tp
+    rules left replicated, rows sharded over dp (gathered at each lookup,
+    parallel/tp.py ``gather_fsdp``).
   * ``sharded_forward`` / ``training_step`` — dp over the batch, tp as the
     weights are placed; the training step averages gradients over dp and
-    keeps the tp shards.
+    keeps the tp shards (the JAX package's SGD check; train.py's
+    ``make_train_step(mesh=)`` is the full step).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ __all__ = [
     "replicate",
     "batch_sharding",
     "shard_params",
+    "fsdp_params",
     "local_params",
     "mesh_params",
     "mesh_tp",
@@ -268,6 +273,33 @@ def shard_params(
     return out
 
 
+def fsdp_params(params: Mapping[str, Any], mesh, min_size: int = 2**16) -> dict:
+    """:func:`shard_params`' output with every float DTensor that the tp
+    rules left replicated, of at least ``min_size`` elements and with a
+    leading dim that divides over dp, re-placed ``Shard(0)`` over dp: each
+    rank keeps its rows (ZeRO-3: the weight and its optimizer slots live
+    partitioned). A mesh of dp 1 leaves everything as it is, as the JAX
+    package does (vision_tpu/train.py:125-146)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from .tp import is_dtensor
+
+    dp = mesh_shape(mesh)["dp"]
+    if dp == 1:
+        return dict(params)
+    axis = mesh.mesh_dim_names.index("dp")
+    rank = mesh.get_local_rank("dp") if mesh.get_coordinate() is not None else 0
+    out = {}
+    for name, v in params.items():
+        if (is_dtensor(v) and all(p.is_replicate() for p in v.placements) and v.is_floating_point()
+                and v.numel() >= min_size and v.ndim >= 1 and v.shape[0] % dp == 0):
+            placements = list(v.placements)
+            placements[axis] = Shard(0)
+            v = DTensor.from_local(v.to_local().chunk(dp, 0)[rank].contiguous(), mesh, placements, run_check=False)
+        out[name] = v
+    return out
+
+
 def shard_dim(name: str, shape: tuple, tp_size: int, rules, heads=None) -> int | None:
     """The dimension ``name`` shards over a tp axis of ``tp_size``, or None
     (replicated). ``rules``: compiled (regex, dim) pairs."""
@@ -297,11 +329,15 @@ def local_params(params: Mapping[str, Any]) -> dict:
 def mesh_params(params: Mapping[str, Any], mesh, device, rules=DEFAULT_TP_RULES, heads=None,
                 qkv_layout: str = "global") -> dict:
     """A meshed model's params: :func:`shard_params` then
-    :func:`local_params`. ``device`` (the model's ``Device``) must be of the
-    mesh's type: a CUDA mesh never runs a rank on the CPU."""
+    :func:`local_params`; on a mesh of tp 1, where every weight is
+    replicated, the loader's own tensors (the same as a round trip through
+    DTensors would give back). ``device`` (the model's ``Device``) must be
+    of the mesh's type: a CUDA mesh never runs a rank on the CPU."""
     if device.torch_device.type != mesh.device_type:
         raise_error("a {} mesh needs a {} model, got {}", mesh.device_type, mesh.device_type,
                     device.torch_device.type)
+    if mesh_tp(mesh) == 1:
+        return dict(params)
     return local_params(shard_params(params, mesh, rules, heads, qkv_layout))
 
 

@@ -14,9 +14,17 @@ op that is not local to its features (a replicated projection, a layer
 norm) is all-gathered first (:func:`gather_for`).
 
 ``ops.nn.linear`` sends any DTensor weight here. The collectives carry
-gradients as Megatron's f / g operators do: the input of a column-parallel
-product all-reduces its gradient, the all-reduce after a row-parallel one
-passes the gradient through.
+gradients as Megatron's operators do: the input of a column-parallel
+product all-reduces its gradient (f), the all-reduce after a row-parallel
+one passes the gradient through (g), an all-gather of features hands each
+rank its own chunk of the gradient, and a whole tensor cut to this rank's
+features or heads (a replicated bias, a head-indexed attention bias)
+all-gathers the chunks' gradients.
+
+A weight that training placed ``Shard(0)`` over the mesh's dp axis (fsdp,
+train.create_train_state) is gathered whole at each lookup
+(:func:`gather_fsdp`, from ``Params.find``); its gradient comes back
+reduce-scattered to this rank's rows.
 """
 
 from __future__ import annotations
@@ -39,7 +47,10 @@ __all__ = [
     "local_heads",
     "head_slice",
     "gather_for",
+    "gather_fsdp",
+    "is_fsdp",
     "local",
+    "ungroup_qkv",
 ]
 
 
@@ -84,6 +95,13 @@ def regroup_qkv(t: torch.Tensor, tp: int) -> torch.Tensor:
     return t.reshape(3, tp, s[0] // (3 * tp), *s[1:]).transpose(0, 1).reshape(s)
 
 
+def ungroup_qkv(t: torch.Tensor, tp: int) -> torch.Tensor:
+    """The inverse of :func:`regroup_qkv`: rows in tp groups back in
+    [q..|k..|v..] order."""
+    s = t.shape
+    return t.reshape(tp, 3, s[0] // (3 * tp), *s[1:]).transpose(0, 1).reshape(s)
+
+
 class _CopyToTP(torch.autograd.Function):
     """Identity forward; all-reduce of the gradient backward (Megatron's f)."""
 
@@ -113,6 +131,56 @@ class _ReduceFromTP(torch.autograd.Function):
         return g, None
 
 
+def _gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim)
+
+
+def _own_chunk(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return x.chunk(dist.get_world_size(group), dim)[dist.get_rank(group)]
+
+
+class _GatherFromTP(torch.autograd.Function):
+    """All-gather over tp along ``dim`` forward; this rank's chunk of the
+    gradient backward (the gathered tensor is replicated, its gradient too)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_cat(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_chunk(g, ctx.dim, ctx.group).contiguous(), None, None
+
+
+class _ScatterToTP(torch.autograd.Function):
+    """This rank's chunk along ``dim`` of a whole (replicated) tensor
+    forward; the all-gather of the chunks' gradients backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _own_chunk(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_cat(g, ctx.dim, ctx.group), None, None
+
+
+def _records(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def scatter_to(x: torch.Tensor, dim: int, w) -> torch.Tensor:
+    """Rank r's chunk along ``dim`` of a whole ``x``, over the tp group of
+    the sharded weight ``w`` (its gradient all-gathered under autograd)."""
+    if _records(x):
+        return _ScatterToTP.apply(x, dim, _group(w))
+    return x.chunk(tp_size(w), dim)[tp_rank(w)]
+
+
 def _copy_to(x, group):
     return _CopyToTP.apply(x, group) if x.requires_grad else x
 
@@ -128,7 +196,7 @@ def _reduce_from(x, group):
 def _features(x: torch.Tensor, w, full: int) -> torch.Tensor:
     """x's features as rank r's chunk of ``full`` (x may be whole)."""
     if x.shape[-1] == full:
-        return x.chunk(tp_size(w), -1)[tp_rank(w)]
+        return scatter_to(x, -1, w)
     return x
 
 
@@ -162,15 +230,16 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
 
 def local_heads(p, n_heads: int) -> int:
     """The heads this rank runs of an attention of ``n_heads`` whose q (or
-    fused qkv) projection is ``p``: n_heads / tp when it is column-sharded."""
-    w = p.find("weight")
+    fused qkv) projection is ``p``: n_heads / tp when it is column-sharded.
+    Reads the stored entry: a quantized resident is never dequantized here."""
+    w = p.stored("weight")
     return n_heads // tp_size(w) if tp_dim(w) == 0 else n_heads
 
 
 def head_slice(p, n_heads: int) -> slice:
     """This rank's heads of an attention of ``n_heads`` (see :func:`local_heads`)."""
     h = local_heads(p, n_heads)
-    r = tp_rank(p.find("weight")) if h != n_heads else 0
+    r = tp_rank(p.stored("weight")) if h != n_heads else 0
     return slice(r * h, (r + 1) * h)
 
 
@@ -178,10 +247,53 @@ def gather_for(x: torch.Tensor, src, dst) -> torch.Tensor:
     """x, the output features of ``src``'s column-parallel weight, made
     whole (all-gathered over the tp group) when the consumer ``dst`` is not
     row-parallel; otherwise x as it is."""
-    w = src.find("weight")
-    if tp_dim(w) != 0 or tp_dim(dst.find("weight")) == 1:
+    w = src.stored("weight")
+    if tp_dim(w) != 0 or tp_dim(dst.stored("weight")) == 1:
         return x
-    group = _group(w)
-    parts = [torch.empty_like(x) for _ in range(tp_size(w))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, -1)
+    if _records(x):
+        return _GatherFromTP.apply(x, -1, _group(w))
+    return _gather_cat(x, -1, _group(w))
+
+
+def is_fsdp(w) -> bool:
+    """Whether ``w`` is a DTensor sharded over the mesh's dp axis (fsdp)."""
+    if not is_dtensor(w) or "dp" not in w.device_mesh.mesh_dim_names:
+        return False
+    return w.placements[w.device_mesh.mesh_dim_names.index("dp")].is_shard()
+
+
+def _gather_rows(shard: torch.Tensor, group) -> torch.Tensor:
+    out = shard.new_empty((shard.shape[0] * dist.get_world_size(group), *shard.shape[1:]))
+    dist.all_gather_into_tensor(out, shard.contiguous(), group=group)
+    return out
+
+
+class _GatherFSDP(torch.autograd.Function):
+    """All-gather of dp row shards forward; reduce-scatter (sum) of the
+    gradient backward, so each rank's shard gets its rows' sum over dp."""
+
+    @staticmethod
+    def forward(ctx, shard, group):
+        ctx.group = group
+        return _gather_rows(shard, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        out = g.new_empty((g.shape[0] // n, *g.shape[1:]))
+        dist.reduce_scatter_tensor(out, g.contiguous(), group=ctx.group)
+        return out, None
+
+
+def gather_fsdp(w) -> torch.Tensor:
+    """An fsdp weight whole, as a plain tensor (fsdp shards only what the
+    tp rules left replicated): one all-gather over dp, its gradient
+    reduce-scattered back under autograd."""
+    dim = w.device_mesh.mesh_dim_names.index("dp")
+    if w.placements[dim].dim != 0 or any(p.is_shard() for i, p in enumerate(w.placements) if i != dim):
+        raise_error("gather_fsdp: expected rows sharded over dp alone, got {}", w.placements)
+    shard = w.to_local()
+    group = w.device_mesh.get_group("dp")
+    if _records(shard):
+        return _GatherFSDP.apply(shard, group)
+    return _gather_rows(shard, group)
