@@ -4267,7 +4267,8 @@ def training_phases(torch, card: str, fd: dict, tmp: str) -> dict:
     pairs = pair_masks(images, masks)
     seeds = np.random.default_rng(38)
     epoch = data_loader(pairs, b, load=ft._mask_load(size), shuffle=True, seed=38)
-    batches = [(x, m, int(seeds.integers(2**62))) for x, m in prefetch_to_device(epoch, device=TRAIN_DEVICE)]
+    batches = [(x, m, (int(seeds.integers(2**62)), b), torch.arange(b))
+               for x, m in prefetch_to_device(epoch, device=TRAIN_DEVICE)]
     per = {"window": BIREF_WINDOWS, "window masked": BIREF_MASKED, "deform_conv": BIREF_DEFORMS}
     cases["birefnet"] = (biref_fixup(bfile, load_weights(bfile, as_numpy=True)), None,
                          ft.mask_loss(birefnet_detect_params(bfile), True), batches, per)

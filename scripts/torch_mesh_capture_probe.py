@@ -2,17 +2,22 @@
 
 The finding: Python's cyclic garbage collector, when a collection falls
 inside a capture, frees an earlier model that only it reaches (a model and
-its ForwardGraphs hold each other: the dry run's unmeshed SamModel and
+its ForwardGraphs held each other: the dry run's unmeshed SamModel and
 EsrganModel, with their CUDA graphs and tensors, per ``saveall``), and that
-breaks the capture (``cudaErrorStreamCaptureInvalidated`` at the next
+can break the capture (``cudaErrorStreamCaptureInvalidated`` at the next
 cuBLAS product or kernel launch). An early ``import torch._dynamo``
 (thousands of objects) and the meshes' DTensors move the collector's
 counters so that a collection lands in the dry run's Real-ESRGAN or
-BiRefNet capture; without a process group none did. core/graph.py's
-``capture_forward`` now collects first and keeps the collector off
-through the warm-up and the capture; the ``gcon`` token takes that out
-again, to show the fault, and ``saveall`` lists what such a collection
-would free.
+BiRefNet capture; without a process group none did. Two repairs in
+core/graph.py: ``capture_forward`` collects and keeps the collector off
+through the capture, under the capture lock; and a ``ForwardGraphs`` holds
+its model's forward by a weak reference, so the cycle is gone and a
+dropped model frees its graphs at once. The ``gcon`` token takes out the
+first, ``cycle`` the second. With both, a collection inside a capture
+frees the earlier model and its graphs again (``saveall`` lists them),
+but the capture need not fail: where a collection lands moves with the
+process's object counts, and which part of such a release breaks a
+capture is not isolated.
 
 Each variant runs in a process of its own, in a one-rank NCCL world made by
 ``init_distributed`` (a file store), and prints one line: ``ok`` or
@@ -42,10 +47,13 @@ is a name made of tokens joined by ``_``:
              model built without a mesh (NCCL and DTensors out), SAM3's tp
              check skipped
   gcoff      Python's garbage collector collected, then off, around each
-             warm-up and capture (as core/graph.py capture_forward now
-             keeps it itself)
+             warm-up and capture (core/graph.py capture_forward now keeps
+             it off through the capture itself)
   gcon       the collector left on inside capture_forward (its state
              before the repair)
+  cycle      each ForwardGraphs holds its model's forward strongly again,
+             so a model and its graphs make a cycle (the state before the
+             repair)
   saveall    (with gcon) gc.DEBUG_SAVEALL through each capture: what a
              collection there finds unreachable is kept, not freed, and its
              types are printed
@@ -74,11 +82,12 @@ import traceback
 
 DEFAULT_VARIANTS = ("dry_placed", "dry_placed_dynamo", "dry_loader_dynamo", "dry_placed_dynamo_nobcast",
                     "dry_placed_dynamo_settle", "dry_loader_watch", "dry_placed_dynamo_gcon",
-                    "dry_placed_dynamo_gcon_saveall", "dry_nopg_dynamo_gcon")
+                    "dry_placed_dynamo_cycle", "dry_placed_dynamo_gcon_cycle", "dry_placed_dynamo_gcon_cycle_saveall",
+                    "dry_nopg_dynamo_gcon_cycle")
 
 
 def watch_captures(watch: bool, gcoff: bool = False, threads: bool = False, gcon: bool = False,
-                   saveall: bool = False) -> None:
+                   saveall: bool = False, cycle: bool = False) -> None:
     """Wrap core/graph.py's capture_forward: print the error a forward
     raises inside a capture (a failed capture otherwise reports only
     cudaErrorStreamCaptureInvalidated at its end), and with ``watch`` the
@@ -86,7 +95,8 @@ def watch_captures(watch: bool, gcoff: bool = False, threads: bool = False, gcon
     ``gcoff`` the garbage collector is off around the warm-up and the
     capture; with ``threads`` the threads are printed at each capture; with
     ``gcon`` capture_forward leaves the collector as it is; with ``saveall``
-    what a collection in a capture finds is kept and its types printed."""
+    what a collection in a capture finds is kept and its types printed;
+    with ``cycle`` a ForwardGraphs holds its forward strongly."""
     import gc
     import threading
 
@@ -114,6 +124,8 @@ def watch_captures(watch: bool, gcoff: bool = False, threads: bool = False, gcon
     orig = graph.capture_forward
     if gcon:
         graph._no_collection = contextlib.nullcontext
+    if cycle:
+        graph._weakly = lambda fn: fn
 
     def capture_forward(fn, args, device, pool, stream):
         def run(*a):
@@ -201,7 +213,8 @@ def run(variant: str) -> str:
         no_process_group()
     else:
         init_distributed("file://" + os.path.join(tempfile.mkdtemp(), "store"), 1, 0)
-    watch_captures("watch" in tokens, "gcoff" in tokens, "threads" in tokens, "gcon" in tokens, "saveall" in tokens)
+    watch_captures("watch" in tokens, "gcoff" in tokens, "threads" in tokens, "gcon" in tokens, "saveall" in tokens,
+                   "cycle" in tokens)
     if "cudafirst" in tokens:
         torch.cuda.init()
         torch.ones(8, 8, device="cuda") @ torch.ones(8, 8, device="cuda")

@@ -156,3 +156,22 @@ def test_errors():
         aug.random_crop(g, x, (13, 4))
     with pytest.raises(VispError, match="hue"):
         aug.color_jitter(g, x, hue=0.6)
+
+
+@pytest.mark.parametrize("op", ["random_flip", "color_jitter"])
+@pytest.mark.parametrize("rows", [[0, 1], [3], [5, 6, 7], [2, 4]])
+def test_rows_of_a_batch_take_the_whole_batchs_draws(op, rows):
+    """With ``rows`` and ``total`` an op draws for the whole batch and
+    applies each row's own draws: rows of a batch augmented alone equal
+    those rows of the whole batch (a data-parallel shard), bit for bit; a
+    row count that is not x's is refused."""
+    ops = {"random_flip": lambda g, x, **k: aug.random_flip(g, x, **k),
+           "color_jitter": lambda g, x, **k: aug.color_jitter(g, x, 0.2, 0.2, 0.2, 0.1, **k)}
+    x = _t(_x(n=8))
+    whole = ops[op](torch.Generator().manual_seed(3), x)
+    idx = torch.tensor(rows)
+    assert torch.equal(ops[op](torch.Generator().manual_seed(3), x[idx], rows=idx, total=8), whole[idx])
+    with pytest.raises(VispError, match="rows needs total"):
+        ops[op](torch.Generator().manual_seed(3), x[idx], rows=idx)
+    with pytest.raises(VispError, match="rows needs total"):
+        ops[op](torch.Generator().manual_seed(3), x, rows=idx, total=8)

@@ -70,7 +70,7 @@ def test_birefnet_first_step_matches_jax():
                      tuple(SwinLayerParams(lp.depth, lp.n_heads, lp.n_features) for lp in SWIN_TEST.layers))
     bp = birefnet.BirefnetParams(image_size=64, image_extent=(64, 64), encoder=enc)
     t = {k: torch.tensor(v, requires_grad=True) for k, v in store.items()}
-    loss = ft.mask_loss(bp, augment=False)(t, (torch.from_numpy(x), torch.from_numpy(m), 0))
+    loss = ft.mask_loss(bp, augment=False)(t, (torch.from_numpy(x), torch.from_numpy(m), (0, 1), torch.arange(1)))
     grads = torch.autograd.grad(loss, list(t.values()))
     ours = float(loss.detach()), {k: g.numpy() for k, g in zip(t, grads)}
 

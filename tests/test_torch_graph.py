@@ -6,6 +6,11 @@ card); the launch counts a capture records; the five forward_u8s through
 the cache, bit-equal to the eager forward; and the device constants of
 ops/preprocess.py and ops/resize.py, bit-equal to their uncached form."""
 
+import gc
+import threading
+import time
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -189,6 +194,38 @@ def test_a_capture_keeps_the_device_constants_it_read():
     assert graph._tls.kept is None
 
 
+def test_two_threads_capture_one_at_a_time_with_the_collector_off():
+    """capture_forward's capture section (the capture lock, inside it the
+    collector off), entered by two threads at once as two servers' first
+    calls may: the second waits for the first, each captures with the
+    collector off (its state read and restored under the lock), and it is
+    on again after both."""
+    assert gc.isenabled()
+    seen, inside, release = [], threading.Event(), threading.Event()
+
+    def first():
+        with graph._capturing():
+            inside.set()
+            release.wait(10)
+            seen.append(("first", gc.isenabled()))
+
+    def second():
+        inside.wait(10)
+        with graph._capturing():
+            seen.append(("second", gc.isenabled()))
+
+    threads = [threading.Thread(target=first), threading.Thread(target=second)]
+    for t in threads:
+        t.start()
+    inside.wait(10)
+    time.sleep(0.2)  # the second thread is at the lock by now
+    assert seen == []
+    release.set()
+    for t in threads:
+        t.join(10)
+    assert seen == [("first", False), ("second", False)] and gc.isenabled()
+
+
 # -- the five forward_u8s through the cache --
 
 # family -> (first input shapes, a second key's input shapes)
@@ -219,6 +256,24 @@ def test_forward_u8_through_the_cache_equals_the_eager_forward(family, tmp_path)
     assert len(model.graphs.cache) == 1
     model.forward_u8(*_inputs(second, 2))
     assert len(model.graphs.cache) == 2
+
+
+@pytest.mark.parametrize("family", sorted(_SHAPES))
+def test_a_dropped_model_frees_its_graphs_without_the_collector(family, tmp_path):
+    """A model and its ForwardGraphs make no reference cycle: with the
+    collector off, dropping a model that has run frees it and its graphs at
+    once. (A cycle waits for a collection, and one that falls inside
+    another model's capture frees CUDA graphs there and breaks it.)"""
+    model = api.load_model(write_family_gguf(family, tmp_path), backend_init("cpu"))
+    model.forward_u8(*_inputs(_SHAPES[family][0], 0))
+    refs = weakref.ref(model), weakref.ref(model.graphs)
+    gc.collect()
+    gc.disable()
+    try:
+        del model
+        assert [r() for r in refs] == [None, None]
+    finally:
+        gc.enable()
 
 
 def test_esrgan_keys_on_to_u8_and_the_tiles_share_one_entry(tmp_path):

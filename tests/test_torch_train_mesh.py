@@ -35,17 +35,19 @@ from torch_mesh_ranks import (
     DINO_LOSS_CHANNELS,
     RECIPE_BATCH,
     RECIPE_LR,
+    SAM_EXPORT_LAYERS,
     SAM_EXPORT_SIZE,
     TRAIN_LR,
     World,
     dino_train_batch,
     fsdp_problem,
     lora_problem,
+    sam_export_frames,
     train_problem,
 )
 from vision_tpu import train as jtrain
 from vision_tpu.core.params import Params as JParams
-from vision_tpu.export import export_model as jexport_model
+from vision_tpu.export import export_model as jexport_model, load_bundle as jload_bundle
 from vision_tpu.lora import LORA_TRAINABLE, add_lora as jadd_lora
 from vision_tpu.models.dino import dino_get_intermediate_layers as jdino_layers
 from vision_tpu.ops.nn import linear as jlinear
@@ -180,6 +182,18 @@ def jax_side(world):
         jexport_model(migan, world["tmp"] / "never.vxp", embed_params=False)
     except Exception as e:  # noqa: BLE001 — the message is the reference
         out["migan_refusal"] = f"VispError: {e}"
+
+    # the meshed SAM export on dp 2 and its call_sharded (tests/test_export.py:250-296)
+    from vision_tpu.models.mobile_sam import SamModel as JSam, SamParams as JSamParams
+    from vision_tpu.models.mobile_sam import TinyVitLayer as JLayer, TinyVitParams as JTinyVit
+    from vision_tpu.models.random_weights import random_mobile_sam_params as jrandom_sam
+
+    params = jrandom_sam(seed=0)
+    tv = JTinyVit(img_size=SAM_EXPORT_SIZE, layers=tuple(JLayer(*lay) for lay in SAM_EXPORT_LAYERS))
+    sam = JSam(params, JSamParams(image_size=SAM_EXPORT_SIZE), jbackend_init("cpu"), mesh=jmake_mesh(2), tiny_vit=tv)
+    dst = world["tmp"] / "jax_sam_dp2.vxp"
+    jexport_model(sam, dst, batch=2, embed_params=False, entries=("encode",))
+    out["sam_export"] = np.asarray(jload_bundle(dst).call_sharded("encode", params, sam_export_frames()), np.float32)
     return out
 
 
@@ -191,7 +205,9 @@ def _placements(axis: str, dim: int | None) -> list:
 def test_fsdp_step_matches_jax(r, jax_side):
     """tests/test_train.py:149: the table sharded over dp (its Adam slots
     too), the head replicated; two steps as the JAX package's and as the
-    port's single-device step."""
+    port's single-device step. A step gathers the table once, though the
+    loss looks it up twice, and reduce-scatters its gradient once."""
+    assert r["fsdp_collectives"] == {"all_gather_into_tensor": 1, "reduce_scatter_tensor": 1}
     assert r["fsdp_placements"]["big.table"] == _placements("dp", 0)
     assert r["fsdp_placements"]["head.w.weight"] == _placements("dp", None)
     assert r["fsdp_local"] == (128, 130) and r["fsdp_slots"]["big.table"] == (128, 130)
@@ -247,7 +263,11 @@ def test_dino_step_over_dp_and_tp_matches_jax(r, jax_side):
     """An SGD step (lr 1) of the dry run's DINOv2 over dp 4 x tp 2 with
     fsdp: q / k / v and fc1 column-parallel, output.dense and fc2
     row-parallel, the patch embedding fsdp-sharded; every update (minus
-    the gradient) as the JAX package's, to relative RMS 1e-5."""
+    the gradient) as the JAX package's, to relative RMS 1e-5. The step
+    gathers each fsdp leaf once and reduce-scatters each one's gradient
+    once."""
+    assert r["dino_fsdp"] > 0
+    assert r["dino_collectives"] == {"all_gather_into_tensor": r["dino_fsdp"], "reduce_scatter_tensor": r["dino_fsdp"]}
     pl = r["dino_placements"]
     assert pl["encoder.layer.0.attention.attention.query.weight"] == _placements("tp", 0)
     assert pl["encoder.layer.0.mlp.fc2.weight"] == _placements("tp", 1)
@@ -280,11 +300,11 @@ def test_recipes_on_a_dp_mesh_match_one_rank(r, world):
 
 def test_birefnet_augmentation_draws_for_the_global_batch():
     """The BiRefNet recipe's first batch flips some rows and not others, and
-    each row of a split batch is augmented as in the whole one: a dp rank
-    applies its rows' draws, and the loss of the whole batch is the mean of
-    its rows'. The whole form equals ops.augment's random_flip then
-    color_jitter."""
-    from vision_tpu_torch.core.params import Params  # noqa: F401  (the loss's lookups)
+    each row of a split batch is augmented as in the whole one: given its
+    ``rows`` and the batch's ``total``, ops.augment's random_flip and
+    color_jitter draw for the whole batch and apply the row's own draws, as
+    mask_loss calls them on a dp rank. A row given another row's index
+    gets other draws."""
     from vision_tpu_torch.ops.augment import color_jitter, random_flip
 
     rng = np.random.default_rng(0)  # finetune_birefnet(seed=0)'s draws: the loader's seed, then the batch's
@@ -295,25 +315,30 @@ def test_birefnet_augmentation_draws_for_the_global_batch():
     assert flips.any() and not flips.all(), flips
     data = np.random.default_rng(5)
     x = torch.from_numpy(data.random((RECIPE_BATCH, 16, 16, 3)).astype(np.float32))
-    m = torch.from_numpy((data.random((RECIPE_BATCH, 16, 16, 1)) > 0.5).astype(np.float32))
-    whole_x, whole_m = ft._augment(seed, x, m, RECIPE_BATCH, None)
-    gen = torch.Generator().manual_seed(seed)
-    both = random_flip(gen, torch.cat([x, m], -1))
-    assert torch.equal(whole_x, color_jitter(gen, both[..., :3], 0.2, 0.2, 0.2)) and torch.equal(whole_m, both[..., 3:])
+
+    def augment(x, rows=None, total=None):
+        gen = torch.Generator().manual_seed(seed)
+        return color_jitter(gen, random_flip(gen, x, rows=rows, total=total), 0.2, 0.2, 0.2, rows=rows, total=total)
+
+    whole = augment(x)
     for i in range(RECIPE_BATCH):
-        rows = torch.tensor([i])
-        xi, mi = ft._augment(seed, x[i:i + 1], m[i:i + 1], RECIPE_BATCH, rows)
-        assert torch.equal(xi, whole_x[i:i + 1]) and torch.equal(mi, whole_m[i:i + 1])
+        assert torch.equal(augment(x[i:i + 1], torch.tensor([i]), RECIPE_BATCH), whole[i:i + 1]), i
+    assert torch.equal(augment(x[2:], torch.arange(2, RECIPE_BATCH), RECIPE_BATCH), whole[2:])
+    assert not torch.equal(augment(x[1:2], torch.tensor([0]), RECIPE_BATCH), whole[1:2])
 
 
 def test_meshed_sam_export_and_call_sharded(r, jax_side):
     """tests/test_export.py:238-300: a dp-2 meshed SamModel exports its
-    encode (embed_params=False) with meta["mesh"]; call_sharded on both
-    ranks equals the unmeshed encode; the JAX package's refusals."""
-    names, mesh, entry, got, want = r["export"]
+    encode (embed_params=False) with meta["mesh"], one rank's program at
+    batch / dp; call_sharded on both ranks equals the JAX package's meshed
+    bundle's call_sharded on the same weights and frames (relative RMS
+    1e-4, as the model tests hold the port to JAX) and the port's unmeshed
+    encode (test_export.py's bound); the JAX package's refusals."""
+    names, mesh, inputs, got, want = r["export"]
     assert names == ["encode"] and mesh == {"dp": 2, "pp": 1, "sp": 1, "tp": 1}
-    assert entry["nr_devices"] == 2 and entry["inputs"][-1] == [[1, SAM_EXPORT_SIZE, SAM_EXPORT_SIZE, 3], "uint8"]
-    assert got.shape == want.shape
+    assert inputs[-1] == [[1, SAM_EXPORT_SIZE, SAM_EXPORT_SIZE, 3], "uint8"]
+    assert got.shape == want.shape == jax_side["sam_export"].shape
+    assert _rel_rms(got, jax_side["sam_export"]) <= 1e-4
     np.testing.assert_allclose(got, want, atol=2e-5)
     e = r["export_refusals"]
     assert e["migan"] == jax_side["migan_refusal"]

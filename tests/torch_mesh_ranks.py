@@ -151,6 +151,14 @@ RECIPE_LR = 1e-3
 RECIPE_STEPS = 2
 RECIPE_BATCH = 4  # one row a rank of the recipes' dp-4 mesh
 SAM_EXPORT_SIZE = 512  # tests/test_export.py:248-265's TinyViT geometry
+SAM_EXPORT_LAYERS = ((128, 64, 2, 2, 7, True), (64, 128, 2, 4, 7, True), (32, 160, 6, 5, 14, True),
+                     (32, 320, 2, 10, 7, False))
+
+
+def sam_export_frames() -> np.ndarray:
+    """tests/test_export.py:292-293's two frames, stacked."""
+    rng = np.random.default_rng(11)
+    return np.stack([rng.integers(0, 256, (SAM_EXPORT_SIZE,) * 2 + (3,)).astype(np.uint8) for _ in range(2)])
 
 
 def train_problem(seed: int = 0):
@@ -565,11 +573,12 @@ def _train_losses():
         x, y = batch
         return torch.mean((x @ p["head.w.weight"].T + p["head.w.bias"] - y) ** 2)
 
-    def fsdp_loss(p, batch):  # tests/test_train.py:165-169, through Params (the fsdp gather)
+    def fsdp_loss(p, batch):  # tests/test_train.py:165-169, through Params, the table looked up twice
         from vision_tpu_torch.core.params import Params
 
         pp, (x, y) = Params(p), batch
-        return torch.mean((x @ pp.weight("head.w.weight").T - y) ** 2) + 1e-3 * torch.mean(pp.weight("big.table") ** 2)
+        table = 0.5 * (pp.weight("big.table") + pp.weight("big.table"))
+        return torch.mean((x @ pp.weight("head.w.weight").T - y) ** 2) + 1e-3 * torch.mean(table**2)
 
     def lora_loss(p, batch):  # tests/test_lora.py:44-47, 279-281
         from vision_tpu_torch.core.params import Params
@@ -594,6 +603,34 @@ def _np_params(params) -> dict:
     return {k: v.detach().float().numpy() for k, v in train.full_params(params).items() if hasattr(v, "detach")}
 
 
+def _collectives(dist, counts: dict):
+    """Count the calls of torch.distributed's all-gathers into a tensor and
+    reduce-scatters (the fsdp gather's two) into ``counts`` while the block
+    runs."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def counting():
+        names = ("all_gather_into_tensor", "reduce_scatter_tensor")
+        orig = {name: getattr(dist, name) for name in names}
+
+        def counted(name):
+            def call(*a, **k):
+                counts[name] = counts.get(name, 0) + 1
+                return orig[name](*a, **k)
+            return call
+
+        for name in names:
+            setattr(dist, name, counted(name))
+        try:
+            yield counts
+        finally:
+            for name in names:
+                setattr(dist, name, orig[name])
+
+    return counting()
+
+
 def suite_train(rank: int, n: int) -> dict:
     """The training meshes on dp 4 x tp 2 (every rank in lock step): the
     fsdp step, mesh parity and a sharded restore, prefetch placements and
@@ -611,6 +648,7 @@ def suite_train(rank: int, n: int) -> dict:
     from vision_tpu_torch.parallel import make_mesh
     from vision_tpu_torch.parallel.dryrun import TRAIN_RULES_EXTRA, train_case
     from vision_tpu_torch.parallel.sharding import DEFAULT_TP_RULES
+    from vision_tpu_torch.parallel.tp import is_fsdp
 
     linear_loss, fsdp_loss, lora_loss = _train_losses()
     r: dict = {}
@@ -625,9 +663,10 @@ def suite_train(rank: int, n: int) -> dict:
     st = train.create_train_state(_copy(params), train.adam(1e-2), mesh=mesh, fsdp=True, fsdp_min_size=1024)
     ref = train.create_train_state(_copy(params), train.adam(1e-2))
     step, ref_step = train.make_train_step(fsdp_loss, mesh=mesh), train.make_train_step(fsdp_loss)
-    r["fsdp_loss"] = []
-    for _ in range(2):
-        st, m = step(st, t(batch))
+    r["fsdp_loss"], r["fsdp_collectives"] = [], {}
+    for i in range(2):
+        with _collectives(dist, r["fsdp_collectives"] if i == 0 else {}):
+            st, m = step(st, t(batch))
         ref, rm = ref_step(ref, t(batch))
         r["fsdp_loss"].append((float(m["loss"]), float(rm["loss"])))
     r["fsdp_placements"] = {k: [str(p) for p in v.placements] for k, v in st.params.items()}
@@ -705,7 +744,9 @@ def suite_train(rank: int, n: int) -> dict:
     sgd1 = functools.partial(torch.optim.SGD, lr=1.0)
     st = train.create_train_state(_copy(dparams), sgd1, mesh=mesh, rules=DEFAULT_TP_RULES + TRAIN_RULES_EXTRA,
                                   fsdp=True, fsdp_min_size=1024)
-    st, m = train.make_train_step(dino_loss, mesh=mesh)(st, torch.from_numpy(dino_train_batch()))
+    r["dino_fsdp"] = sum(map(is_fsdp, st.params.values()))
+    with _collectives(dist, {}) as r["dino_collectives"]:
+        st, m = train.make_train_step(dino_loss, mesh=mesh)(st, torch.from_numpy(dino_train_batch()))
     r["dino_loss"] = float(m["loss"])
     r["dino_params"] = _np_params(st.params)
     r["dino_placements"] = {k: [str(p) for p in v.placements] for k, v in st.params.items()}
@@ -746,9 +787,7 @@ def suite_train(rank: int, n: int) -> dict:
     from vision_tpu_torch.models.mobile_sam import SamModel, SamParams, TinyVitLayer, TinyVitParams
     from vision_tpu_torch.models.random_weights import random_migan_params, random_mobile_sam_params
 
-    tv = TinyVitParams(img_size=SAM_EXPORT_SIZE, layers=(
-        TinyVitLayer(128, 64, 2, 2, 7, True), TinyVitLayer(64, 128, 2, 4, 7, True),
-        TinyVitLayer(32, 160, 6, 5, 14, True), TinyVitLayer(32, 320, 2, 10, 7, False)))
+    tv = TinyVitParams(img_size=SAM_EXPORT_SIZE, layers=tuple(TinyVitLayer(*lay) for lay in SAM_EXPORT_LAYERS))
     store = _put(random_mobile_sam_params(seed=0))
     sp = SamParams(image_size=SAM_EXPORT_SIZE)
     sam_tp = SamModel(store, sp, dev, mesh=mesh, tiny_vit=tv)
@@ -763,13 +802,12 @@ def suite_train(rank: int, n: int) -> dict:
         r["export_refusals"]["batch"] = _error(lambda: export.export_model(sam, "x.vxp", batch=3, embed_params=False))
         names = export.export_model(sam, f"sam_dp2_{rank}.vxp", batch=2, embed_params=False, entries=("encode",))
         bundle = export.load_bundle(f"sam_dp2_{rank}.vxp")
-        rng = np.random.default_rng(11)
-        frames = np.stack([rng.integers(0, 256, (SAM_EXPORT_SIZE,) * 2 + (3,)).astype(np.uint8) for _ in range(2)])
+        frames = sam_export_frames()
         got = bundle.call_sharded("encode", store, torch.from_numpy(frames))
         if rank == 0:
             one = SamModel(store, sp, dev, tiny_vit=tv)
             want = one.encode_batch([image_load_array(f) for f in frames])
-            r["export"] = (names, bundle.meta["mesh"], bundle.meta["entries"]["encode"], got.float().numpy(),
+            r["export"] = (names, bundle.meta["mesh"], bundle.input_specs("encode"), got.float().numpy(),
                            want.float().numpy())
             r["export_unknown"] = _error(lambda: export.export_model(sam, "y.vxp", batch=2, embed_params=False,
                                                                      entries=("nope",)))

@@ -22,7 +22,9 @@ On the CPU there is no graph, and the forward runs eagerly.
 from __future__ import annotations
 
 import gc
+import inspect
 import threading
+import weakref
 from contextlib import contextmanager
 from functools import lru_cache, partial, wraps
 from typing import Callable, Hashable
@@ -179,6 +181,16 @@ def _no_collection():
             gc.enable()
 
 
+@contextmanager
+def _capturing():
+    """The process's one capture at a time: the capture lock held, and
+    inside it the collector off (:func:`_no_collection`). The collector's
+    state is read and set under the lock, so a thread that waits for the
+    lock never restores a state another capture set."""
+    with _capture_lock, _no_collection():
+        yield
+
+
 def capture_forward(fn: Callable, args: tuple, device: torch.device, pool, stream) -> _Replay:
     """Capture ``fn(*args)`` on the card into a CUDA graph in memory pool
     ``pool`` and return its replay: a callable that takes tensors of the
@@ -197,13 +209,13 @@ def capture_forward(fn: Callable, args: tuple, device: torch.device, pool, strea
     mode is ``thread_local``: servers call the forward from a worker thread
     while other threads of the process may use the card, and only this
     thread's calls can break this capture. Python's cyclic garbage collector
-    is collected first and kept off through the warm-up and the capture: a
-    collection inside a capture can free an earlier model that only the
-    collector reaches (a model and its ForwardGraphs hold each other), its
-    CUDA graphs and their memory with it, and that breaks the capture
-    (``cudaErrorStreamCaptureInvalidated`` at the next cuBLAS product or
-    kernel launch)."""
-    with torch.cuda.device(device), _no_collection():
+    is collected first and kept off through the capture (:func:`_capturing`):
+    a collection inside a capture can free something that only the
+    collector reaches and that holds CUDA graphs, and such a release there
+    can break the capture (``cudaErrorStreamCaptureInvalidated`` at the next
+    cuBLAS product or kernel launch). A model and its :class:`ForwardGraphs` make
+    no such cycle: a dropped model frees its graphs at once."""
+    with torch.cuda.device(device):
         static_in = [torch.empty(a.shape, dtype=a.dtype, device=device) for a in args]
         for s, a in zip(static_in, args):
             s.copy_(a)
@@ -215,10 +227,20 @@ def capture_forward(fn: Callable, args: tuple, device: torch.device, pool, strea
         from ..ops.cuda import capture_tally
 
         graph = torch.cuda.CUDAGraph()
-        with _capture_lock, capture_tally() as tally, _keeping() as kept:
+        with _capturing(), capture_tally() as tally, _keeping() as kept:
             with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
                 static_out = fn(*static_in)
         return _Replay(graph, static_in, static_out, dict(tally), kept)
+
+
+def _weakly(fn: Callable) -> Callable:
+    """``fn``, or for a bound method a callable that holds its object by a
+    weak reference (a model that keeps its ForwardGraphs would otherwise
+    make a cycle with them)."""
+    if not inspect.ismethod(fn):
+        return fn
+    ref = weakref.WeakMethod(fn)
+    return lambda *a, **k: ref()(*a, **k)
 
 
 class ForwardGraphs:
@@ -231,12 +253,18 @@ class ForwardGraphs:
     Calls are serialized by a lock: a replay's static input and output are
     shared by every caller at its key. On a mesh (parallel/) every rank
     keeps its own graphs, keyed on its shard's shapes; the scatter and the
-    gather stay outside the replay, and a tp > 1 model runs eagerly."""
+    gather stay outside the replay, and a tp > 1 model runs eagerly.
+
+    Neither a bound ``forward`` nor the cache holds a strong reference back
+    (to the model, to this object), so a model that is dropped frees its
+    graphs by reference count, never in a collection that could fall inside
+    another capture."""
 
     def __init__(self, forward: Callable, device: torch.device, max_entries: int = 8):
-        self.forward = forward
+        self.forward = _weakly(forward)
         self.device = device
-        self.cache = GraphCache(self._build, max_entries)
+        me = weakref.ref(self)
+        self.cache = GraphCache(lambda args, flags: me()._build(args, flags), max_entries)
         self.pool = self.stream = None
         self._lock = threading.Lock()
 

@@ -43,18 +43,12 @@ class Params:
         Quantized-resident tensors (core/quant.QuantResident) dequantize
         transparently here — on the card one dequant kernel a lookup, which a
         captured forward records into its graph — so model code sees ordinary
-        tensors either way. A weight that training sharded over dp (fsdp,
-        train.create_train_state) is all-gathered here the same way, at
-        each lookup (parallel/tp.py ``gather_fsdp``)."""
+        tensors either way."""
         full = f"{self.prefix}.{name}" if self.prefix else name
         t = self.store.get(full)
-        if t is None or type(t) is torch.Tensor:
-            return t
-        if isinstance(t, QuantResident):
+        if t is not None and isinstance(t, QuantResident):
             return t.dequant()
-        from ..parallel.tp import gather_fsdp, is_fsdp
-
-        return gather_fsdp(t) if is_fsdp(t) else t
+        return t
 
     def stored(self, name: str):
         """The entry as it is stored, or None: a quantized resident stays a

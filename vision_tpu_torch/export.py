@@ -41,9 +41,9 @@ JAX package: a ``SamModel`` built on a dp-only mesh (parallel/) exports with
 entry is the program of one rank, traced at ``batch / dp`` images, and
 ``meta["mesh"]`` records the mesh's axes. ``load_bundle(...).make_mesh()``
 rebuilds that mesh from the process group it runs in (every rank of it
-calls), and ``call_sharded(name, params, *args)`` places ``params`` as
-``shard_params`` does, runs each rank's dp rows of the args and gathers the
-outputs, so every rank returns the global result. Other meshed families,
+calls), and ``call_sharded(name, params, x)`` places ``params`` as
+``shard_params`` does, runs each rank's dp rows of ``x`` and gathers the
+output, so every rank returns the global result. Other meshed families,
 meshes with a tp / sp / pp axis and ``embed_params=True`` are refused with
 the JAX package's reasons.
 An int8-resident model (``keep_quantized``) exports with its weights: its
@@ -105,7 +105,7 @@ class _Program(torch.nn.Module):
 
 
 def export_bundle(dst: str | os.PathLike, entries: Mapping[str, tuple[Callable, Sequence]],
-                  meta: Mapping[str, Any] | None = None, entry_meta: Mapping[str, dict] | None = None) -> str:
+                  meta: Mapping[str, Any] | None = None) -> str:
     """Export named functions into one bundle file.
 
     ``entries``: ``{name: (fn, example_args)}``, ``example_args`` real
@@ -130,8 +130,7 @@ def export_bundle(dst: str | os.PathLike, entries: Mapping[str, tuple[Callable, 
         buf = io.BytesIO()
         torch.export.save(program, buf)
         blobs[name] = buf.getvalue()
-        meta_out["entries"][name] = {"inputs": _leaf_specs(args), "device": _device_of(args),
-                                     **(entry_meta or {}).get(name, {})}
+        meta_out["entries"][name] = {"inputs": _leaf_specs(args), "device": _device_of(args)}
     meta_out.setdefault("device", next(iter(meta_out["entries"].values()))["device"])
     with zipfile.ZipFile(os.fspath(dst), "w", zipfile.ZIP_DEFLATED) as z:
         z.writestr("meta.json", json.dumps(meta_out, indent=1))
@@ -203,20 +202,18 @@ class ExportedBundle:
                         n, dict(axes), have)
         return make_mesh(n, tp=axes["tp"], sp=axes["sp"], pp=axes["pp"], device=device)
 
-    def call_sharded(self, name: str, params, *args):
+    def call_sharded(self, name: str, params, x: torch.Tensor) -> torch.Tensor:
         """Meshed-bundle call: every rank of the mesh calls it with the same
         ``params`` (the param dict the model's loader placed, e.g. an
-        unmeshed model's ``params``) and the same global batch-leading
-        ``args``. ``params`` are placed as ``parallel.shard_params`` places
-        them, each rank runs the entry on its dp rows of ``args``, and the
-        outputs are all-gathered over dp: every rank returns the global
+        unmeshed model's ``params``) and the same global batch ``x``.
+        ``params`` are placed as ``parallel.shard_params`` places them, and
+        ``parallel.sharded_forward`` runs the entry on each rank's dp rows
+        and all-gathers the output over dp: every rank returns the global
         output."""
-        from .parallel.sharding import _dp_gather, _dp_slice, local_params, shard_params
+        from .parallel.sharding import shard_params, sharded_forward
 
         mesh = self.make_mesh()
-        placed = local_params(shard_params(params, mesh))
-        out = self.call(name, placed, *(_dp_slice(a, mesh) for a in args))
-        return pytree.tree_map(lambda y: _dp_gather(y, mesh), out)
+        return sharded_forward(lambda p, xs: self.call(name, p, xs), mesh)(shard_params(params, mesh), x)
 
 
 def load_bundle(src: str | os.PathLike, device: torch.device | str | None = None) -> ExportedBundle:
@@ -302,10 +299,8 @@ def export_model(model, dst: str | os.PathLike, extent: tuple[int, int] | None =
     dev = model.device.torch_device
     params = model.params
     meta: dict = {"family": kind, "batch": batch, "params_embedded": embed_params}
-    entry_meta: dict = {}
     if mesh is not None:
         meta["mesh"] = axes
-        entry_meta["encode"] = {"nr_devices": dp}
     programs: dict[str, tuple[Callable, tuple]] = {}
     derive = None
 
@@ -376,5 +371,5 @@ def export_model(model, dst: str | os.PathLike, extent: tuple[int, int] | None =
         programs = {k: v for k, v in programs.items() if k in set(entries)}
         if not programs:
             raise_error("export_model: entries selected nothing to export")
-    export_bundle(dst, programs, meta=meta, entry_meta=entry_meta)
+    export_bundle(dst, programs, meta=meta)
     return sorted(programs)

@@ -416,44 +416,29 @@ def _mask_load(size: int) -> Callable[[tuple], tuple]:
     return load
 
 
-def _augment(seed: int, x: torch.Tensor, m: torch.Tensor, total: int, rows: torch.Tensor | None):
-    """``ops.augment``'s ``random_flip`` of image and mask together, then
-    ``color_jitter`` (0.2 brightness, contrast and saturation) of the image,
-    drawn from a ``torch.Generator`` seeded with ``seed`` for a batch of
-    ``total`` samples; ``rows`` picks the draws of the rows at hand (None:
-    all). The draws are ``random_flip``'s and ``color_jitter``'s, in their
-    order, so a whole batch is augmented as those ops do it."""
-    from .ops.augment import _flip_apply, _jitter_apply, _uniform
-
-    gen = torch.Generator().manual_seed(int(seed))
-    draws = [torch.rand(total, generator=gen, device=gen.device) < 0.5]
-    draws += [_uniform(gen, (total, 1, 1, 1), 0.8, 1.2) for _ in range(3)]
-    if rows is not None:
-        draws = [d[rows.to(d.device)] for d in draws]
-    flip, fb, fc, fs = draws
-    both = _flip_apply(torch.cat([x, m], dim=-1), flip)
-    return _jitter_apply(both[..., :3], fb, fc, fs), both[..., 3:]
-
-
 def mask_loss(bp, augment: bool = True) -> Callable:
-    """BiRefNet's supervised loss on a batch ``(x [0, 1], mask, seed)``, or
-    ``(x, mask, (seed, total), rows)`` for rows ``rows`` (int64) of a batch
-    of ``total``: with ``augment``, a consistent horizontal flip of image and
+    """BiRefNet's supervised loss on a batch ``(x [0, 1], mask, (seed,
+    total), rows)``: x and mask hold rows ``rows`` (int64) of a batch of
+    ``total`` samples (all of them, ``torch.arange(total)``, on one
+    device). With ``augment``, a consistent horizontal flip of image and
     mask and a color jitter of the image (0.2 brightness, contrast and
-    saturation), drawn for the whole batch from a ``torch.Generator`` seeded
-    with ``seed`` (:func:`_augment`), each row taking its own draws;
+    saturation), drawn for the whole batch from a ``torch.Generator``
+    seeded with ``seed``, each row taking its own draws (ops/augment.py);
     ImageNet normalization; BCE + (1 - soft IoU) of ``birefnet_predict``
     against the mask. The IoU term is a mean over the rows, so the loss of
     a batch is the mean of its rows' losses over any equal split."""
     from .core.params import Params
     from .models.birefnet import birefnet_predict
+    from .ops.augment import color_jitter, random_flip
     from .ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
 
     def loss_fn(params, batch):
-        x, m, seed = batch[:3]
+        x, m, (seed, total), rows = batch
         if augment:
-            total, rows = (seed[1], batch[3]) if isinstance(seed, tuple) else (x.shape[0], None)
-            x, m = _augment(seed[0] if isinstance(seed, tuple) else seed, x, m, total, rows)
+            gen = torch.Generator().manual_seed(int(seed))
+            both = random_flip(gen, torch.cat([x, m], dim=-1), rows=rows, total=total)
+            x, m = both[..., :3], both[..., 3:]
+            x = color_jitter(gen, x, brightness=0.2, contrast=0.2, saturation=0.2, rows=rows, total=total)
         mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
         std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
         pm = birefnet_predict(Params(params), (x - mean) / std, bp)

@@ -11,6 +11,11 @@ from the JAX package's for the same seed (``torch.Generator`` and
 ``jax.random`` are different streams), so the tests feed both packages the
 same draws through each op's ``_apply`` form.
 
+``random_flip`` and ``color_jitter`` also take ``rows`` and ``total``: x
+then holds those rows (int64 indices) of a batch of ``total`` samples, the
+op draws for the whole batch and each row takes its own draws, so that a
+data-parallel shard is augmented as it is in the whole batch.
+
 The set mirrors the torchvision/timm recipe (flip, crop, resized crop,
 color jitter, erasing) plus the batch mixers (mixup, cutmix), with the JAX
 package's deviations from torch: ``random_resized_crop`` clamps its box to
@@ -58,15 +63,31 @@ def rgb_to_grayscale(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
     return g[..., None] if keepdims else g
 
 
+def _drawn(x: torch.Tensor, rows, total) -> int:
+    """How many samples an op draws for: x's, or ``total`` with ``rows``."""
+    if rows is None:
+        return x.shape[0]
+    if total is None or len(rows) != x.shape[0]:
+        raise_error("augment: rows needs total and one index a sample of x, got {} rows for {} samples",
+                    len(rows), x.shape[0])
+    return int(total)
+
+
+def _of_rows(draw: torch.Tensor, rows) -> torch.Tensor:
+    return draw if rows is None else draw[rows.to(draw.device)]
+
+
 def _flip_apply(x: torch.Tensor, flip: torch.Tensor, axis: int = 2) -> torch.Tensor:
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
     return torch.where(flip.to(x.device).reshape(shape), torch.flip(x, (axis,)), x)
 
 
-def random_flip(gen: torch.Generator, x: torch.Tensor, p: float = 0.5, axis: int = 2) -> torch.Tensor:
+def random_flip(gen: torch.Generator, x: torch.Tensor, p: float = 0.5, axis: int = 2, rows=None,
+                total: int | None = None) -> torch.Tensor:
     """Per-sample flip along ``axis`` (2 = horizontal for NHWC) with
-    probability ``p``."""
-    return _flip_apply(x, torch.rand(x.shape[0], generator=gen, device=gen.device) < p, axis)
+    probability ``p`` (``rows`` / ``total``: the module docstring)."""
+    flip = torch.rand(_drawn(x, rows, total), generator=gen, device=gen.device) < p
+    return _flip_apply(x, _of_rows(flip, rows), axis)
 
 
 def _crop_apply(x: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
@@ -193,20 +214,21 @@ def _jitter_apply(x: torch.Tensor, fb=None, fc=None, fs=None, shift=None) -> tor
 
 
 def color_jitter(gen: torch.Generator, x: torch.Tensor, brightness: float = 0.0, contrast: float = 0.0,
-                 saturation: float = 0.0, hue: float = 0.0) -> torch.Tensor:
+                 saturation: float = 0.0, hue: float = 0.0, rows=None, total: int | None = None) -> torch.Tensor:
     """Per-sample photometric jitter on (N, H, W, 3) RGB in [0, 1]: factors
     uniform in ``[max(0, 1 - v), 1 + v]`` as torchvision draws them, a hue
     shift uniform in ``[-hue, hue]`` turns (``hue <= 0.5``), applied
-    brightness -> contrast -> saturation -> hue, clipped to [0, 1]."""
-    n = x.shape[0]
+    brightness -> contrast -> saturation -> hue, clipped to [0, 1]
+    (``rows`` / ``total``: the module docstring)."""
+    n = _drawn(x, rows, total)
     if hue > 0.5:
         raise_error("color_jitter: hue must be <= 0.5 (turns), got {}", hue)
 
     def factor(v):
-        return _uniform(gen, (n, 1, 1, 1), max(0.0, 1.0 - v), 1.0 + v) if v else None
+        return _of_rows(_uniform(gen, (n, 1, 1, 1), max(0.0, 1.0 - v), 1.0 + v), rows) if v else None
 
     fb, fc, fs = factor(brightness), factor(contrast), factor(saturation)
-    shift = _uniform(gen, (n, 1, 1), -hue, hue) if hue else None
+    shift = _of_rows(_uniform(gen, (n, 1, 1), -hue, hue), rows) if hue else None
     return _jitter_apply(x, fb, fc, fs, shift)
 
 

@@ -19,8 +19,8 @@ Design:
     placements; everything else is replicated. Fused q/k/v rows are
     regrouped so that each tp rank holds whole heads (parallel/tp.py).
   * ``fsdp_params`` — training's ZeRO-3 placement: float weights the tp
-    rules left replicated, rows sharded over dp (gathered at each lookup,
-    parallel/tp.py ``gather_fsdp``).
+    rules left replicated, rows sharded over dp (gathered once a forward
+    by the training step, parallel/tp.py ``gather_fsdp``).
   * ``sharded_forward`` / ``training_step`` — dp over the batch, tp as the
     weights are placed; the training step averages gradients over dp and
     keeps the tp shards (the JAX package's SGD check; train.py's

@@ -22,9 +22,9 @@ features or heads (a replicated bias, a head-indexed attention bias)
 all-gathers the chunks' gradients.
 
 A weight that training placed ``Shard(0)`` over the mesh's dp axis (fsdp,
-train.create_train_state) is gathered whole at each lookup
-(:func:`gather_fsdp`, from ``Params.find``); its gradient comes back
-reduce-scattered to this rank's rows.
+train.create_train_state) is gathered whole once a forward, by the
+training step before it calls the loss (:func:`gather_fsdp`); its gradient
+comes back reduce-scattered to this rank's rows.
 """
 
 from __future__ import annotations

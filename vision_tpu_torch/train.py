@@ -25,8 +25,9 @@ is the kernel, the backward PyTorch ops).
     rank calls the step with the same global batch (or the dp-sharded one
     ``prefetch_to_device(mesh=)`` makes) and runs the loss on its dp rows;
     the gradients of the other leaves are averaged over dp (one coalesced
-    all-reduce), an fsdp leaf's come back reduce-scattered by its lookup's
-    all-gather (parallel/tp.py), tp shards keep theirs.
+    all-reduce), an fsdp leaf's come back reduce-scattered by the one
+    all-gather a forward that hands the loss its whole weight
+    (parallel/tp.py ``gather_fsdp``), tp shards keep theirs.
   * Checkpoints are ``torch.save`` files (the step, the trainable and float
     parameters, ``optimizer.state_dict()`` and the EMA) in ``step_{n}/``,
     written to a temporary name, fsynced and renamed; orbax files are not
@@ -53,7 +54,7 @@ from .core.errors import raise_error
 from .core.quant import QuantResident
 from .core.quant import _is_float as _is_float_leaf
 from .parallel.sharding import DEFAULT_TP_RULES
-from .parallel.tp import is_dtensor, is_fsdp
+from .parallel.tp import gather_fsdp, is_dtensor, is_fsdp
 
 __all__ = [
     "TrainState",
@@ -195,16 +196,21 @@ class _MeshPlan:
         for k, v in state.params.items():
             t = self.leaves.get(k, v.to_local() if is_dtensor(v) else v)
             if is_dtensor(v) and not all(p.is_replicate() for p in v.placements):
-                self.placed.append((k, t, v.device_mesh, v.placements))
+                self.placed.append((k, t, v.device_mesh, v.placements, is_fsdp(v)))
             self.base[k] = t
         self.fsdp = [is_fsdp(state.params[k]) for k in state.names]
 
     def view(self) -> dict:
+        """The params one forward of the loss reads: tp shards as DTensors,
+        each fsdp shard gathered whole here, once (its gradient comes back
+        reduce-scattered), everything else as its plain leaf."""
         from torch.distributed.tensor import DTensor
 
         view = dict(self.base)
-        for k, t, mesh, placements in self.placed:
+        for k, t, mesh, placements, fsdp in self.placed:
             view[k] = DTensor.from_local(t, mesh, placements, run_check=False)
+            if fsdp:
+                view[k] = gather_fsdp(view[k])
         return view
 
 
