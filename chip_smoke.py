@@ -122,23 +122,26 @@ Phases, each raising on failure:
      ViT-H RoPE encoder at 1008 px with its FPN neck, under det.ve.; the
      CLIP text encoder of sam3_text_params, under det.te.; a synthetic
      49408-token vocabulary; ~2 GB, deleted after loading) is loaded with
-     sam3_load_model on the card and on the CPU; encode_vision runs on a
+     sam3_load_model on the card and on the CPU; the card model's window
+     stack is built (allocated MiB before, after and at the peak: the flat
+     window copies freed); encode_vision (the window-major trunk) runs on a
      1008x1008 and a 1600x1200 image (the four FPN levels' shapes, finite,
      4 flash launches each and no other hand-written kernel, the counts
      zeroed just before and read just after each) and encode_text on 4
      prompts ((1, 32, 1024), finite, no hand-written kernel);
- 20. SAM3 parity: the first two layers (one window, one global at T 5184)
-     and the neck at 1008x1008, card f32 (TF32 off) and card bf16 against
-     the CPU's f32; encode_text card bf16 against the CPU's f32; the full
-     depth card bf16 against card f32, beside the same with the global
-     layers on the kernel's plain version;
+ 20. SAM3 parity, on the window-major trunk: the first two layers (one
+     window, one global at T 5184) and the neck at 1008x1008, card f32
+     (TF32 off) and card bf16 against the CPU's f32; encode_text card bf16
+     against the CPU's f32; the full depth card bf16 against card f32,
+     beside the same with the global layers on the kernel's plain version;
  21. SAM3 timings: the D-80 kernel against its plain version, SDPA and the
      bound by the card's own time; host prep per request; Sam3Model's
      encode_vision p50; the encode_vision function at batch 1 and 4 (ms,
      img/s, TFLOP/s from sam3_vision_flops); encode_text p50; a
-     torch.profiler trace of a batch-1 encode_vision; and one window and
-     one global layer with their parts (window partition and reverse,
-     RoPE, the weight products) by the card's own time;
+     torch.profiler trace of a batch-1 encode_vision; and one window layer
+     (window-major and spatial) and one global layer with their parts (the
+     spatial trunk's window partition and reverse, RoPE, the weight
+     products) by the card's own time;
  22. the conv3x3 kernel with YOLOv9t's epilogue forms against its plain
      version: every distinct stride-1 3x3 call of a batch-8 640x640
      forward (recorded from the eager forward itself: Cin and Cout 16 to 128,
@@ -342,7 +345,10 @@ Phases, each raising on failure:
      (MESH_FLASH: Depth-Anything's and SAM3's heads at tp 2 and 4;
      MESH_WINDOW: TinyViT's and SWIN-L's at tp 2; BiRefNet's 20 deformable
      convs at batch 2, a dp 2 shard), bf16, one launch each, timed by the
-     card's own time beside the plain version;
+     card's own time beside the plain version; and the flash kernel at a
+     SAM3 sequence-parallel rank's shapes (MESH_SP_FLASH: sp 3, sp 9, sp 3
+     x tp 2; Tq its queries, Tk the image's 5184 keys) beside its plain
+     version, SDPA and its bound, with its max abs error;
  45. dryrun_multichip over 2 and 4 cards, each in a subprocess, where the
      machine has them; otherwise a line says which world sizes did not run.
      The world sizes that ran are printed.
@@ -361,6 +367,16 @@ Phases, each raising on failure:
      run's step 5 (train_step_check) at world 1; a meshed MobileSAM exported
      with embed_params=False (meta["mesh"] dp 1) whose call_sharded is
      bit-equal to the in-process encode_u8, with its launches.
+ 47. SAM3's window-major trunk (sam3_scan_phase) on phase 19's model: the
+     stack's memory; 4 flash launches and no other hand-written kernel an
+     encode_vision at 1008x1008 and 1600x1200; the window-major against the
+     spatial trunk on the same weights, bf16 within SAM3_TRUNK_BF16_REL_RMS
+     and f32 within SAM3_F32_REL_RMS; both trunks' eager ms and profiles
+     (busy, idle, launches); at one NCCL rank a Sam3Model on an sp-1 mesh
+     bit-equal to the unmeshed one, encode_vision_pipelined on a pp-1 mesh
+     over 2 images (from stage weights and from the stack) against the
+     window-major trunk, and the dry run's SAM3 tp / sp / pp checks at
+     world 1.
 
 The line before the last is a JSON object describing every kernel of the
 paths (its vtt ops, its launches a training step, meshed and not, and in
@@ -1643,6 +1659,41 @@ def sam3_vision_flops(vp, batch: int, dim: int = 1280, fpn_ch: int = 256) -> flo
     return batch * flops
 
 
+def sam3_stack(params: dict, n: int | None = None) -> dict:
+    """The window-major trunk's stacked window weights a Sam3Model keeps in
+    its params (det.ve.backbone.window_stack.*), their first ``n`` layers
+    (a trunk cut to depth)."""
+    from vision_tpu_torch.models.sam3 import _SAM3_LAYER_LEAVES, WINDOW_STACK
+
+    return {leaf: params[f"det.ve.backbone.{WINDOW_STACK}.{leaf}"][:n] for leaf in _SAM3_LAYER_LEAVES}
+
+
+def sam3_two_layers(params: dict) -> tuple[dict, dict]:
+    """Phase 20's two-layer trunk (Sam3VitParams(n_layers=2,
+    global_attn_indexes=(1,))) on a stacked model's weights: the first
+    window layer from the stack, and layer 1's weights (a window layer of
+    the full trunk) run as the global layer, as flat views of the stack.
+    Returns (params, win_stack)."""
+    from vision_tpu_torch.models.sam3 import window_layers
+
+    two = dict(params)
+    two.update({f"det.ve.backbone.layers.1.{leaf}": v for leaf, v in window_layers(sam3_stack(params, 2))[1].items()})
+    return two, sam3_stack(params, 1)
+
+
+def sam3_spatial_twin(params: dict, vp) -> dict:
+    """``params`` with the flat window-layer weights the spatial trunk reads,
+    as views of the model's stack (no copy): the spatial trunk on the same
+    weights, for the trunks' comparison."""
+    from vision_tpu_torch.models.sam3 import window_layers
+
+    twin = dict(params)
+    win_idx = [i for i in range(vp.n_layers) if i not in vp.global_attn_indexes]
+    for i, layer in zip(win_idx, window_layers(sam3_stack(params))):
+        twin.update({f"det.ve.backbone.layers.{i}.{leaf}": v for leaf, v in layer.items()})
+    return twin
+
+
 def sam3_flash_cases(fa, torch) -> float:
     """Phase 18: the flash kernel at head dim 80 against its plain version:
     SAM3's global layers at batch 1 and 4, a ragged cross case, in bf16 and
@@ -1711,37 +1762,38 @@ def sam3_flash_timings(fa, torch, card: str) -> list:
 
 
 def sam3_layer_breakdown(torch, card: str, params: dict, vp, busy_ms: float) -> None:
-    """Phase 21: one window layer and one global layer of the trunk at batch
-    1 and vp's image size, and the parts of them that are not products, by the
-    card's own time: the window partition and reverse, RoPE on q and k, the
-    six weight products, and (in the global layer) the flash kernel. Says
-    what the JAX package's window-major scan trunk, which drops the
-    partition and reverse copies, could save."""
+    """Phase 21: one window layer (window-major, as the model's trunk runs
+    it, and spatial) and one global layer of the trunk at batch 1 and vp's
+    image size, and the parts of them that are not products, by the card's
+    own time: the spatial trunk's window partition and reverse (which the
+    window-major trunk drops), RoPE on q and k, the six weight products,
+    and (in the global layer) the flash kernel."""
     import torch.nn.functional as F
 
     from vision_tpu_torch.core.params import Params
     from vision_tpu_torch.models.mobile_sam import window_partition, window_reverse
-    from vision_tpu_torch.models.sam3 import apply_rope_2d, rope_attention, vision_layer
+    from vision_tpu_torch.models.sam3 import (_vision_layer_tokens, apply_rope_2d, rope_attention, vision_layer,
+                                              window_layers)
 
     layers = Params(params)["det.ve.backbone.layers"]
     g, w, heads = vp.image_size // vp.patch_size, vp.window_size, vp.n_heads
-    win_i = next(i for i in range(vp.n_layers) if i not in vp.global_attn_indexes)
     glob_i = vp.global_attn_indexes[0]
-    c = layers[win_i]["mlp.fc1"].weight("weight").shape[1]
+    lp = Params(window_layers(sam3_stack(params, 1))[0])  # the first window layer, a view of the stack
+    c = lp["mlp.fc1"].weight("weight").shape[1]
     gen = torch.Generator(device="cuda").manual_seed(22)
     x = torch.randn(1, g, g, c, device="cuda", generator=gen).to(torch.bfloat16)
     tok = x.reshape(1, g * g, c)
     n_win = window_partition(x, w).shape[0]
     qw = torch.randn(n_win, w * w, heads, c // heads, device="cuda", generator=gen).to(torch.bfloat16)
     qg = torch.randn(1, heads, g * g, c // heads, device="cuda", generator=gen).to(torch.bfloat16)
-    lp = layers[win_i]
     ws = [lp[f"attention.{n}"].weight("weight") for n in ("q_proj", "k_proj", "v_proj", "o_proj")]
     fc1, fc2 = lp["mlp.fc1"].weight("weight"), lp["mlp.fc2"].weight("weight")
     hidden = torch.randn(1, g * g, fc1.shape[0], device="cuda", generator=gen).to(torch.bfloat16)
     scale_global = float(w) / float(g)
     xw = window_partition(x, w)
     parts = [
-        ("window layer", lambda: vision_layer(layers[win_i], x, w, heads, w, 1.0)),
+        ("window layer, window-major (the model's trunk)", lambda: _vision_layer_tokens(lp, xw, heads, w, 1.0)),
+        ("window layer, spatial (partition and reverse inside)", lambda: vision_layer(lp, x, w, heads, w, 1.0)),
         ("rope_attention, window form (q, k, v, RoPE, the attention, o)",
          lambda: rope_attention(lp["attention"], xw, heads, w, 1.0)),
         ("global layer", lambda: vision_layer(layers[glob_i], x, 0, heads, g, scale_global, flash=True)),
@@ -1760,8 +1812,9 @@ def sam3_layer_breakdown(torch, card: str, params: dict, vp, busy_ms: float) -> 
     products = times["six weight products (q, k, v, o, fc1, fc2)"]
     # the four projections are a third of the six products' FLOPs
     core = times["rope_attention, window form (q, k, v, RoPE, the attention, o)"] - rope - products / 3
-    print(f"the {n_window} window layers' partition + reverse: {n_window * pr:.3f} ms, {n_window * pr / busy_ms:.2%} of "
-          f"a batch-1 encode_vision's {busy_ms:.3f} ms busy (the most the window-major scan trunk could save); "
+    print(f"the spatial trunk's {n_window} window partitions + reverses: {n_window * pr:.3f} ms, "
+          f"{n_window * pr / busy_ms:.2%} of a batch-1 window-major encode_vision's {busy_ms:.3f} ms busy (what that "
+          f"trunk drops); "
           f"their RoPE {n_window * rope / busy_ms:.2%}; their attention past RoPE and the projections (logits, scale, "
           f"f32 softmax, casts, P V, layout copies; rope_attention less RoPE and a third of the six products) "
           f"~{core:.4f} ms a layer, ~{n_window * core / busy_ms:.2%}; all layers' products "
@@ -1797,6 +1850,26 @@ def sam3_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
     print(f"model on {s3model.device.torch_device} {s3model.dtype}, flash={s3model.flash}, {vp}, "
           f"{s3model.n_text_layers} text layers, max_tokens {s3model.max_tokens}; f16 GGUF of {gguf_bytes / 2**30:.2f} "
           f"GiB written in {gguf_s:.1f} s, loaded on the card in {load_s:.1f} s (deleted since)", flush=True)
+    # the window-major trunk's stack, built at the model's first vision use:
+    # allocated MiB before and after, and the peak between (the flat window
+    # copies must be freed, not kept beside the stack)
+    win_idx = [i for i in range(vp.n_layers) if i not in vp.global_attn_indexes]
+    flat_mib = sum(v.numel() * v.element_size() for k, v in s3model.params.items()
+                   if any(k.startswith(f"det.ve.backbone.layers.{i}.") for i in win_idx)) / 2**20
+    torch.cuda.synchronize()
+    stack_mib = {"before": torch.cuda.memory_allocated() / 2**20}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s3model._vision_stack()
+    torch.cuda.synchronize()
+    stack_mib.update(after=torch.cuda.memory_allocated() / 2**20, peak=torch.cuda.max_memory_allocated() / 2**20,
+                     flat=flat_mib, seconds=time.perf_counter() - t0)
+    print(f"window stack of {len(win_idx)} layers built in {stack_mib['seconds']:.3f} s: allocated "
+          f"{stack_mib['before']:.1f} MiB before, {stack_mib['after']:.1f} MiB after (peak {stack_mib['peak']:.1f}); "
+          f"the flat window copies {flat_mib:.1f} MiB, freed {stack_mib['before'] + flat_mib - stack_mib['after']:.1f} "
+          f"MiB of them net of the stack [{card}]", flush=True)
+    if stack_mib["after"] > stack_mib["before"] + 0.05 * flat_mib:
+        raise AssertionError(f"the window stack kept the flat copies: {stack_mib}")
     want = {"flash": len(vp.global_attn_indexes), "window": 0, "conv3x3": 0, "deform_conv": 0, "deform_sample": 0}
     sam3_launches = 0
     for img in s3_imgs:
@@ -1830,15 +1903,20 @@ def sam3_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
     phase("20 SAM3 parity: card bf16 and f32 (kernel route) vs CPU f32 (plain route)")
     vp2 = Sam3VitParams(n_layers=2, global_attn_indexes=(1,))
     x_cpu = torch.from_numpy(sam3_process_input(s3_imgs[0], vp.image_size)[None])
+    cpu_s3model._vision_stack()  # the CPU model's window-major trunk (its stack; the flat window copies dropped)
     # f32 on the card from the CPU model's weights (the file's f16 values, exact in f32)
     f32_params = {k: v.to("cuda") for k, v in cpu_s3model.params.items() if k.startswith("det.ve.")}
     with torch.inference_mode():
         t0 = time.perf_counter()
-        cpu_two = encode_vision(Params(cpu_s3model.params)["det.ve"], x_cpu, vp2, flash=cpu_s3model.flash)
+        two, stack1 = sam3_two_layers(cpu_s3model.params)
+        cpu_two = encode_vision(Params(two)["det.ve"], x_cpu, vp2, flash=cpu_s3model.flash, win_stack=stack1)
         cpu_s = time.perf_counter() - t0
         before = fa.launches
-        f32_two = encode_vision(Params(f32_params)["det.ve"], x_cpu.cuda(), vp2, flash=True)
-        bf16_two = encode_vision(Params(s3model.params)["det.ve"], x_cpu.cuda().bfloat16(), vp2, flash=True)
+        two, stack1 = sam3_two_layers(f32_params)
+        f32_two = encode_vision(Params(two)["det.ve"], x_cpu.cuda(), vp2, flash=True, win_stack=stack1)
+        two, stack1 = sam3_two_layers(s3model.params)
+        bf16_two = encode_vision(Params(two)["det.ve"], x_cpu.cuda().bfloat16(), vp2, flash=True, win_stack=stack1)
+        del two, stack1
         torch.cuda.synchronize()
     if fa.launches != before + 2:
         raise AssertionError(f"two-layer forwards launched flash {fa.launches - before} times (2 expected)")
@@ -1858,15 +1936,18 @@ def sam3_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
           f"(bound {E2E_REL_RMS})", flush=True)
     if not max(text_rms) <= E2E_REL_RMS:
         raise AssertionError(f"encode_text parity {text_rms}")
+    card_stack = s3model._window_layers()
     with torch.inference_mode():
         x_gpu = x_cpu.cuda()
-        full_f32 = encode_vision(Params(f32_params)["det.ve"], x_gpu, vp, flash=True).fpn_hidden_states
-        full_bf16 = encode_vision(Params(s3model.params)["det.ve"], x_gpu.bfloat16(), vp, flash=True).fpn_hidden_states
+        full_f32 = encode_vision(Params(f32_params)["det.ve"], x_gpu, vp, flash=True,
+                                 win_stack=sam3_stack(f32_params)).fpn_hidden_states
+        full_bf16 = encode_vision(Params(s3model.params)["det.ve"], x_gpu.bfloat16(), vp, flash=True,
+                                  win_stack=card_stack).fpn_hidden_states
         kernel_route = fa.flash_attention
         fa.flash_attention = lambda q, k, v, scale=None, mask=None: fa.flash_attention_plain(q, k, v, scale)
         try:
-            plain_bf16 = encode_vision(Params(s3model.params)["det.ve"], x_gpu.bfloat16(), vp,
-                                       flash=True).fpn_hidden_states
+            plain_bf16 = encode_vision(Params(s3model.params)["det.ve"], x_gpu.bfloat16(), vp, flash=True,
+                                       win_stack=card_stack).fpn_hidden_states
         finally:
             fa.flash_attention = kernel_route
     full_rms = max(rel_rms_t(b.float(), f) for b, f in zip(full_bf16, full_f32))
@@ -1902,7 +1983,8 @@ def sam3_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
     with torch.inference_mode():
         for b in (1, 4):
             xb = x_cpu.cuda().bfloat16().repeat(b, 1, 1, 1)
-            run = lambda: encode_vision(Params(s3model.params)["det.ve"], xb, vp, flash=True)  # noqa: E731
+            run = lambda: encode_vision(Params(s3model.params)["det.ve"], xb, vp, flash=True,  # noqa: E731
+                                        win_stack=card_stack)
             f1 = median_ms(run, 5, warmup=2)
             f2 = median_ms(run, 5, warmup=0)
             ms = min(f1, f2)
@@ -1924,8 +2006,9 @@ def sam3_phases(torch, card: str, fa, wa, cc, dsm, dcm) -> dict:
         t_text.append((time.perf_counter() - t0) * 1e3)
     print(f"Sam3Model.encode_text ({SAM3_TEXT['layers']} layers, {SAM3_TEXT['max_length']} tokens): p50 "
           f"{float(np.median(t_text[2:])):.3f} ms [{card}]", flush=True)
-    # the card's and the CPU's models go on to phases 40 and 42
-    return {"worst": worst80, "rows": s3_rows, "launches": sam3_launches, "models": (s3model, cpu_s3model)}
+    # the card's and the CPU's models go on to phases 40, 42, 43 and 47
+    return {"worst": worst80, "rows": s3_rows, "launches": sam3_launches, "models": (s3model, cpu_s3model),
+            "stack_mib": stack_mib, "images": s3_imgs}
 
 
 # YOLOv9t and MI-GAN (phases 22-26)
@@ -5249,6 +5332,11 @@ SHARD_BF16_REL_RMS = FLASH_D80_BF16_REL_RMS
 # (label, B*H, T, D): Depth-Anything's 6 heads at tp 2 (batch 4), SAM3's 16 at tp 2 and 4
 MESH_FLASH = (("Depth-Anything tp 2: 3 of 6 heads, batch 4", 12, 1370, 64),
               ("SAM3 tp 2: 8 of 16 heads", 8, 5184, 80), ("SAM3 tp 4: 4 of 16 heads", 4, 5184, 80))
+# (label, B*H, Tq, Tk, D): SAM3's global layer on a sequence-parallel rank at batch 1, its share of the 5184
+# window-major queries against every key of the image (gathered over sp)
+MESH_SP_FLASH = (("SAM3 sp 3: 1728 of 5184 queries", 16, 1728, 5184, 80),
+                 ("SAM3 sp 9: 576 of 5184 queries", 16, 576, 5184, 80),
+                 ("SAM3 sp 3 x tp 2: 8 of 16 heads, 1728 queries", 8, 1728, 5184, 80))
 # (label, windows, T, heads, side and window of a SWIN mask or None): TinyViT's stages 1 and 3 at tp 2 (stage 2's
 # 5 heads stay whole), SWIN-L's four stages at tp 2, shifted (masked) and not, at batch 2 (a dp 2 shard of 4)
 MESH_WINDOW = tuple(
@@ -5473,10 +5561,15 @@ def mesh_shard_kernels(torch, card: str, fa, wa, dcm) -> dict:
     batch 2, the dp 2 shard of a batch of 4, whose weights no tp rule
     shards), bf16, each one launch, and each timed by the card's own time
     beside its plain version. The attention outputs are also held to
-    SHARD_BF16_REL_RMS of the plain version's f32 (shard_rel_rms)."""
+    SHARD_BF16_REL_RMS of the plain version's f32 (shard_rel_rms). The
+    flash kernel at a sequence-parallel rank's shapes (MESH_SP_FLASH: Tq
+    the rank's queries, Tk the image's keys) beside its plain version, SDPA
+    and its bound too (sp_rows)."""
+    import torch.nn.functional as F
+
     gen = torch.Generator(device="cuda").manual_seed(44)
     bf16 = torch.bfloat16
-    rows, worst, worst_rms = [], 0.0, {}
+    rows, worst, worst_rms, sp_rows = [], 0.0, {}, []
     for label, bh, t, d in MESH_FLASH:
         q, k, v = (torch.randn(1, bh, t, d, device="cuda", generator=gen).to(bf16) for _ in range(3))
         before = fa.launches
@@ -5491,6 +5584,32 @@ def mesh_shard_kernels(torch, card: str, fa, wa, dcm) -> dict:
         ms = device_ms(lambda: fa.flash_attention(q, k, v, scale=d**-0.5))
         plain = device_ms(lambda: fa.flash_attention_plain(q, k, v, d**-0.5))
         rows.append(("flash_attention", label, ms, plain))
+        del q, k, v, out, ref
+    for label, bh, tq, tk, d in MESH_SP_FLASH:
+        q = torch.randn(1, bh, tq, d, device="cuda", generator=gen).to(bf16)
+        k, v = (torch.randn(1, bh, tk, d, device="cuda", generator=gen).to(bf16) for _ in range(2))
+        before = fa.launches
+        out = fa.flash_attention(q, k, v, scale=d**-0.5)
+        torch.cuda.synchronize()
+        if fa.launches != before + 1:
+            raise AssertionError(f"flash {label}: {fa.launches - before} launches")
+        ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), d**-0.5)
+        name = f"flash_attention sp shard {label} (BH {bh}, Tq {tq}, Tk {tk}, D {d})"
+        err = check_close(name, out, ref, bf16, torch)
+        worst = max(worst, err)
+        worst_rms["flash_attention"] = max(worst_rms["flash_attention"], shard_rel_rms(name, out, ref))
+        run_k = lambda: fa.flash_attention(q, k, v, scale=d**-0.5)  # noqa: E731
+        run_p = lambda: fa.flash_attention_plain(q, k, v, d**-0.5)  # noqa: E731
+        run_l = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        k1, p1, l1, l2, p2, k2 = (device_ms(f, calls=c) for f, c in ((run_k, 20), (run_p, 5), (run_l, 20),
+                                                                  (run_l, 20), (run_p, 5), (run_k, 20)))
+        bound, by = bound_ms(4.0 * bh * tq * tk * d, 2.0 * bh * d * (2 * tq + 2 * tk))
+        sp_rows.append({"shape": f"{label}: q ({bh}, {tq}, {d}), k and v ({bh}, {tk}, {d}) bf16", "ms": min(k1, k2),
+                        "plain_ms": min(p1, p2), "library_ms": min(l1, l2), "bound_ms": bound, "bound_by": by,
+                        "max_abs_err": err})
+        print(f"flash_attention at a sequence-parallel shard, {label}: kernel {k1:.4f} / {k2:.4f} ms, plain "
+              f"{p1:.4f} / {p2:.4f} ms, SDPA {l1:.4f} / {l2:.4f} ms, bound {bound:.4f} ms ({by}), kernel at "
+              f"{bound / min(k1, k2):.2%} of the bound, by the card's own time [{card}]", flush=True)
         del q, k, v, out, ref
     for label, nw, t, h, swin in MESH_WINDOW:
         mask = None
@@ -5535,7 +5654,7 @@ def mesh_shard_kernels(torch, card: str, fa, wa, dcm) -> dict:
     for name, label, ms, plain in rows:
         print(f"{name} at a shard shape, {label}: {ms:.4f} ms, plain {plain:.4f} ms, by the card's own time "
               f"[{card}]", flush=True)
-    return {"worst": worst, "worst_rel_rms": worst_rms, "rows": rows}
+    return {"worst": worst, "worst_rel_rms": worst_rms, "rows": rows, "sp_rows": sp_rows}
 
 
 def shard_rel_rms(name: str, out, ref) -> float:
@@ -5774,6 +5893,172 @@ def mesh_phases(torch, card: str, fd: dict, tmp: str, sam3_models: tuple, fa, wa
     print(f"mesh phases: 43 {t1 - t0:.1f} s, 44 {t2 - t1:.1f} s, 45 {time.perf_counter() - t2:.1f} s [{card}]",
           flush=True)
     return {"served": served, "shards": shards, "world_sizes": ran}
+
+
+# phase 47: SAM3's window-major trunk at full width, and its sp / pp paths at one NCCL rank
+# two bf16 evaluations of the 32-layer trunk in other orders differ by about
+# bf16's own error at full depth (phase 20 reads ~1.4e-2 for bf16 against
+# f32), so a bf16 trunk is held to the bf16 end-to-end bound; the trunks'
+# equivalence is the f32 comparison's (SAM3_F32_REL_RMS)
+SAM3_TRUNK_BF16_REL_RMS = E2E_REL_RMS
+SAM3_PIPELINE_IMAGES = 2  # microbatches of encode_vision_pipelined at pp 1
+
+
+def kernel_counts() -> dict:
+    """Every hand-written kernel's launch count since the last zero_counts()."""
+    from vision_tpu_torch.ops.cuda import conv3x3, deform_conv, deform_sample, dequant, flash_attention
+    from vision_tpu_torch.ops.cuda import window_attention
+
+    return {"flash": flash_attention.launches, "window": window_attention.launches, "conv3x3": conv3x3.launches,
+            "deform_conv": deform_conv.launches, "deform_sample": deform_sample.launches, "dequant": dequant.launches}
+
+
+def sam3_scan_phase(torch, card: str, s3: dict, tmp: str) -> dict:
+    """Phase 47: phase 19's ViT-H model, whose encode_vision runs the
+    window-major trunk: the stack's memory (phase 19's reading); 4 flash
+    launches and no other hand-written kernel an encode at 1008^2 and
+    1600x1200; the window-major trunk against the spatial trunk on the same
+    weights (the flat window weights as views of the stack), bf16 within
+    SAM3_TRUNK_BF16_REL_RMS and f32 (the CPU model's weights, TF32 off)
+    within SAM3_F32_REL_RMS; both trunks' eager median ms in turns and a
+    profile of each (busy, idle, launches). Then at one NCCL rank (a world
+    of one, init_distributed): a Sam3Model on a make_mesh(1, sp=1) mesh
+    bit-equal to the unmeshed model with its launches;
+    encode_vision_pipelined on a pp-1 mesh over SAM3_PIPELINE_IMAGES images
+    from sam3_pipeline_weights and from the stack, against the window-major
+    trunk; and the dry run's SAM3 tp / sp / pp checks at world 1."""
+    import torch.distributed as dist
+
+    from vision_tpu_torch.core.device import backend_init
+    from vision_tpu_torch.core.params import Params
+    from vision_tpu_torch.models.sam3 import (Sam3Model, encode_vision, encode_vision_pipelined, sam3_pipeline_weights,
+                                              sam3_process_input)
+    from vision_tpu_torch.parallel import init_distributed, make_mesh
+    from vision_tpu_torch.parallel.dryrun import sam3_checks
+    from vision_tpu_torch.parallel.sharding import mesh_shape
+
+    phase("47 SAM3's window-major trunk at full width against the spatial one; sp / pp at one NCCL rank")
+    t_start = time.perf_counter()
+    model, cpu_model = s3["models"]
+    vp, imgs, m = model.vp, s3["images"], s3["stack_mib"]
+    print(f"window stack (phase 19): allocated {m['before']:.1f} MiB before it was built, {m['after']:.1f} MiB after, "
+          f"peak {m['peak']:.1f}: the {m['flat']:.1f} MiB of flat window copies freed "
+          f"({m['before'] + m['flat'] - m['after']:.1f} MiB net of the stack) [{card}]", flush=True)
+    want = {"flash": len(vp.global_attn_indexes), "window": 0, "conv3x3": 0, "deform_conv": 0, "deform_sample": 0,
+            "dequant": 0}
+    launches = 0
+    for img in imgs:
+        zero_counts()
+        model.encode_vision(img)
+        torch.cuda.synchronize()
+        got = kernel_counts()
+        if got != want:
+            raise AssertionError(f"window-major encode_vision {img.extent}: launches {got} (expected {want})")
+        launches += got["flash"]
+    print(f"Sam3Model.encode_vision (window-major trunk) at {' and '.join(f'{w}x{h}' for w, h in SAM3_EXTENTS)}: "
+          f"launches {want} each [{card}]", flush=True)
+
+    x = torch.from_numpy(sam3_process_input(imgs[0], vp.image_size)[None]).cuda()
+    layers = model._window_layers()
+    twin = sam3_spatial_twin(model.params, vp)
+
+    def scan(params, xx, views=None):
+        return encode_vision(Params(params)["det.ve"], xx, vp, flash=True,
+                             win_stack=views if views is not None else sam3_stack(params)).fpn_hidden_states
+
+    def spatial(params, xx):
+        return encode_vision(Params(params)["det.ve"], xx, vp, flash=True).fpn_hidden_states
+
+    def worst(outs, refs):
+        return max(rel_rms_t(a.float(), b.float()) for a, b in zip(outs, refs))
+
+    with torch.inference_mode():
+        f32 = {k: v.cuda() for k, v in cpu_model.params.items() if k.startswith("det.ve.")}
+        ref = scan(f32, x.float())
+        rms = {"f32": worst(ref, spatial(sam3_spatial_twin(f32, vp), x.float()))}
+        del f32
+        bf16 = {"window-major": scan(model.params, x.bfloat16(), layers), "spatial": spatial(twin, x.bfloat16())}
+        rms["bf16"] = worst(bf16["window-major"], bf16["spatial"])
+        rms.update({f"bf16 {k} vs f32": worst(v, ref) for k, v in bf16.items()})
+    del ref, bf16
+    torch.cuda.empty_cache()
+    ok = (rms["f32"] <= SAM3_F32_REL_RMS and rms["bf16"] <= SAM3_TRUNK_BF16_REL_RMS
+          and max(rms["bf16 window-major vs f32"], rms["bf16 spatial vs f32"]) <= SAM3_TRUNK_BF16_REL_RMS)
+    print(f"window-major vs spatial trunk + neck at {vp.image_size}x{vp.image_size}, worst level, relative RMS: f32 "
+          f"(TF32 off) {rms['f32']:.4e} (bound {SAM3_F32_REL_RMS}); bf16 {rms['bf16']:.4e}, each bf16 trunk against "
+          f"the f32 window-major one: window-major {rms['bf16 window-major vs f32']:.4e}, spatial "
+          f"{rms['bf16 spatial vs f32']:.4e} (bound {SAM3_TRUNK_BF16_REL_RMS}): {'ok' if ok else 'FAIL'} [{card}]",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"window-major against spatial trunk: {rms}")
+
+    xb = x.bfloat16()
+    runs = {"window-major": lambda: scan(model.params, xb, layers), "spatial": lambda: spatial(twin, xb)}
+    with torch.inference_mode():
+        ms = {name: [] for name in runs}
+        for name in ("window-major", "spatial", "spatial", "window-major"):
+            ms[name].append(median_ms(runs[name], 5, warmup=2))
+        prof = {name: profile_run(run, f"{name} encode_vision batch 1 at {vp.image_size}^2 (eager)", torch, card,
+                                  ("flash_attention",)) for name, run in runs.items()}
+    total = {name: p["other_launches"] + p["named_launches"]["flash_attention"] for name, p in prof.items()}
+    side = f"{vp.image_size}x{vp.image_size}"
+    print(f"eager encode_vision batch 1 at {side} bf16: window-major {ms['window-major'][0]:.3f} / "
+          f"{ms['window-major'][1]:.3f} ms, spatial {ms['spatial'][0]:.3f} / {ms['spatial'][1]:.3f} ms; busy "
+          f"{prof['window-major']['busy_ms']:.3f} vs {prof['spatial']['busy_ms']:.3f} ms "
+          f"({prof['window-major']['busy_ms'] - prof['spatial']['busy_ms']:+.3f}), launches {total['window-major']} vs "
+          f"{total['spatial']} ({total['window-major'] - total['spatial']:+d}) [{card}]", flush=True)
+    t_trunks = time.perf_counter() - t_start
+
+    dev = backend_init("gpu")
+    init_distributed("file://" + os.path.join(tmp, "sam3_mesh_store"), 1, 0)
+    mesh = make_mesh(1, sp=1)
+    meshed = Sam3Model(model.params, model.tokenizer, model.max_tokens, dev, vp=vp, mesh=mesh)
+    zero_counts()
+    a = meshed.encode_vision(imgs[0])
+    torch.cuda.synchronize()
+    mesh_n = kernel_counts()
+    b = model.encode_vision(imgs[0])
+    same = all(torch.equal(u, v) for u, v in zip(a, b))
+    print(f"Sam3Model on {mesh_shape(mesh)} at one NCCL rank: encode_vision {'bit-equal' if same else 'DIFFERS'} to "
+          f"the unmeshed model's; launches {mesh_n} [{card}]", flush=True)
+    if not same or mesh_n != want:
+        raise AssertionError(f"sp-1 meshed SAM3: equal {same}, launches {mesh_n}")
+    del meshed, a, b
+
+    pmesh = make_mesh(1, pp=1)
+    xs = torch.from_numpy(np.stack([sam3_process_input(im, vp.image_size) for im in
+                                    (imgs * SAM3_PIPELINE_IMAGES)[:SAM3_PIPELINE_IMAGES]])).cuda().bfloat16()
+    stage_w = sam3_pipeline_weights(Params(model.params)["det.ve.backbone"], sam3_stack(model.params), vp, pmesh)
+    pipe = {}
+    with torch.inference_mode():
+        ref = scan(model.params, xs, layers)
+        for form, kw in (("stage_weights", {"stage_weights": stage_w}), ("win_stack", {"win_stack": sam3_stack(
+                model.params)})):
+            zero_counts()
+            out = encode_vision_pipelined(Params(model.params)["det.ve"], xs, vp, flash=True, mesh=pmesh,
+                                          **kw).fpn_hidden_states
+            torch.cuda.synchronize()
+            pipe[form] = (max(rel_rms_t(u.float(), v.float()) for u, v in zip(out, ref)), kernel_counts()["flash"])
+    del stage_w, ref, out
+    torch.cuda.empty_cache()
+    ok = all(r <= SAM3_TRUNK_BF16_REL_RMS and n == SAM3_PIPELINE_IMAGES * len(vp.global_attn_indexes)
+             for r, n in pipe.values())
+    print(f"encode_vision_pipelined on {mesh_shape(pmesh)} over {SAM3_PIPELINE_IMAGES} images, against the "
+          f"window-major trunk (bf16, worst level): " + "; ".join(f"from {k} relative RMS {r:.4e}, {n} flash launches"
+                                                                  for k, (r, n) in pipe.items())
+          + f" (bound {SAM3_TRUNK_BF16_REL_RMS}): {'ok' if ok else 'FAIL'} [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"pp-1 pipelined SAM3: {pipe}")
+    t0 = time.perf_counter()
+    ran = sam3_checks(1, 1, dev, "cuda")
+    print(f"the dry run's SAM3 tp / sp / pp checks at world 1 ({' / '.join(str(r) for r in ran)}) in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    dist.destroy_process_group()  # before tmp and its store go
+    print(f"phase 47: {time.perf_counter() - t_start:.1f} s (the trunks {t_trunks:.1f} s) [{card}]", flush=True)
+    return {"launches": launches, "rel_rms": rms, "ms": {k: min(v) for k, v in ms.items()},
+            "busy_ms": {k: p["busy_ms"] for k, p in prof.items()}, "total_launches": total,
+            "pipelined": {k: {"rel_rms": r, "flash_launches": n} for k, (r, n) in pipe.items()},
+            "mesh_sp1_launches": mesh_n, "stack_mib": m}
 
 
 def main(argv=None) -> int:
@@ -6327,9 +6612,10 @@ def main(argv=None) -> int:
         s3_models = s3.pop("models")
         tools = tooling_phases(torch, card, fd, fd_tmp, s3_models)
         mesh = mesh_phases(torch, card, fd, fd_tmp, s3_models, fa, wa, dcm)
-        del s3_models
         train_mesh = train_mesh_phase(torch, card, fd, fd_tmp, train)
         del train["cases"]
+        scan = sam3_scan_phase(torch, card, {**s3, "models": s3_models}, fd_tmp)
+        del s3_models
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6394,6 +6680,10 @@ def main(argv=None) -> int:
             "mesh_shards": shard_rows("flash_attention"),
             "mesh_shard_max_abs_err": mesh["shards"]["worst"],
             "mesh_shard_rel_rms": mesh["shards"]["worst_rel_rms"]["flash_attention"],
+            "mesh_sp_shards": mesh["shards"]["sp_rows"],
+            "launches_sam3_window_major": scan["launches"],
+            "sam3_window_major_trunk": {k: scan[k] for k in ("rel_rms", "ms", "busy_ms", "total_launches",
+                                                             "pipelined", "mesh_sp1_launches", "stack_mib")},
         },
         {
             "name": "window_attention",

@@ -110,12 +110,12 @@ def test_match_detections(chip_smoke):
 def test_the_phase_list_runs_to_32(chip_smoke):
     doc = chip_smoke.__doc__
     numbers = [int(ln.split(".")[0]) for ln in doc.splitlines() if ln[:4].strip().rstrip(".").isdigit()]
-    assert numbers == list(range(1, 47))
+    assert numbers == list(range(1, 48))
     for name in ("http_phase", "bulk_phase", "verbs_phase", "serve_verb", "dequant_cases", "residency_phase",
                  "quantize_verb_phase", "grad_cases", "train_harness", "recipe_run", "training_phases", "ops_phase",
                  "export_phase", "capi_phase", "flops_phase", "tooling_phases", "mesh_one_rank", "mesh_dp1_cli",
                  "mesh_shard_kernels", "mesh_more_ranks", "mesh_phases", "cli_main", "train_mesh_recipe",
-                 "train_mesh_phase"):
+                 "train_mesh_phase", "sam3_stack", "sam3_spatial_twin", "kernel_counts", "sam3_scan_phase"):
         assert callable(getattr(chip_smoke, name))
 
 
@@ -327,3 +327,78 @@ def test_shard_outputs_are_held_to_a_relative_rms(chip_smoke):
     assert chip_smoke.shard_rel_rms("rounded", ref * (1 + 3e-3), ref) == pytest.approx(3e-3, rel=1e-4)
     with pytest.raises(AssertionError, match="relative RMS"):
         chip_smoke.shard_rel_rms("a dropped tile", ref * 1.2, ref)
+
+
+def test_sp_shards_are_a_sam3_rank_s_queries(chip_smoke):
+    """Phase 44's sequence-parallel flash shapes: at batch 1 a rank of sp 3
+    or 9 holds 5184 / sp of the window-major queries (3 windows of 576, 1)
+    against all 5184 keys of the image; at sp 3 x tp 2, 8 of the 16 heads."""
+    tokens = (1008 // 14) ** 2
+    assert [(bh, tq, tk, d) for _, bh, tq, tk, d in chip_smoke.MESH_SP_FLASH] == [
+        (16, tokens // 3, tokens, 80), (16, tokens // 9, tokens, 80), (16 // 2, tokens // 3, tokens, 80)]
+    assert chip_smoke.SAM3_TRUNK_BF16_REL_RMS == chip_smoke.E2E_REL_RMS == 5e-2
+
+
+def test_sam3_spatial_twin_is_the_stack_as_flat_views(chip_smoke):
+    """Phase 47's spatial twin of a stacked Sam3Model: the flat window
+    weights back as views of the stack (no copy), so that the spatial trunk
+    on it gives what it gives on the loader's flat weights, and the model's
+    window-major trunk agrees with it; sam3_stack(params, 1) is the first
+    layer's slice."""
+    import numpy as np
+    import torch
+
+    from vision_tpu_torch.core.device import backend_init
+    from vision_tpu_torch.core.params import Params
+    from vision_tpu_torch.core.weights import params_from_numpy
+    from vision_tpu_torch.models.random_weights import random_sam3_vision_params
+    from vision_tpu_torch.models.sam3 import ClipTokenizer, Sam3Model, Sam3VitParams, encode_vision
+
+    vp = Sam3VitParams(image_size=56, patch_size=14, window_size=2, n_layers=4, n_heads=2, global_attn_indexes=(1, 3))
+    flat = params_from_numpy({f"det.ve.{k}": v for k, v in random_sam3_vision_params(0, 32, 4, 16).items()}, "cpu",
+                             torch.float32)
+    model = Sam3Model(flat, ClipTokenizer(vocab={}, bpe_rank={}), 8, backend_init("cpu"), vp=vp)
+    model._vision_stack()
+    twin = chip_smoke.sam3_spatial_twin(model.params, vp)
+    assert set(twin) == set(flat) | set(model.params)
+    stack = chip_smoke.sam3_stack(model.params)
+    w = twin["det.ve.backbone.layers.2.mlp.fc1.weight"]
+    assert w.untyped_storage().data_ptr() == stack["mlp.fc1.weight"].untyped_storage().data_ptr()
+    assert chip_smoke.sam3_stack(model.params, 1)["mlp.fc1.weight"].shape[0] == 1
+    x = torch.from_numpy(np.random.default_rng(0).random((1, 56, 56, 3)).astype(np.float32))
+    with torch.inference_mode():
+        want = encode_vision(Params(flat)["det.ve"], x, vp).fpn_hidden_states
+        got = encode_vision(Params(twin)["det.ve"], x, vp).fpn_hidden_states
+        scan = encode_vision(Params(model.params)["det.ve"], x, vp, win_stack=stack).fpn_hidden_states
+    for a, b, c in zip(got, want, scan):
+        assert torch.equal(a, b)
+        assert float((c - b).abs().max()) <= 2e-5
+
+
+def test_sam3_two_layers_are_the_flat_trunks_first_two(chip_smoke):
+    """Phase 20's two-layer trunk on a stacked model: window layer 0 from the
+    stack and layer 1's weights as the global layer, what the two layers of
+    the flat weights give in the spatial trunk."""
+    import numpy as np
+    import torch
+
+    from vision_tpu_torch.core.device import backend_init
+    from vision_tpu_torch.core.params import Params
+    from vision_tpu_torch.core.weights import params_from_numpy
+    from vision_tpu_torch.models.random_weights import random_sam3_vision_params
+    from vision_tpu_torch.models.sam3 import ClipTokenizer, Sam3Model, Sam3VitParams, encode_vision
+
+    vp = Sam3VitParams(image_size=56, patch_size=14, window_size=2, n_layers=4, n_heads=2, global_attn_indexes=(3,))
+    vp2 = Sam3VitParams(image_size=56, patch_size=14, window_size=2, n_layers=2, n_heads=2, global_attn_indexes=(1,))
+    flat = params_from_numpy({f"det.ve.{k}": v for k, v in random_sam3_vision_params(1, 32, 4, 16).items()}, "cpu",
+                             torch.float32)
+    model = Sam3Model(flat, ClipTokenizer(vocab={}, bpe_rank={}), 8, backend_init("cpu"), vp=vp)
+    model._vision_stack()
+    two, stack1 = chip_smoke.sam3_two_layers(model.params)
+    assert stack1["mlp.fc1.weight"].shape[0] == 1
+    x = torch.from_numpy(np.random.default_rng(1).random((1, 56, 56, 3)).astype(np.float32))
+    with torch.inference_mode():
+        want = encode_vision(Params(flat)["det.ve"], x, vp2).fpn_hidden_states
+        got = encode_vision(Params(two)["det.ve"], x, vp2, win_stack=stack1).fpn_hidden_states
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 2e-5

@@ -208,13 +208,11 @@ def test_make_mesh_errors(r):
 
 
 def test_what_the_serving_meshes_refuse(r):
-    """SAM3's sp / pp need the scan trunk (the JAX package raises without it
-    too, vision_tpu/models/sam3.py:843-845); a served model takes dp and tp
-    only; a CUDA model on a CPU mesh is refused, and so is a meshed export
-    of any family but SAM, with the JAX package's reason."""
+    """A served model takes dp and tp only (SAM3, which takes sp and pp too,
+    is held in test_torch_sam3_scan.py); a CUDA model on a CPU mesh is
+    refused, and so is a meshed export of any family but SAM, with the JAX
+    package's reason."""
     e = r["refusals"]
-    for key in ("sam3 sp", "sam3 pp"):
-        assert e[key].startswith("VispError: SAM3 sequence / pipeline parallelism") and "scan trunk" in e[key]
     assert e["served sp"] == "VispError: serving meshes take dp and tp axes only, got {'dp': 2, 'pp': 1, 'sp': 2, 'tp': 1}"
     assert e["cuda model"] == "VispError: a cpu mesh needs a cpu model, got cuda"
     assert e["export"] == ("VispError: export_model: meshed DepthAnythingModel doesn't export — dp-sharded export is "
@@ -327,13 +325,17 @@ def test_training_step_matches_jax(r, jax_side):
 
 
 def test_dryrun_multichip_on_four_cpu_ranks(world, r):
-    """The port of __graft_entry__.dryrun_multichip steps 1-5 on 4 CPU ranks."""
+    """The port of __graft_entry__.dryrun_multichip steps 1-5 on 4 CPU ranks,
+    SAM3's sequence- and pipeline-parallel checks among them at the JAX
+    dry run's meshes (sp 4; pp 2 x tp 2)."""
     out, _ = world["dryrun"].communicate(timeout=300)
     assert world["dryrun"].returncode == 0, out[-4000:]
-    for step in ("SAM3 tp-sharded vision", "dp x tp fsdp train step", "sharded SAM encode", "sharded ESRGAN tiled",
-                 "sharded BiRefNet", "MI-GAN dp-served", "Depth-Anything dp x tp-served", "YOLOv9t dp-served",
-                 "4 ranks ok"):
+    for step in ("SAM3 tp-sharded vision", "SAM3 sequence-parallel vision", "SAM3 pipeline-parallel vision",
+                 "dp x tp fsdp train step", "sharded SAM encode", "sharded ESRGAN tiled", "sharded BiRefNet",
+                 "MI-GAN dp-served", "Depth-Anything dp x tp-served", "YOLOv9t dp-served", "4 ranks ok"):
         assert f"dryrun {step}" in out, step
+    assert "sequence-parallel vision parity ok: mesh={'dp': 1, 'pp': 1, 'sp': 4, 'tp': 1}" in out
+    assert "pipeline-parallel vision parity ok: mesh={'dp': 1, 'pp': 2, 'sp': 1, 'tp': 2} microbatches=3" in out
 
 
 def test_cli_dp_directory_matches_one_rank(world, r):

@@ -3,12 +3,16 @@ same mesh shape, on a gloo world of 4 CPU ranks (f32).
 
 One world is started per module (tests/torch_mesh_ranks.py, suite
 ``models``; its ranks import no JAX): MobileSAM's encoder and SamServer at
-dp 2 x tp 2, SAM3's trunk and neck at tp 2 and tp 4, BiRefNet at dp 2 x tp
-2, Depth-Anything through ImageServer at dp 2 x tp 2 and at tp 2 on two
+dp 2 x tp 2, SAM3's trunk and neck at tp 2 and tp 4, its window-major
+trunk sequence-parallel (sp 2 x tp 2 and sp 4; Sam3Model at sp 2 x tp 2)
+and pipeline-parallel (pp 2 x tp 2), BiRefNet at dp 2 x tp 2,
+Depth-Anything through ImageServer at dp 2 x tp 2 and at tp 2 on two
 ranks, then a rank that dies mid-call. The JAX side runs here on its 8
 virtual CPU devices while the ranks work. Each holds the JAX meshed
 function within relative RMS 1e-4 (tests/test_golden.py:23). The dp-only
 families are in test_torch_parallel_serving.py."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +20,19 @@ import numpy as np
 import pytest
 import torch
 
-from torch_mesh_ranks import World, birefnet_case, clip_case, depthany_case, sam3_case, sam_images
+from torch_mesh_ranks import (
+    SAM3_PP_IMAGES,
+    SAM3_SCAN_BATCHES,
+    SAM3_SCAN_MESHES,
+    World,
+    birefnet_case,
+    clip_case,
+    depthany_case,
+    sam3_case,
+    sam3_model_image,
+    sam3_scan_images,
+    sam_images,
+)
 from vision_tpu.core.device import BackendType
 from vision_tpu.core.device import backend_init as jbackend_init
 from vision_tpu.core.params import Params as JParams
@@ -41,6 +57,7 @@ from vision_tpu_torch.models.random_weights import random_mobile_sam_params
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 
 REL_RMS = 1e-4  # tests/test_golden.py:23
+ATOL_STACK = 1e-4  # tests/test_torch_sam3.py:33, a stack of layers against JAX
 
 
 def _rel_rms(a, b) -> float:
@@ -82,6 +99,8 @@ def jax_side(started):
         out[f"sam3_tp{tp}"] = [np.asarray(f) for f in fn(jshard_params(store, jmake_mesh(4, tp=tp), JSAM3_TP_RULES),
                                                          jnp.asarray(x))]
 
+    out.update(_jax_sam3_scan(store, jvp))
+
     store, ids, mask, layers = clip_case()
     text = jax.jit(lambda p, i, m: jsam3.encode_text(JParams(p), i, m, n_layers=layers))
     for tp in (2, 4):
@@ -102,6 +121,51 @@ def jax_side(started):
     return out
 
 
+def _jax_sam3_scan(store: dict, jvp) -> dict:
+    """The JAX package's window-major SAM3 trunk at the ranks' meshes:
+    sequence-parallel (sam3_shard_vision + encode_vision(mesh=)), Sam3Model
+    on an sp mesh, pipeline-parallel from stage weights and from the stack,
+    and the refusals' texts."""
+    out = {}
+    stack = jsam3.sam3_pack_vision_weights(store, jvp, prefix="backbone.")
+    for key, (tp, sp) in SAM3_SCAN_MESHES.items():
+        mesh = jmake_mesh(4, tp=tp, sp=sp)
+        sharded, sstack = jsam3.sam3_shard_vision(store, stack, mesh)
+        fn = jax.jit(lambda p, st, xx, mesh=mesh: jsam3.encode_vision(JParams(p), xx, jvp, win_stack=st,
+                                                                       mesh=mesh).fpn_hidden_states)
+        for batch in SAM3_SCAN_BATCHES:
+            xb = jnp.asarray(sam3_scan_images(batch))
+            out[f"sam3_{key}_b{batch}"] = [np.asarray(f) for f in fn(sharded, sstack, xb)]
+    model = jsam3.Sam3Model({f"det.ve.{k}": v for k, v in store.items()}, jsam3.ClipTokenizer(vocab={}, bpe_rank={}), 8,
+                            jbackend_init(BackendType.cpu), vp=jvp, mesh=jmake_mesh(4, tp=2, sp=2))
+    out["sam3_model_sp"] = [np.asarray(f) for f in model.encode_vision(JImage(sam3_model_image(),
+                                                                                JImageFormat.rgba_u8))]
+    x = jnp.asarray(sam3_scan_images(1))
+    refusals = {"sam3_sp_no_scan": lambda: jsam3.encode_vision(JParams(store), x, jvp, mesh=jmake_mesh(4, sp=4)),
+                "sam3_sp3": lambda: jsam3.encode_vision(JParams(store), x, jvp, win_stack=stack,
+                                                        mesh=jmake_mesh(3, sp=3))}
+    for key, call in refusals.items():
+        with pytest.raises(ValueError) as err:
+            call()
+        out[key] = f"ValueError: {err.value}"
+    mesh = jmake_mesh(4, pp=2, tp=2)
+    imgs = jnp.asarray(sam3_scan_images(SAM3_PP_IMAGES))
+    stage_w = jsam3.sam3_pipeline_weights(JParams(store)["backbone"], stack, jvp, mesh)
+    out["sam3_pp_stage"] = [np.asarray(f) for f in jax.jit(lambda p, sw, xx: jsam3.encode_vision_pipelined(
+        JParams(p), xx, jvp, stage_weights=sw, mesh=mesh).fpn_hidden_states)(store, stage_w, imgs)]
+    out["sam3_pp_stack"] = [np.asarray(f) for f in jax.jit(lambda p, st, xx: jsam3.encode_vision_pipelined(
+        JParams(p), xx, jvp, win_stack=st, mesh=mesh).fpn_hidden_states)(store, stack, imgs)]
+    out["sam3_pp_stage_shapes"] = {(part, k): tuple(v.shape) for part, t in stage_w.items() for k, v in t.items()}
+    errors = {}
+    for key, (vp_, m) in {"uniform": (dataclasses.replace(jvp, global_attn_indexes=(1, 2)), mesh),
+                          "stages": (jvp, jmake_mesh(4, pp=4))}.items():
+        with pytest.raises(ValueError) as err:
+            jsam3.encode_vision_pipelined(JParams(store), imgs, vp_, win_stack=stack, mesh=m)
+        errors[key] = f"ValueError: {err.value}"
+    out["sam3_pp_errors"] = errors
+    return out
+
+
 @pytest.fixture(scope="module")
 def r(started, jax_side):
     return started["world"].results()
@@ -117,6 +181,104 @@ def test_tensor_parallel_encoders_match_jax(r, jax_side, key):
     for g, w in zip(got if isinstance(got, list) else [got], want if isinstance(want, list) else [want]):
         assert g.shape == w.shape
         assert _rel_rms(g, w) < REL_RMS
+
+
+SAM3_SCAN_KEYS = [f"sam3_{m}_b{b}" for m in SAM3_SCAN_MESHES for b in SAM3_SCAN_BATCHES]
+
+
+@pytest.fixture(scope="module")
+def sam3_unmeshed():
+    """The port's unmeshed window-major trunk on each case's images (and
+    Sam3Model without a mesh), here in the pytest process."""
+    from vision_tpu_torch.core.params import Params
+    from vision_tpu_torch.image import Image, ImageFormat
+    from vision_tpu_torch.models import sam3 as s3
+
+    store, _, vp = sam3_case()
+    vp = s3.Sam3VitParams(**vp)
+    p = params_from_numpy(store, "cpu", torch.float32)
+    stack = s3.sam3_pack_vision_weights(p, vp, prefix="backbone.")
+
+    def fpn(batch):
+        with torch.inference_mode():
+            out = s3.encode_vision(Params(p), torch.from_numpy(sam3_scan_images(batch)), vp, win_stack=stack)
+        return [f.numpy() for f in out.fpn_hidden_states]
+
+    out = {f"sam3_{m}_b{b}": fpn(b) for m in SAM3_SCAN_MESHES for b in SAM3_SCAN_BATCHES}
+    out["sam3_pp_stage"] = out["sam3_pp_stack"] = fpn(SAM3_PP_IMAGES)
+    model = s3.Sam3Model({f"det.ve.{k}": v for k, v in p.items()}, s3.ClipTokenizer(vocab={}, bpe_rank={}), 8,
+                         backend_init("cpu"), vp=vp)
+    out["sam3_model_sp"] = [f.numpy() for f in model.encode_vision(Image(sam3_model_image(), ImageFormat.rgba_u8))]
+    return out
+
+
+@pytest.mark.parametrize("key", SAM3_SCAN_KEYS + ["sam3_model_sp", "sam3_pp_stage", "sam3_pp_stack"])
+def test_sam3_sequence_and_pipeline_parallel_match_jax(r, jax_side, sam3_unmeshed, key):
+    """SAM3's window-major trunk + neck meshed: sequence-parallel at sp 2 x
+    tp 2 and sp 4, batch 1, 2 and 3 (4 windows an image: at batch 3 a
+    rank's windows span two images, 6 at sp 2 and 3 at sp 4, and each image's
+    queries attend to its own keys only), Sam3Model's encode_vision on an
+    sp 2 x tp 2 mesh through the runner, and encode_vision_pipelined at pp
+    2 x tp 2 over 3 images from sam3_pipeline_weights and from the whole
+    stack. Against the JAX package's meshed functions at the same mesh
+    shapes within relative RMS 1e-4 and max |delta| ATOL_STACK (the port's
+    bound for a SAM3 stack against JAX, tests/test_torch_sam3.py:33: the
+    unmeshed trunks of the two packages already differ at 2e-5 on these
+    outputs); against the port's own unmeshed trunk within
+    max |delta| 2e-5, as the JAX tests hold a meshed trunk against one
+    device (tests/test_parallel.py:272-323)."""
+    got, want, one = r[key], jax_side[key], sam3_unmeshed[key]
+    assert len(got) == len(want) == len(one) == 4
+    for g, w, o in zip(got, want, one):
+        assert g.shape == w.shape == o.shape
+        assert _rel_rms(g, w) < REL_RMS
+        assert float(np.abs(g - w).max()) <= ATOL_STACK
+        assert float(np.abs(g - o).max()) <= 2e-5
+
+
+def test_sam3_sp_gathers_k_and_v_once_a_global_layer(r):
+    """Each sp encode all-gathers K and V once a global layer (2 global
+    layers) and the trunk's output once before the neck: 5 gathers at
+    every batch; Sam3Model's sp encode the same on rank 0."""
+    assert r["sam3_gathers"] == {(m, b): 2 * 2 + 1 for m in SAM3_SCAN_MESHES for b in SAM3_SCAN_BATCHES}
+    assert r["sam3_model_sp_gathers"] == 5
+
+
+def test_sam3_pipeline_ranks_hold_only_their_stage(r, jax_side):
+    """Each pp rank's stage weights: the global shape the JAX stage stack's,
+    the local one its (1, ...) slice, the same bits as the slice stacked
+    straight from the flat weights (win_stack=None), whose trunk gives the
+    same output; each tp pair holds both stages."""
+    ranks = r["sam3_pp_local"]
+    assert sorted(k for k, _ in ranks) == [0, 0, 1, 1]
+    for _, mine in ranks:
+        assert set(mine) == set(jax_side["sam3_pp_stage_shapes"])
+        for key, (shape, local, same) in mine.items():
+            assert shape == jax_side["sam3_pp_stage_shapes"][key], key
+            assert local == (1, *shape[1:]) and same, key
+    assert all(np.array_equal(a, b) for a, b in zip(r["sam3_pp_flat"], r["sam3_pp_stage"]))
+
+
+def test_sam3_mesh_refusals_are_the_jax_packages(r, jax_side):
+    """sp without the window-major trunk, sp not dividing batch x windows
+    (4 windows over sp 3), a trunk that is no uniform (win^k glb)* under pp
+    and stages that do not divide over pp raise the JAX package's errors."""
+    assert r["sam3_sp_no_scan"] == jax_side["sam3_sp_no_scan"]
+    assert r["sam3_sp3"] == jax_side["sam3_sp3"]
+    assert r["sam3_pp_errors"] == jax_side["sam3_pp_errors"]
+
+
+def test_sam3_sp_flash_route_matches_the_unmeshed_trunk(r):
+    """At 1024 tokens the global layers take the flash route: on sp 2 x tp 2
+    each rank's 512 queries against the gathered keys through the kernel's
+    plain version, against the unmeshed trunk's whole layers on the same
+    route (f32), and both near the einsum form. Rank 0 calls the kernel's
+    entry point once a global layer: its 2 of 4 heads, 512 queries against
+    the image's 1024 keys."""
+    assert r["sam3_sp_flash_calls"] == [((1, 2, 512, 16), (1, 2, 1024, 16))] * 2
+    for g, w, e in zip(r["sam3_sp_flash"], r["sam3_flash_ref"], r["sam3_einsum_ref"]):
+        assert _rel_rms(g, w) < REL_RMS and float(np.abs(g - w).max()) <= 2e-5
+        assert _rel_rms(w, e) < REL_RMS
 
 
 @pytest.mark.parametrize("key", ["sam_server", "birefnet", "depthany", "depthany_tp2"])

@@ -352,8 +352,8 @@ def _tokenizer(cls):
 
 def test_sam3_model_matches_jax_model():
     """Sam3Model on the CPU against the JAX package's Sam3Model from the
-    same params, tokenizer and a small vp (the JAX model runs its
-    window-major scan trunk, the port the spatial one)."""
+    same params, tokenizer and a small vp (both run their window-major
+    scan trunks)."""
     store = _model_store()
     jm = js3.Sam3Model(store, _tokenizer(js3.ClipTokenizer), 8, jax_backend_init("cpu"),
                        vp=js3.Sam3VitParams(**RANDOM_VP))

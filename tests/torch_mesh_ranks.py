@@ -71,6 +71,20 @@ def sam3_case():
     return store, x, vp
 
 
+def sam3_scan_images(batch: int, seed: int = 3) -> np.ndarray:
+    """Images of the reduced SAM3 (32 px, an 8x8 patch grid of 2x2 windows)."""
+    return np.random.default_rng(seed + batch).random((batch, 32, 32, 3)).astype(np.float32)
+
+
+SAM3_SCAN_MESHES = {"sp2tp2": (2, 2), "sp4": (1, 4)}  # key -> (tp, sp), 4 ranks each
+# 4 windows an image: at batch 3 an sp rank's windows span two images (6 at sp 2, 3 at sp 4)
+SAM3_SCAN_BATCHES = (1, 2, 3)
+SAM3_PP_IMAGES = 3  # the JAX dry run's microbatches (__graft_entry__.py:429-441)
+# a trunk whose global layers reach the flash route (1024 tokens: 128 px in
+# patches of 4, 16 windows of 8x8)
+SAM3_FLASH_VP = dict(image_size=128, patch_size=4, window_size=8, n_layers=4, n_heads=4, global_attn_indexes=(1, 3))
+
+
 def clip_case(width: int = 64, layers: int = 2, vocab: int = 50, t: int = 8):
     """A small CLIP text encoder under SAM3's names (``te.text_model.*``;
     16 heads, as sam3.py's clip_attention has them), token ids and the
@@ -257,22 +271,18 @@ def suite_parallel(rank: int, n: int) -> dict:
         "0": _error(lambda: make_mesh(0, device="cpu")),
         "4,tp0": _error(lambda: make_mesh(4, tp=0, device="cpu")),
     }
-    # what the serving meshes refuse: SAM3's sp / pp (the scan trunk waits),
-    # a served model on a mesh with sp or pp, a meshed export, a CUDA model
-    # on a CPU mesh
+    # what the serving meshes refuse: a served model on a mesh with sp or pp
+    # (SAM3 alone takes them), a meshed export, a CUDA model on a CPU mesh
     from vision_tpu_torch.core.device import BackendType, Device, backend_init
     from vision_tpu_torch.export import export_model
     from vision_tpu_torch.models.depth_anything import DepthAnythingModel, DepthAnythingParams
     from vision_tpu_torch.models.dino import DinoParams
-    from vision_tpu_torch.models.sam3 import Sam3Model
 
     cpu = backend_init("cpu")
     da_p = DepthAnythingParams(dino=DinoParams(embed_dim=64, n_heads=2, n_layers=4), image_size=126,
                                feature_layers=(0, 1, 2, 3))
     da_store = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in random_depth_anything_params("test").items()}
     r["refusals"] = {
-        "sam3 sp": _error(lambda: Sam3Model({}, None, 32, cpu, mesh=make_mesh(4, sp=2, device="cpu"))),
-        "sam3 pp": _error(lambda: Sam3Model({}, None, 32, cpu, mesh=make_mesh(4, pp=4, device="cpu"))),
         "served sp": _error(lambda: DepthAnythingModel(da_store, da_p, cpu, mesh=make_mesh(4, sp=2, device="cpu"))),
         "cuda model": _error(lambda: DepthAnythingModel(da_store, da_p, Device(torch.device("cuda"), BackendType.gpu),
                                                         mesh=make_mesh(4, device="cpu"))),
@@ -429,7 +439,10 @@ def suite_models(rank: int, n: int) -> dict:
     from vision_tpu_torch.models.dino import DinoParams
     from vision_tpu_torch.models.mobile_sam import SamModel, SamParams
     from vision_tpu_torch.models.random_weights import random_mobile_sam_params
-    from vision_tpu_torch.models.sam3 import Sam3VitParams, encode_text, encode_vision, sam3_heads
+    import torch.distributed as dist
+
+    from vision_tpu_torch.models.sam3 import (ClipTokenizer, Sam3Model, Sam3VitParams, encode_text, encode_vision,
+                                              sam3_heads)
     from vision_tpu_torch.models.swin import SWIN_T_PARAMS
     from vision_tpu_torch.parallel import SAM3_TP_RULES, make_mesh
     from vision_tpu_torch.parallel.runner import MeshEntry, register_model
@@ -449,6 +462,7 @@ def suite_models(rank: int, n: int) -> dict:
             with torch.inference_mode():
                 r[f"sam3_tp{tp}"] = [f.numpy() for f in encode_vision(Params(local), torch.from_numpy(x),
                                                                       vp).fpn_hidden_states]
+        _sam3_scan(r, dev, vp)
         # SAM3's CLIP text encoder at tp 2 and 4: q/k/v sharded, out_proj whole (the heads gathered before it)
         store, ids, mask, layers = clip_case()
         for tp in (2, 4):
@@ -465,6 +479,10 @@ def suite_models(rank: int, n: int) -> dict:
                                   feature_layers=(0, 1, 2, 3))
         b["da"] = DepthAnythingModel(_put(depthany_case()[0]), dap, dev, mesh=mesh_22)
         b["da2"] = DepthAnythingModel(_put(depthany_case()[0]), dap, dev, mesh=make_mesh(2, tp=2, device="cpu"))
+        # Sam3Model on an sp 2 x tp 2 mesh: rank 0's encode_vision runs the sequence-parallel trunk on every rank
+        b["sam3"] = Sam3Model(_put({f"det.ve.{k}": v for k, v in sam3_case()[0].items()}),
+                              ClipTokenizer(vocab={}, bpe_rank={}), 8, dev, vp=vp,
+                              mesh=make_mesh(4, tp=2, sp=2, device="cpu"))
         # an entry that raises on every rank of a dp 2 x tp 2 mesh: that call fails, the world serves on
         b["tp_flaky"] = MeshEntry(register_model(), "tp_flaky", _flaky(rank), mesh_22, dev.torch_device)
         # a last model whose entry ends rank 3 mid-call: rank 0 must fail, not hang
@@ -474,6 +492,11 @@ def suite_models(rank: int, n: int) -> dict:
 
     def drive(b, r):
         r["tp_model_error"] = _error(lambda: b["tp_flaky"](torch.ones(4, 2), fail_on=(0, 1, 2, 3)))
+        counts: dict = {}
+        with _collectives(dist, counts):
+            r["sam3_model_sp"] = [f.numpy() for f in b["sam3"].encode_vision(Image(sam3_model_image(),
+                                                                                   ImageFormat.rgba_u8))]
+        r["sam3_model_sp_gathers"] = counts.get("all_gather_into_tensor", 0)
         t0 = time.monotonic()
         sam_imgs = [image_load_array(a[..., :3].copy()) for a in sam_images()]
         r["sam_encode"] = b["sam"].encode_batch(sam_imgs).numpy()
@@ -502,6 +525,103 @@ def suite_models(rank: int, n: int) -> dict:
         r["dead_seconds"] = time.monotonic() - t1
 
     return _models(rank, build, drive)
+
+
+def sam3_model_image() -> np.ndarray:
+    return np.random.default_rng(41).integers(0, 256, (40, 48, 4), np.uint8)
+
+
+def _sam3_scan(r: dict, dev, vp) -> None:
+    """SAM3's window-major trunk on every rank in lock step: sequence-
+    parallel at sp 2 x tp 2 and sp 4 (batch 1, 2 and 3; the K/V
+    all-gathers counted), the pipeline trunk at pp 2 x tp 2 (3 images, from stage
+    weights and from the whole stack; each rank's local stage-weight
+    shapes), the refusals, and the sp trunk's flash route against the
+    unmeshed one at 1024 tokens."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from vision_tpu_torch.core.params import Params
+    from vision_tpu_torch.models.sam3 import (
+        Sam3VitParams,
+        encode_vision,
+        encode_vision_pipelined,
+        sam3_pack_vision_weights,
+        sam3_pipeline_weights,
+        sam3_shard_vision,
+    )
+    from vision_tpu_torch.ops.cuda import flash_attention as fa
+    from vision_tpu_torch.parallel import make_mesh
+
+    store = sam3_case()[0]
+    p = _put(store)
+    stack = sam3_pack_vision_weights(p, vp, prefix="backbone.")
+
+    def fpn(out):
+        return [f.numpy() for f in out.fpn_hidden_states]
+
+    r["sam3_gathers"] = {}
+    for key, (tp, sp) in SAM3_SCAN_MESHES.items():
+        mesh = make_mesh(4, tp=tp, sp=sp, device="cpu")
+        flat, placed = sam3_shard_vision(p, stack, mesh, vp)
+        for batch in SAM3_SCAN_BATCHES:
+            counts: dict = {}
+            with torch.inference_mode(), _collectives(dist, counts):
+                r[f"sam3_{key}_b{batch}"] = fpn(encode_vision(Params(flat), torch.from_numpy(sam3_scan_images(batch)),
+                                                              vp, win_stack=placed, mesh=mesh))
+            r["sam3_gathers"][(key, batch)] = counts.get("all_gather_into_tensor", 0)
+    x = torch.from_numpy(sam3_scan_images(1))
+    mesh = make_mesh(4, sp=4, device="cpu")
+    r["sam3_sp_no_scan"] = _error(lambda: encode_vision(Params(p), x, vp, mesh=mesh))
+    mesh3 = make_mesh(3, sp=3, device="cpu")  # 4 windows over sp 3; rank 3 is outside the mesh
+    if mesh3.get_coordinate() is not None:
+        r["sam3_sp3"] = _error(lambda: encode_vision(Params(p), x, vp, win_stack=stack, mesh=mesh3))
+
+    mesh = make_mesh(4, pp=2, tp=2, device="cpu")
+    imgs = torch.from_numpy(sam3_scan_images(SAM3_PP_IMAGES))
+    stage_w = sam3_pipeline_weights(Params(p)["backbone"], stack, vp, mesh)
+    from_flat = sam3_pipeline_weights(Params(p)["backbone"], None, vp, mesh)
+    with torch.inference_mode():
+        r["sam3_pp_stage"] = fpn(encode_vision_pipelined(Params(p), imgs, vp, stage_weights=stage_w, mesh=mesh))
+        r["sam3_pp_stack"] = fpn(encode_vision_pipelined(Params(p), imgs, vp, win_stack=stack, mesh=mesh))
+        r["sam3_pp_flat"] = fpn(encode_vision_pipelined(Params(p), imgs, vp, stage_weights=from_flat, mesh=mesh))
+    mine = {(part, leaf): (tuple(v.shape), tuple(v.to_local().shape),
+                           bool(torch.equal(v.to_local(), from_flat[part][leaf].to_local())))
+            for part, leaves in stage_w.items() for leaf, v in leaves.items()}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (mesh.get_local_rank("pp"), mine))
+    r["sam3_pp_local"] = every
+    flat_vp = dataclasses.replace(vp, global_attn_indexes=(1, 2))  # win glb glb win: not uniform
+    r["sam3_pp_errors"] = {
+        "uniform": _error(lambda: encode_vision_pipelined(Params(p), imgs, flat_vp, win_stack=stack, mesh=mesh)),
+        "stages": _error(lambda: encode_vision_pipelined(Params(p), imgs, vp, win_stack=stack,
+                                                         mesh=make_mesh(4, pp=4, device="cpu"))),
+    }
+
+    # the sp trunk's global layers on the flash route (the kernel's plain version on the CPU) at 1024 tokens
+    fvp = Sam3VitParams(**SAM3_FLASH_VP)
+    xf = torch.from_numpy(np.random.default_rng(9).random((1, 128, 128, 3)).astype(np.float32))
+    mesh = make_mesh(4, tp=2, sp=2, device="cpu")
+    fstack = sam3_pack_vision_weights(p, fvp, prefix="backbone.")
+    flat, placed = sam3_shard_vision(p, fstack, mesh, fvp)
+    kernel, calls = fa.flash_attention, []
+
+    def counted(q, k, v, **kw):  # the kernel's entry point: its plain version on CPU tensors
+        calls.append((tuple(q.shape), tuple(k.shape)))
+        return kernel(q, k, v, **kw)
+
+    fa.flash_attention = counted
+    try:
+        with torch.inference_mode():
+            r["sam3_sp_flash"] = fpn(encode_vision(Params(flat), xf, fvp, flash=True, win_stack=placed, mesh=mesh))
+    finally:
+        fa.flash_attention = kernel
+    r["sam3_sp_flash_calls"] = calls
+    with torch.inference_mode():
+        r["sam3_flash_ref"] = fpn(encode_vision(Params(p), xf, fvp, flash=True, win_stack=fstack))
+        r["sam3_einsum_ref"] = fpn(encode_vision(Params(p), xf, fvp, win_stack=fstack))
 
 
 def suite_serving(rank: int, n: int) -> dict:

@@ -355,6 +355,11 @@ def export_model(model, dst: str | os.PathLike, extent: tuple[int, int] | None =
         meta["input_size"] = s
     elif kind == "Sam3Model":
         s, t = model.vp.image_size, model.max_tokens
+        # the window-major trunk's stack, built now if it is not yet (the flat
+        # window copies dropped): the entries read the model's params as
+        # they are from here on
+        model._vision_stack()
+        params = model.params
         x = torch.zeros((batch, s, s, 3), dtype=model.dtype, device=dev)
         ids = torch.zeros((1, t), dtype=torch.int32, device=dev)
         mask = torch.zeros((t, t), dtype=torch.float32, device=dev)

@@ -5,7 +5,8 @@ training step.
 
   1. MobileSAM's encoder over a dp x tp mesh (``SamModel.encode_batch``);
   2. Real-ESRGAN's tiled ``compute`` with the tile batch split over dp;
-  3. SAM3's tensor-parallel vision encoder, and BiRefNet's dp x tp
+  3. SAM3's vision encoder tensor-, sequence- and pipeline-parallel (the
+     window-major trunk over tp, sp and pp), and BiRefNet's dp x tp
      ``compute_batch``;
   4. Depth-Anything (dp x tp) and MI-GAN (dp) through ``ImageServer`` and
      YOLOv9t (dp) through ``YoloServer``, one full batch each;
@@ -14,8 +15,7 @@ training step.
      ``make_train_step(mesh)`` (every rank in lock step), against the same
      step on one rank.
 
-tp is 2 where n is even and at least 4, as in the JAX package. SAM3's
-sequence- and pipeline-parallel trunks wait for the scan trunk. Run it on n cards
+tp is 2 where n is even and at least 4, as in the JAX package. Run it on n cards
 (``device="cuda"``) or n CPU processes (``"cpu"``, gloo); under torchrun
 every rank calls it, elsewhere it starts the n ranks itself.
 """
@@ -76,16 +76,16 @@ def _rel_rms(a, b) -> float:
 
 
 def _run(n: int, device: str) -> None:
-    """Every rank: SAM3's tp check in lock step, then the meshed models are
-    built in one order on every rank; rank 0 runs the served checks while
-    the others follow it."""
+    """Every rank: SAM3's tp, sp and pp checks in lock step, then the meshed
+    models are built in one order on every rank; rank 0 runs the served
+    checks while the others follow it."""
     from ..core.device import backend_init
     from .runner import follow, stop_workers
     from .sharding import mesh_shape
 
     dev = backend_init("cpu" if device == "cpu" else "gpu")
     tp = 2 if n % 2 == 0 and n >= 4 else 1
-    _sam3_tp(n, tp, dev, device)
+    sam3 = sam3_checks(n, tp, dev, device)
     train_step_check(n, tp, dev, device)
     built = _build(n, tp, dev, device)
     if dist.get_rank() != 0:
@@ -96,18 +96,17 @@ def _run(n: int, device: str) -> None:
             check(built, dev)
     finally:
         stop_workers()
-    _say(f"dryrun {n} ranks ok ({device}); mesh dp x tp = {mesh_shape(built['mesh_tp'])}; SAM3 sp / pp wait for "
-         "the scan trunk")
+    _say(f"dryrun {n} ranks ok ({device}); mesh dp x tp = {mesh_shape(built['mesh_tp'])}; SAM3 tp / sp / pp at "
+         f"{' / '.join(str(m) for m in sam3)}")
 
 
-def _sam3_tp(n: int, tp: int, dev, device: str) -> None:
-    """Step 3a: SAM3's vision encoder with Megatron tp (SAM3_TP_RULES) on
-    every rank in lock step, against the unsharded encoder."""
-    from ..core.params import Params
+def _sam3_case(dev):
+    """The dry run's reduced SAM3 vision encoder (__graft_entry__.py:369-379):
+    4 layers of width 64 and 4 heads, a 32 px image in patches of 4 (an
+    8x8 grid, 2x2 windows of 4x4), f32 on ``dev``; its window stack."""
     from ..core.weights import params_from_numpy
     from ..models.random_weights import random_sam3_vision_params
-    from ..models.sam3 import Sam3VitParams, encode_vision, sam3_heads
-    from .sharding import SAM3_TP_RULES, make_mesh, mesh_params, mesh_shape
+    from ..models.sam3 import Sam3VitParams, sam3_pack_vision_weights
 
     vp = Sam3VitParams(image_size=32, patch_size=4, window_size=4, n_layers=4, n_heads=4,
                        global_attn_indexes=(1, 3))
@@ -116,16 +115,61 @@ def _sam3_tp(n: int, tp: int, dev, device: str) -> None:
     store["backbone.embeddings.patch_embeddings.projection.weight"] = (
         rng.standard_normal((64, 3, 4, 4)).astype(np.float32) * 0.05)
     params = params_from_numpy(store, dev.torch_device, torch.float32)
+    return vp, params, sam3_pack_vision_weights(params, vp, prefix="backbone."), rng
+
+
+def sam3_checks(n: int, tp: int, dev, device: str) -> list:
+    """Steps 3a, 3c and 3d on every rank in lock step, each against the
+    unsharded window-major trunk at max |delta| < 2e-5: SAM3's vision
+    encoder with Megatron tp (sam3_shard_vision); sequence-parallel (the
+    2x2 = 4 windows over sp 4 where n divides by 4, else sp 2, composed
+    with tp 2 where n divides by sp * 2); pipeline-parallel (the trunk's 2
+    uniform stages over pp 2, tp 2 where n divides by 4, a 3-image batch as
+    GPipe microbatches, from stage weights each rank holds only its slice
+    of). Where n is odd, sp and pp run at 1 (the JAX package skips them):
+    the same paths on meshes of one. Returns the meshes' shapes."""
+    from ..core.params import Params
+    from ..models.sam3 import encode_vision, encode_vision_pipelined, sam3_pipeline_weights, sam3_shard_vision
+    from .sharding import make_mesh, mesh_shape
+
+    vp, params, stack, rng = _sam3_case(dev)
     x = torch.from_numpy(rng.random((1, 32, 32, 3)).astype(np.float32)).to(dev.torch_device)
-    with torch.inference_mode():
-        expected = [f.cpu().numpy() for f in encode_vision(Params(params), x, vp).fpn_hidden_states]
-        mesh = make_mesh(n, tp=tp, device=device)
-        sharded = mesh_params(params, mesh, dev, SAM3_TP_RULES, heads=sam3_heads(vp))
-        got = [f.cpu().numpy() for f in encode_vision(Params(sharded), x, vp).fpn_hidden_states]
-    delta = max(float(np.abs(g - e).max()) for g, e in zip(got, expected))
-    assert delta < 2e-5, f"sharded SAM3 vision parity max|delta|={delta}"
-    _say(f"dryrun SAM3 tp-sharded vision parity ok: mesh={mesh_shape(mesh)} fpn_scales={len(got)} "
+
+    def fpn(p, s, xx, mesh=None):
+        with torch.inference_mode():
+            return [f.cpu().numpy() for f in encode_vision(Params(p), xx, vp, win_stack=s, mesh=mesh).fpn_hidden_states]
+
+    def check(what, got, expected):
+        delta = max(float(np.abs(g - e).max()) for g, e in zip(got, expected))
+        assert delta < 2e-5, f"{what} SAM3 vision parity max|delta|={delta}"
+        return delta
+
+    expected = fpn(params, stack, x)
+    ran = []
+    mesh = make_mesh(n, tp=tp, device=device)
+    delta = check("sharded", fpn(*sam3_shard_vision(params, stack, mesh, vp), x), expected)
+    _say(f"dryrun SAM3 tp-sharded vision parity ok: mesh={mesh_shape(mesh)} fpn_scales={len(expected)} "
          f"max|delta|={delta:.2e}")
+    ran.append(mesh_shape(mesh))
+
+    sp = 4 if n % 4 == 0 else 2 if n % 2 == 0 else 1
+    mesh = make_mesh(n, tp=2 if n % (sp * 2) == 0 else 1, sp=sp, device=device)
+    delta = check("sp-sharded", fpn(*sam3_shard_vision(params, stack, mesh, vp), x, mesh), expected)
+    _say(f"dryrun SAM3 sequence-parallel vision parity ok: mesh={mesh_shape(mesh)} fpn_scales={len(expected)} "
+         f"max|delta|={delta:.2e}")
+    ran.append(mesh_shape(mesh))
+
+    mesh = make_mesh(n, pp=2 if n % 2 == 0 else 1, tp=2 if n % 4 == 0 else 1, device=device)
+    imgs = torch.from_numpy(rng.random((3, 32, 32, 3)).astype(np.float32)).to(dev.torch_device)
+    stage_w = sam3_pipeline_weights(Params(params)["backbone"], stack, vp, mesh)
+    with torch.inference_mode():
+        got = [f.cpu().numpy() for f in encode_vision_pipelined(Params(params), imgs, vp, stage_weights=stage_w,
+                                                                mesh=mesh).fpn_hidden_states]
+    delta = check("pp-pipelined", got, fpn(params, stack, imgs))
+    _say(f"dryrun SAM3 pipeline-parallel vision parity ok: mesh={mesh_shape(mesh)} microbatches=3 "
+         f"max|delta|={delta:.2e}")
+    ran.append(mesh_shape(mesh))
+    return ran
 
 
 def train_case(dim: int = 64, heads: int = 4, layers: int = 3, grid: int = 4, seed: int = 0):

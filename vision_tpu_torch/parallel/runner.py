@@ -10,12 +10,14 @@ rank 0 calls them (its servers, directory and video loops). A call:
      input shapes and types, static flags, scatter or replicate);
   2. each input is scattered over the model's dp axis (a batch that does
      not divide by dp — a single image — is broadcast whole instead) and
-     broadcast over tp, so the ranks of a tp group hold the same shard;
+     broadcast over the axes a dp shard is replicated over (tp; SAM3's sp
+     and pp too), so the ranks of a shard's group hold the same input;
   3. every rank of the mesh runs the entry on its shard (its own CUDA
      graph per shard shape, or eagerly where tp > 1);
   4. every rank says over gloo whether its entry raised;
-  5. if none did, the tp-rank-0 outputs are gathered over dp to rank 0,
-     which waits for the gather at most the process group's timeout.
+  5. if none did, the outputs of each shard's first rank are gathered
+     over dp to rank 0, which waits for the gather at most the process
+     group's timeout.
 
 Ranks 1..N-1 block in :func:`follow` until rank 0 calls
 :func:`stop_workers`. An entry that raises (a bad input, a CUDA
@@ -23,14 +25,16 @@ out-of-memory on one rank) fails that call alone: every rank skips the
 gather, rank 0 raises the error (its own, or one naming how many ranks
 failed; they log theirs), and the world serves on. Only when the ranks
 may be out of step does the world break: a collective that fails (a rank
-died: gloo raises at once, a gather after the timeout), or a tp > 1 entry
-that raised on some ranks of the mesh and not on others (its all-reduces
-no longer pair up). The runner then refuses every later call with that
-error, so a server fails its futures and never hangs them.
+died: gloo raises at once, a gather after the timeout), or an entry whose
+shard's ranks communicate (tp, sp or pp > 1) that raised on some ranks of
+the mesh and not on others (its collectives no longer pair up). The
+runner then refuses every later call with that error, so a server fails
+its futures and never hangs them.
 """
 
 from __future__ import annotations
 
+import math
 import pickle
 import sys
 import threading
@@ -48,6 +52,10 @@ _MODELS: list[dict[str, "MeshEntry"]] = []
 _LOCK = threading.Lock()
 _BROKEN: list[BaseException] = []
 _STOP = ("stop",)
+SERVING_AXES = ("dp", "tp")
+# the axes over which a dp shard is replicated: every rank of a dp shard gets
+# the same input; each entry's own collectives run over them
+_REPLICA_AXES = ("pp", "sp", "tp")
 
 
 def world_rank() -> int:
@@ -86,20 +94,22 @@ class MeshEntry:
     axis), the outputs (a tensor or a pytree of tensors) gathered to rank 0.
     Called on rank 0 only; the other ranks run ``fn`` from :func:`follow`."""
 
-    def __init__(self, model_id: int, name: str, fn: Callable, mesh, device: torch.device):
+    def __init__(self, model_id: int, name: str, fn: Callable, mesh, device: torch.device,
+                 axes: tuple[str, ...] = SERVING_AXES):
         from .sharding import mesh_shape
 
         shape = mesh_shape(mesh)
-        if shape["pp"] > 1 or shape["sp"] > 1:
-            raise_error("serving meshes take dp and tp axes only, got {}", shape)
+        if any(n > 1 for ax, n in shape.items() if ax not in axes):
+            raise_error("serving meshes take {} axes only, got {}", " and ".join(axes), shape)
         self.model_id, self.name, self.fn, self.mesh, self.device = model_id, name, fn, mesh, device
-        self.dp, self.tp = shape["dp"], shape["tp"]
+        self.shape, self.dp = shape, shape["dp"]
         self.in_mesh = mesh.get_coordinate() is not None
         if self.in_mesh:
-            self.dp_group, self.tp_group = mesh.get_group("dp"), mesh.get_group("tp")
-            self.dp_root = dist.get_global_rank(self.dp_group, 0)
-            self.tp_root = dist.get_global_rank(self.tp_group, 0)
-            self.tp_index = mesh.get_local_rank("tp")
+            self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+            self.groups = {ax: mesh.get_group(ax) for ax in ("dp", *_REPLICA_AXES)}
+            self.roots = {ax: dist.get_global_rank(g, 0) for ax, g in self.groups.items()}
+            # the rank of its dp shard that scatters and gathers over dp
+            self.lead = all(self.coord[ax] == 0 for ax in _REPLICA_AXES)
         _MODELS[model_id][name] = self
 
     def __call__(self, *tensors: torch.Tensor, **static):
@@ -142,9 +152,10 @@ class MeshEntry:
         failed = int(failed)
         if not failed:
             return (self._collect(out, scatter) if self.in_mesh else None), None
-        if self.tp > 1 and failed < self.dp * self.tp:
-            raise VispError(f"mesh: {self.name} raised on {failed} of {self.dp * self.tp} ranks of a tensor-parallel "
-                            f"mesh; their all-reduces no longer pair up")
+        size = math.prod(self.shape.values())
+        if size > self.dp and failed < size:
+            raise VispError(f"mesh: {self.name} raised on {failed} of {size} ranks of a mesh whose shards "
+                            f"communicate; their collectives no longer pair up")
         if err is None and not is_worker():
             err = VispError(f"mesh: {self.name} raised on {failed} rank(s); their logs say why")
         return None, err
@@ -152,29 +163,33 @@ class MeshEntry:
     def _distribute(self, t: torch.Tensor, scatter: bool) -> torch.Tensor:
         if scatter:
             shard = torch.empty((t.shape[0] // self.dp, *t.shape[1:]), dtype=t.dtype, device=self.device)
-            if self.tp_index == 0:
-                parts = list(t.contiguous().chunk(self.dp)) if world_rank() == self.dp_root else None
-                dist.scatter(shard, parts, src=self.dp_root, group=self.dp_group)
+            if self.lead:
+                parts = list(t.contiguous().chunk(self.dp)) if world_rank() == self.roots["dp"] else None
+                dist.scatter(shard, parts, src=self.roots["dp"], group=self.groups["dp"])
         else:
             shard = t
-            if self.tp_index == 0:
-                dist.broadcast(shard, src=self.dp_root, group=self.dp_group)
-        if self.tp > 1:
-            dist.broadcast(shard, src=self.tp_root, group=self.tp_group)
+            if self.lead:
+                dist.broadcast(shard, src=self.roots["dp"], group=self.groups["dp"])
+        # the shard to every replica of it, outermost axis first: each
+        # broadcast among the ranks that hold it already and those of the
+        # axis that do not
+        for i, ax in enumerate(_REPLICA_AXES):
+            if self.shape[ax] > 1 and all(self.coord[a] == 0 for a in _REPLICA_AXES[i + 1:]):
+                dist.broadcast(shard, src=self.roots[ax], group=self.groups[ax])
         return shard
 
     def _collect(self, out, scatter: bool):
-        if not scatter or self.tp_index != 0:
+        if not scatter or not self.lead:
             return out
         from .sharding import _timeout
 
         leaves, spec = tree_flatten(out)
-        root = world_rank() == self.dp_root
+        root = world_rank() == self.roots["dp"]
         gathered, works = [], []
         for leaf in leaves:
             leaf = leaf.contiguous()
             parts = [torch.empty_like(leaf) for _ in range(self.dp)] if root else None
-            works.append(dist.gather(leaf, parts, dst=self.dp_root, group=self.dp_group, async_op=True))
+            works.append(dist.gather(leaf, parts, dst=self.roots["dp"], group=self.groups["dp"], async_op=True))
             gathered.append(parts)
         if not root:
             return None
@@ -183,14 +198,15 @@ class MeshEntry:
         return tree_unflatten([torch.cat(parts, 0) for parts in gathered], spec)
 
 
-def mesh_entries(model, mesh, **fns: Callable) -> dict[str, Callable]:
+def mesh_entries(model, mesh, axes: tuple[str, ...] = SERVING_AXES, **fns: Callable) -> dict[str, Callable]:
     """A model's entry points: ``fns`` (name -> local function) as they are
     without a mesh, else each as a :class:`MeshEntry` of one new model id on
-    the model's device."""
+    the model's device, taking a mesh of ``axes`` (SAM3 takes sp and pp
+    too)."""
     if mesh is None:
         return fns
     model_id = register_model()
-    return {name: MeshEntry(model_id, name, fn, mesh, model.device.torch_device) for name, fn in fns.items()}
+    return {name: MeshEntry(model_id, name, fn, mesh, model.device.torch_device, axes) for name, fn in fns.items()}
 
 
 def follow() -> None:
