@@ -12,8 +12,9 @@ Phases, each raising on failure:
      build seconds and ptxas's registers and spills for every instance;
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes and at edge shapes: flash attention at the token counts
-     the Depth-Anything requests reach (depth_tokens of DEPTH_EXTENTS), D 32
-     and 128, cross attention, Tq and Tk one past a key tile, and f32 cases;
+     the Depth-Anything requests reach (depth_tokens of DEPTH_EXTENTS) and
+     the vision-bench Depth-Anything rows (BENCH_DEPTH_T, 6 and 12 heads), D
+     32 and 128, cross attention, Tq and Tk one past a key tile, and f32 cases;
      the window kernel at TinyViT's three stages (bf16 and f32 biases), one
      T > 200 case that reads its mask and bias from L2, and f32 cases; and
      the window kernel's launch plan, the library's against window_plan's,
@@ -377,10 +378,26 @@ Phases, each raising on failure:
      over 2 images (from stage weights and from the stack) against the
      window-major trunk, and the dry run's SAM3 tp / sp / pp checks at
      world 1.
+ 48. vision-bench (benchmark.py, bench_phase), after phase 47's models are
+     freed: run_benchmark over its eleven rows in process, each row's step
+     (the family's full-width forward on random weights of seed 0, summed)
+     run eagerly once, captured into a CUDA graph and timed as BENCH_REPEATS
+     runs of BENCH_K replays between CUDA events; the table beside the card's
+     name and power limit; each row's mean and stdev finite, the mean above
+     0, GFLOP above 0, MFU at most 1, one replay bit-equal to the eager step
+     and the capture's hand-written launches equal to BENCH_KERNELS; the
+     forwards of the rows whose kernels no served path runs at their shapes
+     (BENCH_PARITY: SWIN-T BiRefNet in f32 and bf16, Depth-Anything-Small
+     and -Base at 518x714 in bf16) on the card against the CPU's f32, each
+     within its bound and with its row's launches (phase 3 also holds the
+     flash kernel at those two rows' shapes against its plain version); and
+     ``python -m vision_tpu_torch.cli bench --bench-args yolov9t-640
+     --json`` as a subprocess, its JSON line parsed.
 
 The line before the last is a JSON object describing every kernel of the
-paths (its vtt ops, its launches a training step, meshed and not, and in
-each exported call); the last line is {"ok": true, "device": {...}}.
+paths (its vtt ops, its launches a training step, meshed and not, in each
+exported call and in each vision-bench row); the last line is {"ok": true,
+"device": {...}}.
 
     python3 chip_smoke.py --parent DIR
 
@@ -441,6 +458,7 @@ SWIN_L_STAGES = ((256, 6), (128, 12), (64, 24), (32, 48))
 # the Depth-Anything requests' extents (w, h): 518x518 and 700x500, which
 # depthany_image_extent snaps to 728x518
 DEPTH_EXTENTS = ((518, 518), (700, 500))
+BENCH_DEPTH_T = 1 + (518 // 14) * (714 // 14)  # the vision-bench Depth-Anything rows' tokens at 518x714 (1888)
 # SAM3 (phases 18-21): the repo's configuration (random_sam3_vision_params'
 # defaults, Sam3VitParams) at 1008 px, 4 global layers of 5184 tokens at head
 # dim 80; the text encoder the smoke makes (sam3_text_params); requests at
@@ -576,6 +594,9 @@ def kernel_cases(fa, torch) -> float:
         # (label, B, H, Tq, Tk, D, dtype)
         ("served 518x518", 4, 6, t_sq, t_sq, 64, bf16),
         ("served 700x500 (518x728)", 4, 6, t_wide, t_wide, 64, bf16),
+        # the vision-bench rows' 518x714 input (phase 48): Depth-Anything-V2-Small's and -Base's heads
+        ("vision-bench depthany-small", 1, 6, BENCH_DEPTH_T, BENCH_DEPTH_T, 64, bf16),
+        ("vision-bench depthany-base", 1, 12, BENCH_DEPTH_T, BENCH_DEPTH_T, 64, bf16),
         ("D=32 bf16", 2, 4, 700, 700, 32, bf16),
         ("D=128 bf16", 2, 4, 700, 700, 128, bf16),
         ("cross Tq 7, Tk 150 bf16", 1, 2, 7, 150, 64, bf16),
@@ -6061,6 +6082,160 @@ def sam3_scan_phase(torch, card: str, s3: dict, tmp: str) -> dict:
             "mesh_sp1_launches": mesh_n, "stack_mib": m}
 
 
+
+# phase 48, vision-bench (vision_tpu_torch/benchmark.py): each row's
+# hand-written launches a step, under the benchmark's names (the window
+# kernel's masked launches as "window_attention masked")
+BENCH_KERNELS = {
+    "sam-encode-1024": {"window_attention": 10},  # TinyViT's windowed blocks, as phase 7 counts a batch
+    "sam-decode": {},
+    "esrgan-512": {"conv3x3": ESRGAN_CONVS},
+    "esrgan-1024": {"conv3x3": ESRGAN_CONVS},
+    "depthany-small": {"flash_attention": 12},
+    "depthany-base": {"flash_attention": 12},
+    "migan-512": {},
+    "yolov9t-640": {"conv3x3": YOLO_CONVS},
+    # SWIN-T's 12 blocks at both scales, the shifted half masked
+    "birefnet-1024": {"window_attention": 24, "window_attention masked": 12, "deform_conv": BIREF_DEFORMS},
+    "birefnet-full-1024": {"window_attention": BIREF_WINDOWS, "window_attention masked": BIREF_MASKED,
+                           "deform_conv": BIREF_DEFORMS},
+    "sam3-vision-1008": {"flash_attention": 4},  # the four global layers
+}
+BENCH_K, BENCH_REPEATS = 8, 3  # graph replays a timed repeat, repeats a row
+# the rows whose kernels run at shapes no served path gives them, each
+# row's forward on the card in these dtypes against the CPU's f32 forward,
+# within these relative-RMS bounds: SWIN-T BiRefNet (the window and fused
+# deformable conv kernels at SWIN-T's widths; f32 the FMA kernels, bf16 the
+# rows' own) and Depth-Anything at 518x714 (flash at T 1888, 6 and 12 heads)
+BENCH_PARITY = {
+    "birefnet-1024": (("float32", BIREF_F32_REL_RMS), ("bfloat16", E2E_REL_RMS)),
+    "depthany-small": (("bfloat16", E2E_REL_RMS),),
+    "depthany-base": (("bfloat16", E2E_REL_RMS),),
+}
+BENCH_CLI_ROW = "yolov9t-640"  # the row the bench verb runs as a subprocess
+
+
+def bench_launches(row: dict) -> dict:
+    """A row's capture tally without the kernels it launched no time."""
+    return {k: n for k, n in row["launches"].items() if n}
+
+
+def bench_counts() -> dict:
+    """kernel_counts() since the last zero_counts() under the benchmark's
+    kernel names (the window kernel's masked launches as "window_attention
+    masked"), without the kernels launched no time."""
+    from vision_tpu_torch.ops.cuda import window_attention
+
+    names = {"flash": "flash_attention", "window": "window_attention"}
+    got = {names.get(k, k): n for k, n in kernel_counts().items()}
+    got["window_attention masked"] = window_attention.masked_launches
+    return {k: n for k, n in got.items() if n}
+
+
+def bench_rows(rows: list, kernel: str) -> dict:
+    """row -> ``kernel``'s launches in one vision-bench step (phase 48's
+    rows), for the kernels line; raises unless that is every row and count
+    BENCH_KERNELS gives the kernel."""
+    got = {r["name"]: r["launches"][kernel] for r in rows if r["launches"].get(kernel)}
+    want = {name: n[kernel] for name, n in BENCH_KERNELS.items() if kernel in n}
+    if got != want:
+        raise AssertionError(f"{kernel}'s vision-bench launches {got}, expected {want}")
+    return got
+
+
+def bench_forward(torch, name: str, device: str, dtype):
+    """BENCHMARKS[name]'s forward (the step before its sum) once on
+    ``device`` in ``dtype``: its output in f32 on the host, the
+    hand-written launches it made (bench_counts) and its seconds."""
+    from vision_tpu_torch.benchmark import BENCHMARKS
+    from vision_tpu_torch.core.device import backend_init
+
+    step, params, x = BENCHMARKS[name](backend_init(device), dtype)
+    zero_counts()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        out = step.forward(params, x)
+        if device == "gpu":
+            torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+    return out.float().cpu().numpy(), bench_counts(), s
+
+
+def bench_parity(torch, card: str) -> dict:
+    """Phase 48's parity: each BENCH_PARITY row's forward on the card in
+    each of its dtypes (kernel routes, TF32 off) against the same forward in
+    f32 on the CPU (plain routes), within its bound and with the row's
+    BENCH_KERNELS launches. Returns "<row> <dtype>" -> relative RMS."""
+    parity = {}
+    for name, forms in BENCH_PARITY.items():
+        cpu_out, _, cpu_s = bench_forward(torch, name, "cpu", torch.float32)
+        for dtype_name, bound in forms:
+            out, got, _ = bench_forward(torch, name, "gpu", getattr(torch, dtype_name))
+            finite = bool(np.isfinite(out).all())
+            rms = rel_rms(out, cpu_out)
+            parity[f"{name} {dtype_name}"] = rms
+            ok = finite and out.shape == cpu_out.shape and got == BENCH_KERNELS[name] and rms <= bound
+            print(f"{name} forward {dtype_name} on the card (kernel routes, TF32 off, launches {got}) vs the CPU's "
+                  f"f32 (plain routes, {cpu_s:.1f} s): relative RMS {rms:.4e} (bound {bound}); shape {out.shape}, "
+                  f"range [{float(out.min()):.4f}, {float(out.max()):.4f}]: {'ok' if ok else 'FAIL'} [{card}]",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"{name} {dtype_name} parity: relative RMS {rms}, launches {got}, finite "
+                                     f"{finite}, shape {out.shape} vs {cpu_out.shape}")
+            del out
+            gc.collect()
+            torch.cuda.empty_cache()
+    return parity
+
+
+def bench_phase(torch, card: str) -> dict:
+    """Phase 48: vision-bench (run_benchmark) over its eleven rows on the
+    card, in process: the table, each row's mean and stdev finite and the
+    mean above 0, GFLOP above 0, MFU at most 1, the capture's hand-written
+    launches equal to BENCH_KERNELS (run_benchmark itself raises where a
+    step does not capture or a replay is not bit-equal to the eager step;
+    this checks the values it returns too); then each BENCH_PARITY row's
+    forward on the card in each of its dtypes (kernel routes, TF32 off)
+    against the same forward in f32 on the CPU (plain routes) within its
+    bound, with BENCH_KERNELS' launches; and the bench verb as a subprocess
+    over BENCH_CLI_ROW, its JSON line."""
+    from vision_tpu_torch.benchmark import BENCHMARKS, print_rows, run_benchmark
+
+    phase(f"48 vision-bench: the {len(BENCHMARKS)} rows as CUDA-graph replays timed by CUDA events, TF/s and MFU; "
+          f"{', '.join(BENCH_PARITY)} on the card vs the CPU's f32; the bench verb")
+    t_start = time.perf_counter()
+    print(card, flush=True)
+    rows = run_benchmark(k=BENCH_K, repeats=BENCH_REPEATS)
+    print_rows(rows)
+    bad = []
+    for r in rows:
+        print(f"{r['name']}: mean {r['mean_ms']:.4f} ms, stdev {r['stdev_ms']:.4f} ms over {BENCH_REPEATS} repeats "
+              f"of {r['k']} replays, {r['gflop']:.3f} GFLOP, {r['tf_per_sec']:.2f} TF/s, MFU "
+              f"{'unknown card' if r['mfu'] is None else format(r['mfu'], '.4%')}, launches {bench_launches(r)}, "
+              f"step value {r['value']!r} (eager and replay alike) [{card}]", flush=True)
+        ok = (np.isfinite(r["mean_ms"]) and np.isfinite(r["stdev_ms"]) and r["mean_ms"] > 0 and r["gflop"] > 0
+              and np.isfinite(r["value"]) and bench_launches(r) == BENCH_KERNELS[r["name"]])
+        if not ok:
+            bad.append(r["name"])
+        if r["mfu"] is not None and r["mfu"] > 1.0:
+            raise AssertionError(f"{r['name']}: MFU {r['mfu']} above 1 ({r['gflop']} GFLOP in {r['mean_ms']} ms)")
+    if [r["name"] for r in rows] != list(BENCHMARKS) or bad:
+        raise AssertionError(f"vision-bench rows {[r['name'] for r in rows]}; failing {bad}")
+    t_rows = time.perf_counter() - t_start
+
+    parity = bench_parity(torch, card)
+
+    wall_s, out = cli_run(["bench", "--bench-args", BENCH_CLI_ROW, "--json"], f"bench {BENCH_CLI_ROW}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    print(f"python -m vision_tpu_torch.cli bench --bench-args {BENCH_CLI_ROW} --json: {rec} ({wall_s:.1f} s, "
+          f"interpreter start and row included) [{card}]", flush=True)
+    if not (rec["metric"] == BENCH_CLI_ROW and rec["unit"] == "ms/iter" and rec["value"] > 0 and rec["gflop"] > 0
+            and 0 < rec.get("mfu", 0) <= 1.0):
+        raise AssertionError(f"bench verb's JSON line: {rec}")
+    print(f"phase 48: {time.perf_counter() - t_start:.1f} s (the rows {t_rows:.1f} s) [{card}]", flush=True)
+    return {"rows": rows, "parity_rel_rms": parity, "cli": rec}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6618,6 +6793,7 @@ def main(argv=None) -> int:
         del s3_models
     gc.collect()
     torch.cuda.empty_cache()
+    bench = bench_phase(torch, card)
 
     # one RDB's five convs at 1024x1024 as the path runs them, summed
     rdb = conv_rows[: len(ESRGAN_RDB)]
@@ -6659,6 +6835,7 @@ def main(argv=None) -> int:
             "source": "vision_tpu_torch/csrc/flash_attention.cu",
             "replaces": "vision_tpu/ops/pallas/flash_attention.py:26",
             "launches": main_launches,
+            "launches_bench": bench_rows(bench["rows"], "flash_attention"),
             "max_abs_err": max(worst, s3["worst"]),
             "ms": k_ms,
             "plain_ms": p_ms,
@@ -6693,6 +6870,8 @@ def main(argv=None) -> int:
             "source": "vision_tpu_torch/csrc/window_attention.cu",
             "replaces": "scripts/exp_winattn2.py:19",
             "launches": sam_win_launches,
+            "launches_bench": bench_rows(bench["rows"], "window_attention"),
+            "launches_bench_masked": bench_rows(bench["rows"], "window_attention masked"),
             "max_abs_err": win_worst,
             "ms": w_ms,
             "plain_ms": w_plain_ms,
@@ -6722,6 +6901,7 @@ def main(argv=None) -> int:
             "source": "vision_tpu_torch/csrc/conv3x3.cu",
             "replaces": "scripts/exp_pallas_conv.py:36",
             "launches": esr_conv_launches,
+            "launches_bench": bench_rows(bench["rows"], "conv3x3"),
             "max_abs_err": max(conv_worst, ym["worst"]),
             "ms": sum(r[4] for r in rdb),
             "plain_ms": sum(r[6] for r in rdb),
@@ -6760,6 +6940,7 @@ def main(argv=None) -> int:
             "source": "vision_tpu_torch/csrc/deform_conv.cu",
             "replaces": "scripts/exp_deform_pallas.py:56",
             "launches": bir_launches["deform_conv"],
+            "launches_bench": bench_rows(bench["rows"], "deform_conv"),
             "max_abs_err": dconv_worst,
             "ms": d_sum["fused"],
             "plain_ms": d_sum["plain"],
@@ -6793,6 +6974,7 @@ def main(argv=None) -> int:
             "source": "vision_tpu_torch/csrc/deform_sample.cu",
             "replaces": "scripts/exp_deform_pallas.py:56",
             "launches": bir_launches["deform_sample"],
+            "launches_bench": bench_rows(bench["rows"], "deform_sample"),
             "max_abs_err": deform_worst,
             "ms": d_sum["sampler"],
             "plain_ms": d_sum["sampler_plain"],
@@ -6814,6 +6996,7 @@ def main(argv=None) -> int:
             # no Pallas kernel: the JAX package's QuantResident.dequant, which XLA fuses into the consumer
             "replaces": "vision_tpu/core/quant.py:93",
             "launches": quant["served"]["launches"],
+            "launches_bench": bench_rows(bench["rows"], "dequant"),
             "max_abs_err": dq_worst,
             "ms": quant["ms"],
             "plain_ms": quant["plain_ms"],

@@ -110,12 +110,13 @@ def test_match_detections(chip_smoke):
 def test_the_phase_list_runs_to_32(chip_smoke):
     doc = chip_smoke.__doc__
     numbers = [int(ln.split(".")[0]) for ln in doc.splitlines() if ln[:4].strip().rstrip(".").isdigit()]
-    assert numbers == list(range(1, 48))
+    assert numbers == list(range(1, 49))
     for name in ("http_phase", "bulk_phase", "verbs_phase", "serve_verb", "dequant_cases", "residency_phase",
                  "quantize_verb_phase", "grad_cases", "train_harness", "recipe_run", "training_phases", "ops_phase",
                  "export_phase", "capi_phase", "flops_phase", "tooling_phases", "mesh_one_rank", "mesh_dp1_cli",
                  "mesh_shard_kernels", "mesh_more_ranks", "mesh_phases", "cli_main", "train_mesh_recipe",
-                 "train_mesh_phase", "sam3_stack", "sam3_spatial_twin", "kernel_counts", "sam3_scan_phase"):
+                 "train_mesh_phase", "sam3_stack", "sam3_spatial_twin", "kernel_counts", "sam3_scan_phase",
+                 "bench_launches", "bench_counts", "bench_rows", "bench_forward", "bench_parity", "bench_phase"):
         assert callable(getattr(chip_smoke, name))
 
 
@@ -143,6 +144,114 @@ def test_the_kernels_line_names_every_vtt_op(chip_smoke):
     named = [op for ops in chip_smoke.KERNEL_OPS.values() for op in ops]
     assert sorted(named) == sorted(f"vtt::{op}" for op in library.OPS)
     assert set(chip_smoke.EXPORT_CASES) == {"depthany", "sam", "birefnet", "esrgan", "migan", "yolov9t", "sam3"}
+    # the vision-bench rows' launches (phase 48) are read under the benchmark's kernel names, which are the line's
+    benched = {k.removesuffix(" masked") for row in chip_smoke.BENCH_KERNELS.values() for k in row}
+    assert benched == {"flash_attention", "window_attention", "conv3x3", "deform_conv"} <= set(chip_smoke.KERNEL_OPS)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "window_attention", "window_attention masked", "conv3x3",
+                                    "deform_conv", "deform_sample", "dequant"])
+def test_bench_rows_holds_every_row_of_its_kernel(chip_smoke, kernel):
+    """The kernels line's launches_bench: each row that BENCH_KERNELS gives
+    the kernel, with its count; a row missing or miscounted raises."""
+    rows = [{"name": name, "launches": {**dict.fromkeys(chip_smoke.KERNEL_OPS, 0), **n}}
+            for name, n in chip_smoke.BENCH_KERNELS.items()]
+    want = {name: n[kernel] for name, n in chip_smoke.BENCH_KERNELS.items() if kernel in n}
+    assert chip_smoke.bench_rows(rows, kernel) == want
+    if want:
+        name = next(iter(want))
+        with pytest.raises(AssertionError, match="vision-bench launches"):
+            chip_smoke.bench_rows([r for r in rows if r["name"] != name], kernel)
+        rows[list(chip_smoke.BENCH_KERNELS).index(name)]["launches"][kernel] += 1
+        with pytest.raises(AssertionError, match="vision-bench launches"):
+            chip_smoke.bench_rows(rows, kernel)
+
+
+def test_bench_counts_names_the_kernels_as_the_benchmark_does(chip_smoke):
+    """bench_counts: kernel_counts under the benchmark's names, the masked
+    window launches apart, kernels launched no time left out."""
+    from vision_tpu_torch.ops.cuda import flash_attention, window_attention
+
+    chip_smoke.zero_counts()
+    assert chip_smoke.bench_counts() == {}
+    flash_attention.launches, window_attention.launches, window_attention.masked_launches = 12, 24, 12
+    try:
+        assert chip_smoke.bench_counts() == {"flash_attention": 12, "window_attention": 24,
+                                             "window_attention masked": 12}
+    finally:
+        chip_smoke.zero_counts()
+
+
+def test_bench_parity_rows_are_the_new_shapes(chip_smoke):
+    """Phase 48 holds the rows whose kernels no served path runs at their
+    shapes against the CPU: SWIN-T BiRefNet and Depth-Anything at 518x714,
+    whose token count phase 3's flash cases take."""
+    import torch
+
+    from vision_tpu_torch.models.depth_anything import DepthAnythingParams
+
+    assert set(chip_smoke.BENCH_PARITY) == {"birefnet-1024", "depthany-small", "depthany-base"}
+    for forms in chip_smoke.BENCH_PARITY.values():
+        assert "bfloat16" in {d for d, _ in forms}
+        assert all(isinstance(getattr(torch, d), torch.dtype) and 0 < b <= chip_smoke.E2E_REL_RMS for d, b in forms)
+    patch = DepthAnythingParams().dino.patch_size
+    assert chip_smoke.BENCH_DEPTH_T == 1 + (518 // patch) * (714 // patch) == 1888
+
+
+def _vtt_launches(step, params, x) -> dict:
+    """What a step launches on the card, counted on the CPU: its vtt
+    operator calls (one a wrapper's launch) on fake tensors, under the
+    benchmark's kernel names (the window kernel's calls with a window mask
+    also as "window_attention masked")."""
+    from collections import Counter
+
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils import _pytree as pytree
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    calls = Counter()
+
+    class Calls(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            name = func.overloadpacket._qualified_op_name
+            if name.startswith("vtt::"):
+                kernel = name.removeprefix("vtt::").removesuffix("_out")
+                calls[kernel] += 1
+                if kernel == "window_attention" and (args[6] if len(args) > 6 else kwargs.get("window_mask")) is not None:
+                    calls["window_attention masked"] += 1
+            return func(*args, **kwargs)
+
+    with FakeTensorMode(allow_non_fake_inputs=True) as fake:
+        params, x = pytree.tree_map_only(torch.Tensor, fake.from_tensor, (params, x))
+        with torch.no_grad(), Calls():
+            step(params, x)
+    return dict(calls)
+
+
+@pytest.mark.parametrize("name", ["sam-encode-1024", "sam-decode", "esrgan-512", "depthany-small", "depthany-base",
+                                  "migan-512", "yolov9t-640", "birefnet-1024"])
+def test_bench_kernels_are_what_a_rows_step_launches(chip_smoke, name):
+    """Phase 48's launches per row: each of these rows' steps at its full
+    width, counted on the CPU (fake tensors); the rows whose random weights
+    are large (SWIN-L BiRefNet, SAM3's ViT-H) and ESRGAN at 1024^2 (the
+    512^2 row's forward) by the per-forward constants the other phases
+    hold."""
+    import torch
+
+    from vision_tpu_torch.benchmark import BENCHMARKS
+    from vision_tpu_torch.core.device import backend_init
+    from vision_tpu_torch.models.sam3 import Sam3VitParams
+
+    assert list(chip_smoke.BENCH_KERNELS) == list(BENCHMARKS)
+    step, params, x = BENCHMARKS[name](backend_init("cpu"), torch.float32)
+    assert _vtt_launches(step, params, x) == chip_smoke.BENCH_KERNELS[name]
+    kernels = chip_smoke.BENCH_KERNELS
+    assert kernels["esrgan-1024"] == kernels["esrgan-512"] == {"conv3x3": chip_smoke.ESRGAN_CONVS}
+    assert kernels["birefnet-full-1024"] == {"window_attention": chip_smoke.BIREF_WINDOWS, "window_attention masked":
+                                             chip_smoke.BIREF_MASKED, "deform_conv": chip_smoke.BIREF_DEFORMS}
+    assert kernels["sam3-vision-1008"] == {"flash_attention": len(Sam3VitParams().global_attn_indexes)}
 
 
 def test_the_bundle_loader_imports_no_model_module(chip_smoke):

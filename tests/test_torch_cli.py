@@ -4,9 +4,11 @@ of the JAX CLI's, on at most 0.1% of the values; yolov9t's detections
 printed alike; ``info`` and ``compare`` printing the same lines; ``export``
 writing the bundle the JAX CLI writes the entries of; ``--dump`` writing the
 JAX CLI's files within ``compare_dumps``' bounds; ``--profile`` writing a
-trace that names the ``vtt`` operators; and the CLI's own rules (no CPU
-fallback, arity, unknown verbs)."""
+trace that names the ``vtt`` operators; ``bench`` handing its arguments to
+the benchmark; and the CLI's own rules (no CPU fallback, arity, unknown
+verbs)."""
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -129,11 +131,45 @@ def test_input_rules(data, tmp_path, capsys):
     # finetune and distill are verbs (tests/test_torch_finetune.py) that need their models
     assert "Model file not found: RealESRGAN-x4.gguf" in _run(tcli, ["finetune", "-i", "x"], capsys)[2]
     assert _run(tcli, ["distill", "-i", "x"], capsys)[2] == "Error: No model specified (-m)\n"
-    # export is a verb (tests/test_torch_export.py) that needs -m; bench waits for the benchmark
+    # export is a verb (tests/test_torch_export.py) that needs -m; bench is a verb
+    # (test_bench_verb_forwards_its_arguments) whose rows are the benchmark's
     assert _run(tcli, ["export"], capsys)[2] == "Error: No model specified (-m)\n"
     with pytest.raises(SystemExit):
-        tcli.main(["bench", "-i", "x"])
+        tcli.main(["bench", "--bench-args", "no-such-model"])
     capsys.readouterr()
+
+
+def test_bench_verb_forwards_its_arguments(monkeypatch, capsys):
+    """bench needs no -i, and hands --bench-args, with -b as --backend, to
+    benchmark.main, which prints the JAX package's table or JSON lines."""
+    import vision_tpu_torch.benchmark as tb
+
+    calls = []
+
+    def run_benchmark(names=None, k=8, repeats=3, device=None):
+        calls.append((names, k, repeats, device))
+        tf, mfu = tb.workload_mfu(6.04, 1.763, "cpu")
+        return [{"name": "sam-decode", "mean_ms": 1.763, "stdev_ms": 0.001, "k": k, "gflop": 6.04,
+                 "tf_per_sec": tf, "mfu": mfu}]
+
+    monkeypatch.setattr(tb, "run_benchmark", run_benchmark)
+    rc, out, err = _run(tcli, ["bench", "-b", "cpu", "--bench-args", "sam-decode", "--k", "2", "--repeats", "4"],
+                        capsys)
+    assert rc == 0 and calls[-1] == (["sam-decode"], 2, 4, "cpu"), err
+    lines = out.splitlines()
+    assert lines[0] == "host ms/iter, eager calls on the CPU timed by time.perf_counter"
+    assert lines[1].startswith("| benchmark") and lines[3].startswith("| sam-decode") and "1.8ms" in lines[3]
+    rc, out, _ = _run(tcli, ["bench", "--bench-args", "--json"], capsys)  # no -b: the card, every row
+    assert rc == 0 and calls[-1] == (None, 8, 3, None)
+    assert json.loads(out) == {"metric": "sam-decode", "value": 1.763, "unit": "ms/iter", "stdev": 0.001, "k": 8,
+                               "gflop": 6.0, "tf_per_sec": 3.43}
+
+
+def test_the_benchmark_module_entry_point_runs():
+    res = subprocess.run([sys.executable, "-m", "vision_tpu_torch.benchmark", "--help"],
+                         cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.startswith("usage: vision-bench"), res.stderr
+    assert all(name in res.stdout for name in ("sam-encode-1024", "birefnet-full-1024", "sam3-vision-1008"))
 
 
 def test_the_module_entry_point_runs(data):

@@ -133,3 +133,19 @@ def test_load_converted_gguf(tmp_path, layout, float_type):
     for name in want:
         np.testing.assert_array_equal(got[name], np.asarray(want[name]), err_msg=name)
     assert da.depthany_detect_params(pf).dino == dino.DinoParams(14, 32, 4, 4)
+
+
+@pytest.mark.parametrize("extent", [(518, 518), (700, 500)], ids=["snapped", "resized"])
+def test_depthany_process_input(extent):
+    """The host-side f32 prep (resize to the snapped extent, ImageNet
+    normalize) against the JAX package's, on the same RGBA pixels."""
+    from vision_tpu.image import Image as JImage
+    from vision_tpu.image import ImageFormat as JFormat
+    from vision_tpu_torch.image import Image, ImageFormat
+
+    w, h = extent
+    px = np.random.default_rng(7).integers(0, 256, (h, w, 4), np.uint8)
+    got = da.depthany_process_input(Image(px, ImageFormat.rgba_u8), da.DepthAnythingParams())
+    want = jda.depthany_process_input(JImage(px, JFormat.rgba_u8), jda.DepthAnythingParams())
+    assert got.dtype == np.float32 and got.shape == want.shape == (518, 518 if w == h else 728, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

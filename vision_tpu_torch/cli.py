@@ -2,7 +2,7 @@
 port serves:
 
     python -m vision_tpu_torch.cli <sam|birefnet|depthany|migan|esrgan|yolov9t|serve|quantize|info|compare|eval|
-                                    finetune|distill|export> [options]
+                                    finetune|distill|export|bench> [options]
 
 with the reference's options (-i/-o/-m/-p, --composite, --tile, --conf,
 --iou), the model search paths (./models, $VISION_MODEL_DIR, XDG data dirs —
@@ -34,7 +34,8 @@ the CLI starts ranks 1..N-1 itself (``torch.multiprocessing``, spawn). Rank
 0 serves, the others follow. ``finetune --dp N`` and ``distill --dp N``
 train over the same ranks: every rank runs the recipe on its dp rows of
 each batch (finetune.py, train.py), rank 0 writes the output; ``--batch``
-must divide by N. The JAX CLI's ``bench`` verb waits for the benchmark.
+must divide by N. ``bench`` runs the vision-bench rows (benchmark.py) with
+``--bench-args`` and ``-b`` as its ``--backend``; it needs no -i.
 """
 
 from __future__ import annotations
@@ -68,6 +69,8 @@ USAGE_COMMANDS = {
                 "--masks DIR)",
     "distill": "distill a depth-anything teacher .gguf (-m) into a smaller --student on unlabeled images",
     "export": "export -m's programs as a deployment bundle (torch.export; load with export.load_bundle)",
+    "bench": "vision-bench: each family's full-width forward timed as CUDA-graph replays, with TF/s and MFU "
+             "(--bench-args)",
 }
 
 # reference per-command default model files (cli.cpp:395-567,
@@ -821,9 +824,12 @@ def main(argv=None) -> int:
                         "serves; under torchrun its world, else the CLI starts ranks 1..N-1); finetune / distill: "
                         "train over N ranks, each on its rows of every batch (rank 0 writes -o); --batch must "
                         "divide by N")
+    parser.add_argument("--bench-args", nargs=argparse.REMAINDER, default=[],
+                        help="bench: arguments forwarded to vision_tpu_torch.benchmark (e.g. --bench-args "
+                        "sam-encode-1024 --k 8 --json); -b is forwarded as its --backend")
     args = parser.parse_args(argv)
     args._argv = list(sys.argv[1:] if argv is None else argv)
-    if args.input is None and args.command not in ("serve", "quantize", "info", "export"):
+    if args.input is None and args.command not in ("serve", "quantize", "info", "export", "bench"):
         parser.error("-i/--input is required")
     if args.output is None and args.command in ("finetune", "distill"):
         args.output = {"finetune": "finetuned.gguf", "distill": "distilled.gguf"}[args.command]
@@ -866,6 +872,12 @@ def main(argv=None) -> int:
             _train(args)
         elif args.command == "export":
             _export(args)
+        elif args.command == "bench":
+            # the reference ships vision-bench as its own tool (tests/benchmark.cpp);
+            # here it is the benchmark module behind a verb
+            from .benchmark import main as bench_main
+
+            return bench_main(args.bench_args + (["--backend", args.backend] if args.backend else []))
         else:
             _run_model(args)
     except VispError as e:

@@ -35,6 +35,7 @@ from ..image import (
     ImageFormat,
     image_normalize,
     image_scale,
+    image_u8_to_f32,
     preprocess_scale_method,
 )
 from ..ops import IMAGENET_MEAN, IMAGENET_STD, conv_2d, conv_transpose_2d, normalize_u8, relu, resize_nhwc
@@ -45,6 +46,7 @@ __all__ = [
     "depthany_detect_params",
     "depthany_image_extent",
     "depthany_predict",
+    "depthany_process_input",
     "depthany_process_output",
     "DepthAnythingModel",
     "depthany_load_model",
@@ -225,6 +227,19 @@ class DepthAnythingModel:
         img = image if image.extent == extent else image_scale(image, extent, preprocess_scale_method())
         y = self.forward_u8(torch.from_numpy(img.to_rgb_u8()[None]))
         return depthany_process_output(y[0].float().cpu().numpy(), image.extent)
+
+
+def depthany_process_input(image: Image, p: DepthAnythingParams) -> np.ndarray:
+    """Resize to the snapped extent + ImageNet normalize, host-side f32
+    (reference depthany_process_input, depth-anything.cpp:130-140): (H, W,
+    3). :class:`DepthAnythingModel` normalizes on the device instead
+    (``forward_u8``)."""
+    extent = depthany_image_extent(image.extent, p)
+    if image.extent != extent:
+        image = image_scale(image, extent, preprocess_scale_method())
+    out = image_u8_to_f32(image, ImageFormat.rgb_f32, offset=tuple(-m for m in IMAGENET_MEAN),
+                          scale=tuple(1.0 / s for s in IMAGENET_STD))
+    return out.data
 
 
 def depthany_process_output(depth: np.ndarray, target_extent: tuple[int, int]) -> Image:
