@@ -26,6 +26,7 @@ from vision_tpu_torch.models.random_weights import (
     random_migan_params,
     random_mobile_sam_params,
 )
+from torch_threads import torch_threads  # noqa: F401
 
 REL_RMS = 1e-4  # tests/test_golden.py:23
 

@@ -16,6 +16,7 @@ import torch
 from vision_tpu.ops import augment as jaug
 from vision_tpu_torch.core.errors import VispError
 from vision_tpu_torch.ops import augment as aug
+from torch_threads import torch_threads  # noqa: F401
 
 ATOL = 1e-6
 

@@ -22,20 +22,10 @@ from vision_tpu.core.device import backend_init as jax_backend_init
 from vision_tpu.core.params import Params as JaxParams
 from vision_tpu_torch.core.device import backend_init
 from vision_tpu_torch.core.errors import VispError
+from torch_threads import torch_threads  # noqa: F401
 
 H100_SXM = "NVIDIA H100 80GB HBM3"
 REL_RMS = 1e-4  # tests/test_golden.py's bound: f32 on both sides, summation order only
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The port's CPU forwards here on one thread: the suite runs several
-    workers at once, and a worker's eight intra-op threads among the others'
-    slowed the YOLOv9t row's forward from ~1 s to over a minute."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _row(name, gflop, mean, stdev, k, kind=H100_SXM):

@@ -16,6 +16,7 @@ from vision_tpu.core.device import backend_init as jax_backend_init
 from vision_tpu.utils.flops import count_flops as jax_count_flops
 from vision_tpu_torch.core.device import backend_init
 from vision_tpu_torch.utils.flops import count_flops
+from torch_threads import torch_threads  # noqa: F401
 
 FLOPS_RTOL = 5e-3
 SMALL_ROWS = [n for n in tb.BENCHMARKS if n not in ("sam3-vision-1008", "birefnet-full-1024")]

@@ -27,6 +27,7 @@ from vision_tpu_torch.models.random_weights import random_birefnet_params
 from vision_tpu_torch.ops.cuda import deform_sample as ds
 from vision_tpu_torch.ops.cuda import window_attention as wa
 from workbench import input_tensor, make_params, randomize, state_dict_to_params, to_nhwc
+from torch_threads import torch_threads  # noqa: F401
 
 GOLDEN = Path(__file__).parent / "golden" / "birefnet.npz"
 GOLDEN_RMS = 1e-4  # tests/test_golden.py:23

@@ -15,6 +15,7 @@ from vision_tpu_torch.models.birefnet import birefnet_load_model
 from vision_tpu_torch.models.random_weights import random_birefnet_params
 from vision_tpu_torch.models.swin import SWIN_T_PARAMS
 from vision_tpu_torch.serve import ImageServer
+from torch_threads import torch_threads  # noqa: F401
 
 WINDOW_MS = 10_000  # a batch window that covers request prep on a loaded machine
 

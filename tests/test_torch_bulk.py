@@ -28,6 +28,7 @@ from vision_tpu_torch import bulk as tbulk
 from vision_tpu_torch.core.device import backend_init
 from vision_tpu_torch.core.errors import VispError
 from vision_tpu_torch.models import yolov9t as tyolo
+from torch_threads import torch_threads  # noqa: F401
 
 MAX_SHARE_OFF = 1e-3  # share of values that may differ, by one u8 level at most
 BOX_TOL, CONF_TOL = 1e-3, 1e-4

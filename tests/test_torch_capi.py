@@ -20,6 +20,7 @@ import pytest
 from test_torch_api import FAMILIES, sample_image, write_family_gguf
 from vision_tpu import capi as jcapi
 from vision_tpu_torch import capi
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 MAX_SHARE_OFF = 1e-3

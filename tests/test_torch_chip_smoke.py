@@ -12,6 +12,7 @@ import pytest
 
 from vision_tpu.models.depth_anything import DepthAnythingParams as JaxParams
 from vision_tpu.models.depth_anything import depthany_image_extent as jax_image_extent
+from torch_threads import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,7 @@ from PIL import Image as PILImage
 import vision_tpu.cli as jcli
 import vision_tpu_torch.cli as tcli
 from test_torch_api import FAMILIES, sample_image, write_family_gguf
+from torch_threads import torch_threads  # noqa: F401
 
 MAX_SHARE_OFF = 1e-3  # share of values that may differ, by one u8 level at most
 

@@ -21,6 +21,7 @@ import torch
 from vision_tpu_torch.core.params import Params
 from vision_tpu_torch.ops import nn
 from vision_tpu_torch.ops.cuda import conv3x3 as cc
+from torch_threads import torch_threads  # noqa: F401
 
 PROBE = Path(__file__).resolve().parents[1] / "scripts" / "exp_pallas_conv.py"
 F32_ATOL = 1e-5  # f32 sums over up to 9 * 192 terms, taken in another order

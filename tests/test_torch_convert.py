@@ -20,6 +20,7 @@ from vision_tpu_torch.convert import convert_model
 from vision_tpu_torch.convert.convert import Writer
 from vision_tpu_torch.core.gguf import GGUFFile
 from workbench import randomize
+from torch_threads import torch_threads  # noqa: F401
 
 
 def _esrgan(d: Path) -> Path:

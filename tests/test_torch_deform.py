@@ -27,6 +27,7 @@ from jax.experimental import pallas as pl
 from vision_tpu.ops import deform as jdeform
 from vision_tpu_torch.ops import deform
 from vision_tpu_torch.ops.cuda import deform_sample as ds
+from torch_threads import torch_threads  # noqa: F401
 
 SCRIPTS = Path(__file__).resolve().parents[1] / "scripts"
 # f32 sums of up to 49 * 6 products of values ~1, taken in another order

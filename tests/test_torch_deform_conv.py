@@ -16,6 +16,7 @@ from vision_tpu.ops import deform as jdeform
 from vision_tpu.ops import nn as jnn
 from vision_tpu_torch.ops import deform
 from vision_tpu_torch.ops.cuda import deform_conv as dc
+from torch_threads import torch_threads  # noqa: F401
 
 # f32 sums of up to 49 * 5 products of values ~1, taken in another order
 F32_ATOL = 1e-5

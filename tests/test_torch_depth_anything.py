@@ -19,6 +19,7 @@ from vision_tpu_torch.models import depth_anything as da
 from vision_tpu_torch.models import dino
 from vision_tpu_torch.ops.cuda import flash_attention as fa
 from workbench import input_tensor, randomize, state_dict_to_params, to_nhwc
+from torch_threads import torch_threads  # noqa: F401
 
 ATOL, RTOL = 1e-4, 1e-3
 GOLDEN = Path(__file__).parent / "golden" / "depth_anything.npz"

@@ -8,6 +8,7 @@ import vision_tpu_torch
 from vision_tpu.core.device import BackendType as JaxBackendType
 from vision_tpu.core.device import backend_is_available as jax_backend_is_available
 from vision_tpu_torch.core.device import BackendType, BuildFlag, backend_init, backend_is_available
+from torch_threads import torch_threads  # noqa: F401
 
 
 def test_backend_is_available_cpu_always():

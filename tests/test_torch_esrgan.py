@@ -39,6 +39,7 @@ from vision_tpu_torch.models import esrgan
 from vision_tpu_torch.models.random_weights import random_esrgan_params
 from vision_tpu_torch.ops.cuda import conv3x3 as cc
 from workbench import input_tensor, randomize, state_dict_to_params, to_nhwc
+from torch_threads import torch_threads  # noqa: F401
 
 ATOL, RTOL = 1e-4, 1e-3
 GOLDEN = Path(__file__).parent / "golden" / "esrgan.npz"

@@ -14,6 +14,7 @@ from vision_tpu_torch.image import Image, ImageFormat
 from vision_tpu_torch.models.esrgan import EsrganModel, EsrganParams, esrgan_load_model
 from vision_tpu_torch.models.random_weights import random_esrgan_params
 from vision_tpu_torch.serve import EsrganServer
+from torch_threads import torch_threads  # noqa: F401
 
 SMALL = {"nf": 8, "nb": 1, "gc": 4}
 WINDOW_MS = 10_000  # a batch window that covers request prep on a loaded machine

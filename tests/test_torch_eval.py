@@ -26,6 +26,7 @@ from test_torch_api import sample_image, write_family_gguf
 from vision_tpu.core.errors import VispError as JaxVispError
 from vision_tpu_torch.core.errors import VispError
 from vision_tpu_torch.image import png
+from torch_threads import torch_threads  # noqa: F401
 
 TOL = 1e-6
 CLI_TOL = 1e-3  # eval -m: each package's own predictions, within one u8 level on <= 0.1% of values

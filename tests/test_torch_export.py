@@ -28,6 +28,7 @@ from vision_tpu_torch import load_model
 from vision_tpu_torch.core.device import BuildFlag, backend_init
 from vision_tpu_torch.core.errors import VispError
 from vision_tpu_torch.export import FORMAT, export_bundle, export_model, load_bundle
+from torch_threads import torch_threads  # noqa: F401
 
 REL_RMS = 1e-4  # tests/test_golden.py:23
 MAX_SHARE_OFF = 1e-3  # uint8 outputs: share of values one level off (test_torch_cli.py)

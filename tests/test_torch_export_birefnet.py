@@ -12,6 +12,7 @@ from test_torch_api import write_family_gguf
 from test_torch_export import assert_bit_equal, card_routed_cpu, check_family, example_inputs, vtt_nodes
 from vision_tpu_torch import load_model
 from vision_tpu_torch.export import export_model, load_bundle
+from torch_threads import torch_threads  # noqa: F401
 
 
 def test_birefnet_bundle_matches_the_forward_and_the_jax_bundle(tmp_path):

@@ -25,6 +25,7 @@ from vision_tpu.models import sam3 as js3
 from vision_tpu_torch.core.weights import params_from_numpy
 from vision_tpu_torch.export import export_model, load_bundle
 from vision_tpu_torch.models import sam3 as s3
+from torch_threads import torch_threads  # noqa: F401
 
 
 def _sam_forward(model, name):

@@ -29,6 +29,7 @@ from vision_tpu_torch.core.weights import load_weights
 from vision_tpu_torch.image import Image, ImageFormat, image_save
 from vision_tpu_torch.ops.cuda import conv3x3 as cc
 from workbench import randomize
+from torch_threads import torch_threads  # noqa: F401
 
 LOSS_RTOL = 1e-5
 GRAD_REL_RMS = 1e-4  # per leaf, f32: summation order only
@@ -86,9 +87,11 @@ def _grads(loss_fn, store: dict, batch):
 
 
 def _jgrads(loss_fn, store: dict, batch):
+    """jax.value_and_grad of the JAX loss, compiled as one program: op by op
+    its thousands of small dispatches took minutes."""
     fl = {k: jnp.asarray(v) for k, v in store.items() if np.issubdtype(v.dtype, np.floating)}
     rest = {k: v for k, v in store.items() if k not in fl}
-    loss, g = jax.value_and_grad(lambda f: loss_fn({**rest, **f}, batch))(fl)
+    loss, g = jax.jit(jax.value_and_grad(lambda f, b: loss_fn({**rest, **f}, b)))(fl, batch)
     return float(loss), {k: np.asarray(v) for k, v in g.items()}
 
 

@@ -6,10 +6,13 @@ loss through the whole model (SWIN with its masked window attention, the
 deformable ASPP decoder with its BatchNorms) on the tiny twin of
 tests/test_birefnet.py at 64x64, augmentation off (its draws differ
 between the packages). This file is apart from test_torch_finetune.py
-because the JAX side is slow to build: autodiff of its 20 exact deformable
-convs compiles for about 90 s on the CPU (so its decoder runs op by op and
-only the encoder is jitted). Then the port's recipe and verb."""
+because the JAX side is slow to build: its 20 exact deformable convs unroll
+300 bilinear taps. Jitted whole, the decoder's autodiff compiles for several
+minutes on the CPU, so the decoder runs op by op (about 10^5 small programs,
+compiled with XLA's optimisations off) and only the encoder is jitted. Then
+the port's recipe and verb."""
 
+import contextlib
 import re
 
 import jax
@@ -34,6 +37,7 @@ from vision_tpu_torch.image import Image, ImageFormat, image_save
 from vision_tpu_torch.models import birefnet
 from vision_tpu_torch.models.swin import SwinLayerParams, SwinParams
 from workbench import randomize, state_dict_to_params
+from torch_threads import torch_threads  # noqa: F401
 
 
 def mask_dir(tmp_path, stems, size=(30, 30), seed=1):
@@ -44,6 +48,19 @@ def mask_dir(tmp_path, stems, size=(30, 30), seed=1):
         a = ((rng.random((*size, 1)) > 0.5) * 255).astype(np.uint8)
         image_save(Image(a, ImageFormat.alpha_u8), str(d / f"{s}.png"))
     return d
+
+
+@contextlib.contextmanager
+def _unoptimized_jax():
+    """XLA's optimisations off for the programs compiled inside: the JAX
+    side of the first step compiles thousands of small programs that each
+    run once, where optimising costs more than it saves."""
+    was = jax.config.values["jax_disable_most_optimizations"]
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", was)
 
 
 def test_mask_pipeline_matches_jax(tmp_path):
@@ -76,7 +93,6 @@ def test_birefnet_first_step_matches_jax():
 
     xn = (x - np.asarray(IMAGENET_MEAN, np.float32)) / np.asarray(IMAGENET_STD, np.float32)
     st = {k: jnp.asarray(v) for k, v in store.items()}
-    feats, enc_vjp = jax.vjp(jax.jit(lambda s: jbiref.encode(JParams(s), xn, SWIN_TEST)), st)
 
     def head(s, feats):  # the rest of birefnet_predict and the JAX recipe's loss
         f = list(feats)
@@ -88,8 +104,10 @@ def test_birefnet_first_step_matches_jax():
         union = jnp.sum(pm, axis=(1, 2, 3)) + jnp.sum(m, axis=(1, 2, 3)) - inter
         return bce + (1.0 - jnp.mean((inter + 1.0) / (union + 1.0)))
 
-    jloss, (g_head, g_feats) = jax.value_and_grad(head, argnums=(0, 1))(st, feats)
-    (g_enc,) = enc_vjp(g_feats)
+    with _unoptimized_jax():
+        feats, enc_vjp = jax.vjp(jax.jit(lambda s: jbiref.encode(JParams(s), xn, SWIN_TEST)), st)
+        jloss, (g_head, g_feats) = jax.value_and_grad(head, argnums=(0, 1))(st, feats)
+        (g_enc,) = enc_vjp(g_feats)
     theirs = float(jloss), {k: np.asarray(g_head[k]) + np.asarray(g_enc[k]) for k in st}
     assert_step_matches(ours, theirs)
 

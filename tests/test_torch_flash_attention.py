@@ -13,6 +13,7 @@ from vision_tpu.ops.nn import attention_route as jax_attention_route
 from vision_tpu.ops.pallas.flash_attention import flash_attention as jax_flash_attention
 from vision_tpu_torch.ops.cuda import flash_attention as fa
 from vision_tpu_torch.ops.nn import CUDA_MIN_T, FUSED_LOGIT_MAX_T, attention_core, attention_route
+from torch_threads import torch_threads  # noqa: F401
 
 
 def _qkv(seed, b, h, tq, tk, d):

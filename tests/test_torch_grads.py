@@ -22,6 +22,7 @@ from vision_tpu_torch.ops import deform, nn
 from vision_tpu_torch.ops.cuda import conv3x3 as cc
 from vision_tpu_torch.ops.cuda import deform_conv as dcm
 from vision_tpu_torch.ops.cuda import window_attention as wa
+from torch_threads import torch_threads  # noqa: F401
 
 REL_RMS = 1e-4  # per leaf, f32 on the CPU
 # a function's gradients against autograd of its plain version: the same

@@ -31,6 +31,7 @@ from vision_tpu_torch.ops.cuda import conv3x3 as cc
 from vision_tpu_torch.ops.cuda import window_attention as wa
 from vision_tpu_torch.ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, _channel_constant
 from vision_tpu_torch.ops.resize import _axis_weights, _device_weights, _nearest_indices
+from torch_threads import torch_threads  # noqa: F401
 
 # -- GraphCache, shape_bucket, snap_to_multiple against the JAX package --
 

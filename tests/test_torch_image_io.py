@@ -26,6 +26,7 @@ from vision_tpu_torch.image import png
 from vision_tpu_torch.image.image import box_blur_plain, erosion_plain
 from vision_tpu_torch.models import yolov9t as tyolo
 from vision_tpu_torch.utils import metrics as tmetrics
+from torch_threads import torch_threads  # noqa: F401
 
 F32_ATOL = 1e-5
 

@@ -21,6 +21,7 @@ from vision_tpu_torch.core.errors import VispError
 from vision_tpu_torch.core.gguf import GGUFFile
 from vision_tpu_torch.core.params import Params
 from vision_tpu_torch.ops import nn
+from torch_threads import torch_threads  # noqa: F401
 
 ATOL = 1e-5  # f32 products of width <= 24: summation order only
 

@@ -10,6 +10,7 @@ from vision_tpu.models.yolov9t import Detection as JaxDetection
 from vision_tpu.utils import metrics as jm
 from vision_tpu_torch.models.yolov9t import Detection
 from vision_tpu_torch.utils import metrics as tm
+from torch_threads import torch_threads  # noqa: F401
 
 TOL = 1e-6
 

@@ -40,6 +40,7 @@ from vision_tpu_torch.ops import nn
 from vision_tpu_torch.ops.cuda import flash_attention as fa
 from vision_tpu_torch.ops.cuda import window_attention as wa
 from workbench import input_tensor, randomize, state_dict_to_params, to_nhwc
+from torch_threads import torch_threads  # noqa: F401
 
 ATOL, RTOL = 1e-4, 1e-3
 GOLDEN = Path(__file__).parent / "golden"

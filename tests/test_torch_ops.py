@@ -14,6 +14,7 @@ from vision_tpu_torch.core.weights import params_from_numpy
 from vision_tpu_torch.ops import nn
 from vision_tpu_torch.ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, normalize_u8
 from vision_tpu_torch.ops.resize import resize_nhwc
+from torch_threads import torch_threads  # noqa: F401
 
 ATOL, RTOL = 1e-5, 1e-4
 

@@ -18,6 +18,7 @@ from vision_tpu_torch.ops.cuda import dequant as dq
 from vision_tpu_torch.ops.cuda import flash_attention as fa
 from vision_tpu_torch.ops.cuda import library
 from vision_tpu_torch.ops.cuda import window_attention as wa
+from torch_threads import torch_threads  # noqa: F401
 
 vtt = torch.ops.vtt
 

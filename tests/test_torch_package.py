@@ -1,9 +1,15 @@
 """The port imports neither jax nor the JAX package. The suite's conftest
-imports jax into every test process, so the check runs in a subprocess."""
+imports jax into every test process, so the check runs in a subprocess.
+Every port test file takes the suite's thread rule."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
+
+import torch
+
+from torch_threads import TORCH_THREADS, torch_threads  # noqa: F401
 
 SLICE_MODULES = [
     "vision_tpu_torch",
@@ -93,6 +99,21 @@ def test_port_imports_neither_jax_nor_vision_tpu():
         timeout=300,
     )
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stdout + res.stderr
+
+
+def test_every_port_test_file_takes_the_thread_rule():
+    """Each tests/test_torch_*.py imports tests/torch_threads.py's autouse
+    fixture, so that no file runs torch on a thread per core beside the
+    suite's other workers; here the fixture holds torch at its count."""
+
+    def takes(path):
+        return any(isinstance(node, ast.ImportFrom) and node.module == "torch_threads"
+                   and "torch_threads" in [a.name for a in node.names] for node in ast.parse(path.read_text()).body)
+
+    files = sorted(Path(__file__).resolve().parent.glob("test_torch_*.py"))
+    assert Path(__file__).resolve() in files
+    assert [f.name for f in files if not takes(f)] == []
+    assert torch.get_num_threads() == TORCH_THREADS
 
 
 def test_backend_init_cpu_policy(monkeypatch):

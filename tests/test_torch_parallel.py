@@ -53,6 +53,7 @@ from vision_tpu_torch.models.random_weights import (
     random_depth_anything_params,
     random_mobile_sam_params,
 )
+from torch_threads import torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 

@@ -53,6 +53,7 @@ from vision_tpu.serve import SamServer as JSamServer
 from vision_tpu_torch.core.device import backend_init
 from vision_tpu_torch.core.weights import params_from_numpy
 from vision_tpu_torch.models.random_weights import random_mobile_sam_params
+from torch_threads import torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 

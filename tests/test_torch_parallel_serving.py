@@ -34,6 +34,7 @@ from vision_tpu_torch.image import Image, ImageFormat, image_load_array
 from vision_tpu_torch.models.esrgan import EsrganModel, EsrganParams
 from vision_tpu_torch.models.migan import MiganModel, MiganParams
 from vision_tpu_torch.models.yolov9t import Yolov9tModel, Yolov9tParams
+from torch_threads import torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 

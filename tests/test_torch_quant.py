@@ -41,6 +41,7 @@ from vision_tpu_torch.image import Image, ImageFormat
 from vision_tpu_torch.models import yolov9t as yolo
 from vision_tpu_torch.models.random_weights import random_yolov9t_params
 from vision_tpu_torch.ops.cuda import dequant as dq
+from torch_threads import torch_threads  # noqa: F401
 
 FIXTURES = Path(__file__).parent / "fixtures"
 RESIDENT = ["Q8_0", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "IQ4_NL", "IQ4_XS"]

@@ -15,6 +15,7 @@ from vision_tpu.core import quantize as jquantize
 from vision_tpu_torch import cli as tcli
 from vision_tpu_torch.core import gguf, quantize
 from vision_tpu_torch.core.gguf import GGMLType, GGUFFile, GGUFValueType, GGUFWriter, requantize_gguf
+from torch_threads import torch_threads  # noqa: F401
 
 FORMATS = sorted(t.name for t in quantize.QUANTIZERS)
 TYPES = list(gguf.REQUANTIZE_TYPES)

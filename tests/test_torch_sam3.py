@@ -30,6 +30,7 @@ from vision_tpu_torch.ops import max_pool_2d
 from vision_tpu_torch.ops.cuda import flash_attention as fa
 from vision_tpu_torch.ops.nn import attention_route
 from workbench import input_tensor, randomize, state_dict_to_params, to_nhwc
+from torch_threads import torch_threads  # noqa: F401
 
 ATOL_ONE, ATOL_STACK = 1e-5, 1e-4  # a single function; a stack of layers
 GOLDEN = Path(__file__).parent / "golden" / "sam3_vision.npz"

@@ -24,6 +24,7 @@ from vision_tpu_torch.core.params import Params
 from vision_tpu_torch.core.weights import params_from_numpy
 from vision_tpu_torch.image import Image, ImageFormat
 from vision_tpu_torch.models import sam3 as s3
+from torch_threads import torch_threads  # noqa: F401
 
 REL_RMS = 1e-4  # tests/test_golden.py:23
 MAX_ABS = 2e-5  # tests/test_parallel.py:272 and the JAX dry run's SAM3 checks

@@ -13,6 +13,7 @@ from vision_tpu_torch.image import Image, ImageFormat
 from vision_tpu_torch.models.mobile_sam import SamModel, SamParams, sam_load_model
 from vision_tpu_torch.models.random_weights import random_mobile_sam_params
 from vision_tpu_torch.serve import SamServer
+from torch_threads import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -33,12 +34,13 @@ def test_sam_server_end_to_end(model):
     mask equals the single-request SamModel path on the same image."""
     img_a, img_b = _images()
     # generous batch window: request prep (the 1024² resize) runs on the
-    # prep pool after submit, so the window must cover it on a loaded machine
+    # prep pool after submit, so the window must cover it on a loaded machine;
+    # the lone box request is flushed by close(), not by its window's end
     with SamServer(model, batch_size=2, max_delay_ms=10_000) as srv:
         f1 = srv.submit(img_a, point=(40, 30))
         f2 = srv.submit(img_b, point=(80, 60))
         f3 = srv.submit(img_a, box=((10, 10), (100, 80)))
-        m1, m2, m3 = (f.result(timeout=600) for f in (f1, f2, f3))
+    m1, m2, m3 = (f.result(timeout=600) for f in (f1, f2, f3))
     assert srv.stats.requests == 3 and srv.stats.batches == 2
     for m, img in ((m1, img_a), (m2, img_b), (m3, img_a)):
         assert m.extent == img.extent and m.format == ImageFormat.alpha_u8

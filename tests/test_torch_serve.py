@@ -14,6 +14,7 @@ from vision_tpu_torch.core.device import backend_init
 from vision_tpu_torch.image import Image, ImageFormat
 from vision_tpu_torch.models.depth_anything import depthany_load_model
 from vision_tpu_torch.serve import ImageServer
+from torch_threads import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -46,10 +47,11 @@ def test_image_server_matches_jax(gguf_path):
     imgs = [_u8_img(rng, 126, 140), _u8_img(rng, 126, 140), _u8_img(rng, 98, 98)]
     # generous batch window: request prep runs on a 2-thread pool after
     # submit, so the window must cover it for the two 126x140 requests to
-    # share a batch even on a machine loaded by parallel test workers
+    # share a batch even on a machine loaded by parallel test workers; the
+    # lone 98x98 one is flushed by close(), not by its window's end
     with ImageServer(model, batch_size=2, max_delay_ms=10_000) as srv:
         futures = [srv.submit(img) for img in imgs]
-        results = [f.result(timeout=600) for f in futures]
+    results = [f.result(timeout=600) for f in futures]
     assert srv.stats.requests == 3 and srv.stats.batches == 2  # the 98x98 one buckets apart
     for img, res in zip(imgs, results):
         assert res.extent == img.extent and res.format == ImageFormat.alpha_f32

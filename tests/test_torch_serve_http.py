@@ -33,6 +33,7 @@ from vision_tpu.core.device import backend_init as jax_backend_init
 from vision_tpu_torch import api
 from vision_tpu_torch.core.device import backend_init
 from vision_tpu_torch.image.png import encode_png, read_png
+from torch_threads import torch_threads  # noqa: F401
 
 MAX_SHARE_OFF = 1e-3  # share of values that may differ, by one u8 level at most
 BOX_TOL, CONF_TOL = 0.01 + 1e-3, 1e-4 + 1e-4  # the JSON's roundings of values within 1e-3 px / 1e-4

@@ -16,6 +16,7 @@ from vision_tpu_torch.core.weights import params_from_numpy
 from vision_tpu_torch.models import swin
 from vision_tpu_torch.ops.cuda import window_attention as wa
 from workbench import input_tensor, make_params, randomize, state_dict_to_params, to_nhwc
+from torch_threads import torch_threads  # noqa: F401
 
 ATOL, RTOL = 1e-5, 1e-4  # f32, summation order only
 PORT_SWIN_TEST = swin.SwinParams(

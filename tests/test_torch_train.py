@@ -20,6 +20,7 @@ from vision_tpu_torch import train
 from vision_tpu_torch.core.errors import VispError
 from vision_tpu_torch.core.gguf import GGUFFile, GGUFWriter
 from vision_tpu_torch.core.quant import quantize_resident
+from torch_threads import torch_threads  # noqa: F401
 
 LR = 5e-2
 GRAD_REL_RMS = 1e-6

@@ -55,6 +55,7 @@ from vision_tpu.parallel import make_mesh as jmake_mesh
 from vision_tpu_torch import finetune as ft
 from vision_tpu_torch.core.gguf import GGUFFile
 from vision_tpu_torch.parallel.dryrun import train_case
+from torch_threads import torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 
@@ -66,7 +67,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 def _popen(args, cwd):
-    env = {**os.environ, "PYTHONPATH": str(ROOT), "VISP_DIST_TIMEOUT": "120", "OMP_NUM_THREADS": "2"}
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "VISP_DIST_TIMEOUT": "120"}
     return subprocess.Popen(args, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=cwd, env=env)
 
 

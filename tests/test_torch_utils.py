@@ -26,6 +26,7 @@ from vision_tpu_torch.ops import debug
 from vision_tpu_torch.utils import Timer, compare_dumps, dump_captures, trace
 from vision_tpu_torch.utils.flops import count_flops
 from vision_tpu_torch.utils.profiling import device_barrier
+from torch_threads import torch_threads  # noqa: F401
 
 REL_RMS = 1e-4  # tests/test_golden.py:23
 

@@ -14,6 +14,7 @@ import json
 
 import numpy as np
 import pytest
+from torch_threads import torch_threads  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 

@@ -21,6 +21,7 @@ from vision_tpu_torch.core.params import Params
 from vision_tpu_torch.core.weights import params_from_numpy
 from vision_tpu_torch.ops import nn
 from vision_tpu_torch.ops.cuda import window_attention as wa
+from torch_threads import torch_threads  # noqa: F401
 
 PROBE = Path(__file__).resolve().parents[1] / "scripts" / "exp_winattn2.py"
 ATOL, RTOL = 1e-5, 1e-4

@@ -26,6 +26,7 @@ from vision_tpu_torch.models import yolov9t as yolo
 from vision_tpu_torch.models.random_weights import random_yolov9t_params
 from vision_tpu_torch.ops.cuda import conv3x3 as cc
 from workbench import input_tensor, randomize, state_dict_to_params, to_nhwc
+from torch_threads import torch_threads  # noqa: F401
 
 ATOL, RTOL = 1e-5, 1e-4  # f32 sums taken in another order
 GOLDEN_RMS = 1e-4  # tests/test_golden.py:23

@@ -22,6 +22,8 @@ from pathlib import Path
 
 import numpy as np
 
+from torch_threads import TORCH_THREADS
+
 HERE = Path(__file__).resolve().parent
 
 # the inputs both sides draw (the JAX side in the pytest process)
@@ -946,7 +948,7 @@ class World:
         self.timeout = timeout
         address = "file://" + str(tmp / f"{suite}.store")
         env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(HERE.parent), str(HERE)]), VISP_DIST_TIMEOUT="120",
-                   OMP_NUM_THREADS="2")
+                   OMP_NUM_THREADS=str(TORCH_THREADS))
         self.logs = [open(tmp / f"{suite}.rank{r}.log", "w+") for r in range(n)]
         self.procs = [
             subprocess.Popen([sys.executable, str(HERE / "torch_mesh_ranks.py"), suite, str(r), str(n), address,
@@ -981,7 +983,7 @@ def main(argv) -> int:
     suite, rank, n, address, out = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
     import torch
 
-    torch.set_num_threads(2)
+    torch.set_num_threads(TORCH_THREADS)
     from vision_tpu_torch.parallel import init_distributed
 
     init_distributed(address, n, rank, device="cpu")
