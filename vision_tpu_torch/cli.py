@@ -24,7 +24,10 @@ BiRefNet on ``--masks``) and ``distill`` trains a Depth-Anything
 tensor forwards as a deployment bundle (export.py: ``--extent``, ``--batch``,
 ``--no-embed``; load it with ``export.load_bundle``). ``--profile DIR``
 records a ``torch.profiler`` trace of a model verb's inference phase (and of
-bulk, video and ``eval -m`` runs) into DIR (utils/profiling.py); ``--dump
+bulk, video and ``eval -m`` runs) into DIR (utils/profiling.py): the
+profiler's op events are the main thread's, and the program's spans of
+every thread meanwhile (a server's batch worker and prep pool: ``serve.*``,
+``graph.capture``) are added as complete events on their threads' rows; ``--dump
 DIR`` (yolov9t) writes each layer's output of one eager forward as .npy
 files (ops/debug.py, utils/dump.py). ``-b`` takes ``cpu`` or ``gpu``;
 without it the CLI takes the card and fails without one. ``--dp N`` serves

@@ -32,6 +32,7 @@ from typing import Callable, Hashable
 import torch
 from torch._guards import detect_fake_mode
 
+from ..utils.profiling import span
 from .errors import raise_error
 
 __all__ = ["ForwardGraphs", "GraphCache", "capture_forward", "device_cache", "shape_bucket", "snap_to_multiple"]
@@ -258,7 +259,11 @@ class ForwardGraphs:
     Neither a bound ``forward`` nor the cache holds a strong reference back
     (to the model, to this object), so a model that is dropped frees its
     graphs by reference count, never in a collection that could fall inside
-    another capture."""
+    another capture.
+
+    Each graph built is recorded as a ``graph.capture`` span (its key's
+    input shapes as ``shapes``; utils/profiling.py) and counted in
+    ``captures``: a rebuild while serving shows without reading spans."""
 
     def __init__(self, forward: Callable, device: torch.device, max_entries: int = 8):
         self.forward = _weakly(forward)
@@ -266,6 +271,7 @@ class ForwardGraphs:
         me = weakref.ref(self)
         self.cache = GraphCache(lambda args, flags: me()._build(args, flags), max_entries)
         self.pool = self.stream = None
+        self.captures = 0
         self._lock = threading.Lock()
 
     def __call__(self, *args: torch.Tensor, **flags):
@@ -279,4 +285,7 @@ class ForwardGraphs:
             return fn
         if self.pool is None:
             self.pool, self.stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(self.device)
-        return capture_forward(fn, args, self.device, self.pool, self.stream)
+        with span("graph.capture", shapes=tuple(tuple(a.shape) for a in args)):
+            replay = capture_forward(fn, args, self.device, self.pool, self.stream)
+        self.captures += 1
+        return replay

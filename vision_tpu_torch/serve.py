@@ -30,6 +30,16 @@ Two layers:
   group is one forward with the top-K candidate extraction on the card, NMS
   on the host per request.
 
+Every request and batch records spans (utils/profiling.py ``span``):
+``serve.request`` from ``submit`` to its Future's result, ``serve.prep`` of
+its preparation, and per dispatched group ``serve.batch`` with, in order,
+``serve.stack`` (the batch's host inputs), ``serve.forward`` (the call into
+the model), ``serve.wait`` (the host blocked until the card has the
+answers; none on the CPU), ``serve.copy_back`` (the answers' copy into host
+memory), ``serve.post`` (the family's host conversion) and
+``serve.deliver`` (the Futures' results, their done-callbacks included).
+A request's spans and its batch's carry its id.
+
 With a model built on a mesh (parallel/), the grouped batch additionally
 splits over cards through the model's entry points: rank 0 runs the
 server and scatters each group over the mesh's dp axis, the other ranks
@@ -40,6 +50,7 @@ groups always pad to the full batch, so every shard is even.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -52,6 +63,7 @@ import numpy as np
 import torch
 
 from .image import Image, ImageFormat, image_scale, preprocess_scale_method
+from .utils.profiling import _begin, _end, span
 
 __all__ = ["BatchServer", "ServerStats", "ImageServer", "SamServer", "EsrganServer", "YoloServer"]
 
@@ -86,6 +98,21 @@ def _warmup_wait(futures: Sequence[Future], what: str) -> None:
                     f"{time.monotonic() - t0:.0f}s",
                     file=sys.stderr, flush=True,
                 )
+
+
+def _to_host(*answers: torch.Tensor):
+    """A batch's answers as numpy arrays (one, or a list for several): the
+    wait for the card to finish them (an event recorded on the current
+    stream after the last of them), then their copy into host memory, each
+    in its own span."""
+    if answers[0].is_cuda:
+        with span("serve.wait"):
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(answers[0].device))
+            done.synchronize()
+    with span("serve.copy_back"):
+        host = [a.cpu().numpy() for a in answers]
+    return host[0] if len(host) == 1 else host
 
 
 def _deliver_exception(fut: Future, exc: BaseException) -> None:
@@ -182,6 +209,7 @@ class BatchServer:
         self._pending: dict[Any, list] = {}
         self._deadlines: dict[Any, float] = {}  # per-bucket batch-window end
         self.stats = ServerStats()
+        self._request_ids = itertools.count()
         self._closed = False
         # guards the _closed flag vs. queue writes: nothing may enqueue
         # after the shutdown sentinel or its Future would never resolve
@@ -196,28 +224,36 @@ class BatchServer:
 
     # -- client side --------------------------------------------------------
 
+    # a queue entry: (item, Future, submit time, request id, its serve.request span id)
     def submit(self, item) -> Future:
         fut: Future = Future()
         t0 = time.perf_counter()
         with self._close_lock:
             if self._closed:
                 raise RuntimeError("server is closed")
+            rid = next(self._request_ids)
+            request = _begin("serve.request", 0, (("req", rid),))
+            # ends when the Future is resolved or cancelled, on that thread
+            fut.add_done_callback(lambda _, request=request: _end(request))
+            entry = (item, fut, t0, rid, request[0])
             if self._prep_pool is not None:
-                self._prep_pool.submit(self._prep_task, item, fut, t0)
+                self._prep_pool.submit(self._prep_task, entry)
             else:
-                self._queue.put((item, fut, t0))
+                self._queue.put(entry)
         with self.stats._lock:
             self.stats.requests += 1
         return fut
 
-    def _prep_task(self, item, fut: Future, t0: float) -> None:
+    def _prep_task(self, entry) -> None:
+        item, fut, t0, rid, sid = entry
         try:
-            prepared = self._prepare(item)
+            with span("serve.prep", parent=sid, req=rid):
+                prepared = self._prepare(item)
         except BaseException as e:  # noqa: BLE001 — prep failures travel to the caller
             _deliver_exception(fut, e)
             return
         # no lock needed: close() drains this pool BEFORE the sentinel
-        self._queue.put((prepared, fut, t0))
+        self._queue.put((prepared, fut, t0, rid, sid))
 
     def compute(self, item):
         """Synchronous convenience: submit and wait."""
@@ -256,7 +292,7 @@ class BatchServer:
         return True
 
     def _bucket(self, entry) -> None:
-        item, fut, _ = entry
+        item, fut = entry[:2]
         try:
             key = self._bucket_key(item)
         except BaseException as e:  # noqa: BLE001 — a bad key must not kill the worker
@@ -274,24 +310,28 @@ class BatchServer:
         live = [e for e in group if e[1].set_running_or_notify_cancel()]
         if not live:
             return
-        items = [it for it, _, _ in live]
-        try:
-            results = self._fn(items)
-            if len(results) != len(items):
-                raise RuntimeError(
-                    f"batch fn returned {len(results)} results for {len(items)} items"
-                )
-        except BaseException as e:  # noqa: BLE001 — failures travel to callers
-            for _, fut, _ in live:
-                fut.set_exception(e)
-            return
-        with self.stats._lock:
-            self.stats.batches += 1
-            self.stats.batched_items += len(items)
-        done = time.perf_counter()
-        for (_, fut, _), res in zip(live, results):
-            fut.set_result(res)
-        self.stats._record_latencies([(done - t0) * 1e3 for _, _, t0 in live])
+        items = [e[0] for e in live]
+        with span("serve.batch", parent=0, reqs=tuple(e[3] for e in live), items=len(items),
+                  batch=self.batch_size):
+            try:
+                results = self._fn(items)
+                if len(results) != len(items):
+                    raise RuntimeError(
+                        f"batch fn returned {len(results)} results for {len(items)} items"
+                    )
+            except BaseException as e:  # noqa: BLE001 — failures travel to callers
+                with span("serve.deliver"):
+                    for entry in live:
+                        entry[1].set_exception(e)
+                return
+            with self.stats._lock:
+                self.stats.batches += 1
+                self.stats.batched_items += len(items)
+            done = time.perf_counter()
+            with span("serve.deliver"):
+                for entry, res in zip(live, results):
+                    entry[1].set_result(res)
+        self.stats._record_latencies([(done - e[2]) * 1e3 for e in live])
 
     def _drain_queue(self) -> None:
         while True:
@@ -430,21 +470,25 @@ class ImageServer:
         return (img.to_rgb_u8(), extent, image)
 
     def _run_group(self, items: list):
-        n = len(items)
-        padded = items + [items[0]] * (self.batch_size - n)
-        x = torch.from_numpy(np.stack([it[0] for it in padded]))
-        if self.kind == "MiganModel":
-            from .models.migan import migan_process_output
+        with span("serve.stack"):
+            n = len(items)
+            padded = items + [items[0]] * (self.batch_size - n)
+            inputs = [torch.from_numpy(np.stack([it[0] for it in padded]))]
+            if self.kind == "MiganModel":
+                inputs.append(torch.from_numpy(np.stack([it[1] for it in padded])))
+        with span("serve.forward"):
+            y = self.model.forward_u8(*inputs)[:n].float()
+        y = _to_host(y)
+        with span("serve.post"):
+            if self.kind == "MiganModel":
+                from .models.migan import migan_process_output
 
-            m = torch.from_numpy(np.stack([it[1] for it in padded]))
-            y = self.model.forward_u8(x, m)[:n].float().cpu().numpy()
-            return [migan_process_output(yi, img, mask) for yi, (_, _, _, (img, mask)) in zip(y, items)]
-        if self.kind == "BirefnetModel":
-            from .models.birefnet import birefnet_process_output as post
-        else:
-            from .models.depth_anything import depthany_process_output as post
-        y = self.model.forward_u8(x)[:n].float().cpu().numpy()
-        return [post(yi, it[2].extent) for yi, it in zip(y, items)]
+                return [migan_process_output(yi, img, mask) for yi, (_, _, _, (img, mask)) in zip(y, items)]
+            if self.kind == "BirefnetModel":
+                from .models.birefnet import birefnet_process_output as post
+            else:
+                from .models.depth_anything import depthany_process_output as post
+            return [post(yi, it[2].extent) for yi, it in zip(y, items)]
 
     def warmup(self, extent=None) -> None:
         """Run one padded batch before taking traffic (the first launch
@@ -540,13 +584,17 @@ class SamServer:
     def _run_group(self, items: list):
         from .models.mobile_sam import sam_process_mask
 
-        kind = items[0][1]
-        n = len(items)
-        padded = items + [items[0]] * (self.batch_size - n)
-        x = torch.from_numpy(np.stack([it[0] for it in padded]))
-        coords = np.stack([it[2] for it in padded])
-        masks = self.model.serve_masks(x, coords, kind)[:n].cpu().numpy()  # (n, 256, 256)
-        return [sam_process_mask(masks[i][None], 0, it[3], self.model.p) for i, it in enumerate(items)]
+        with span("serve.stack"):
+            kind = items[0][1]
+            n = len(items)
+            padded = items + [items[0]] * (self.batch_size - n)
+            x = torch.from_numpy(np.stack([it[0] for it in padded]))
+            coords = np.stack([it[2] for it in padded])
+        with span("serve.forward"):
+            masks = self.model.serve_masks(x, coords, kind)[:n]
+        masks = _to_host(masks)  # (n, 256, 256)
+        with span("serve.post"):
+            return [sam_process_mask(masks[i][None], 0, it[3], self.model.p) for i, it in enumerate(items)]
 
     def warmup(self, kinds=("point", "box")) -> None:
         """Run one padded group of each prompt kind before taking traffic
@@ -633,15 +681,19 @@ class EsrganServer:
         return (image.to_rgb_u8(), image.extent)
 
     def _run_group(self, items: list):
-        n = len(items)
-        padded = items + [items[0]] * (self.batch_size - n)
-        x = torch.from_numpy(np.stack([it[0] for it in padded]))
-        y = self.model.forward_u8(x)[:n].cpu().numpy()
-        alpha = np.full((*y.shape[1:3], 1), 255, np.uint8)
-        return [
-            Image(np.ascontiguousarray(np.concatenate([yi, alpha], axis=2)), ImageFormat.rgba_u8)
-            for yi in y
-        ]
+        with span("serve.stack"):
+            n = len(items)
+            padded = items + [items[0]] * (self.batch_size - n)
+            x = torch.from_numpy(np.stack([it[0] for it in padded]))
+        with span("serve.forward"):
+            y = self.model.forward_u8(x)[:n]
+        y = _to_host(y)
+        with span("serve.post"):
+            alpha = np.full((*y.shape[1:3], 1), 255, np.uint8)
+            return [
+                Image(np.ascontiguousarray(np.concatenate([yi, alpha], axis=2)), ImageFormat.rgba_u8)
+                for yi in y
+            ]
 
     def warmup(self, extent=(256, 256)) -> None:
         """Run one padded batch at ``extent`` before taking traffic (the
@@ -735,14 +787,18 @@ class YoloServer:
     def _run_group(self, items: list):
         from .models.yolov9t import non_max_suppression, scale_boxes
 
-        n = len(items)
-        padded = items + [items[0]] * (self.batch_size - n)
-        b_dev, s_dev = self.candidates(torch.from_numpy(np.stack([it[0] for it in padded])))
-        boxes, scores = b_dev[:n].cpu().numpy(), s_dev[:n].cpu().numpy()
-        results = []
-        for b, s, (_, (extent, gain, dw, dh), conf, iou) in zip(boxes, scores, items):
-            results.append(scale_boxes(non_max_suppression(b, s, conf, iou), extent, gain, dw, dh))
-        return results
+        with span("serve.stack"):
+            n = len(items)
+            padded = items + [items[0]] * (self.batch_size - n)
+            x = torch.from_numpy(np.stack([it[0] for it in padded]))
+        with span("serve.forward"):
+            b_dev, s_dev = self.candidates(x)
+        boxes, scores = _to_host(b_dev[:n], s_dev[:n])
+        with span("serve.post"):
+            results = []
+            for b, s, (_, (extent, gain, dw, dh), conf, iou) in zip(boxes, scores, items):
+                results.append(scale_boxes(non_max_suppression(b, s, conf, iou), extent, gain, dw, dh))
+            return results
 
     def warmup(self) -> None:
         """Run one padded batch before taking traffic (the first launch
