@@ -62,7 +62,10 @@ Phases, each raising on failure:
      256x256, 2 at 320x240) are served through EsrganServer (batch 4), and
      one 640x480 image goes through EsrganModel.compute's tiles, each
      shape's graph captured first, the counts zeroed just before and read
-     just after each;
+     just after each; per extent, the RGBA graph's replay (the served
+     form) equals the RGB replay with alpha 255 bit for bit, and the served
+     answers equal it, at the random weights (answers all 0) and again with
+     the last conv rescaled so that the answers spread over 0..255;
  12. Real-ESRGAN parity on a crop of one request: the card's bf16 float
      output against the CPU's f32, stage by stage in esrgan_generate's
      structure (each RRDB on its dense-block buffers, the biases, leaky
@@ -1054,6 +1057,56 @@ def write_esrgan_gguf(path: str) -> None:
     for name, a in random_esrgan_params(0).items():
         w.add_tensor(name, a)
     w.write()
+
+
+def esrgan_rgba_check(torch, model, reqs, served, batch: int) -> None:
+    """Phase 11's check of the served output form: per extent of ``reqs``
+    (in order, padded to ``batch`` with the bucket's first image, as
+    EsrganServer pads), the RGBA graph's replay against the RGB replay with
+    alpha 255, and the server's answers to ``reqs`` against the RGBA replay,
+    bit for bit. First ``served``, at the random weights, whose answers are
+    all 0 below the alpha; then ``reqs`` served again with the last conv
+    (``model.10``, the x4 model's) rescaled in place so that the answers
+    spread over 0..255, restored after: the replays read the weights where
+    they lie, so no graph is captured again."""
+    from vision_tpu_torch.serve import EsrganServer
+
+    buckets = {}
+    for i, img in enumerate(reqs):
+        buckets.setdefault(img.extent, []).append(i)
+
+    def compare(answers, label):
+        for (w, h), idx in buckets.items():
+            x = torch.from_numpy(np.stack([reqs[i].to_rgb_u8() for i in idx + [idx[0]] * (batch - len(idx))]))
+            rgb = model.forward_u8(x).cpu().numpy()
+            rgba = model.forward_u8(x, rgba=True).cpu().numpy()
+            want = np.concatenate([rgb, np.full((*rgb.shape[:3], 1), 255, np.uint8)], axis=3)
+            if rgba.shape != want.shape or not np.array_equal(rgba, want):
+                raise AssertionError(f"{label}: RGBA replay at {w}x{h} x {batch}: {rgba.shape}, differs from the "
+                                     "RGB replay with alpha 255 on "
+                                     f"{int((rgba != want).sum()) if rgba.shape == want.shape else '-'} values")
+            bad = [i for k, i in enumerate(idx) if not np.array_equal(answers[i].data, rgba[k])]
+            if bad:
+                raise AssertionError(f"{label}: served answers {bad} at {w}x{h} differ from the RGBA replay")
+            print(f"{label}: RGBA replay {w}x{h} x {batch} is the RGB replay with alpha 255, bit for bit, and its "
+                  f"{len(idx)} served answers equal it; {float((rgb > 0).mean()):.4%} of RGB values above 0, "
+                  f"{len(np.unique(rgb))} distinct", flush=True)
+
+    compare(served, "random weights")
+    weight, bias = model.params["model.10.weight"], model.params["model.10.bias"]
+    kept = weight.clone(), bias.clone()
+    try:
+        x = torch.from_numpy(reqs[0].to_rgb_u8()[None])
+        y = model.forward_u8(x, to_u8=False).float()
+        k = 0.25 / float(y.std())  # the answers become k (y - mean) + 0.5
+        weight.copy_(weight.float() * k)
+        bias.copy_(bias.float() * k + (0.5 - k * float(y.mean())))
+        with EsrganServer(model, batch_size=batch, max_delay_ms=50) as srv:
+            again = [f.result(timeout=600) for f in [srv.submit(img) for img in reqs]]
+        compare(again, "last conv rescaled")
+    finally:
+        weight.copy_(kept[0])
+        bias.copy_(kept[1])
 
 
 def rel_rms(a, b) -> float:
@@ -6544,6 +6597,7 @@ def main(argv=None) -> int:
                              f"(9 tiles of 224x176 in 3 chunks of 4: {3 * ESRGAN_CONVS})")
     print(f"tiled compute 640x480 -> {tiled.extent}: {tiled_launches} conv3x3 launches (3 chunks of 4 tiles)",
           flush=True)
+    esrgan_rgba_check(torch, emodel, esr_reqs, upscaled, 4)
 
     phase("12 Real-ESRGAN parity: card bf16 (kernel route) vs CPU f32 (plain route)")
     crop = torch.from_numpy(np.ascontiguousarray(esr_reqs[0].to_rgb_u8()[:64, :64])[None])

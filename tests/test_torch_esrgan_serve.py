@@ -1,7 +1,8 @@
 """The port's Real-ESRGAN serving path (EsrganServer on an EsrganModel) on the
 CPU, with a small RRDBNet (nf 8, gc 4, 1 block, scale 4): batching by
-extent, padding of partial groups, the pixel limit, and agreement with
-EsrganModel.compute."""
+extent, padding of partial groups, the pixel limit, agreement with
+EsrganModel.compute, and the RGBA output form the server asks the forward
+for (the RGB forward with alpha 255, bit for bit, one array an answer)."""
 
 import numpy as np
 import pytest
@@ -39,9 +40,9 @@ class _Spy:
         self.shapes = []
         real = model.forward_u8
 
-        def spy(x, to_u8=True):
+        def spy(x, **kwargs):
             self.shapes.append(tuple(x.shape))
-            return real(x, to_u8)
+            return real(x, **kwargs)
 
         monkeypatch.setattr(model, "forward_u8", spy)
 
@@ -85,6 +86,39 @@ def test_results_equal_model_compute(model):
         direct = model.compute(im)
         assert np.array_equal(res.data, direct.data)
         assert 5 < res.data[..., :3].mean() < 250, "the output must not be all 0 or all 255"
+
+
+def _with_alpha(rgb: np.ndarray) -> np.ndarray:
+    return np.concatenate([rgb, np.full((*rgb.shape[:-1], 1), 255, np.uint8)], axis=-1)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("w,h", [(24, 20), (16, 12)])
+def test_rgba_forward_is_the_rgb_forward_with_alpha_255(model, batch, w, h):
+    x = torch.from_numpy(np.stack([_img(30 + i, w, h).to_rgb_u8() for i in range(batch)]))
+    rgb, rgba = model.forward_u8(x).numpy(), model.forward_u8(x, rgba=True).numpy()
+    assert rgb.shape == (batch, 4 * h, 4 * w, 3) and rgba.shape == (batch, 4 * h, 4 * w, 4)
+    assert np.array_equal(rgba, _with_alpha(rgb))
+    assert 5 < rgb.mean() < 250, "the output must not be all 0 or all 255"
+
+
+def test_rgba_needs_u8(model):
+    with pytest.raises(ValueError, match="rgba needs to_u8"):
+        model.forward_u8(torch.zeros((1, 8, 8, 3), dtype=torch.uint8), to_u8=False, rgba=True)
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_served_answers_are_the_rgba_forward_each_in_its_own_array(model, n):
+    imgs = [_img(40 + i, 20, 16) for i in range(n)]
+    with EsrganServer(model, batch_size=4, max_delay_ms=WINDOW_MS) as srv:
+        results = [f.result(timeout=300) for f in [srv.submit(im) for im in imgs]]
+    assert srv.stats.batches == 1
+    padded = imgs + [imgs[0]] * (4 - n)  # the batch the server ran
+    want = _with_alpha(model.forward_u8(torch.from_numpy(np.stack([im.to_rgb_u8() for im in padded]))).numpy())
+    for i, res in enumerate(results):
+        assert res.format == ImageFormat.rgba_u8 and res.data.shape == (64, 80, 4)
+        assert res.data.flags.c_contiguous and np.array_equal(res.data, want[i])
+        assert not any(np.shares_memory(res.data, other.data) for other in results[:i])
 
 
 def test_request_past_max_pixels_raises(model):

@@ -2,7 +2,8 @@
 the CPU: the ring's bound and its count of evicted records; ids, parents
 and threads; CPU time within wall time; the serving layer's spans around
 every batch of ``EsrganServer`` and of ``ImageServer`` (BiRefNet at test
-widths), with each batch's request ids those of its requests' spans; a
+widths), with each batch's request ids those of its requests' spans, and
+the bytes of its copy back; a
 cancelled request and a failing batch still closing theirs; no graph
 captured on the CPU; and ``--profile`` adding the batch worker's spans to
 the Chrome trace of a bulk run."""
@@ -142,6 +143,20 @@ def test_esrgan_server_records_each_batch(esrgan):
     records = _since(t0)
     _check_batches(records, 3)
     assert esrgan.graphs.captures == 0 and not [r for r in records if r[NAME] == "graph.capture"]
+
+
+def test_esrgan_copy_back_records_the_rgba_bytes(esrgan):
+    """Each batch's ``serve.copy_back`` carries ``bytes``: its answers'
+    total, four channels at 4x the extent an answer."""
+    t0 = time.perf_counter_ns()
+    with EsrganServer(esrgan, batch_size=2, max_delay_ms=200) as srv:
+        results = [f.result(timeout=300) for f in [srv.submit(_img(i, 24, 20)) for i in range(3)]]
+    assert all(r.data.shape == (80, 96, 4) for r in results)
+    records = _since(t0)
+    items = {r[ID]: dict(r[ATTRS])["items"] for r in records if r[NAME] == "serve.batch"}
+    copies = [(dict(r[ATTRS])["bytes"], items[r[PARENT]]) for r in records if r[NAME] == "serve.copy_back"]
+    assert sorted(n for _, n in copies) == sorted(items.values()) and sum(items.values()) == 3
+    assert all(b == n * 80 * 96 * 4 for b, n in copies), copies
 
 
 @pytest.fixture(scope="module")

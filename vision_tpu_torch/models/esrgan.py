@@ -40,6 +40,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.device import Device, backend_init
 from ..core.errors import raise_error
@@ -249,32 +250,37 @@ class EsrganModel:
         self.graphs = ForwardGraphs(self._forward_u8, device.torch_device)
         self._calls = mesh_entries(self, mesh, forward_u8=self.graphs)
 
-    def forward_u8(self, x_u8: torch.Tensor, to_u8: bool = True) -> torch.Tensor:
+    def forward_u8(self, x_u8: torch.Tensor, to_u8: bool = True, rgba: bool = False) -> torch.Tensor:
         """(N, H, W, 3) uint8 -> (N, H*scale, W*scale, 3) on the model's
         device: uint8 (clamped to [0, 1], times 255, truncated) with ``to_u8``,
-        else the forward's float output in the model's type. As the JAX
-        package's ``_esrgan_run_fn``. Runs under ``torch.inference_mode``,
-        entered here because the mode is thread-local and servers call this
-        from their own worker thread. On the card each input shape and
-        ``to_u8`` runs as one CUDA graph, captured at its first call and
-        replayed after (core/graph.py); the result is a copy that the caller
-        keeps."""
-        return self._calls["forward_u8"](x_u8, to_u8=to_u8)
+        else the forward's float output in the model's type. With ``rgba``
+        (u8 only) the answer is (N, H*scale, W*scale, 4), the same RGB and an
+        alpha of 255: the served image, so that no pixel work is left for the
+        host. As the JAX package's ``_esrgan_run_fn``. Runs under
+        ``torch.inference_mode``, entered here because the mode is
+        thread-local and servers call this from their own worker thread. On
+        the card each input shape and output form runs as one CUDA graph,
+        captured at its first call and replayed after (core/graph.py); the
+        result is a copy that the caller keeps."""
+        if rgba and not to_u8:
+            raise ValueError("forward_u8: rgba needs to_u8")
+        return self._calls["forward_u8"](x_u8, to_u8=to_u8, rgba=rgba)
 
-    def _forward_u8(self, x_u8: torch.Tensor, to_u8: bool = True) -> torch.Tensor:
+    def _forward_u8(self, x_u8: torch.Tensor, to_u8: bool = True, rgba: bool = False) -> torch.Tensor:
         """The eager forward that :meth:`forward_u8` captures (the reference of its tests)."""
         with torch.inference_mode():
             x = normalize_u8(x_u8.to(self.device.torch_device, non_blocking=True), dtype=self.dtype)
             y = esrgan_generate(Params(self.params), x, self.p)
             if to_u8:
                 y = (torch.clamp(y.float(), 0.0, 1.0) * 255.0).to(torch.uint8)
+                if rgba:
+                    y = F.pad(y, (0, 1), value=255)
             return y
 
     def _compute_whole(self, image: Image) -> Image:
-        """One forward: u8 in, u8 out, no host-side pixel math."""
-        y = self.forward_u8(torch.from_numpy(image.to_rgb_u8()[None]))[0].cpu().numpy()
-        rgba = np.concatenate([y, np.full((*y.shape[:2], 1), 255, np.uint8)], axis=2)
-        return Image(np.ascontiguousarray(rgba), ImageFormat.rgba_u8)
+        """One forward: u8 in, the served RGBA u8 out, no host-side pixel math."""
+        y = self.forward_u8(torch.from_numpy(image.to_rgb_u8()[None]), rgba=True)[0].cpu().numpy()
+        return Image(y, ImageFormat.rgba_u8)
 
     def compute(self, image: Image, tile_size: int | None = None, batch: int = 4) -> Image:
         """Tiled super-resolution (reference esrgan_compute, vision.cpp:220-253).

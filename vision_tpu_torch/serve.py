@@ -36,7 +36,8 @@ its preparation, and per dispatched group ``serve.batch`` with, in order,
 ``serve.stack`` (the batch's host inputs), ``serve.forward`` (the call into
 the model), ``serve.wait`` (the host blocked until the card has the
 answers; none on the CPU), ``serve.copy_back`` (the answers' copy into host
-memory), ``serve.post`` (the family's host conversion) and
+memory; attr ``bytes``, the bytes copied), ``serve.post`` (the family's host
+conversion) and
 ``serve.deliver`` (the Futures' results, their done-callbacks included).
 A request's spans and its batch's carry its id.
 
@@ -104,13 +105,13 @@ def _to_host(*answers: torch.Tensor):
     """A batch's answers as numpy arrays (one, or a list for several): the
     wait for the card to finish them (an event recorded on the current
     stream after the last of them), then their copy into host memory, each
-    in its own span."""
+    in its own span (the copy's with the bytes copied)."""
     if answers[0].is_cuda:
         with span("serve.wait"):
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(answers[0].device))
             done.synchronize()
-    with span("serve.copy_back"):
+    with span("serve.copy_back", bytes=sum(a.numel() * a.element_size() for a in answers)):
         host = [a.cpu().numpy() for a in answers]
     return host[0] if len(host) == 1 else host
 
@@ -640,7 +641,8 @@ class EsrganServer:
     extent are a single batched RRDBNet call, and mixed extents bucket
     separately). A partial group is padded with copies of its first item
     and the padding is sliced off on the card, before the copy to the host.
-    Results are ``rgba_u8`` at scale times the request's extent, alpha 255.
+    Results are ``rgba_u8`` at scale times the request's extent, alpha 255,
+    as the forward writes them on the card (``forward_u8(rgba=True)``).
     Serving-size inputs only: a request past ``max_pixels`` raises, and
     large images go through ``EsrganModel.compute``'s tiled path instead.
     """
@@ -686,14 +688,11 @@ class EsrganServer:
             padded = items + [items[0]] * (self.batch_size - n)
             x = torch.from_numpy(np.stack([it[0] for it in padded]))
         with span("serve.forward"):
-            y = self.model.forward_u8(x)[:n]
-        y = _to_host(y)
+            y = self.model.forward_u8(x, rgba=True)[:n]
+        # one host array an answer, so that an answer does not keep its batch's others alive
+        y = _to_host(*y.unbind(0))
         with span("serve.post"):
-            alpha = np.full((*y.shape[1:3], 1), 255, np.uint8)
-            return [
-                Image(np.ascontiguousarray(np.concatenate([yi, alpha], axis=2)), ImageFormat.rgba_u8)
-                for yi in y
-            ]
+            return [Image(yi, ImageFormat.rgba_u8) for yi in (y if n > 1 else [y])]
 
     def warmup(self, extent=(256, 256)) -> None:
         """Run one padded batch at ``extent`` before taking traffic (the
