@@ -13,8 +13,10 @@ Phases, each raising on failure:
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes and at edge shapes: flash attention at the token counts
      the Depth-Anything requests reach (depth_tokens of DEPTH_EXTENTS) and
-     the vision-bench Depth-Anything rows (BENCH_DEPTH_T, 6 and 12 heads), D
-     32 and 128, cross attention, Tq and Tk one past a key tile, and f32 cases;
+     the vision-bench Depth-Anything rows (BENCH_DEPTH_T, 6 and 12 heads),
+     SAM 3's global layers at its published widths, batch 4 ((64, 5184,
+     64), also within a relative RMS of FLASH_D80_BF16_REL_RMS), D 32 and
+     128, cross attention, Tq and Tk one past a key tile, and f32 cases;
      the window kernel at TinyViT's three stages (bf16 and f32 biases), one
      T > 200 case that reads its mask and bias from L2, and f32 cases; and
      the window kernel's launch plan, the library's against window_plan's,
@@ -187,7 +189,13 @@ Phases, each raising on failure:
      its own (the second capture must grow the shared pool by less than
      its eager peak), the median ms of eager and replay, and a profile of
      one replay (device busy, idle share of the replay median, launches per
-     hand-written kernel, which must equal what the counters added);
+     hand-written kernel, which must equal what the counters added); then
+     SAM 3's image encoder at its published widths (SAM3_PUBLISHED, random
+     weights built in process) as Sam3Server runs it, forward_u8 at batch 4
+     on 1008^2 the same way, one more replay with every launch count zeroed
+     just before (4 flash launches, no other hand-written kernel), and the
+     flash kernel at its global layers' shape (64, 5184, 64) against its
+     bound, by the card's own time;
  28. the CLI: python -m vision_tpu_torch.cli as a subprocess for depthany
      (CLI_SUBPROCESS_VERB, the entry point's one interpreter start), and
      cli.main in process for birefnet --composite, esrgan --tile 224,
@@ -477,6 +485,14 @@ SAM3_PLAIN_RATIO = 1.1  # full depth, if bf16 vs f32 misses E2E_REL_RMS: its RMS
 # too loose to see a dropped key tile there; bf16 rounding of p and o gives
 # ~2-3e-3
 FLASH_D80_BF16_REL_RMS = 1e-2
+# SAM 3's image encoder at its published widths (facebook/sam3's vision
+# backbone: width 1024, 16 heads of 64, MLP 4736, a 24 x 24 position table
+# tiled 3 x 3; the benchmark's sam3_vision_1008 configuration), the
+# arguments of random_sam3_vision_params; its global layers' tokens at 1008
+# px; Sam3Server's batch
+SAM3_PUBLISHED = {"dim": 1024, "mlp": 4736, "pos_grid": 24}
+SAM3_T = (1008 // 14) ** 2
+SAM3_SERVE_BATCH = 4
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor
 # cores, f32 outside the tensor cores, device memory
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -600,6 +616,8 @@ def kernel_cases(fa, torch) -> float:
         # the vision-bench rows' 518x714 input (phase 48): Depth-Anything-V2-Small's and -Base's heads
         ("vision-bench depthany-small", 1, 6, BENCH_DEPTH_T, BENCH_DEPTH_T, 64, bf16),
         ("vision-bench depthany-base", 1, 12, BENCH_DEPTH_T, BENCH_DEPTH_T, 64, bf16),
+        # SAM 3's global layers at its published widths, as Sam3Server's batch runs them
+        ("SAM3 global, published widths", SAM3_SERVE_BATCH, 16, SAM3_T, SAM3_T, 64, bf16),
         ("D=32 bf16", 2, 4, 700, 700, 32, bf16),
         ("D=128 bf16", 2, 4, 700, 700, 128, bf16),
         ("cross Tq 7, Tk 150 bf16", 1, 2, 7, 150, 64, bf16),
@@ -640,6 +658,14 @@ def kernel_cases(fa, torch) -> float:
               f"max_abs_err {err:.3e} [{rule}] {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise AssertionError(f"flash_attention {label}: max abs err {err}")
+        if dtype == bf16 and tk >= SAM3_T:  # the max-abs bound is too loose at T 5184: the D-80 limit too
+            rms = rel_rms_t(out.float(), ref)
+            print(f"kernel flash_attention {label}: relative RMS {rms:.3e} (output RMS "
+                  f"{float(ref.pow(2).mean().sqrt()):.3e}) [<= {FLASH_D80_BF16_REL_RMS}] "
+                  f"{'ok' if rms <= FLASH_D80_BF16_REL_RMS else 'FAIL'}", flush=True)
+            if not rms <= FLASH_D80_BF16_REL_RMS:
+                raise AssertionError(f"flash_attention {label}: relative RMS {rms}")
+        del q, k, v, out, ref, diff
     return worst
 
 
@@ -2568,6 +2594,7 @@ GRAPH_KERNELS = {  # family -> {counter: launches a forward}
     "esrgan": {"conv3x3": ESRGAN_CONVS},
     "migan": {},
     "yolov9t": {"conv3x3": YOLO_CONVS},
+    "sam3": {"flash": 4},  # SAM 3's four global layers; the window layers and the neck run no hand-written kernel
 }
 # the kernel names of the counters, as the profiler shows them (substrings)
 COUNTER_KERNELS = {"flash": "flash_attention", "window": "window_attention", "conv3x3": "conv3x3",
@@ -2724,6 +2751,65 @@ def graph_case(torch, card: str, family: str, model, xs: list, flags: dict, coun
     return row
 
 
+def sam3_published_graph_case(torch, card: str, fa, counts, rng) -> dict:
+    """Phase 27's SAM 3 row: a vision-only Sam3Model at the published
+    widths (SAM3_PUBLISHED; random weights in f32, cast to bf16 on the
+    card), forward_u8 at Sam3Server's batch on 1008^2 u8 images through
+    graph_case (replay against the eager forward, launches by the profiler
+    and the counters); then one more replay with every hand-written
+    kernel's launch count zeroed just before: 4 flash launches and nothing
+    else; then the flash kernel at the global layers' shape, (B*16, 5184,
+    64) bf16, by the card's own time against its bound. The model is freed
+    before returning."""
+    from vision_tpu_torch.core.device import backend_init
+    from vision_tpu_torch.models.random_weights import random_sam3_vision_params
+    from vision_tpu_torch.models.sam3 import Sam3Model, Sam3VitParams
+    from vision_tpu_torch.ops.cuda import conv3x3, deform_conv, deform_sample, dequant, window_attention
+
+    b = SAM3_SERVE_BATCH
+    t0 = time.perf_counter()
+    params = {f"det.ve.{k}": torch.from_numpy(v).cuda()
+              for k, v in random_sam3_vision_params(24, **SAM3_PUBLISHED).items()}
+    model = Sam3Model(params, None, 0, backend_init("gpu"), vp=Sam3VitParams())
+    del params
+    n_params = sum(v.numel() for v in model.params.values())
+    print(f"SAM 3 image encoder at the published widths {SAM3_PUBLISHED}: {n_params / 1e6:.1f} M parameters in "
+          f"{model.dtype}, built in {time.perf_counter() - t0:.1f} s", flush=True)
+    x = torch.from_numpy(rng.integers(0, 256, (b, 1008, 1008, 3), np.uint8)).cuda()
+    row = graph_case(torch, card, "sam3", model, [x], {}, counts)
+    if len(model.graphs.cache) != 1:
+        raise AssertionError(f"sam3: {len(model.graphs.cache)} graphs for one key")
+
+    zero_counts()
+    out = model.forward_u8(x)
+    torch.cuda.synchronize()
+    kernels = {"flash": fa, "window": window_attention, "conv3x3": conv3x3, "deform_conv": deform_conv,
+               "deform_sample": deform_sample, "dequant": dequant}
+    launched = {k: m.launches for k, m in kernels.items()}
+    launched["window masked"] = window_attention.masked_launches
+    want = {k: GRAPH_KERNELS["sam3"].get(k, 0) for k in launched}
+    shapes = [tuple(y.shape) for y in out]
+    print(f"sam3 forward_u8 {tuple(x.shape)}: one replay with the counts zeroed just before launched {launched}; "
+          f"levels {shapes} {out[0].dtype} [{card}]", flush=True)
+    if launched != want:
+        raise AssertionError(f"sam3 forward_u8: one replay launched {launched}; expected {want}")
+    if shapes != [(b, s, s, c) for s, c in SAM3_FPN] or out[0].dtype != torch.float16:
+        raise AssertionError(f"sam3 forward_u8: levels {shapes} {out[0].dtype}")
+    del out, x, model
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    q, k, v = (torch.randn(b, 16, SAM3_T, 64, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
+    k1, k2 = (device_ms(lambda: fa.flash_attention(q, k, v), calls=20) for _ in range(2))
+    bh = 16 * b
+    bound, by = bound_ms(4.0 * bh * SAM3_T * SAM3_T * 64, 4 * 2.0 * bh * SAM3_T * 64)
+    row["flash_ms"], row["flash_bound_ms"] = min(k1, k2), bound
+    print(f"flash_attention ({bh}, {SAM3_T}, 64) bf16, SAM 3's global layer at the published widths: kernel "
+          f"{k1:.4f} / {k2:.4f} ms, bound {bound:.4f} ms ({by}), kernel at {bound / min(k1, k2):.2%} of the bound "
+          f"(by the card's own time) [{card}]", flush=True)
+    return row
+
+
 def host_ops_timing(card: str) -> dict:
     """--composite's foreground estimate (image_estimate_foreground) at
     HOST_OPS_CASE through the host-ops library and through its numpy forms
@@ -2844,6 +2930,7 @@ def front_door_phases(torch, card: str, fa, wa, cc, dsm, dcm, tmp: str) -> dict:
             rows[(family, b)] = graph_case(torch, card, family, model, xs, flags, counts)
         if len(model.graphs.cache) != len(batches):
             raise AssertionError(f"{family}: {len(model.graphs.cache)} graphs for {len(batches)} keys")
+    rows[("sam3", SAM3_SERVE_BATCH)] = sam3_published_graph_case(torch, card, fa, counts, rng)
 
     phase("28 CLI: python -m vision_tpu_torch.cli, every model verb and info and compare")
     w, h = CLI_EXTENT
@@ -5396,7 +5483,7 @@ MESH_SERVED = {  # family -> (server, batch, request extents (w, h)), each reque
     "yolov9t": ("YoloServer", YOLO_BATCH, ((640, 480),) * YOLO_BATCH),
     "sam": ("SamServer", 6, ((1024, 1024),) * 6),
 }
-MESH_KERNELS = dict(GRAPH_KERNELS, sam={"window": 10})  # launches a served batch
+MESH_KERNELS = {**{c[0]: GRAPH_KERNELS[c[0]] for c in GRAPH_CASES}, "sam": {"window": 10}}  # launches a served batch
 # phase 44: each attention output at a shard shape (flash and window, bf16)
 # against its plain version's f32, relative RMS, beside BF16_MAX_ABS: the
 # max-abs bound alone is ~0.7x a typical output at T 1370 and ~0.2x at the

@@ -6,13 +6,14 @@ public functions; plain tensor code in PyTorch, and each Pallas kernel of
 the JAX package as a kernel written by hand for Hopper (``csrc/``).
 
 It imports ``torch`` and numpy, never ``jax`` or ``vision_tpu``. The port
-goes slice by slice; all seven model families are ported. Six are served:
+goes slice by slice; all seven model families are ported and served:
 Depth-Anything V2, BiRefNet and MI-GAN (``(image, mask)`` requests) through
 :class:`~vision_tpu_torch.serve.ImageServer`, MobileSAM through
 :class:`~vision_tpu_torch.serve.SamServer`, Real-ESRGAN through
-:class:`~vision_tpu_torch.serve.EsrganServer` and YOLOv9t through
+:class:`~vision_tpu_torch.serve.EsrganServer`, SAM3's image encoder through
+:class:`~vision_tpu_torch.serve.Sam3Server` and YOLOv9t through
 :class:`~vision_tpu_torch.serve.YoloServer`. SAM3's text and vision
-encoders run through :func:`~vision_tpu_torch.models.sam3.sam3_load_model`
+encoders also run through :func:`~vision_tpu_torch.models.sam3.sam3_load_model`
 and ``Sam3Model.encode_text`` / ``encode_vision``. :func:`load_model` loads
 any family's GGUF, and ``python -m vision_tpu_torch.cli`` runs the model
 verbs on an image, a directory (``bulk``) or a video (``video``), serves

@@ -141,7 +141,8 @@ def _keeping():
 
 def _clone(out):
     if isinstance(out, tuple):
-        return type(out)(*(t.clone() for t in out))
+        clones = [t.clone() for t in out]
+        return out._make(clones) if hasattr(out, "_make") else tuple(clones)
     return out.clone()
 
 

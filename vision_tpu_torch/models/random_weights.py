@@ -478,14 +478,20 @@ def random_birefnet_params(variant: str = "tiny", seed: int = 0) -> dict[str, np
     return B.p
 
 
-def random_sam3_vision_params(seed: int = 0, dim: int = 1280, layers: int = 32, fpn_ch: int = 256) -> dict[str, np.ndarray]:
+def random_sam3_vision_params(seed: int = 0, dim: int = 1280, layers: int = 32, fpn_ch: int = 256,
+                              mlp: int | None = None, pos_grid: int = 1008 // 14) -> dict[str, np.ndarray]:
     """SAM3 RoPE-ViT vision encoder + FPN neck (det.ve.* naming without the
-    prefix, ViT-H scale)."""
+    prefix), with an MLP of ``mlp`` (default 4 x dim) and a ``pos_grid`` x
+    ``pos_grid`` position table. The defaults, width 1280, MLP 4 x 1280 =
+    5120 and a 72 x 72 position table, are a ViT-H-scale stand-in, not SAM
+    3's published backbone (width 1024, MLP 4736, a 24 x 24 table tiled 3 x
+    3: ``dim=1024, mlp=4736, pos_grid=24``); the card's smoke phases and the
+    vision-bench row run the defaults."""
     B = _Builder(seed)
-    grid = 1008 // 14
+    mlp = 4 * dim if mlp is None else mlp
     B.conv("backbone.embeddings.patch_embeddings.projection", 3, dim, 14)
     B.p["backbone.embeddings.position_embeddings"] = (
-        B.rng.standard_normal((grid * grid, dim)) * 0.02
+        B.rng.standard_normal((pos_grid * pos_grid, dim)) * 0.02
     ).astype(np.float32)
     B.ln("backbone.layer_norm", dim)
     for i in range(layers):
@@ -494,8 +500,8 @@ def random_sam3_vision_params(seed: int = 0, dim: int = 1280, layers: int = 32, 
         B.ln(f"{base}.layer_norm2", dim)
         for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
             B.lin(f"{base}.attention.{proj}", dim, dim)
-        B.lin(f"{base}.mlp.fc1", dim, dim * 4)
-        B.lin(f"{base}.mlp.fc2", dim * 4, dim)
+        B.lin(f"{base}.mlp.fc1", dim, mlp)
+        B.lin(f"{base}.mlp.fc2", mlp, dim)
     # FPN neck
     B.convT("neck.fpn_layers.0.scale_layers.0", dim, dim // 2, 2)
     B.convT("neck.fpn_layers.0.scale_layers.2", dim // 2, dim // 4, 2)

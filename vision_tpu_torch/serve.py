@@ -25,6 +25,10 @@ Two layers:
 * :class:`EsrganServer` — whole-image super-resolution on an
   :class:`~vision_tpu_torch.models.esrgan.EsrganModel`: each same-extent
   group is one batched RRDBNet forward.
+* :class:`Sam3Server` — image encoding on a
+  :class:`~vision_tpu_torch.models.sam3.Sam3Model`: each same-extent group
+  is one batched forward of SAM 3's vision trunk and FPN neck, and each
+  answer is the image's four float16 feature levels.
 * :class:`YoloServer` — object detection on a
   :class:`~vision_tpu_torch.models.yolov9t.Yolov9tModel`: the letterboxed
   group is one forward with the top-K candidate extraction on the card, NMS
@@ -66,7 +70,7 @@ import torch
 from .image import Image, ImageFormat, image_scale, preprocess_scale_method
 from .utils.profiling import _begin, _end, span
 
-__all__ = ["BatchServer", "ServerStats", "ImageServer", "SamServer", "EsrganServer", "YoloServer"]
+__all__ = ["BatchServer", "ServerStats", "ImageServer", "SamServer", "EsrganServer", "Sam3Server", "YoloServer"]
 
 _LATENCY_WINDOW = 4096  # most recent request latencies kept for percentiles
 
@@ -632,55 +636,34 @@ class SamServer:
         self.close()
 
 
-class EsrganServer:
-    """Concurrent whole-image super-resolution on an EsrganModel.
+class _WholeImageServer:
+    """What the servers of one image a request share: a ``BatchServer``
+    whose bucket is a prepared request's extent, each group stacked, padded
+    to ``batch_size`` with copies of its first item and run as ONE
+    ``forward_u8`` on the card (the padding sliced off there), its answers
+    copied back through :func:`_to_host`, each phase in its ``serve.*``
+    span. A subclass names its model's type (``_model_type``), prepares a
+    request into ``(u8 array, extent)`` (``_prepare``), runs the forward to
+    a list of device tensors, each a part of an answer, copied back alone
+    so that an answer keeps no other alive (``_forward``), and wraps the
+    host arrays into the answers (``_answers``)."""
 
-    Requests are :class:`~vision_tpu_torch.image.Image` instances; same-extent
-    images batch into ONE forward on the card (the reference runs a
-    sequential per-tile loop, ``vision.cpp:240-251``; here N requests of one
-    extent are a single batched RRDBNet call, and mixed extents bucket
-    separately). A partial group is padded with copies of its first item
-    and the padding is sliced off on the card, before the copy to the host.
-    Results are ``rgba_u8`` at scale times the request's extent, alpha 255,
-    as the forward writes them on the card (``forward_u8(rgba=True)``).
-    Serving-size inputs only: a request past ``max_pixels`` raises, and
-    large images go through ``EsrganModel.compute``'s tiled path instead.
-    """
+    _model_type = ""
 
-    def __init__(
-        self,
-        model,
-        # 4: whole-image RRDBNet batches grow memory linearly, and 4 keeps
-        # the 1024^2 bucket inside the card (the JAX package's default)
-        batch_size: int | None = 4,
-        max_delay_ms: float = 2.0,
-        prep_workers: int = 2,
-        max_pixels: int = 1024 * 1024,
-    ):
-        if type(model).__name__ != "EsrganModel":
-            raise TypeError(f"EsrganServer serves an EsrganModel, got {type(model).__name__}")
-        batch_size = _resolve_batch(batch_size, 4, getattr(model, "mesh", None))
+    def __init__(self, model, batch_size: int | None, max_delay_ms: float, prep_workers: int, per_chip_default: int):
+        if type(model).__name__ != self._model_type:
+            raise TypeError(f"{type(self).__name__} serves the model type {self._model_type}, "
+                            f"got {type(model).__name__}")
         self.model = model
-        self.batch_size = batch_size
-        self.max_pixels = max_pixels
+        self.batch_size = _resolve_batch(batch_size, per_chip_default, getattr(model, "mesh", None))
         self._server = BatchServer(
             self._run_group,
-            batch_size=batch_size,
+            batch_size=self.batch_size,
             max_delay_ms=max_delay_ms,
-            bucket_key=lambda item: item[1],  # image extent
+            bucket_key=lambda item: item[1],  # the prepared extent
             prepare=self._prepare,
             prep_workers=prep_workers,
         )
-
-    # raw request = Image; prepared = (rgb_u8 array, extent)
-    def _prepare(self, image):
-        w, h = image.extent
-        if w * h > self.max_pixels:
-            raise ValueError(
-                f"image {image.extent} exceeds the whole-image serving limit "
-                f"({self.max_pixels} px); use EsrganModel.compute's tiled path"
-            )
-        return (image.to_rgb_u8(), image.extent)
 
     def _run_group(self, items: list):
         with span("serve.stack"):
@@ -688,16 +671,16 @@ class EsrganServer:
             padded = items + [items[0]] * (self.batch_size - n)
             x = torch.from_numpy(np.stack([it[0] for it in padded]))
         with span("serve.forward"):
-            y = self.model.forward_u8(x, rgba=True)[:n]
-        # one host array an answer, so that an answer does not keep its batch's others alive
-        y = _to_host(*y.unbind(0))
+            parts = self._forward(x, n)
+        host = _to_host(*parts)
         with span("serve.post"):
-            return [Image(yi, ImageFormat.rgba_u8) for yi in (y if n > 1 else [y])]
+            return self._answers(host if len(parts) > 1 else [host], n)
 
-    def warmup(self, extent=(256, 256)) -> None:
-        """Run one padded batch at ``extent`` before taking traffic (the
-        first launch builds the kernel library), then reset the stats."""
-        _warmup_wait([self.submit(_dummy_image(extent))], f"esrgan {extent}")
+    def warmup(self, extent) -> None:
+        """Run one padded batch of a request at ``extent`` before taking
+        traffic (the first launch builds the kernel library; on the card it
+        captures the forward's graph), then reset the stats."""
+        _warmup_wait([self.submit(_dummy_image(tuple(extent)))], f"{type(self).__name__} {tuple(extent)}")
         self.stats.reset()
 
     def submit(self, image) -> Future:
@@ -718,6 +701,98 @@ class EsrganServer:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class EsrganServer(_WholeImageServer):
+    """Concurrent whole-image super-resolution on an EsrganModel.
+
+    Requests are :class:`~vision_tpu_torch.image.Image` instances; same-extent
+    images batch into ONE forward on the card (the reference runs a
+    sequential per-tile loop, ``vision.cpp:240-251``; here N requests of one
+    extent are a single batched RRDBNet call, and mixed extents bucket
+    separately). A partial group is padded with copies of its first item
+    and the padding is sliced off on the card, before the copy to the host.
+    Results are ``rgba_u8`` at scale times the request's extent, alpha 255,
+    as the forward writes them on the card (``forward_u8(rgba=True)``).
+    Serving-size inputs only: a request past ``max_pixels`` raises, and
+    large images go through ``EsrganModel.compute``'s tiled path instead.
+    """
+
+    _model_type = "EsrganModel"
+
+    def __init__(
+        self,
+        model,
+        # 4: whole-image RRDBNet batches grow memory linearly, and 4 keeps
+        # the 1024^2 bucket inside the card (the JAX package's default)
+        batch_size: int | None = 4,
+        max_delay_ms: float = 2.0,
+        prep_workers: int = 2,
+        max_pixels: int = 1024 * 1024,
+    ):
+        self.max_pixels = max_pixels
+        super().__init__(model, batch_size, max_delay_ms, prep_workers, 4)
+
+    # raw request = Image; prepared = (rgb_u8 array, extent)
+    def _prepare(self, image):
+        w, h = image.extent
+        if w * h > self.max_pixels:
+            raise ValueError(
+                f"image {image.extent} exceeds the whole-image serving limit "
+                f"({self.max_pixels} px); use EsrganModel.compute's tiled path"
+            )
+        return (image.to_rgb_u8(), image.extent)
+
+    def _forward(self, x, n: int) -> list:
+        return list(self.model.forward_u8(x, rgba=True)[:n].unbind(0))
+
+    def _answers(self, host: list, n: int) -> list:
+        return [Image(y, ImageFormat.rgba_u8) for y in host]
+
+    def warmup(self, extent=(256, 256)) -> None:
+        super().warmup(extent)
+
+
+class Sam3Server(_WholeImageServer):
+    """Concurrent image encoding on a Sam3Model: SAM 3's vision trunk and
+    FPN neck, whose features a client then prompts as often as it likes.
+
+    Requests are :class:`~vision_tpu_torch.image.Image` instances. Each is
+    resized on the host to the model's square input (stb, as
+    :func:`~vision_tpu_torch.models.sam3.sam3_process_input`) only where
+    its extent differs, so every request lands in the one bucket of the
+    processed extent; a group runs as ONE ``forward_u8`` on the card, padded
+    as :class:`EsrganServer` pads. Each answer is a tuple of the image's
+    four float16 levels, (4g, 4g, C) down to (g/2, g/2, C) for g =
+    image_size / patch_size (56.4 MB an image at 1008 px), each level
+    copied back on its own.
+    """
+
+    _model_type = "Sam3Model"
+
+    def __init__(self, model, batch_size: int | None = 4, max_delay_ms: float = 2.0, prep_workers: int = 2):
+        # 4: a batch of 1008^2 images keeps the card busy (5184 tokens an
+        # image) and its answers, 225.6 MB, small beside the card
+        super().__init__(model, batch_size, max_delay_ms, prep_workers, 4)
+        self.extent = (model.vp.image_size, model.vp.image_size)
+
+    # raw request = Image; prepared = (rgb_u8 array at the model's input size, that extent)
+    def _prepare(self, image):
+        img = image if image.extent == self.extent else image_scale(image, self.extent, preprocess_scale_method())
+        return (img.to_rgb_u8(), self.extent)
+
+    def _forward(self, x, n: int) -> list:
+        levels = self.model.forward_u8(x)
+        return [y[i] for i in range(n) for y in levels]
+
+    def _answers(self, host: list, n: int) -> list:
+        k = len(host) // n
+        return [tuple(host[i * k:(i + 1) * k]) for i in range(n)]
+
+    def warmup(self, extent=None) -> None:
+        """As :meth:`_WholeImageServer.warmup`, at the model's input size by
+        default."""
+        super().warmup(self.extent if extent is None else extent)
 
 
 class YoloServer:

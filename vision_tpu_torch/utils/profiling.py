@@ -68,7 +68,10 @@ def _begin(name: str, parent: int, attrs: tuple, tid: int | None = None) -> tupl
 def _end(begun: tuple, tid: int | None = None) -> None:
     """Record the span ``begun`` (from :func:`_begin`) as ending now. Its CPU
     time is -1 when it ends on another thread than it began on."""
-    end, cpu = _perf_ns(), _cpu_ns()
+    # the CPU clock first: its interval then nests inside the wall clock's,
+    # which _begin read first, so a span's CPU time never exceeds its wall
+    # time by the CPU clock's own read
+    cpu, end = _cpu_ns(), _perf_ns()
     sid, name, start, cpu0, tid0, parent, attrs = begun
     if tid is None:
         tid = _this_thread()[1]
